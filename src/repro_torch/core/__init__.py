@@ -1,1 +1,4 @@
-"""Precision definitions shared by the port (copy of ``repro.core.precision``)."""
+"""SPEED's core as pure Python, copied from ``repro.core``: precision modes
+(``precision``), the custom instructions (``isa``), FF/CF dataflow mapping
+(``dataflow``) and the cycle model that picks a dataflow per layer
+(``perfmodel``)."""

@@ -1,5 +1,6 @@
-// Helpers shared by the paged attention kernels (paged_decode.cu,
-// paged_prefill.cu).  Plain C interface, no PyTorch headers: the library is
+// Helpers shared by the kernels: the paged attention kernels (paged_decode.cu,
+// paged_prefill.cu) and the FF-order matmuls (mpmm_ff.cu, mpmm_int.cu).
+// Plain C interface, no PyTorch headers: the library is
 // built with nvcc alone and bound with ctypes (kernels/_build.py).
 #pragma once
 
@@ -84,6 +85,32 @@ __device__ __forceinline__ void load_kv_tile(const void* k_base, const void* v_b
       }
     }
   }
+}
+
+// out[i] = part[0][i] + part[1][i] + ... + part[stages - 1][i], added in stage
+// order: the K-stage partials an FF-order matmul spilled to its [stages, M, N]
+// scratch (total = M * N), summed one stage after the other as the Pallas FF
+// grid sums them.  T = float, or uint32_t for sums that wrap mod 2^32.
+template <typename T>
+__global__ void sum_stages(const T* __restrict__ part, T* __restrict__ out, int64_t total,
+                           int stages) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  T s = part[i];
+  for (int st = 1; st < stages; ++st) s += part[st * total + i];
+  out[i] = s;
+}
+
+template <typename T>
+__host__ void launch_sum_stages(const T* part, T* out, int64_t total, int stages,
+                                cudaStream_t s) {
+  sum_stages<T><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(part, out, total, stages);
+}
+
+// Whether (stage_k, stages) split K into whole stages of stage_k rows, the
+// last one ragged: the caller sized a [stages, M, N] scratch from them.
+__host__ inline bool stages_fit(int K, int stage_k, int stages) {
+  return stage_k > 0 && stages == (K + stage_k - 1) / stage_k;
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory when it needs it.

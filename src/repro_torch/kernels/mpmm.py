@@ -1,15 +1,24 @@
-"""W4A16 / W8A16 dequant matmul: the CUDA kernel's wrapper and its plain version.
+"""Multi-precision matmul: the CUDA kernels' wrappers and their plain versions.
 
-The kernel (``csrc/mpmm.cu``) replaces ``repro/kernels/mpmm.py::mpmm_pallas``
-in dequant mode, CF order: ``x [M, K]`` bf16 times int8 ``[K, N]`` or K-packed
-int4 ``[K/2, N]`` weights, f32 accumulation, the per-column f32 scale on the
-f32 sum, one cast to bf16.  At decode M it is bound by the weight bytes; see
-the source note for its design.  The plain version is
-:func:`repro_torch.kernels.ref.mpmm_ref`, which the dispatch wrapper
-(``ops.mpmm``) runs for CPU tensors and ``chip_smoke.py`` holds the kernel
-against on the card.
+Three kernels replace ``repro/kernels/mpmm.py::mpmm_pallas``:
 
-``mpmm_cuda.launches`` counts the calls that launched the kernel.
+- ``mpmm_cuda`` (``csrc/mpmm.cu``): dequant mode, CF order.  ``x [M, K]``
+  bf16 times int8 ``[K, N]`` or K-packed int4 ``[K/2, N]`` weights, f32
+  accumulation, the per-column f32 scale on the f32 sum, one cast to bf16.
+  Plain version :func:`repro_torch.kernels.ref.mpmm_ref`.
+- ``mpmm_ff_cuda`` (``csrc/mpmm_ff.cu``): dequant mode, FF order.  The same
+  product with k outermost, K stages of 512 rows added in stage order into
+  an unscaled f32 output.  Plain version
+  :func:`repro_torch.kernels.ref.mpmm_ff_ref`.
+- ``mpmm_int_cuda`` (``csrc/mpmm_int.cu``): int mode, CF or FF order.  int8 /
+  int16 ``x`` times int4 / int8 / int16 weights, the exact int32 product mod
+  2^32 through radix-256 digit planes on the 8-bit tensor cores.  Plain
+  version ``ref.mpmm_ref(mode="int")``, run on CPU tensors (CUDA has no
+  int32 matmul).
+
+The dispatch wrapper ``ops.mpmm`` runs the plain versions for CPU tensors;
+``chip_smoke.py`` holds each kernel against its plain version.  Each
+wrapper's ``launches`` counts the calls that launched its kernel.
 """
 from __future__ import annotations
 
@@ -17,9 +26,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import expect
-from repro_torch.kernels.ref import mpmm_ref
+from repro_torch.kernels.ref import FF_STAGE_K, mpmm_ref
 
-__all__ = ["mpmm_cuda", "mpmm_ref"]
+__all__ = ["mpmm_cuda", "mpmm_ff_cuda", "mpmm_int_cuda", "mpmm_ref"]
 
 _SMALL_M = 8  # rows the weight-streaming kernel takes (csrc: SM_MMAX)
 _SM_COLS = 64  # columns per block of that kernel (csrc: SM_COLS)
@@ -76,3 +85,86 @@ def mpmm_cuda(
 
 
 mpmm_cuda.launches = 0
+
+
+def _dims(x, w_data, w_bits: int, name: str) -> tuple[int, int, int]:
+    """(M, K, N) of a launch on ``x``'s card, after the checks the FF and
+    int kernels share."""
+    m, k = x.shape
+    n = w_data.shape[-1]
+    if w_bits == 4 and k % 2:
+        raise ValueError(f"int4 weights pack K in pairs; K={k} is odd")
+    if not x.is_cuda:
+        raise ValueError(f"{name} takes CUDA tensors")
+    if m == 0 or k == 0 or n == 0:
+        raise ValueError(f"{name} needs M, K, N >= 1, got {(m, k, n)}")
+    return m, k, n
+
+
+def _stage_scratch(m, n, k, stage_k, dtype, out) -> tuple[torch.Tensor, int]:
+    """(scratch, stages): the [stages, M, N] buffer the kernels spill their
+    K-stage partials to, and ceil(K / stage_k).  The kernels take both and
+    refuse a stage count that does not match; one stage writes ``out``
+    directly and needs none."""
+    stages = -(-k // stage_k)
+    if stages == 1:
+        return out, 1
+    return torch.empty((stages, m, n), dtype=dtype, device=out.device), stages
+
+
+def mpmm_ff_cuda(x: torch.Tensor, w_data: torch.Tensor, *, w_bits: int) -> torch.Tensor:
+    """Launch the FF-order dequant matmul on ``x``'s card: [M, K] bf16 ->
+    [M, N] f32, the unscaled sum of the 512-row K stages in stage order."""
+    if w_bits not in (4, 8):
+        raise ValueError(f"mpmm kernel takes w_bits 4 or 8, got {w_bits}")
+    m, k, n = _dims(x, w_data, w_bits, "mpmm_ff_cuda")
+    dev = x.device
+    expect(x, "x", torch.bfloat16, (m, k), dev)
+    expect(w_data, "w_data", torch.int8, (k // 2 if w_bits == 4 else k, n), dev)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    part, stages = _stage_scratch(m, n, k, FF_STAGE_K, torch.float32, out)
+    err = _build.lib().mpmm_ff_dequant_f32(
+        x.data_ptr(), w_data.data_ptr(), out.data_ptr(), part.data_ptr(), m, n, k, w_bits,
+        FF_STAGE_K, stages, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "mpmm_ff_dequant_f32")
+    mpmm_ff_cuda.launches += 1
+    return out
+
+
+mpmm_ff_cuda.launches = 0
+
+_INT_X = {torch.int8: 8, torch.int16: 16}
+_INT_W = {4: torch.int8, 8: torch.int8, 16: torch.int16}
+
+
+def mpmm_int_cuda(
+    x: torch.Tensor, w_data: torch.Tensor, *, w_bits: int, dataflow: str = "cf"
+) -> torch.Tensor:
+    """Launch the int-mode matmul on ``x``'s card: int8/int16 [M, K] times
+    int4 (packed) / int8 / int16 weights -> [M, N] int32, exact mod 2^32, in
+    the CF order (each block walks all of K) or the FF order (512-row K
+    stages spilled side by side, then summed in stage order)."""
+    if w_bits not in _INT_W:
+        raise ValueError(f"int mode takes w_bits 4, 8 or 16, got {w_bits}")
+    if x.dtype not in _INT_X:
+        raise TypeError(f"int mode takes int8 or int16 activations, got {x.dtype}")
+    if dataflow not in ("cf", "ff"):
+        raise ValueError(f"dataflow must be 'cf' or 'ff', got {dataflow!r}")
+    m, k, n = _dims(x, w_data, w_bits, "mpmm_int_cuda")
+    dev = x.device
+    expect(x, "x", x.dtype, (m, k), dev)
+    expect(w_data, "w_data", _INT_W[w_bits], (k // 2 if w_bits == 4 else k, n), dev)
+    out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    stage_k = FF_STAGE_K if dataflow == "ff" else k  # CF: one stage of all K
+    part, stages = _stage_scratch(m, n, k, stage_k, torch.int32, out)
+    err = _build.lib().mpmm_int_i32(
+        x.data_ptr(), w_data.data_ptr(), out.data_ptr(), part.data_ptr(), m, n, k,
+        _INT_X[x.dtype], w_bits, stage_k, stages, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "mpmm_int_i32")
+    mpmm_int_cuda.launches += 1
+    return out
+
+
+mpmm_int_cuda.launches = 0

@@ -2,7 +2,9 @@
 
 They keep the JAX package's layouts at the public functions and handle what
 the raw kernels do not: weight packing and quantization, KV quantization,
-the query regrouping for GQA, and device dispatch.  Dispatch rule: a tensor
+the query regrouping for GQA, FF/CF dataflow selection (the cycle model's
+selector, as in the JAX package), patch extraction for convolutions, and
+device dispatch.  Dispatch rule: a tensor
 on the CPU goes to the kernel's plain version (``kernels/ref.py``); a CUDA
 tensor launches the hand-written kernel, or raises.  There is no fallback
 from one to the other.
@@ -13,6 +15,9 @@ import math
 
 import torch
 
+from repro_torch.core.dataflow import ConvLayer
+from repro_torch.core.isa import Dataflow
+from repro_torch.core.perfmodel import select_dataflow
 from repro_torch.core.precision import Precision
 from repro_torch.kernels import mpmm as mpmm_mod
 from repro_torch.kernels import paged_decode as decode_mod
@@ -24,6 +29,9 @@ __all__ = [
     "pack_weights",
     "quantize_kv",
     "mpmm",
+    "select_matmul_dataflow",
+    "mpconv",
+    "conv_pack_weights",
     "paged_mqa_decode",
     "paged_mqa_prefill",
 ]
@@ -73,6 +81,14 @@ def quantize_kv(kv: torch.Tensor, bits: int = 8) -> tuple[torch.Tensor, torch.Te
     return q, scale
 
 
+def select_matmul_dataflow(m: int, n: int, k: int) -> Dataflow:
+    """FF/CF selection for a matmul via the conv cost model (1x1 conv with
+    cin=k, cout=n, h*w=m), as the JAX package does it."""
+    hw = int(math.sqrt(max(m, 1))) or 1
+    layer = ConvLayer("mm", cin=k, cout=n, k=1, h=hw, w=max(m // hw, 1))
+    return select_dataflow(layer, Precision.INT8)
+
+
 def mpmm(
     x: torch.Tensor,
     w_data: torch.Tensor,
@@ -83,29 +99,95 @@ def mpmm(
     mode: str = "dequant",
     dataflow: str = "cf",
 ) -> torch.Tensor:
-    """Multi-precision matmul: x [..., K] @ dequant(w) -> [..., N] in
-    x.dtype (dequant mode, CF order)."""
-    if mode != "dequant":
-        raise NotImplementedError(
-            "mpmm int mode (radix-256 digit planes) is not ported yet "
-            "(ROADMAP Queue 2: FF/int-mode mpmm)"
-        )
-    if dataflow != "cf":
-        raise NotImplementedError(
-            f"mpmm dataflow={dataflow!r}: only the CF order is ported "
-            "(ROADMAP Queue 2: FF/int-mode mpmm)"
-        )
-    if w_bits == 16:
+    """Multi-precision matmul: x [..., K] @ dequant(w) -> [..., N].
+
+    dequant mode returns x.dtype: CF fuses the scale on the f32 sum; FF sums
+    512-row K stages into an f32 accumulator, then the scale is applied in
+    f32 and the result cast once.  On the card the activations must be bf16.
+    int mode (x int8/int16) returns f32 = int32 product (exact mod 2^32) *
+    w_scale.  ``dataflow="auto"`` asks the cycle model's selector."""
+    if mode not in ("int", "dequant"):
+        raise ValueError(f"mode must be 'int' or 'dequant', got {mode!r}")
+    if dataflow not in ("ff", "cf", "auto"):
+        raise ValueError(f"dataflow must be 'ff', 'cf' or 'auto', got {dataflow!r}")
+    if mode == "dequant" and w_bits == 16:
         raise ValueError("w16 requires int mode (bf16 cannot hold int16 exactly)")
+    lead = x.shape[:-1]
+    k, n = x.shape[-1], w_data.shape[-1]
+    x2 = x.reshape(-1, k)
+    if dataflow == "auto":
+        ff = select_matmul_dataflow(x2.shape[0], n, k) is Dataflow.FF
+        dataflow = "ff" if ff else "cf"
+    card = on_card(x2)
+    if mode == "int":
+        if x2.dtype not in (torch.int8, torch.int16):
+            raise TypeError(f"int mode takes int8 or int16 activations, got {x2.dtype}")
+        if x_bits <= 8 and x2.dtype == torch.int16:
+            raise ValueError(f"x_bits={x_bits} takes int8 activations, got int16")
+        if w_data.dtype != _INT_DTYPE.get(w_bits):
+            raise TypeError(f"w{w_bits} int mode takes {_INT_DTYPE.get(w_bits)} weights, "
+                            f"got {w_data.dtype}")
+        if card:
+            acc = mpmm_mod.mpmm_int_cuda(x2.contiguous(), w_data, w_bits=w_bits,
+                                         dataflow=dataflow)
+        else:
+            acc = ref_mod.mpmm_ref(x2, w_data, w_scale, w_bits=w_bits, mode="int")
+        return (acc.float() * w_scale.float()).reshape(*lead, n)
     if x_bits != 16:
         raise ValueError(f"dequant mode takes 16-bit activations, got x_bits={x_bits}")
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if on_card(x2):
-        out = mpmm_mod.mpmm_cuda(x2.contiguous(), w_data, w_scale, w_bits=w_bits)
+    if card and x2.dtype != torch.bfloat16:
+        raise ValueError(f"the dequant kernels take bf16 activations on the card, "
+                         f"got {x2.dtype}")
+    if dataflow == "cf":
+        if card:
+            out = mpmm_mod.mpmm_cuda(x2.contiguous(), w_data, w_scale, w_bits=w_bits)
+        else:
+            out = ref_mod.mpmm_ref(x2, w_data, w_scale, w_bits=w_bits)
     else:
-        out = ref_mod.mpmm_ref(x2, w_data, w_scale, w_bits=w_bits)
-    return out.reshape(*lead, w_data.shape[-1])
+        if card:
+            acc = mpmm_mod.mpmm_ff_cuda(x2.contiguous(), w_data, w_bits=w_bits)
+        else:
+            acc = ref_mod.mpmm_ff_ref(x2, w_data, w_bits=w_bits)
+        out = (acc * w_scale.float()).to(x.dtype)
+    return out.reshape(*lead, n)
+
+
+def mpconv(
+    x: torch.Tensor,  # [N, H, W, Cin]
+    w_data: torch.Tensor,  # packed [K*K*Cin (/2), Cout]
+    w_scale: torch.Tensor,  # [1, Cout]
+    *,
+    w_bits: int,
+    ksize: int,
+    stride: int = 1,
+    padding: int = 0,
+    mode: str = "dequant",
+    dataflow: str = "auto",
+) -> torch.Tensor:
+    """Multi-precision convolution = patch extraction + the mpmm kernels.
+
+    The FF/CF choice is the contraction loop order of the matmul core; with
+    ``dataflow="auto"`` the selector receives the true conv geometry at
+    ``w_bits`` precision, as in the JAX package."""
+    n, h, w, cin = x.shape
+    cout = w_data.shape[-1]
+    if dataflow == "auto":
+        layer = ConvLayer("conv", cin=cin, cout=cout, k=ksize, h=h, w=w,
+                          stride=stride, padding=padding)
+        ff = select_dataflow(layer, Precision.from_bits(w_bits)) is Dataflow.FF
+        dataflow = "ff" if ff else "cf"
+    patches = ref_mod.conv_patches(x, ksize, stride, padding)
+    ho, wo = patches.shape[1], patches.shape[2]
+    out = mpmm(patches.reshape(-1, patches.shape[-1]), w_data, w_scale, w_bits=w_bits,
+               x_bits=16, mode=mode, dataflow=dataflow)
+    return out.reshape(n, ho, wo, cout)
+
+
+def conv_pack_weights(w: torch.Tensor, bits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """[Kh, Kw, Cin, Cout] float -> packed ([Cin*Kh*Kw (/2), Cout], [1, Cout])
+    in the (cin, kh, kw) feature order of the patches."""
+    kh, kw, cin, cout = w.shape
+    return pack_weights(w.permute(2, 0, 1, 3).reshape(cin * kh * kw, cout), bits)
 
 
 def paged_mqa_decode(

@@ -16,11 +16,18 @@ import torch
 from repro_torch.quant.pack import unpack_int4
 
 __all__ = [
+    "FF_STAGE_K",
     "gather_pages",
     "mpmm_ref",
+    "mpmm_ff_ref",
+    "conv_patches",
+    "mpconv_ref",
     "paged_mqa_decode_ref",
     "paged_mqa_prefill_ref",
 ]
+
+
+FF_STAGE_K = 512  # K rows per FF-order stage: the JAX kernel's bk
 
 
 def gather_pages(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -44,16 +51,81 @@ def mpmm_ref(
     w_scale: torch.Tensor,
     *,
     w_bits: int,
+    mode: str = "dequant",
 ) -> torch.Tensor:
-    """Dequant-mode multi-precision matmul: ``x [M, K]`` times int8 or
-    K-packed int4 weights, f32 accumulation, per-column f32 scale applied to
-    the f32 sum, one cast to ``x.dtype``.  int -> float conversion of the
-    weights is exact (|w| <= 127), so accumulating ``x.float() @ w.float()``
-    is the JAX oracle's ``dot_general(x, w.astype(x.dtype),
-    preferred_element_type=f32)``."""
+    """Multi-precision matmul ``x [M, K]`` times int8/int16 or K-packed int4
+    weights.
+
+    int mode: exact int32 ``x @ w`` with wraparound mod 2^32 (the 32-bit SAU
+    accumulators), unscaled: the wrapper scales.  torch's int32 matmul wraps
+    on the CPU; CUDA has none, so this mode runs on CPU tensors.
+
+    dequant mode: f32 accumulation, per-column f32 scale applied to the f32
+    sum, one cast to ``x.dtype``.  int -> float conversion of the weights is
+    exact (|w| <= 127), so accumulating ``x.float() @ w.float()`` is the JAX
+    oracle's ``dot_general(x, w.astype(x.dtype), preferred_element_type=f32)``.
+    """
     w = _unpack_w4_k(w_data) if w_bits == 4 else w_data
+    if mode == "int":
+        return x.to(torch.int32) @ w.to(torch.int32)
     acc = x.float() @ w.float()
     return (acc * w_scale.float()).to(x.dtype)
+
+
+def mpmm_ff_ref(
+    x: torch.Tensor, w_data: torch.Tensor, *, w_bits: int, stage_k: int = FF_STAGE_K
+) -> torch.Tensor:
+    """Dequant matmul in the FF order: k outermost.  Each K stage of
+    ``stage_k`` rows (the JAX kernel's ``bk``) is an f32 product of its own,
+    added in stage order to an f32 ``[M, N]`` accumulator: the partial sums
+    that spill between stages.  Returns that accumulator unscaled, as the
+    kernel does; the wrapper applies the scale in f32 and casts."""
+    w = (_unpack_w4_k(w_data) if w_bits == 4 else w_data).float()
+    xf = x.float()
+    acc = torch.zeros(x.shape[0], w.shape[1], dtype=torch.float32, device=x.device)
+    for k0 in range(0, x.shape[1], stage_k):
+        acc = acc + xf[:, k0:k0 + stage_k] @ w[k0:k0 + stage_k]
+    return acc
+
+
+def conv_patches(x: torch.Tensor, ksize: int, stride: int, padding: int) -> torch.Tensor:
+    """``[N, H, W, C]`` -> ``[N, Ho, Wo, C*ksize*ksize]`` patches with the
+    feature order (c, kh, kw) of ``lax.conv_general_dilated_patches`` (and of
+    ``F.unfold``).  Strided slices of the zero-padded input, so any dtype
+    works, int16 included (``F.unfold`` refuses integers on the CPU)."""
+    if padding:
+        x = torch.nn.functional.pad(x, (0, 0, padding, padding, padding, padding))
+    n, h, w, c = x.shape
+    ho = (h - ksize) // stride + 1
+    wo = (w - ksize) // stride + 1
+    taps = [
+        x[:, i:i + stride * (ho - 1) + 1:stride, j:j + stride * (wo - 1) + 1:stride]
+        for i in range(ksize)
+        for j in range(ksize)
+    ]
+    return torch.stack(taps, dim=-1).reshape(n, ho, wo, c * ksize * ksize)
+
+
+def mpconv_ref(
+    x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding: int = 0
+) -> torch.Tensor:
+    """NHWC x HWIO convolution oracle: exact int32 (wraparound) for integer
+    ``x``, else f32 accumulation of ``x`` against ``w`` cast to ``x.dtype``,
+    cast back to ``x.dtype``."""
+    kh, kw, cin, cout = w.shape
+    if not x.dtype.is_floating_point:
+        patches = conv_patches(x, kh, stride, padding)
+        wm = w.permute(2, 0, 1, 3).reshape(cin * kh * kw, cout)
+        n, ho, wo, f = patches.shape
+        out = patches.reshape(-1, f).to(torch.int32) @ wm.to(torch.int32)
+        return out.reshape(n, ho, wo, cout)
+    out = torch.nn.functional.conv2d(
+        x.permute(0, 3, 1, 2).float(),
+        w.to(x.dtype).float().permute(3, 2, 0, 1),
+        stride=stride,
+        padding=padding,
+    )
+    return out.permute(0, 2, 3, 1).to(x.dtype)
 
 
 def _dequant(payload: torch.Tensor, scale, kv_bits: int) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Carry a JAX parameter tree, handed over as numpy arrays, into the port.
+"""Carry JAX parameters, handed over as numpy arrays, into the port.
 
 ``params_from_numpy`` walks the tree of ``repro.models.transformer``
 (``init_params`` / ``quantize_params``) after ``jax.tree.map(np.asarray,
@@ -6,6 +6,9 @@
 are arrays.  bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy arrays, which
 ``torch.from_numpy`` refuses; they pass through their int16 bit pattern
 instead, so no JAX or ml_dtypes import is needed here.
+
+``cnn_params_from_numpy`` does the same for ``repro.models.cnn.init_network``'s
+list of ``(w_data, w_scale)`` pairs.
 """
 from __future__ import annotations
 
@@ -36,3 +39,10 @@ def params_from_numpy(tree: dict[str, Any], device) -> dict[str, Any]:
         else:
             out[name] = tensor_from_numpy(leaf, device)
     return out
+
+
+def cnn_params_from_numpy(params, device) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """``[(w_data, w_scale), ...]`` numpy pairs (one per conv layer) -> the
+    same pairs as tensors on ``device``, bytes unchanged."""
+    return [(tensor_from_numpy(wd, device), tensor_from_numpy(ws, device))
+            for wd, ws in params]

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import transformer as model_lib
 from repro_torch.serve.decode import paged_decode_sample
 from repro_torch.serve.kv_cache import PagedKVCache
@@ -68,18 +69,6 @@ from repro_torch.serve.request import RequestState, ServeRequest
 from repro_torch.serve.scheduler import Scheduler
 
 _SUPPORTED_FAMILIES = ("dense",)
-
-
-def resolve_device(device=None) -> torch.device:
-    """The engine's device: ``cuda`` unless the caller names another; a
-    missing card raises instead of falling back to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA card is available; pass device='cpu' to run the "
-            "kernels' plain versions on the CPU"
-        )
-    return dev
 
 
 def _to_device(tree, device):

@@ -1,6 +1,8 @@
 """Each hand-written CUDA kernel of repro_torch against its plain PyTorch
-version, on the card: the W4/W8 dequant matmul, paged decode and paged
-prefill, at small ragged shapes and at llama3.2-3b's widths.
+version, on the card: the W4/W8 dequant matmul in the CF and the FF order,
+the int-mode matmul (bit-exact against the CPU), paged decode and paged
+prefill, at small ragged shapes, at llama3.2-3b's widths and at ResNet18's
+conv shapes.
 
 Marked ``cuda``: on a machine without a card every test skips with a
 reason.  On the card:
@@ -9,7 +11,10 @@ reason.  On the card:
 
 Tolerance: the outputs are bf16 and the kernel sums in f32 in another order
 than the plain version, so one bf16 rounding step either way is expected:
-``atol = rtol = 1e-2``.
+``atol = rtol = 1e-2``.  The FF kernel's unscaled f32 output is held to its
+plain version within float32 summation-order error: the products are exact
+in f32, so ``atol`` is K * 2^-22 times the largest |x| * 127.  Int mode is
+bit-exact.
 """
 import math
 
@@ -18,7 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.mpmm import mpmm_cuda  # noqa: E402
+from repro_torch.kernels.mpmm import mpmm_cuda, mpmm_ff_cuda, mpmm_int_cuda  # noqa: E402
 from repro_torch.kernels.paged_decode import paged_mqa_decode_cuda  # noqa: E402
 from repro_torch.kernels.paged_prefill import paged_mqa_prefill_cuda  # noqa: E402
 
@@ -60,14 +65,171 @@ def test_mpmm_kernel_matches_plain(dev, w_bits, m, k, n):
 
 
 def test_mpmm_rejects_unported_modes(dev):
+    """What no kernel takes raises on the card: f32 activations in dequant
+    mode (both orders), float activations in int mode; nothing falls back."""
     x = torch.zeros(2, 8, dtype=torch.bfloat16, device=dev)
     wd = torch.zeros(8, 8, dtype=torch.int8, device=dev)
     ws = torch.ones(1, 8, device=dev)
-    for kw in ({"mode": "int"}, {"dataflow": "ff"}, {"dataflow": "auto"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ops.mpmm(x, wd, ws, w_bits=8, **kw)
+    for df in ("cf", "ff", "auto"):
+        with pytest.raises(ValueError, match="float32"):
+            ops.mpmm(x.float(), wd, ws, w_bits=8, dataflow=df)
+    with pytest.raises(TypeError, match="int8 or int16"):
+        ops.mpmm(x, wd, ws, w_bits=8, mode="int")
     with pytest.raises(TypeError):
         mpmm_cuda(x.float(), wd, ws, w_bits=8)
+    with pytest.raises(TypeError):
+        mpmm_ff_cuda(x.float(), wd, w_bits=8)
+
+
+# ------------------------------------------------------- mpmm, FF order
+@pytest.mark.parametrize("w_bits", [4, 8])
+@pytest.mark.parametrize(
+    "m,k,n",
+    [(1, 96, 40), (8, 3072, 1024), (37, 130, 200), (300, 520, 130), (513, 1100, 64),
+     (1568, 2304, 256), (392, 4608, 512)],
+)
+def test_mpmm_ff_kernel_matches_plain(dev, w_bits, m, k, n):
+    rng = np.random.default_rng(m * 5 + k)
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) / math.sqrt(k))
+    w_data, w_scale = ops.pack_weights(w, w_bits)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(torch.bfloat16)
+    x, w_data, w_scale = x.to(dev), w_data.to(dev), w_scale.to(dev)
+    acc = mpmm_ff_cuda(x, w_data, w_bits=w_bits)
+    exp = ref.mpmm_ff_ref(x, w_data, w_bits=w_bits)
+    atol = k * 2.0**-22 * x.float().abs().max().item() * 127
+    torch.testing.assert_close(acc, exp, atol=atol, rtol=1e-5)
+    assert torch.equal(acc, mpmm_ff_cuda(x, w_data, w_bits=w_bits))  # no atomics
+    before = mpmm_ff_cuda.launches
+    got = ops.mpmm(x, w_data, w_scale, w_bits=w_bits, dataflow="ff")
+    torch.cuda.synchronize()
+    assert mpmm_ff_cuda.launches == before + 1 and got.dtype == torch.bfloat16
+    _close(got, ref.mpmm_ref(x, w_data, w_scale, w_bits=w_bits))
+    if n % 8 == 0:  # the CF kernel reads 8 columns per load
+        _close(got, ops.mpmm(x, w_data, w_scale, w_bits=w_bits, dataflow="cf"))
+
+
+@pytest.mark.parametrize("k", [147, 27])
+def test_mpmm_ff_kernel_takes_odd_k(dev, k):
+    """The first conv of ResNet18 (K = 3*7*7) and of VGG16 (3*3*3): odd K,
+    rows of x that start off any vector boundary."""
+    rng = np.random.default_rng(k)
+    m, n = 2000, 64
+    w_data, w_scale = ops.pack_weights(torch.from_numpy(rng.normal(size=(k, n)).astype(
+        np.float32)), 8)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(torch.bfloat16)
+    x, w_data, w_scale = x.to(dev), w_data.to(dev), w_scale.to(dev)
+    acc = mpmm_ff_cuda(x, w_data, w_bits=8)
+    torch.testing.assert_close(acc, ref.mpmm_ff_ref(x, w_data, w_bits=8),
+                               atol=k * 2.0**-22 * 8 * 127, rtol=1e-5)
+
+
+@pytest.mark.parametrize("entry", ["mpmm_ff_dequant_f32", "mpmm_int_i32"])
+def test_ff_entry_points_refuse_stages_that_do_not_split_k(dev, entry):
+    """The wrappers size the [stages, M, N] scratch from (stage_k, stages)
+    and pass both; the C entry points refuse a pair that does not split K
+    (and the FF kernel a stage size it was not compiled for), so a kernel
+    cannot write past the scratch."""
+    from repro_torch.kernels import _build
+
+    m, k, n, stage_k = 16, 1100, 64, ref.FF_STAGE_K
+    stages = -(-k // stage_k)
+    ff = entry == "mpmm_ff_dequant_f32"
+    x = torch.zeros(m, k, dtype=torch.bfloat16 if ff else torch.int8, device=dev)
+    w = torch.zeros(k, n, dtype=torch.int8, device=dev)
+    acc = torch.float32 if ff else torch.int32
+    out = torch.empty(m, n, dtype=acc, device=dev)
+    part = torch.empty(stages + 1, m, n, dtype=acc, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    call = getattr(_build.lib(), entry)
+
+    def launch(stages):
+        ptrs = (x.data_ptr(), w.data_ptr(), out.data_ptr(), part.data_ptr(), m, n, k)
+        bits = (8,) if ff else (8, 8)  # w_bits; x_bits, w_bits
+        return call(*ptrs, *bits, stage_k, stages, stream)
+
+    assert launch(stages) == 0
+    torch.cuda.synchronize()
+    assert launch(stages - 1) != 0 and launch(stages + 1) != 0
+
+
+# ------------------------------------------------------- mpmm, int mode
+def _int_operands(rng, m, k, n, w_bits, x_bits):
+    xlim = 2 ** (x_bits - 1)
+    x = rng.integers(-xlim, xlim, (m, k)).astype(np.int16 if x_bits == 16 else np.int8)
+    wlim = 8 if w_bits == 4 else 2 ** (w_bits - 1)
+    wq = rng.integers(-wlim, wlim, (k, n)).astype(np.int16 if w_bits == 16 else np.int8)
+    wd = torch.from_numpy(wq)
+    if w_bits == 4:
+        from repro_torch.quant.pack import pack_int4
+
+        wd = pack_int4(wd, dim=0)
+    return torch.from_numpy(x), wd
+
+
+@pytest.mark.parametrize("dataflow", ["cf", "ff"])
+@pytest.mark.parametrize("w_bits,x_bits", [(16, 16), (8, 8), (4, 8), (8, 16), (16, 8)])
+@pytest.mark.parametrize("m,k,n", [(32, 256, 128), (37, 146, 72), (200, 1100, 130)])
+def test_mpmm_int_kernel_bit_exact(dev, w_bits, x_bits, dataflow, m, k, n):
+    rng = np.random.default_rng(m + k + w_bits + x_bits)
+    x, wd = _int_operands(rng, m, k, n, w_bits, x_bits)
+    exp = ref.mpmm_ref(x, wd, None, w_bits=w_bits, mode="int")  # the CPU's int32 matmul
+    before = mpmm_int_cuda.launches
+    got = mpmm_int_cuda(x.to(dev), wd.to(dev), w_bits=w_bits, dataflow=dataflow)
+    torch.cuda.synchronize()
+    assert mpmm_int_cuda.launches == before + 1 and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), exp)
+
+
+@pytest.mark.parametrize("dataflow", ["cf", "ff"])
+def test_mpmm_int_kernel_wraps_mod_2_32(dev, dataflow):
+    x = torch.full((8, 1100), 32767, dtype=torch.int16)
+    w = torch.full((1100, 64), 32767, dtype=torch.int16)
+    w[:, 1] = -32768
+    exp = ref.mpmm_ref(x, w, None, w_bits=16, mode="int")
+    assert int(exp[0, 0]) == (1100 * 32767 * 32767 + 2**31) % 2**32 - 2**31
+    got = mpmm_int_cuda(x.to(dev), w.to(dev), w_bits=16, dataflow=dataflow)
+    assert torch.equal(got.cpu(), exp)
+
+
+@pytest.mark.parametrize("mode", ["int", "dequant"])
+@pytest.mark.parametrize("dataflow", ["ff", "cf"])
+def test_mpconv_on_card_matches_cpu(dev, mode, dataflow):
+    rng = np.random.default_rng(7)
+    w = torch.from_numpy(rng.normal(size=(3, 3, 24, 40)).astype(np.float32))
+    wd, ws = ops.conv_pack_weights(w, 8)
+    if mode == "int":
+        x = torch.from_numpy(rng.integers(-32768, 32768, (2, 15, 15, 24)).astype(np.int16))
+    else:
+        x = torch.from_numpy(rng.normal(size=(2, 15, 15, 24)).astype(np.float32))
+        x = x.to(torch.bfloat16)
+    kw = dict(w_bits=8, ksize=3, stride=2, padding=1, mode=mode, dataflow=dataflow)
+    got = ops.mpconv(x.to(dev), wd.to(dev), ws.to(dev), **kw).cpu()
+    exp = ops.mpconv(x, wd, ws, **kw)
+    if mode == "int":
+        assert torch.equal(got, exp)
+    else:
+        _close(got, exp)
+
+
+def test_run_network_on_card_matches_cpu(dev):
+    from repro_torch.core.dataflow import ConvLayer
+    from repro_torch.models import cnn
+
+    layers = [ConvLayer("a", 3, 16, 7, 32, 32, 2, 3), ConvLayer("b", 16, 32, 3, 16, 16, 1, 1),
+              ConvLayer("c", 32, 48, 1, 16, 16, 2, 0), ConvLayer("d", 48, 64, 3, 6, 6, 1, 1)]
+    gen = torch.Generator().manual_seed(0)
+    params = [ops.conv_pack_weights(torch.randn(l.k, l.k, l.cin, l.cout, generator=gen)
+                                    / (l.k * l.cin ** 0.5), 8) for l in layers]
+    x = torch.randn(2, 24, 24, 3, generator=gen)
+    cpu32, dec = cnn.run_network("t", x, params, layers, device="cpu")
+    cpu16, _ = cnn.run_network("t", x.to(torch.bfloat16), params, layers, device="cpu")
+    card, dec_card = cnn.run_network(
+        "t", x.to(torch.bfloat16).to(dev), [(a.to(dev), b.to(dev)) for a, b in params],
+        layers, device=dev)
+    assert dec_card == dec
+    noise = (cpu16.float() - cpu32).abs()
+    diff = (card.cpu().float() - cpu16.float()).abs()
+    assert diff.max() <= 2 * noise.max() and diff.mean() <= 2 * noise.mean()
 
 
 # ------------------------------------------------------------ paged attention

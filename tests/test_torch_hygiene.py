@@ -37,6 +37,9 @@ def _modules():
 def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = _modules()
     assert "repro_torch.kernels.paged_prefill" in mods and len(mods) > 25
+    for name in ("core.isa", "core.dataflow", "core.perfmodel", "models.cnn",
+                 "models.cnn_zoo", "launch.cnn", "device"):
+        assert f"repro_torch.{name}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
         for name in {mods!r}:
@@ -71,6 +74,23 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert engine_mod.resolve_device("cpu") == torch.device("cpu")
 
 
+def test_cnn_entry_points_raise_without_a_card(monkeypatch):
+    """The CNN launcher, init_network and run_network default to the card
+    and raise without one; --device cpu is the only way onto the CPU."""
+    from repro_torch.launch import cnn as tcnn
+    from repro_torch.models import cnn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        tcnn.main(["--net", "ResNet18", "--layers", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        cnn.init_network("ResNet18", 0)
+    layers, params = cnn.init_network("ResNet18", 0, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        cnn.run_network("ResNet18", torch.zeros(1, 8, 8, 3), params[:1], layers[:1])
+    assert tcnn.build_parser().parse_args([]).device == "cuda"
+
+
 def test_cuda_tensors_never_reach_the_plain_versions():
     """The dispatch rule: CPU tensors take the plain version, anything else
     that is not CUDA raises; nothing picks a path by catching an error."""
@@ -87,12 +107,16 @@ def test_cpu_tensors_launch_no_kernel_and_a_missing_nvcc_raises(monkeypatch):
     """Plain versions on the CPU leave the launch counters alone; a build
     without nvcc raises instead of falling back."""
     from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.mpmm import mpmm_cuda
+    from repro_torch.kernels.mpmm import mpmm_cuda, mpmm_ff_cuda, mpmm_int_cuda
 
-    before = mpmm_cuda.launches
+    counters = (mpmm_cuda, mpmm_ff_cuda, mpmm_int_cuda)
+    before = [fn.launches for fn in counters]
     wd, ws = ops.pack_weights(torch.randn(16, 8), 4)
-    ops.mpmm(torch.randn(2, 16), wd, ws, w_bits=4)
-    assert mpmm_cuda.launches == before
+    for df in ("cf", "ff", "auto"):
+        ops.mpmm(torch.randn(2, 16), wd, ws, w_bits=4, dataflow=df)
+        ops.mpmm(torch.ones(2, 16, dtype=torch.int16), wd, ws, w_bits=4, mode="int",
+                 dataflow=df)
+    assert [fn.launches for fn in counters] == before
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):

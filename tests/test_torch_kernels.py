@@ -52,8 +52,22 @@ def test_mpmm_leading_dims_and_unported_modes():
     np.testing.assert_array_equal(
         out.reshape(6, 32).numpy(), ref.mpmm_ref(x.reshape(6, 64), wd, ws, w_bits=8).numpy()
     )
-    for kw in ({"mode": "int"}, {"dataflow": "ff"}, {"dataflow": "auto"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the FF order, the selector and int mode, once unported, keep the
+    # leading dims too; what no kernel takes still raises
+    for kw in ({"dataflow": "ff"}, {"dataflow": "auto"}):
+        got = ops.mpmm(x, wd, ws, w_bits=8, **kw)
+        assert got.shape == (2, 3, 32)
+        np.testing.assert_allclose(got.reshape(6, 32).numpy(),
+                                   ref.mpmm_ref(x.reshape(6, 64), wd, ws, w_bits=8).numpy(),
+                                   **MPMM_TOL)
+    xi = torch.from_numpy(RNG.integers(-99, 99, (2, 3, 64)).astype(np.int16))
+    got = ops.mpmm(xi, wd, ws, w_bits=8, mode="int")
+    assert got.shape == (2, 3, 32)
+    np.testing.assert_array_equal(
+        got.reshape(6, 32).numpy(),
+        (ref.mpmm_ref(xi.reshape(6, 64), wd, ws, w_bits=8, mode="int").float() * ws).numpy())
+    for kw in ({"mode": "int8"}, {"dataflow": "kf"}, {"x_bits": 8}):
+        with pytest.raises(ValueError):
             ops.mpmm(x, wd, ws, w_bits=8, **kw)
 
 
