@@ -31,9 +31,21 @@ Phases, each printing one JSON line that names the card:
                512-token prompts (256 shared), 32 new tokens each, weight/KV
                precision cycling over (4,8) (8,4) (8,8) (16,16); run twice,
                the streams must be identical.
-6. kernels line -- each kernel's launches on its path (all > 0): the serving
+6. waves    -- the full 81-layer zamba2-7b (hybrid: Mamba2 + shared
+               attention) with seeded random weights served by the
+               static-wave train.server.Server: 8 greedy requests of 512
+               random tokens, 32 new tokens each, batch 8, w8/kv8; run
+               twice, the streams must be identical; two decode steps
+               profiled; then full mamba2-130m (ssm) served the same way.
+7. kernels line -- each kernel's launches on its path (all > 0): the serving
                kernels in phase 5's first run, the FF and int matmuls in
-               phase 4; the counts are set to 0 just before each path runs.
+               phase 4, contiguous-cache decode in phase 6's first zamba2
+               run; the counts are set to 0 just before each path runs.
+
+Phase 2 also holds contiguous-cache decode (mqa_decode) against its plain
+version at zamba2-7b's serving shape (kv8 and kv4), a 32k context and
+llama3.2-3b's GQA shape; phase 3 also runs zamba2-7b cut to 7 layers at full
+width (prefill and two decode steps) on the card and on the CPU.
 
 The last line is {"ok": true, "device": {...}}; any failed check raises and
 the script exits nonzero without it.  It exits nonzero too when no CUDA card
@@ -78,7 +90,22 @@ TPU_KERNELS = {
     "mpmm_int": ("src/repro_torch/kernels/csrc/mpmm_int.cu",
                  "src/repro/kernels/mpmm.py:174 (mpmm_pallas, int mode: _digit_planes :64, "
                  "_plane_dot :79)"),
+    "mqa_decode": ("src/repro_torch/kernels/csrc/mqa_decode.cu",
+                   "src/repro/kernels/mqa_decode.py:101 (mqa_decode_pallas: _decode_kernel "
+                   ":40, pallas_call :133)"),
 }
+# the path each kernel's launches are read from in the kernels line
+KERNEL_PATH = {"mpmm_dequant": "serve", "paged_decode": "serve", "paged_prefill": "serve",
+               "mpmm_ff_dequant": "cnn", "mpmm_int": "cnn", "mqa_decode": "waves"}
+# phase 2 mqa_decode cases: (label, B, S, Hkv, G, D, lengths, kv_bits); zamba2-7b
+# serving (S = 512 prompt + 32 new + 8), a long context, llama3.2-3b's GQA
+MQA_CASES = [
+    ("zamba2 serving", 8, 552, 32, 1, 112, list(range(545, 553)), 8),
+    ("zamba2 serving", 8, 552, 32, 1, 112, list(range(545, 553)), 4),
+    ("zamba2 long context", 1, 32768, 32, 1, 112, [32768], 8),
+    ("llama3.2-3b GQA", 8, 1024, 8, 3, 128, [1024 - (i % 3) for i in range(8)], 8),
+]
+WAVE_REQUESTS, WAVE_PROMPT, WAVE_NEW = 8, 512, 32
 # the ResNet18 convs phase 2 times the FF matmul at (batch 8): M = 8*Ho*Wo
 FF_LAYERS = ["conv1", "layer1.0.conv2", "layer3.1.conv1", "layer4.1.conv1"]
 CF_LAYERS = ["layer2.0.down", "layer3.0.down", "layer4.0.down"]  # the CF layers at w8
@@ -611,40 +638,48 @@ def step_card_vs_cpu(torch, gpu, base) -> None:
                "w_bits": w_bits, "kv_bits": kv_bits, "batch": b, "chunk": c,
                "card_s": t_card, "cpu_s": t_cpu, "gpu": gpu}
         for i, name in enumerate(("prefill", "decode")):
-            a, e, f = on_card[i], cpu[i], cpu32[i]
-            check(bool(torch.isfinite(a).all()), f"{name}: non-finite logits")
-            diff, noise = (a - e).abs(), (f - e).abs()
-            a_top, e_top, f_top = a.argmax(-1), e.argmax(-1), f.argmax(-1)
-            agree = int((a_top == e_top).sum())
-            rec.update({f"{name}_max_abs_err": diff.max().item(),
-                        f"{name}_mean_abs_err": diff.mean().item(),
-                        f"{name}_bf16_noise_max": noise.max().item(),
-                        f"{name}_bf16_noise_mean": noise.mean().item(),
-                        f"{name}_argmax_agree": f"{agree}/{b}",
-                        f"{name}_card_f32_argmax_agree": f"{int((a_top == f_top).sum())}/{b}"})
-            tag = f"{name} w{w_bits}kv{kv_bits}"
-            check(diff.max() <= 2 * noise.max() and diff.mean() <= 2 * noise.mean(),
-                  f"{tag}: card vs CPU logits differ by max {diff.max().item():.4g} / "
-                  f"mean {diff.mean().item():.4g}, over twice the bf16 noise "
-                  f"{noise.max().item():.4g} / {noise.mean().item():.4g}")
-            if kv_bits >= 8:
-                check(agree == b, f"{tag}: argmax differs between card and CPU")
-                continue
-            split = []
-            for r in torch.nonzero(a_top != e_top).flatten().tolist():
-                ta, te, tf = int(a_top[r]), int(e_top[r]), int(f_top[r])
-                gap = (f[r, tf] - torch.minimum(f[r, ta], f[r, te])).item()
-                row_noise = noise[r].max().item()
-                split.append({"row": r, "card": ta, "cpu_bf16": te, "cpu_f32": tf,
-                              "f32_gap": gap, "row_bf16_noise": row_noise})
-                check(tf in (ta, te) or gap <= row_noise,
-                      f"{tag} row {r}: card picks {ta}, CPU bf16 {te}, float32 {tf}; "
-                      f"the picks lie {gap:.4g} below float32's top, over the row's "
-                      f"bf16 noise {row_noise:.4g}")
-            rec[f"{name}_argmax_splits"] = split
+            compare_logits(torch, rec, name, f"{name} w{w_bits}kv{kv_bits}", on_card[i],
+                           cpu[i], cpu32[i], kv_bits)
         emit(rec)
         del params
     del params16
+
+
+def compare_logits(torch, rec, name, tag, a, e, f, kv_bits) -> None:
+    """Card logits ``a`` against the CPU's bf16 ``e`` and float32 ``f`` runs
+    of the same step (the rule of phase 3, described there): within twice
+    the CPU's bf16 noise, the same argmax on every row with int8 or 16-bit
+    KV, and with int4 KV float32 as the witness where card and CPU split."""
+    b = a.shape[0]
+    check(bool(torch.isfinite(a).all()), f"{tag}: non-finite logits")
+    diff, noise = (a - e).abs(), (f - e).abs()
+    a_top, e_top, f_top = a.argmax(-1), e.argmax(-1), f.argmax(-1)
+    agree = int((a_top == e_top).sum())
+    rec.update({f"{name}_max_abs_err": diff.max().item(),
+                f"{name}_mean_abs_err": diff.mean().item(),
+                f"{name}_bf16_noise_max": noise.max().item(),
+                f"{name}_bf16_noise_mean": noise.mean().item(),
+                f"{name}_argmax_agree": f"{agree}/{b}",
+                f"{name}_card_f32_argmax_agree": f"{int((a_top == f_top).sum())}/{b}"})
+    check(diff.max() <= 2 * noise.max() and diff.mean() <= 2 * noise.mean(),
+          f"{tag}: card vs CPU logits differ by max {diff.max().item():.4g} / "
+          f"mean {diff.mean().item():.4g}, over twice the bf16 noise "
+          f"{noise.max().item():.4g} / {noise.mean().item():.4g}")
+    if kv_bits >= 8:
+        check(agree == b, f"{tag}: argmax differs between card and CPU")
+        return
+    split = []
+    for r in torch.nonzero(a_top != e_top).flatten().tolist():
+        ta, te, tf = int(a_top[r]), int(e_top[r]), int(f_top[r])
+        gap = (f[r, tf] - torch.minimum(f[r, ta], f[r, te])).item()
+        row_noise = noise[r].max().item()
+        split.append({"row": r, "card": ta, "cpu_bf16": te, "cpu_f32": tf,
+                      "f32_gap": gap, "row_bf16_noise": row_noise})
+        check(tf in (ta, te) or gap <= row_noise,
+              f"{tag} row {r}: card picks {ta}, CPU bf16 {te}, float32 {tf}; "
+              f"the picks lie {gap:.4g} below float32's top, over the row's "
+              f"bf16 noise {row_noise:.4g}")
+    rec[f"{name}_argmax_splits"] = split
 
 
 def _tree_map(tree, fn):
@@ -653,8 +688,164 @@ def _tree_map(tree, fn):
     return fn(tree) if hasattr(tree, "to") else tree
 
 
+def mqa_kernel_cases(torch, timer, gpu, summary) -> None:
+    """Phase 2 for contiguous-cache decode (csrc/mqa_decode.cu) against its
+    plain version, with SDPA on the dequantized bf16 K/V as the yardstick."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.mqa_decode import mqa_decode_cuda
+    from repro_torch.quant.pack import unpack_int4
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for label, b, s, hkv, g, d, lengths, kv_bits in MQA_CASES:
+        h = hkv * g
+        kd, ks = ops.quantize_kv(torch.randn(b, s, hkv, d, generator=gen, device="cuda"),
+                                 kv_bits)
+        vd, vs = ops.quantize_kv(torch.randn(b, s, hkv, d, generator=gen, device="cuda"),
+                                 kv_bits)
+        q = torch.randn(b, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+        qg = q.reshape(b, hkv, g, d)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        sm = 1 / math.sqrt(d)
+
+        def unpacked(t):
+            return unpack_int4(t, dim=-1) if kv_bits == 4 else t
+
+        def plain():
+            return ref.mqa_decode_ref(q, unpacked(kd), unpacked(vd), ks, vs, lens, sm_scale=sm)
+
+        got = mqa_decode_cuda(qg, kd, vd, ks, vs, lens, kv_bits=kv_bits, sm_scale=sm)
+        err = max_err(torch, got.reshape(b, h, d), plain(), ATTN_TOL)
+        check(torch.equal(got, mqa_decode_cuda(qg, kd, vd, ks, vs, lens, kv_bits=kv_bits,
+                                               sm_scale=sm)),
+              f"mqa_decode {label} kv{kv_bits}: two runs gave other bits")
+        kg = (unpacked(kd).float() * ks).to(torch.bfloat16).transpose(1, 2)
+        vg = (unpacked(vd).float() * vs).to(torch.bfloat16).transpose(1, 2)
+        kg = kg.repeat_interleave(g, dim=1).contiguous()
+        vg = vg.repeat_interleave(g, dim=1).contiguous()
+        mask = (torch.arange(s, device="cuda")[None] < lens[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        live = sum(lengths)
+        per_tok = hkv * (d // 2 if kv_bits == 4 else d) + hkv * 4  # payload + scale
+        nbytes = 2 * live * per_tok + 2 * q.numel() * 2 + 4 * b
+        b_ms, b_by = bound(nbytes, 4.0 * h * d * live)
+        rec = {
+            "case": f"{label} kv{kv_bits} B={b} S={s} Hkv={hkv} G={g} D={d} "
+                    f"lengths={min(lengths)}-{max(lengths)}",
+            "max_abs_err": err, "tol": ATTN_TOL,
+            "ms": timer(lambda: mqa_decode_cuda(qg, kd, vd, ks, vs, lens, kv_bits=kv_bits,
+                                                sm_scale=sm)),
+            "plain_ms": timer(plain, iters=3),
+            "library_ms": timer(lambda: F.scaled_dot_product_attention(q4, kg, vg,
+                                                                       attn_mask=mask)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        note_case(summary, gpu, "mqa_decode", rec,
+                  (label, kv_bits) == ("zamba2 serving", 8))
+        del kd, vd, ks, vs, kg, vg
+    torch.cuda.empty_cache()
+
+
+def hybrid_step_card_vs_cpu(torch, gpu, base) -> None:
+    """zamba2-7b cut to 7 layers at full width (one group of 6 SSM layers,
+    the shared attention block, a 1-layer tail), w8/kv8: prefill of 2 x 64
+    tokens and two decode steps on the card and on the CPU (bf16 and
+    float32), held by compare_logits (the rule of phase 3)."""
+    from repro_torch.models import transformer as model_lib
+
+    cfg = dataclasses.replace(base, n_layers=7)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = model_lib.quantize_params(model_lib.init_params(cfg, gen), cfg.serve_w_bits)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen, device="cuda")
+    steps = [torch.randint(0, cfg.vocab, (2, 1), generator=gen, device="cuda")
+             for _ in range(2)]
+
+    def run(device, dtype="bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        p = _tree_map(params, lambda t: t.to(device))
+        logits, cache = model_lib.prefill(p, {"tokens": tokens.to(device)}, c, 64 + 8)
+        out = [logits.cpu()[:, : cfg.vocab]]
+        for tok in steps:
+            logits, cache = model_lib.decode_step(p, tok.to(device), cache, c)
+            out.append(logits.cpu()[:, : cfg.vocab])
+        return out
+
+    t0 = time.perf_counter()
+    on_card = run("cuda")
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = run("cpu")
+    t_cpu = time.perf_counter() - t0
+    cpu32 = run("cpu", "float32")
+    rec = {"phase": "step_hybrid", "model": "zamba2-7b (7 of 81 layers, full width)",
+           "w_bits": cfg.serve_w_bits, "kv_bits": cfg.serve_kv_bits, "batch": 2,
+           "prompt": 64, "decode_steps": 2, "card_s": t_card, "cpu_s": t_cpu, "gpu": gpu}
+    for i, name in enumerate(("prefill", "decode1", "decode2")):
+        compare_logits(torch, rec, name, f"zamba2 {name}", on_card[i], cpu[i], cpu32[i],
+                       cfg.serve_kv_bits)
+    emit(rec)
+    del params
+
+
+# --------------------------------------------------------------- waves
+def waves_run(torch, seed: int, cfg, requests: int, prompt: int, new: int):
+    """Serve ``requests`` greedy requests of ``prompt`` random tokens and
+    ``new`` new tokens through the static-wave Server (batch 8, the arch's
+    w/kv bits), with weights drawn from ``seed``; returns (streams, stats,
+    peak bytes, wall s, server)."""
+    import numpy as np
+
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.train.server import Request, Server
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = model_lib.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    srv = Server(cfg, params, batch_size=8, max_len=prompt + new + 8, device="cuda")
+    del params
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, prompt).astype(np.int32),
+                    max_new_tokens=new) for i in range(requests)]
+    t0 = time.perf_counter()
+    srv.serve(reqs)
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        check(r.done and len(r.out_tokens) == new, f"request {r.rid}: {len(r.out_tokens)} "
+              f"tokens, expected {new}")
+        check(all(0 <= t < cfg.vocab for t in r.out_tokens),
+              f"request {r.rid}: token outside the vocabulary (padded logits leaked)")
+    return [tuple(r.out_tokens) for r in reqs], srv.stats, torch.cuda.max_memory_allocated(), \
+        wall, srv
+
+
+def waves_profile(torch, srv, cfg, prompt: int) -> dict:
+    """Two decode steps of a full wave (8 x ``prompt`` tokens prefilled)
+    under torch.profiler: device time by kernel and the card's busy share of
+    the unprofiled wall time of two steps."""
+    from repro_torch.models import transformer as model_lib
+
+    tokens = torch.randint(0, cfg.vocab, (8, prompt), device="cuda")
+    logits, cache = model_lib.prefill(srv.params, {"tokens": tokens}, cfg, srv.max_len)
+    tok = logits.argmax(-1)[:, None]
+
+    def two_steps():
+        nonlocal logits, cache, tok
+        for _ in range(2):
+            logits, cache = model_lib.decode_step(srv.params, tok, cache, cfg)
+            tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+
+    two_steps()  # warm
+    t0 = time.perf_counter()
+    two_steps()
+    wall = time.perf_counter() - t0
+    return device_profile(torch, two_steps, wall)
+
+
 # --------------------------------------------------------------- phase 4
-def cnn_profile(torch, run_once, wall_s: float) -> dict:
+def device_profile(torch, run_once, wall_s: float) -> dict:
     """One network run under torch.profiler: device time by kernel (the
     events that ran on the card; a host op's device time would count its
     kernels twice), and the share of the unprofiled wall time ``wall_s`` the
@@ -709,7 +900,7 @@ def cnn_run(torch, gpu) -> None:
         times.append(time.perf_counter() - t0)
     wall = sorted(times)[len(times) // 2]
     peak = torch.cuda.max_memory_allocated()
-    profile = cnn_profile(torch, lambda: run(x, params, layers), wall)
+    profile = device_profile(torch, lambda: run(x, params, layers), wall)
 
     # card vs CPU at batch 2: the CPU's bf16 run against its float32 run is
     # the noise; the card's bf16 run must be as close to the CPU's bf16 run
@@ -852,6 +1043,7 @@ def main() -> int:
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.mpmm import mpmm_cuda, mpmm_ff_cuda, mpmm_int_cuda
+    from repro_torch.kernels.mqa_decode import mqa_decode_cuda
     from repro_torch.kernels.paged_decode import paged_mqa_decode_cuda
     from repro_torch.kernels.paged_prefill import paged_mqa_prefill_cuda
 
@@ -863,15 +1055,18 @@ def main() -> int:
     from repro_torch.configs import get_config
 
     llama = get_config("llama3.2-3b")
+    zamba = get_config("zamba2-7b")
     timer = Timer(torch)
     summary = kernel_cases(torch, timer, gpu)
     cnn_kernel_cases(torch, timer, gpu, summary)
+    mqa_kernel_cases(torch, timer, gpu, summary)
     step_card_vs_cpu(torch, gpu, llama)
+    hybrid_step_card_vs_cpu(torch, gpu, zamba)
     torch.cuda.empty_cache()
 
     counters = {"mpmm_dequant": mpmm_cuda, "paged_decode": paged_mqa_decode_cuda,
                 "paged_prefill": paged_mqa_prefill_cuda, "mpmm_ff_dequant": mpmm_ff_cuda,
-                "mpmm_int": mpmm_int_cuda}
+                "mpmm_int": mpmm_int_cuda, "mqa_decode": mqa_decode_cuda}
 
     def count(path):
         """Drive one path with every count at 0; its launches per kernel."""
@@ -909,18 +1104,66 @@ def main() -> int:
           "ttft_ms_first": min(stats2.ttfts) * 1e3, "ttft_ms_last": max(stats2.ttfts) * 1e3,
           "gpu": gpu})
 
+    torch.cuda.empty_cache()
+
+    # ---- waves: full zamba2-7b through the static-wave Server, twice
+    (streams, wstats, wpeak, wwall, srv), wave_launches = count(
+        lambda: waves_run(torch, 0, zamba, WAVE_REQUESTS, WAVE_PROMPT, WAVE_NEW))
+    emit({"phase": "waves", "model": "zamba2-7b (81 layers, full width)",
+          "requests": WAVE_REQUESTS, "prompt": WAVE_PROMPT, "new_tokens": WAVE_NEW,
+          "batch_size": 8, "w_bits": zamba.serve_w_bits, "kv_bits": zamba.serve_kv_bits,
+          "tokens_out": wstats.tokens_out,
+          "decode_tok_per_s": wstats.tokens_out / wstats.decode_s,
+          "decode_s": wstats.decode_s, "decode_steps": wstats.decode_steps,
+          "decode_step_ms": wstats.decode_s / wstats.decode_steps * 1e3,
+          "prefill_s": wstats.prefill_s, "wall_s": wwall, "peak_mem_gb": wpeak / 1e9,
+          "launches": wave_launches, "gpu": gpu})
+    check(wstats.tokens_out == WAVE_REQUESTS * WAVE_NEW,
+          f"waves tokens_out {wstats.tokens_out} != {WAVE_REQUESTS * WAVE_NEW}")
+    emit({"phase": "waves_profile", "what": "two decode steps of a full wave",
+          "profile": waves_profile(torch, srv, zamba, WAVE_PROMPT), "gpu": gpu})
+    del srv
+    torch.cuda.empty_cache()
+    streams2, wstats2, _, wwall2, srv = waves_run(torch, 0, zamba, WAVE_REQUESTS,
+                                                  WAVE_PROMPT, WAVE_NEW)
+    del srv
+    check(streams == streams2, "a second waves run with the same seed gave other streams")
+    emit({"phase": "waves_repeat", "identical_streams": True,
+          "decode_tok_per_s": wstats2.tokens_out / wstats2.decode_s,
+          "decode_step_ms": wstats2.decode_s / wstats2.decode_steps * 1e3,
+          "prefill_s": wstats2.prefill_s, "wall_s": wwall2, "gpu": gpu})
+    torch.cuda.empty_cache()
+
+    # ---- the ssm family: full mamba2-130m through the same waves
+    mamba = get_config("mamba2-130m")
+    (_, mstats, mpeak, mwall, srv), mamba_launches = count(
+        lambda: waves_run(torch, 0, mamba, 8, WAVE_PROMPT, WAVE_NEW))
+    del srv
+    emit({"phase": "waves_ssm", "model": "mamba2-130m (24 layers, full width)",
+          "requests": 8, "prompt": WAVE_PROMPT, "new_tokens": WAVE_NEW,
+          "tokens_out": mstats.tokens_out,
+          "decode_tok_per_s": mstats.tokens_out / mstats.decode_s,
+          "decode_step_ms": mstats.decode_s / mstats.decode_steps * 1e3,
+          "prefill_s": mstats.prefill_s, "wall_s": mwall, "peak_mem_gb": mpeak / 1e9,
+          "launches": mamba_launches, "gpu": gpu})
+    check(mamba_launches["mpmm_dequant"] > 0 and mamba_launches["mqa_decode"] == 0,
+          f"mamba2-130m launches {mamba_launches}: expected the matmul and no attention")
+
+    by_path = {"serve": launches, "cnn": cnn_launches, "waves": wave_launches,
+               "waves_ssm": mamba_launches}
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
         s = summary[name]
         # each kernel's launches on its own path: serving (phase 5) for the
-        # serving kernels, the CNN (phase 4) for the FF and int matmuls
-        path = "cnn" if name in ("mpmm_ff_dequant", "mpmm_int") else "serve"
-        n = cnn_launches[name] if path == "cnn" else launches[name]
+        # serving kernels, the CNN (phase 4) for the FF and int matmuls, the
+        # zamba2 waves for contiguous-cache decode
+        path = KERNEL_PATH[name]
+        n = by_path[path][name]
         check(n > 0, f"{name} was never launched on the {path} path")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n, "path": path,
-            "launches_by_path": {"serve": launches[name], "cnn": cnn_launches[name]},
+            "launches_by_path": {p: counts[name] for p, counts in by_path.items()},
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": s["library_ms"], "case": s["case"],

@@ -2,9 +2,7 @@
 the launcher and tests resolve ``--arch <id>`` against.
 
 A copy of ``repro/configs/base.py`` (the port imports nothing of ``repro``).
-The registry lists only the archs the port serves; ``param_count`` keeps the
-dense and MoE formulas and raises for the ssm/hybrid families, whose block
-shapes live in the not-yet-ported SSM model.
+The registry lists only the archs the port serves.
 """
 from __future__ import annotations
 
@@ -82,10 +80,12 @@ class ArchConfig:
         attn = d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
         mlp = 3 * d * f
         if self.family in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"param_count for the {self.family!r} family needs the SSM "
-                "model, which is not ported yet (ROADMAP: other families)"
-            )
+            from repro_torch.models.ssm import ssm_dims
+
+            dims = ssm_dims(d, self.ssm_state, self.ssm_head_p)
+            blk = d * (2 * dims.d_inner + 2 * dims.state + dims.n_heads) + dims.d_inner * d
+            shared = attn + 3 * d * f if self.family == "hybrid" else 0  # one shared block
+            return self.n_layers * blk + shared + 2 * v * d
         if self.n_experts:
             moe = 3 * d * f * self.n_experts + d * self.n_experts
             dense_l = attn + mlp
@@ -124,6 +124,8 @@ class ArchConfig:
 _REGISTRY: dict[str, str] = {
     "llama3.2-3b": "repro_torch.configs.llama3_2_3b",
     "yi-9b": "repro_torch.configs.yi_9b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }
 
 

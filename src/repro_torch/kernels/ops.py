@@ -20,10 +20,11 @@ from repro_torch.core.isa import Dataflow
 from repro_torch.core.perfmodel import select_dataflow
 from repro_torch.core.precision import Precision
 from repro_torch.kernels import mpmm as mpmm_mod
+from repro_torch.kernels import mqa_decode as mqa_mod
 from repro_torch.kernels import paged_decode as decode_mod
 from repro_torch.kernels import paged_prefill as prefill_mod
 from repro_torch.kernels import ref as ref_mod
-from repro_torch.quant.pack import pack_int4
+from repro_torch.quant.pack import pack_int4, unpack_int4
 
 __all__ = [
     "pack_weights",
@@ -32,6 +33,7 @@ __all__ = [
     "select_matmul_dataflow",
     "mpconv",
     "conv_pack_weights",
+    "mqa_decode",
     "paged_mqa_decode",
     "paged_mqa_prefill",
 ]
@@ -188,6 +190,40 @@ def conv_pack_weights(w: torch.Tensor, bits: int) -> tuple[torch.Tensor, torch.T
     in the (cin, kh, kw) feature order of the patches."""
     kh, kw, cin, cout = w.shape
     return pack_weights(w.permute(2, 0, 1, 3).reshape(cin * kh * kw, cout), bits)
+
+
+def mqa_decode(
+    q: torch.Tensor,  # [B, H, D]
+    k_data: torch.Tensor,  # [B, S, Hkv, D (/2 if kv_bits==4)] int8
+    v_data: torch.Tensor,
+    k_scale: torch.Tensor,  # [B, S, Hkv, 1] f32
+    v_scale: torch.Tensor,
+    lengths: torch.Tensor,  # [B] int32 — valid cache length per row
+    *,
+    kv_bits: int = 8,
+) -> torch.Tensor:
+    """Single-token GQA attention against a contiguous int8/int4 KV cache.
+
+    Query head h = kv * G + g of ``q [B, H, D]`` is regrouped to
+    ``[B, Hkv, G, D]`` for the kernel; ``sm_scale = 1/sqrt(D)``.  On the CPU
+    int4 payloads are unpacked for the plain version."""
+    if kv_bits not in (4, 8):
+        raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
+    b, h, d = q.shape
+    hkv = k_data.shape[2]
+    sm_scale = 1.0 / math.sqrt(d)
+    if not on_card(q):
+        if kv_bits == 4:
+            k_data, v_data = unpack_int4(k_data, dim=-1), unpack_int4(v_data, dim=-1)
+        return ref_mod.mqa_decode_ref(q, k_data, v_data, k_scale, v_scale, lengths,
+                                      sm_scale=sm_scale)
+    qg = q.reshape(b, hkv, h // hkv, d).contiguous()
+    out = mqa_mod.mqa_decode_cuda(
+        qg, k_data.contiguous(), v_data.contiguous(), k_scale.contiguous(),
+        v_scale.contiguous(), lengths.to(torch.int32).contiguous(),
+        kv_bits=kv_bits, sm_scale=sm_scale,
+    )
+    return out.reshape(b, h, d)
 
 
 def paged_mqa_decode(

@@ -5,9 +5,11 @@ is what the dispatch wrappers in ``ops.py`` run for tensors on the CPU.  They
 run on any device, so ``chip_smoke.py`` holds each kernel against its plain
 version on the card.
 
-Unlike the JAX oracles, which take *pre-unpacked* int4 pools, these take the
-same nibble-packed pools the kernels take (``kv_bits == 4``: two values per
-byte along the head dim), so each is a drop-in for its kernel.
+Unlike the JAX oracles, which take *pre-unpacked* int4 pools, the paged
+versions take the same nibble-packed pools the kernels take (``kv_bits ==
+4``: two values per byte along the head dim), so each is a drop-in for its
+kernel.  ``mqa_decode_ref`` is the JAX oracle's copy and takes unpacked int8
+K/V; ``ops.mqa_decode`` unpacks int4 before calling it.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ __all__ = [
     "mpmm_ff_ref",
     "conv_patches",
     "mpconv_ref",
+    "mqa_decode_ref",
     "paged_mqa_decode_ref",
     "paged_mqa_prefill_ref",
 ]
@@ -126,6 +129,44 @@ def mpconv_ref(
         padding=padding,
     )
     return out.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def mqa_decode_ref(
+    q: torch.Tensor,
+    k_data: torch.Tensor,
+    v_data: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    sm_scale: float,
+) -> torch.Tensor:
+    """Single-token GQA attention over a quantized contiguous KV cache (the
+    plain version of csrc/mqa_decode.cu).
+
+    q:        [B, H, D]            (bf16/f32)
+    k_data:   [B, S, Hkv, D] int8  (quantized keys, unpacked)
+    v_data:   [B, S, Hkv, D] int8
+    k_scale:  [B, S, Hkv, 1] f32   (per-token-per-head scales)
+    v_scale:  [B, S, Hkv, 1] f32
+    lengths:  [B] int32 — valid cache length per sequence (masking)
+    returns:  [B, H, D] in q.dtype
+
+    A row of length 0 gives NaN here (a softmax over nothing), as in the JAX
+    oracle; the kernels, Pallas and CUDA, give 0 there.
+    """
+    b, h, d = q.shape
+    s, hkv = k_data.shape[1], k_data.shape[2]
+    groups = h // hkv
+    qf = q.float().reshape(b, hkv, groups, d)
+    kf = k_data.float() * k_scale.float()
+    vf = v_data.float() * v_scale.float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qf, kf) * sm_scale
+    mask = torch.arange(s, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+    scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, vf)
+    return out.reshape(b, h, d).to(q.dtype)
 
 
 def _dequant(payload: torch.Tensor, scale, kv_bits: int) -> torch.Tensor:

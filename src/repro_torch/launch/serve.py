@@ -16,6 +16,12 @@ This slice serves greedy decoding without speculation: ``--temperature``
 above 0, ``--top-k``, ``--top-p`` below 1 and ``--spec-k`` above 0 raise
 ``NotImplementedError`` naming the ROADMAP item, as do archs the port's
 engine does not serve.
+
+Archs the JAX package's paged engine cannot host (the ssm and hybrid
+families: zamba2-7b, mamba2-130m) fall back, as there, to the static-wave
+``Server`` (``train/server.py``) at the arch's own weight and KV precision,
+greedy only: sampling flags exit with a message naming the static-wave
+fallback, and the report has the JAX launcher's keys plus ``device``.
 """
 from __future__ import annotations
 
@@ -68,7 +74,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[list[str]] = None) -> dict:
     args = build_parser().parse_args(argv)
 
-    import numpy as np
     import torch
 
     from repro_torch.configs import get_config
@@ -76,7 +81,13 @@ def main(argv: Optional[list[str]] = None) -> dict:
     from repro_torch.serve.engine import ServeEngine, resolve_device
     from repro_torch.serve.outputs import GenerationOutput
     from repro_torch.serve.params import PrecisionParams, SamplingParams
+    from repro_torch.train.server import engine_family
 
+    arch = get_config(args.arch)
+    if args.reduced:
+        arch = arch.reduced()
+    if not engine_family(arch):
+        return _serve_waves(args, arch)
     if args.temperature > 0 or args.top_k or args.top_p < 1.0:
         raise NotImplementedError(
             "--temperature/--top-k/--top-p: sampling is not ported yet (ROADMAP: sampling)"
@@ -85,9 +96,6 @@ def main(argv: Optional[list[str]] = None) -> dict:
         raise NotImplementedError(
             "--spec-k: speculative decoding is not ported yet (ROADMAP: spec decode)"
         )
-    arch = get_config(args.arch)
-    if args.reduced:
-        arch = arch.reduced()
     if args.no_quantize:
         mix = [16]
     elif args.precision_mix:
@@ -95,19 +103,12 @@ def main(argv: Optional[list[str]] = None) -> dict:
     else:
         mix = [args.w_bits or arch.serve_w_bits]
     kv_bits = args.kv_bits or arch.serve_kv_bits
-    if args.shared_prefix >= args.prompt_len:
-        raise SystemExit("--shared-prefix must be < --prompt-len")
+    prompt = _prompt_maker(args, arch)
 
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model_lib.init_params(arch, gen)
     max_len = args.prompt_len + args.new_tokens + 8
-    rng = np.random.default_rng(args.seed)
-    shared = rng.integers(0, arch.vocab, args.shared_prefix).astype(np.int32)
-
-    def prompt() -> np.ndarray:
-        tail = rng.integers(0, arch.vocab, args.prompt_len - args.shared_prefix)
-        return np.concatenate([shared, tail.astype(np.int32)])
 
     pages_per_slot = -(-max_len // args.page_size)
     engine = ServeEngine(
@@ -160,6 +161,63 @@ def main(argv: Optional[list[str]] = None) -> dict:
         "preemptions": stats.preemptions,
         "finish_reasons": [o.finish_reason for o in outs],
         "outputs": [list(o.tokens[:16]) for o in outs],
+    }
+    print(json.dumps(report, indent=1))
+    return report
+
+
+def _prompt_maker(args, arch):
+    """Random prompts from ``--seed``: the first ``--shared-prefix`` tokens
+    common to every request."""
+    import numpy as np
+
+    if args.shared_prefix >= args.prompt_len:
+        raise SystemExit("--shared-prefix must be < --prompt-len")
+    rng = np.random.default_rng(args.seed)
+    shared = rng.integers(0, arch.vocab, args.shared_prefix).astype(np.int32)
+
+    def prompt() -> np.ndarray:
+        tail = rng.integers(0, arch.vocab, args.prompt_len - args.shared_prefix)
+        return np.concatenate([shared, tail.astype(np.int32)])
+
+    return prompt
+
+
+def _serve_waves(args, arch) -> dict:
+    """The static-wave fallback: recurrent-cache archs, greedy only."""
+    import torch
+
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.device import resolve_device
+    from repro_torch.train.server import Request, Server
+
+    if args.temperature or args.top_k or args.top_p < 1.0:
+        raise SystemExit(
+            f"--temperature/--top-k/--top-p are not supported for {arch.name} "
+            f"({arch.family!r}): the static-wave fallback decodes greedily"
+        )
+    prompt = _prompt_maker(args, arch)
+    device = resolve_device(args.device)
+    params = model_lib.init_params(arch, torch.Generator(device=device).manual_seed(args.seed))
+    max_len = args.prompt_len + args.new_tokens + 8
+    srv = Server(arch, params, batch_size=args.batch_size, max_len=max_len,
+                 quantize=not args.no_quantize, device=device)
+    del params
+    reqs = [Request(rid=i, prompt=prompt(), max_new_tokens=args.new_tokens)
+            for i in range(args.requests)]
+    srv.serve(reqs)
+    stats = srv.stats
+    report = {
+        "arch": arch.name,
+        "device": str(device),
+        "scheduler": "static-wave (family not supported by paged engine)",
+        "w_bits": srv.w_bits,
+        "requests": len(reqs),
+        "tokens_out": stats.tokens_out,
+        "prefill_s": stats.prefill_s,
+        "decode_s": stats.decode_s,
+        "decode_tok_per_s": stats.tokens_out / max(stats.decode_s, 1e-9),
+        "outputs": [r.out_tokens[:16] for r in reqs],
     }
     print(json.dumps(report, indent=1))
     return report

@@ -7,6 +7,12 @@ are arrays.  bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy arrays, which
 ``torch.from_numpy`` refuses; they pass through their int16 bit pattern
 instead, so no JAX or ml_dtypes import is needed here.
 
+The same walk carries the ssm/hybrid trees (stacked ``blocks``, ``tail``,
+the unstacked ``shared`` block).  ``cache_from_numpy`` carries a contiguous
+decode cache of ``transformer.init_cache`` / ``prefill`` (``pos``, ``k``,
+``v``, ``k_scale``, ``v_scale``, ``ssm``, ``ssm_tail``); ``pos`` becomes a
+Python int, as the port's cache keeps it.
+
 ``cnn_params_from_numpy`` does the same for ``repro.models.cnn.init_network``'s
 list of ``(w_data, w_scale)`` pairs.
 """
@@ -39,6 +45,11 @@ def params_from_numpy(tree: dict[str, Any], device) -> dict[str, Any]:
         else:
             out[name] = tensor_from_numpy(leaf, device)
     return out
+
+
+def cache_from_numpy(cache: dict[str, Any], device) -> dict[str, Any]:
+    return {name: int(np.asarray(a)) if name == "pos" else tensor_from_numpy(a, device)
+            for name, a in cache.items()}
 
 
 def cnn_params_from_numpy(params, device) -> list[tuple[torch.Tensor, torch.Tensor]]:

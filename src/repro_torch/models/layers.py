@@ -38,9 +38,14 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
 def dense_init(
     gen: torch.Generator, d_in: int, d_out: int, dtype, *lead: int
 ) -> torch.Tensor:
-    """N(0, 1/d_in) weights [*lead, d_in, d_out] drawn in f32 on gen's device."""
-    w = torch.randn((*lead, d_in, d_out), generator=gen, device=gen.device)
-    return (w * (1.0 / math.sqrt(d_in))).to(dtype)
+    """N(0, 1/d_in) weights [*lead, d_in, d_out] on gen's device, each
+    [d_in, d_out] matrix drawn in f32 on its own, so a stack of full-width
+    layers never needs an f32 copy of the whole stack."""
+    out = torch.empty((*lead, d_in, d_out), dtype=dtype, device=gen.device)
+    for w in out.view(-1, d_in, d_out):
+        w.copy_(torch.randn((d_in, d_out), generator=gen, device=gen.device)
+                * (1.0 / math.sqrt(d_in)))
+    return out
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
@@ -64,8 +69,22 @@ def dense(x: torch.Tensor, w) -> torch.Tensor:
 
 
 def quantize_dense_weight(w: torch.Tensor, bits: int) -> dict:
-    data, scale = ops.pack_weights(w.float(), bits)
-    return {"data": data, "scale": scale, "bits": int(bits)}
+    """Per-output-channel quantization of a [K, N] weight, or of a stack
+    [L, ..., K, N] one matrix at a time (the matrices quantize independently,
+    so the bytes are those of one call on the stack, without its f32 copy)."""
+    if w.ndim == 2:
+        data, scale = ops.pack_weights(w.float(), bits)
+        return {"data": data, "scale": scale, "bits": int(bits)}
+    mats = w.reshape(-1, *w.shape[-2:])
+    data = scale = None
+    for i, m in enumerate(mats):
+        d_i, s_i = ops.pack_weights(m.float(), bits)
+        if data is None:
+            data = d_i.new_empty((len(mats), *d_i.shape))
+            scale = s_i.new_empty((len(mats), *s_i.shape))
+        data[i], scale[i] = d_i, s_i
+    return {"data": data.reshape(*w.shape[:-2], *data.shape[1:]),
+            "scale": scale.reshape(*w.shape[:-2], *scale.shape[1:]), "bits": int(bits)}
 
 
 # ------------------------------------------------------------------ RoPE ----

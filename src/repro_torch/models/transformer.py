@@ -1,4 +1,7 @@
-"""The serving subset of ``repro/models/transformer.py`` for the dense family.
+"""The serving subset of ``repro/models/transformer.py``: parameters and
+quantization for the dense, ssm and hybrid families, the blocks the paged
+engine uses (dense), and the contiguous-cache ``prefill`` / ``decode_step``
+that the static-wave server runs (dense, ssm, hybrid).
 
 Parameters are plain dicts of tensors with the JAX layout: per-layer
 weights stacked along a leading layer dim (``params["blocks"]["wq"]`` is
@@ -7,6 +10,13 @@ over layers that takes each layer's slice (:func:`layer_params`).
 Initialisation draws from an explicit ``torch.Generator`` on its device; the
 numbers differ from ``jax.random`` for the same seed, so parity tests carry
 JAX weights over with ``models/convert.py``.
+
+The contiguous cache is a dict like the JAX one, with ``pos`` a Python int.
+Unlike the JAX functions, which return new arrays, ``prefill`` fills the
+cache it allocates and ``decode_step`` writes this step's K/V and SSM states
+into the cache it is given, in place, and returns that same dict with
+``pos`` advanced: at full width a copy of the cache per step would double
+its memory and traffic.
 """
 from __future__ import annotations
 
@@ -16,7 +26,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
+    apply_rope,
     dense,
     dense_init,
     embed_init,
@@ -31,35 +44,71 @@ _GLOBAL_WINDOW = 1 << 30  # "no window" sentinel (per-layer window lists)
 _QUANT_KEYS = {"wq", "wk", "wv", "wo", "wg", "wu", "wd", "in_proj", "out_proj", "unembed"}
 
 
+def _not_ported(cfg: ArchConfig, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} for the {cfg.family!r} family ({cfg.name}) is not ported yet "
+        "(ROADMAP: the other families)"
+    )
+
+
+def _init_attn(gen: torch.Generator, cfg: ArchConfig, dtype, *lead: int) -> Params:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {
+        "norm1": torch.ones(*lead, d, dtype=torch.float32, device=gen.device),
+        "wq": dense_init(gen, d, h * hd, dtype, *lead),
+        "wk": dense_init(gen, d, kv * hd, dtype, *lead),
+        "wv": dense_init(gen, d, kv * hd, dtype, *lead),
+        "wo": dense_init(gen, h * hd, d, dtype, *lead),
+    }
+
+
+def _init_mlp(gen: torch.Generator, cfg: ArchConfig, dtype, *lead: int) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "norm2": torch.ones(*lead, d, dtype=torch.float32, device=gen.device),
+        "mlp": {
+            "wg": dense_init(gen, d, f, dtype, *lead),
+            "wu": dense_init(gen, d, f, dtype, *lead),
+            "wd": dense_init(gen, f, d, dtype, *lead),
+        },
+    }
+
+
+def _init_dense_block(gen: torch.Generator, cfg: ArchConfig, dtype, *lead: int) -> Params:
+    return {**_init_attn(gen, cfg, dtype, *lead), **_init_mlp(gen, cfg, dtype, *lead)}
+
+
+def _init_ssm_block(gen: torch.Generator, cfg: ArchConfig, dtype, n: int) -> Params:
+    dims = ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_state, cfg.ssm_head_p)
+    p = ssm_mod.init_ssm_params(gen, dims, dtype, n)
+    p["norm1"] = torch.ones(n, cfg.d_model, dtype=torch.float32, device=gen.device)
+    return p
+
+
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
-    """Random dense-family parameters on ``gen.device``, stacked over layers."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"init_params for the {cfg.family!r} family is not ported yet "
-            "(ROADMAP: the other families)"
-        )
+    """Random parameters on ``gen.device``, stacked over layers: dense
+    blocks, SSM blocks, or (hybrid) SSM blocks in groups of ``attn_every``,
+    an SSM tail of the remainder and one shared attention + MLP block."""
     dtype = torch_dtype(cfg.dtype)
     dev = gen.device
-    d, f, n = cfg.d_model, cfg.d_ff, cfg.n_layers
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    d = cfg.d_model
     params: Params = {
         "embed": embed_init(gen, cfg.padded_vocab, d, dtype),
         "unembed": dense_init(gen, d, cfg.padded_vocab, dtype),
         "final_norm": torch.ones(d, dtype=torch.float32, device=dev),
     }
-    params["blocks"] = {
-        "norm1": torch.ones(n, d, dtype=torch.float32, device=dev),
-        "wq": dense_init(gen, d, h * hd, dtype, n),
-        "wk": dense_init(gen, d, kv * hd, dtype, n),
-        "wv": dense_init(gen, d, kv * hd, dtype, n),
-        "wo": dense_init(gen, h * hd, d, dtype, n),
-        "norm2": torch.ones(n, d, dtype=torch.float32, device=dev),
-        "mlp": {
-            "wg": dense_init(gen, d, f, dtype, n),
-            "wu": dense_init(gen, d, f, dtype, n),
-            "wd": dense_init(gen, f, d, dtype, n),
-        },
-    }
+    if cfg.family == "dense":
+        params["blocks"] = _init_dense_block(gen, cfg, dtype, cfg.n_layers)
+    elif cfg.family == "ssm":
+        params["blocks"] = _init_ssm_block(gen, cfg, dtype, cfg.n_layers)
+    elif cfg.family == "hybrid":
+        n_groups, rem = divmod(cfg.n_layers, cfg.attn_every)
+        params["blocks"] = _init_ssm_block(gen, cfg, dtype, n_groups * cfg.attn_every)
+        if rem:
+            params["tail"] = _init_ssm_block(gen, cfg, dtype, rem)
+        params["shared"] = _init_dense_block(gen, cfg, dtype)
+    else:
+        raise _not_ported(cfg, "init_params")
     return params
 
 
@@ -133,3 +182,223 @@ def _quantize_token_kv(kv: torch.Tensor, bits: int):
     if bits == 4:
         q = pack_int4(q, dim=-1)
     return q, scale.float()
+
+
+# ================================================= contiguous-cache serving ====
+# The static-wave path (train/server.py): prefill the whole (left-padded)
+# prompt, then one decode step per token with one position shared by the batch.
+_SERVED = ("dense", "ssm", "hybrid")
+
+
+def _check_served(cfg: ArchConfig, what: str) -> None:
+    if cfg.family not in _SERVED:
+        raise _not_ported(cfg, what)
+    if cfg.prefix_len:
+        raise _not_ported(cfg, f"{what} with frontend prefix embeddings")
+
+
+def _attn_block(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
+                window) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (attn_out [B,S,D], k, v); k/v exposed for cache building."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    xn = rms_norm(x, p["norm1"].to(x.dtype), cfg.norm_eps)
+    q = dense(xn, p["wq"]).reshape(b, s, h, hd)
+    k = dense(xn, p["wk"]).reshape(b, s, kv, hd)
+    v = dense(xn, p["wv"]).reshape(b, s, kv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = attn_mod.flash_attention(q, k, v, causal=True, window=window)
+    return dense(o.reshape(b, s, h * hd), p["wo"]), k, v
+
+
+def _embed(params: Params, batch: dict, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x [B,S,D], positions [B,S])."""
+    tokens = batch["tokens"]
+    x = params["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    return x, positions
+
+
+def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, device=None) -> Params:
+    """Pre-allocated decode cache.  KV payloads are int8 when
+    cfg.serve_kv_bits < 16 (nibble-packed along the head dim at 4 bits),
+    in the model dtype otherwise; SSM states are f32."""
+    _check_served(cfg, "init_cache")
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    quant = cfg.serve_kv_bits < 16
+    if cfg.serve_kv_bits == 4:
+        hd = hd // 2
+    kv_dtype = torch.int8 if quant else torch_dtype(cfg.dtype)
+    cache: Params = {"pos": 0}
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    n_attn = cfg.n_layers if cfg.family == "dense" else 0
+    if cfg.family != "dense":
+        dims = ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_state, cfg.ssm_head_p)
+        state = (batch_size, dims.n_heads, dims.head_p, dims.state)
+        if cfg.family == "ssm":
+            cache["ssm"] = zeros(cfg.n_layers, *state)
+        else:
+            n_groups, rem = divmod(cfg.n_layers, cfg.attn_every)
+            cache["ssm"] = zeros(n_groups * cfg.attn_every, *state)
+            if rem:
+                cache["ssm_tail"] = zeros(rem, *state)
+            n_attn = n_groups
+    if n_attn:
+        cache["k"] = zeros(n_attn, batch_size, max_len, kv, hd, dtype=kv_dtype)
+        cache["v"] = torch.zeros_like(cache["k"])
+        if quant:
+            cache["k_scale"] = zeros(n_attn, batch_size, max_len, kv, 1)
+            cache["v_scale"] = torch.zeros_like(cache["k_scale"])
+    return cache
+
+
+def _write_cache_slab(cache_k: torch.Tensor, kq: torch.Tensor, pos: int) -> torch.Tensor:
+    """Write [B, S_new, ...] at sequence offset pos into [B, S_max, ...], in
+    place; the offset clamps so the slab fits, as JAX's
+    ``dynamic_update_slice`` does."""
+    pos = max(0, min(int(pos), cache_k.shape[1] - kq.shape[1]))
+    cache_k[:, pos:pos + kq.shape[1]] = kq
+    return cache_k
+
+
+def _ssm_layer(p: Params, x: torch.Tensor, cfg: ArchConfig, dims, state=None):
+    """Pre-norm residual SSM layer: prefill (state None) returns (x, final
+    state); decode steps ``state`` once and returns (x, new state)."""
+    xn = rms_norm(x, p["norm1"].to(x.dtype), cfg.norm_eps)
+    if state is None:
+        y, st = ssm_mod.ssm_block_with_state(p, xn, dims)
+    else:
+        y, st = ssm_mod.ssm_decode_step(p, xn, state, dims)
+    return x + y, st
+
+
+def _logits(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Last position's f32 logits, the padded vocab masked to -1e30."""
+    x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+    logits = dense(x[:, -1], params["unembed"]).float()
+    pad = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab
+    return logits.masked_fill(pad, -1e30)
+
+
+def prefill(params: Params, batch: dict, cfg: ArchConfig, max_len: int):
+    """Processes the full prompt ``batch["tokens"] [B, S]``; returns
+    (last-token logits [B, V] f32, cache)."""
+    _check_served(cfg, "prefill")
+    x, positions = _embed(params, batch, cfg)
+    b, s, _ = x.shape
+    quant = cfg.serve_kv_bits < 16
+    cache = init_cache(cfg, b, max_len, x.device)
+
+    def fill_kv(slot: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        if quant:
+            k, ks = _quantize_token_kv(k, cfg.serve_kv_bits)
+            v, vs = _quantize_token_kv(v, cfg.serve_kv_bits)
+            cache["k_scale"][slot, :, :s] = ks
+            cache["v_scale"][slot, :, :s] = vs
+        cache["k"][slot, :, :s] = k
+        cache["v"][slot, :, :s] = v
+
+    if cfg.family == "dense":
+        windows = _per_layer_window(cfg, cfg.n_layers)
+        for li in range(cfg.n_layers):
+            p = layer_params(params["blocks"], li)
+            a, k, v = _attn_block(p, x, positions, cfg, layer_window(cfg, windows, li))
+            x = x + a
+            x = x + _mlp_block(p, x, cfg)
+            fill_kv(li, k, v)
+    else:
+        dims = ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_state, cfg.ssm_head_p)
+        every = cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
+        n_blocks = cache["ssm"].shape[0]
+        for li in range(n_blocks):
+            x, cache["ssm"][li] = _ssm_layer(layer_params(params["blocks"], li), x, cfg, dims)
+            if cfg.family == "hybrid" and (li + 1) % every == 0:
+                shared = params["shared"]
+                a, k, v = _attn_block(shared, x, positions, cfg, cfg.window)
+                x = x + a
+                x = x + _mlp_block(shared, x, cfg)
+                fill_kv(li // every, k, v)
+        for li in range(cache["ssm_tail"].shape[0] if "ssm_tail" in cache else 0):
+            x, cache["ssm_tail"][li] = _ssm_layer(layer_params(params["tail"], li), x, cfg,
+                                                  dims)
+    cache["pos"] = s
+    return _logits(params, x, cfg), cache
+
+
+def _decode_attn(p: Params, x: torch.Tensor, cache_slice: dict, pos: int, cfg: ArchConfig,
+                 window):
+    """One-layer decode attention: x [B,1,D] + this layer's cache slice
+    (views, written in place) -> (out [B,1,D], the slice)."""
+    if cfg.serve_kv_bits == 4:
+        raise NotImplementedError(
+            "int4 KV payloads are nibble-packed; only the paged serve path "
+            "(serve/decode.py) unpacks them — use ServeEngine, not decode_step"
+        )
+    b = x.shape[0]
+    kv, hd, h = cfg.n_kv_heads, cfg.hd, cfg.n_heads
+    xn = rms_norm(x, p["norm1"].to(x.dtype), cfg.norm_eps)
+    q = dense(xn, p["wq"]).reshape(b, 1, h, hd)
+    k = dense(xn, p["wk"]).reshape(b, 1, kv, hd)
+    v = dense(xn, p["wv"]).reshape(b, 1, kv, hd)
+    posv = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    q = apply_rope(q, posv, cfg.rope_theta)
+    k = apply_rope(k, posv, cfg.rope_theta)
+    ck, cv = cache_slice["k"], cache_slice["v"]
+    if cfg.serve_kv_bits < 16:
+        kq, ksc = _quantize_token_kv(k, cfg.serve_kv_bits)
+        vq, vsc = _quantize_token_kv(v, cfg.serve_kv_bits)
+        _write_cache_slab(ck, kq, pos)
+        _write_cache_slab(cv, vq, pos)
+        _write_cache_slab(cache_slice["k_scale"], ksc, pos)
+        _write_cache_slab(cache_slice["v_scale"], vsc, pos)
+        o = attn_mod.decode_attention(q, ck, cv, pos + 1, window=window,
+                                      k_scale=cache_slice["k_scale"],
+                                      v_scale=cache_slice["v_scale"])
+    else:
+        _write_cache_slab(ck, k, pos)
+        _write_cache_slab(cv, v, pos)
+        o = attn_mod.decode_attention(q, ck, cv, pos + 1, window=window)
+    return dense(o.reshape(b, 1, h * hd), p["wo"]), cache_slice
+
+
+def _cache_slice(cache: Params, i: int) -> dict:
+    return {k: cache[k][i] for k in ("k", "v", "k_scale", "v_scale") if k in cache}
+
+
+def decode_step(params: Params, tokens: torch.Tensor, cache: Params, cfg: ArchConfig):
+    """One decode step: tokens [B, 1] -> (logits [B, V] f32, cache), the
+    cache updated in place (see the module note)."""
+    _check_served(cfg, "decode_step")
+    pos = int(cache["pos"])
+    x = params["embed"][tokens.long()].to(torch_dtype(cfg.dtype))  # [B, 1, D]
+
+    if cfg.family == "dense":
+        windows = _per_layer_window(cfg, cfg.n_layers)
+        for li in range(cfg.n_layers):
+            p = layer_params(params["blocks"], li)
+            a, _ = _decode_attn(p, x, _cache_slice(cache, li), pos, cfg,
+                                layer_window(cfg, windows, li))
+            x = x + a
+            x = x + _mlp_block(p, x, cfg)
+    else:
+        dims = ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_state, cfg.ssm_head_p)
+        every = cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
+        for li in range(cache["ssm"].shape[0]):
+            x, cache["ssm"][li] = _ssm_layer(layer_params(params["blocks"], li), x, cfg,
+                                             dims, cache["ssm"][li])
+            if cfg.family == "hybrid" and (li + 1) % every == 0:
+                shared = params["shared"]
+                a, _ = _decode_attn(shared, x, _cache_slice(cache, li // every), pos, cfg,
+                                    cfg.window)
+                x = x + a
+                x = x + _mlp_block(shared, x, cfg)
+        for li in range(cache["ssm_tail"].shape[0] if "ssm_tail" in cache else 0):
+            x, cache["ssm_tail"][li] = _ssm_layer(layer_params(params["tail"], li), x, cfg,
+                                                  dims, cache["ssm_tail"][li])
+    cache["pos"] = pos + 1
+    return _logits(params, x, cfg), cache

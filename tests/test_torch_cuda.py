@@ -1,8 +1,10 @@
 """Each hand-written CUDA kernel of repro_torch against its plain PyTorch
 version, on the card: the W4/W8 dequant matmul in the CF and the FF order,
 the int-mode matmul (bit-exact against the CPU), paged decode and paged
-prefill, at small ragged shapes, at llama3.2-3b's widths and at ResNet18's
-conv shapes.
+prefill, contiguous-cache decode (``mqa_decode``), at small ragged shapes,
+at llama3.2-3b's and zamba2-7b's widths and at ResNet18's conv shapes; and a
+reduced zamba2-7b (hybrid) prefill + decode step on the card against the
+CPU.
 
 Marked ``cuda``: on a machine without a card every test skips with a
 reason.  On the card:
@@ -24,6 +26,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.mpmm import mpmm_cuda, mpmm_ff_cuda, mpmm_int_cuda  # noqa: E402
+from repro_torch.kernels.mqa_decode import mqa_decode_cuda  # noqa: E402
 from repro_torch.kernels.paged_decode import paged_mqa_decode_cuda  # noqa: E402
 from repro_torch.kernels.paged_prefill import paged_mqa_prefill_cuda  # noqa: E402
 
@@ -326,3 +329,113 @@ def test_paged_prefill_kernel_matches_plain(dev, kv_bits, window, c, hkv, g, d):
             sm_scale=1 / math.sqrt(d), kv_bits=kv_bits, window=window,
         )
         _close(got, exp)
+
+
+# ------------------------------------------------- contiguous-cache decode
+MQA_CASES = [
+    # (B, S, Hkv, G, D, lengths): zamba2-7b serving (S = 512 + 32 + 8), the
+    # reduced configs' D = 32 with short rows, llama3.2-3b's GQA with ragged
+    # rows, a long row, and an empty row (0 out, as the Pallas kernel gives)
+    (8, 552, 32, 1, 112, [545, 546, 547, 548, 549, 550, 551, 552]),
+    (2, 300, 2, 2, 32, [5, 1]),
+    (3, 1000, 8, 3, 128, [1000, 517, 33]),
+    (1, 8192, 32, 1, 112, [8191]),
+    (2, 70, 4, 1, 32, [0, 70]),
+]
+
+
+def _contiguous_kv(rng, dev, kv_bits, b, s, hkv, d):
+    kv = []
+    for _ in range(2):
+        x = torch.from_numpy(rng.normal(size=(b, s, hkv, d)).astype(np.float32))
+        kv.extend(ops.quantize_kv(x, kv_bits))
+    kd, ks, vd, vs = (t.to(dev) for t in kv)
+    return kd, vd, ks, vs
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8])
+@pytest.mark.parametrize("b,s,hkv,g,d,lengths", MQA_CASES)
+def test_mqa_decode_kernel_matches_plain(dev, kv_bits, b, s, hkv, g, d, lengths):
+    rng = np.random.default_rng(s + kv_bits)
+    kd, vd, ks, vs = _contiguous_kv(rng, dev, kv_bits, b, s, hkv, d)
+    q = torch.from_numpy(rng.normal(size=(b, hkv * g, d)).astype(np.float32)).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    live = lens > 0
+    for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, dict(atol=1e-4, rtol=1e-4))):
+        qd = q.to(dtype)
+        before = mqa_decode_cuda.launches
+        got = ops.mqa_decode(qd, kd, vd, ks, vs, lens, kv_bits=kv_bits)
+        torch.cuda.synchronize()
+        assert mqa_decode_cuda.launches == before + 1
+        assert got.dtype == dtype and got.shape == (b, hkv * g, d)
+        exp = ops.mqa_decode(qd.cpu(), kd.cpu(), vd.cpu(), ks.cpu(), vs.cpu(), lens.cpu(),
+                             kv_bits=kv_bits)
+        torch.testing.assert_close(got[live].float().cpu(), exp[live.cpu()].float(), **tol)
+        assert (got[~live] == 0).all()
+        # the same inputs give the same bits (fixed-order merge)
+        assert torch.equal(got, ops.mqa_decode(qd, kd, vd, ks, vs, lens, kv_bits=kv_bits))
+    # payloads past each row's length are never read
+    dirty = kd.clone()
+    for i, n in enumerate(lengths):
+        dirty[i, n:] = -128
+    again = ops.mqa_decode(q.to(torch.bfloat16), dirty, vd, ks, vs, lens, kv_bits=kv_bits)
+    assert torch.equal(again, ops.mqa_decode(q.to(torch.bfloat16), kd, vd, ks, vs, lens,
+                                             kv_bits=kv_bits))
+
+
+def test_mqa_decode_kernel_rejects_what_it_does_not_take(dev):
+    kd = torch.zeros(1, 8, 2, 30, dtype=torch.int8, device=dev)  # 30-byte rows
+    sc = torch.ones(1, 8, 2, 1, device=dev)
+    lens = torch.ones(1, dtype=torch.int32, device=dev)
+    q = torch.zeros(1, 2, 1, 30, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="32-bit words"):
+        mqa_decode_cuda(q, kd, kd, sc, sc, lens, kv_bits=8, sm_scale=1.0)
+    q = torch.zeros(1, 2, 1, 32, dtype=torch.float16, device=dev)
+    kd = torch.zeros(1, 8, 2, 32, dtype=torch.int8, device=dev)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        mqa_decode_cuda(q, kd, kd, sc, sc, lens, kv_bits=8, sm_scale=1.0)
+    with pytest.raises(ValueError, match="kv_bits"):
+        mqa_decode_cuda(q.to(torch.bfloat16), kd, kd, sc, sc, lens, kv_bits=16, sm_scale=1.0)
+
+
+def test_hybrid_prefill_and_decode_on_card_match_cpu(dev):
+    """Reduced zamba2-7b (w8/kv8, bf16) with a tail: prefill and two decode
+    steps on the card against the CPU, within twice the CPU's own
+    bf16-vs-float32 logit error; the card's decode steps launch the
+    mqa_decode kernel once per shared-attention application."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("zamba2-7b").reduced(), n_layers=5)
+    params = T.quantize_params(T.init_params(cfg, torch.Generator().manual_seed(0)), 8)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 9)))
+    steps = [torch.tensor([[3], [7]]), torch.tensor([[11], [2]])]
+
+    def run(device, dtype="bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        p = _to(params, device)
+        logits, cache = T.prefill(p, {"tokens": tokens.to(device)}, c, 16)
+        out = [logits.cpu()]
+        for tok in steps:
+            logits, cache = T.decode_step(p, tok.to(device), cache, c)
+            out.append(logits.cpu())
+        return out
+
+    before = mqa_decode_cuda.launches
+    card = run(dev)
+    torch.cuda.synchronize()
+    assert mqa_decode_cuda.launches == before + 2 * (cfg.n_layers // cfg.attn_every)
+    cpu16, cpu32 = run("cpu"), run("cpu", "float32")
+    for a, e, f in zip(card, cpu16, cpu32):
+        a, e, f = a[:, : cfg.vocab], e[:, : cfg.vocab], f[:, : cfg.vocab]
+        assert torch.isfinite(a).all()
+        diff, noise = (a - e).abs(), (f - e).abs()
+        assert diff.max() <= 2 * noise.max() and diff.mean() <= 2 * noise.mean()
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree

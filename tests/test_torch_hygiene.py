@@ -38,7 +38,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = _modules()
     assert "repro_torch.kernels.paged_prefill" in mods and len(mods) > 25
     for name in ("core.isa", "core.dataflow", "core.perfmodel", "models.cnn",
-                 "models.cnn_zoo", "launch.cnn", "device"):
+                 "models.cnn_zoo", "launch.cnn", "device", "models.ssm",
+                 "kernels.mqa_decode", "train.server", "configs.zamba2_7b",
+                 "configs.mamba2_130m"):
         assert f"repro_torch.{name}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -72,6 +74,17 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         tserve.main(["--arch", "llama3.2-3b", "--reduced"])
     assert engine_mod.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_static_wave_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.train.server import Server
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for arch in ("zamba2-7b", "mamba2-130m"):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            Server(get_config(arch).reduced(), {})
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            tserve.main(["--arch", arch, "--reduced"])
 
 
 def test_cnn_entry_points_raise_without_a_card(monkeypatch):
@@ -108,14 +121,19 @@ def test_cpu_tensors_launch_no_kernel_and_a_missing_nvcc_raises(monkeypatch):
     without nvcc raises instead of falling back."""
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.mpmm import mpmm_cuda, mpmm_ff_cuda, mpmm_int_cuda
+    from repro_torch.kernels.mqa_decode import mqa_decode_cuda
 
-    counters = (mpmm_cuda, mpmm_ff_cuda, mpmm_int_cuda)
+    counters = (mpmm_cuda, mpmm_ff_cuda, mpmm_int_cuda, mqa_decode_cuda)
     before = [fn.launches for fn in counters]
     wd, ws = ops.pack_weights(torch.randn(16, 8), 4)
     for df in ("cf", "ff", "auto"):
         ops.mpmm(torch.randn(2, 16), wd, ws, w_bits=4, dataflow=df)
         ops.mpmm(torch.ones(2, 16, dtype=torch.int16), wd, ws, w_bits=4, mode="int",
                  dataflow=df)
+    for bits in (4, 8):
+        kv, sc = ops.quantize_kv(torch.randn(1, 4, 2, 8), bits)
+        ops.mqa_decode(torch.randn(1, 2, 8), kv, kv, sc, sc,
+                       torch.tensor([3], dtype=torch.int32), kv_bits=bits)
     assert [fn.launches for fn in counters] == before
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)

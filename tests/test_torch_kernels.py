@@ -1,7 +1,9 @@
 """The port's plain kernel versions against the JAX package: the W4/W8
 dequant matmul, paged decode and paged prefill, each against the JAX
 ``backend="xla"`` path and the Pallas kernel run in interpret mode (the way
-tests/test_kernels_paged.py runs it on the CPU).  Inputs are numpy arrays
+tests/test_kernels_paged.py runs it on the CPU), and contiguous-cache decode
+(``ops.mqa_decode``) against the Pallas kernel in interpret mode (the way
+tests/test_kernels_decode.py runs it).  Inputs are numpy arrays
 made from a seed and handed to both packages.  Tolerances are the
 reference's own: 2e-3 for mpmm, 3e-3 for attention."""
 import math
@@ -173,6 +175,41 @@ def test_paged_prefill_plain_matches_jax(kv_bits, window, c):
             ))
             np.testing.assert_allclose(got[valid], exp[valid], **ATTN_TOL,
                                        err_msg=f"{backend} layer={layer}")
+
+
+# -------------------------------------------------- contiguous-cache decode
+@pytest.mark.parametrize("kv_bits", [4, 8])
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("lengths", [[5, 1], [300, 173]])
+def test_mqa_decode_plain_matches_jax(kv_bits, groups, lengths):
+    """S = 300 is not a multiple of the Pallas block (bs = 128: padded and
+    masked there); short and ragged lengths; int4 packed along D."""
+    b, s, hkv, d = 2, 300, 2, 32
+    q = RNG.normal(size=(b, hkv * groups, d)).astype(np.float32)
+    kd, ks = jops.quantize_kv(jnp.asarray(RNG.normal(size=(b, s, hkv, d)), jnp.float32), kv_bits)
+    vd, vs = jops.quantize_kv(jnp.asarray(RNG.normal(size=(b, s, hkv, d)), jnp.float32), kv_bits)
+    lens = np.array(lengths, np.int32)
+    exp = jops.mqa_decode(jnp.asarray(q), kd, vd, ks, vs, jnp.asarray(lens), kv_bits=kv_bits,
+                          bs=128, interpret=True)
+    got = ops.mqa_decode(*map(_t, (q, kd, vd, ks, vs, lens)), kv_bits=kv_bits)
+    assert got.shape == (b, hkv * groups, d) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp), **ATTN_TOL)
+    # cache entries at or past a row's length never reach the output
+    kd2 = np.array(kd)
+    kd2[0, lens[0]:] = 127
+    kd2[1, lens[1]:] = -128
+    again = ops.mqa_decode(*map(_t, (q, kd2, vd, ks, vs, lens)), kv_bits=kv_bits)
+    np.testing.assert_array_equal(again.numpy(), got.numpy())
+
+
+def test_mqa_decode_rejects_other_kv_bits():
+    q = torch.zeros(1, 2, 8)
+    kv = torch.zeros(1, 4, 2, 8, dtype=torch.int8)
+    sc = torch.ones(1, 4, 2, 1)
+    for bits in (16, 2):
+        with pytest.raises(ValueError, match="kv_bits"):
+            ops.mqa_decode(q, kv, kv, sc, sc, torch.tensor([1], dtype=torch.int32),
+                           kv_bits=bits)
 
 
 def test_gather_pages_layout():
