@@ -7,7 +7,11 @@ Phases, each printing one JSON line that names the card:
 
 1. build    -- nvcc builds the kernels under src/repro_torch/kernels/csrc.
 2. kernels  -- each hand-written kernel against its plain PyTorch version on
-               the same inputs, in bf16 at llama3.2-3b's serving shapes and at
+               the same inputs, in bf16 at llama3.2-3b's serving shapes (the
+               CF dequant matmul at decode M and at the prefill M of 128 and
+               256, and at zamba2-7b's in_proj / out_proj at M = 4096; two
+               runs of the tensor-core kernel and of paged prefill must give
+               the same bits) and at
                ResNet18's conv shapes (the FF-order dequant matmul), and
                bit-exactly against the CPU's int32 matmul (the int-mode
                matmul); the CF dequant matmul also at ResNet18's three CF
@@ -30,7 +34,8 @@ Phases, each printing one JSON line that names the card:
                served by ServeEngine.generate(): 8 greedy requests with
                512-token prompts (256 shared), 32 new tokens each, weight/KV
                precision cycling over (4,8) (8,4) (8,8) (16,16); run twice,
-               the streams must be identical.
+               the streams must be identical; then one chunk-prefill group
+               call (4 x 128 tokens, w8/kv8) under the profiler.
 6. waves    -- the full 81-layer zamba2-7b (hybrid: Mamba2 + shared
                attention) with seeded random weights served by the
                static-wave train.server.Server: 8 greedy requests of 512
@@ -76,6 +81,11 @@ MPMM_TOL = dict(atol=2e-2, rtol=1e-2)  # bf16 output: one rounding step each way
 ATTN_TOL = dict(atol=1e-2, rtol=1e-2)
 MPMM_SHAPES = [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072), (3072, 128256)]
 PRECISIONS = [(4, 8), (8, 4), (8, 8), (16, 16)]
+# zamba2-7b's in_proj (d_model -> 2 * d_inner + 2 * state + heads) and
+# out_proj (d_inner -> d_model) as (K, N), run at its prefill M (8 x 512)
+ZAMBA_PREFILL_SHAPES = [(3584, 14576), (7168, 3584)]
+# the CF kernel's prefill-M case of the kernels line: (w_bits, M, K, N)
+PREFILL_MPMM_CASE = (8, 256, 3072, 3072)
 
 TPU_KERNELS = {
     "mpmm_dequant": ("src/repro_torch/kernels/csrc/mpmm.cu",
@@ -184,9 +194,9 @@ def kernel_cases(torch, timer, gpu) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.mpmm import mpmm_cuda
+    from repro_torch.kernels.mpmm import launch_plan, mpmm_cuda
     from repro_torch.kernels.paged_decode import paged_mqa_decode_cuda
-    from repro_torch.kernels.paged_prefill import paged_mqa_prefill_cuda
+    from repro_torch.kernels.paged_prefill import launch_grid, paged_mqa_prefill_cuda
     from repro_torch.quant.pack import unpack_int4
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -196,31 +206,62 @@ def kernel_cases(torch, timer, gpu) -> dict:
         note_case(summary, gpu, name, rec, representative)
 
     # ---- mpmm: w4/w8, every (K, N) of the serving path; M covers each
-    # decode batch bucket (one kernel instantiation each) and a prefill M
+    # decode batch bucket (one small-M kernel instantiation each), the
+    # engine's prefill chunk (128) and a larger prefill M; then zamba2-7b's
+    # in_proj / out_proj at its prefill M (8 x 512 tokens), w8
+    def mpmm_case(x, wd, ws, w_bits, w_deq):
+        m, k = x.shape
+        n = wd.shape[-1]
+        got = mpmm_cuda(x, wd, ws, w_bits=w_bits)
+        exp = ref.mpmm_ref(x, wd, ws, w_bits=w_bits)
+        err = max_err(torch, got, exp, MPMM_TOL)
+        del exp
+        if m > 8:  # the tensor-core kernel: its K split is summed in a fixed order
+            check(torch.equal(got, mpmm_cuda(x, wd, ws, w_bits=w_bits)),
+                  f"mpmm w{w_bits} M={m} K={k} N={n}: two runs gave other bits")
+        nbytes = m * k * 2 + wd.numel() + n * 4 + m * n * 2
+        flops = 2.0 * m * n * k
+        b_ms, b_by = bound(nbytes, flops)
+        plan = launch_plan(m, n, k)
+        rec = {
+            "case": f"w{w_bits} M={m} K={k} N={n}", "max_abs_err": err, "tol": MPMM_TOL,
+            "kernel_plan": {key: plan[key] for key in ("kernel", "block_m", "splits", "grid")},
+            "ms": timer(lambda: mpmm_cuda(x, wd, ws, w_bits=w_bits)),
+            "plain_ms": timer(lambda: ref.mpmm_ref(x, wd, ws, w_bits=w_bits), iters=3),
+            "library_ms": timer(lambda: torch.matmul(x, w_deq)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        rec["tflops"] = flops / rec["ms"] / 1e9
+        rec["library_tflops"] = flops / rec["library_ms"] / 1e9
+        note("mpmm_dequant", rec, (w_bits, m, k, n) == (4, 8, 3072, 8192))
+        if (w_bits, m, k, n) == PREFILL_MPMM_CASE:
+            summary["mpmm_dequant"]["prefill"] = {key: rec[key] for key in (
+                "case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}
+
+    def deq(wd, ws, w_bits):
+        return ((unpack_int4(wd, 0) if w_bits == 4 else wd).float() * ws).to(torch.bfloat16)
+
     for w_bits in (4, 8):
         for k, n in MPMM_SHAPES:
             w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
             wd, ws = ops.pack_weights(w, w_bits)
-            w_deq = ((unpack_int4(wd, 0) if w_bits == 4 else wd).float() * ws).to(torch.bfloat16)
+            w_deq = deq(wd, ws, w_bits)
             del w
-            for m in (1, 2, 4, 8, 256):
+            for m in (1, 2, 4, 8, 128, 256):
                 x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
-                got = mpmm_cuda(x, wd, ws, w_bits=w_bits)
-                exp = ref.mpmm_ref(x, wd, ws, w_bits=w_bits)
-                err = max_err(torch, got, exp, MPMM_TOL)
-                nbytes = m * k * 2 + wd.numel() + n * 4 + m * n * 2
-                b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
-                rec = {
-                    "case": f"w{w_bits} M={m} K={k} N={n}", "max_abs_err": err,
-                    "tol": MPMM_TOL,
-                    "ms": timer(lambda: mpmm_cuda(x, wd, ws, w_bits=w_bits)),
-                    "plain_ms": timer(lambda: ref.mpmm_ref(x, wd, ws, w_bits=w_bits), iters=3),
-                    "library_ms": timer(lambda: torch.matmul(x, w_deq)),
-                    "bound_ms": b_ms, "bound_by": b_by,
-                }
-                note("mpmm_dequant", rec, (w_bits, m, k, n) == (4, 8, 3072, 8192))
+                mpmm_case(x, wd, ws, w_bits, w_deq)
             del wd, ws, w_deq
     torch.cuda.empty_cache()
+    for k, n in ZAMBA_PREFILL_SHAPES:
+        w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+        wd, ws = ops.pack_weights(w, 8)
+        w_deq = deq(wd, ws, 8)
+        del w
+        x = torch.randn(WAVE_REQUESTS * WAVE_PROMPT, k, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        mpmm_case(x, wd, ws, 8, w_deq)
+        del x, wd, ws, w_deq
+        torch.cuda.empty_cache()
 
     # ---- paged attention inputs at llama3.2-3b's widths
     hkv, g, d, ps, n_layers, layer = 8, 3, 128, 16, 2, 1
@@ -333,6 +374,9 @@ def kernel_cases(torch, timer, gpu) -> dict:
             got = got.permute(0, 2, 1, 3, 4).reshape(b, c, h, d)
             exp = ref.paged_mqa_prefill_ref(q, *pargs, sm_scale=sm, kv_bits=kv_bits)
             err = max_err(torch, got, exp, ATTN_TOL)
+            again = paged_mqa_prefill_cuda(qg, *kargs, kv_bits=kv_bits, sm_scale=sm)
+            check(torch.equal(got, again.permute(0, 2, 1, 3, 4).reshape(b, c, h, d)),
+                  f"paged prefill kv{kv_bits} C={c}: two runs gave other bits")
             ql = q_lens.tolist()
             visible = sum(n + min(ci + 1, qn) for n, qn in zip(ctx_list, ql) for ci in range(c))
             slots = sum(touched(n, 0) for n in ctx_list)
@@ -352,7 +396,7 @@ def kernel_cases(torch, timer, gpu) -> dict:
             qt = q.transpose(1, 2)
             rec = {
                 "case": f"kv{kv_bits} B={b} C={c} ctx={ctx_list} q_lens={ql}",
-                "max_abs_err": err, "tol": ATTN_TOL,
+                "max_abs_err": err, "tol": ATTN_TOL, "grid": launch_grid(b, hkv, c, g),
                 "ms": timer(lambda: paged_mqa_prefill_cuda(
                     qg, *kargs, kv_bits=kv_bits, sm_scale=sm)),
                 "plain_ms": timer(lambda: ref.paged_mqa_prefill_ref(
@@ -1019,6 +1063,47 @@ def engine_run(torch, seed: int, cfg):
     return [tuple(r.out_tokens) for r in reqs], stats, peak, wall
 
 
+def engine_prefill_profile(torch, cfg) -> dict:
+    """One chunk-prefill group call of the full engine under torch.profiler.
+    Four w8/kv8 requests of 512 random prompt tokens with a 128-token chunk:
+    every engine step prefills one chunk of all four in one group call (one
+    chunk_prefill_step of 4 x 128 tokens).  Step 1 warms up, step 2 (128
+    tokens of context) is timed without the profiler, step 3 (256 of
+    context) runs under it: device time by kernel, and the card's busy share
+    of step 2's wall time."""
+    import numpy as np
+
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.params import PrecisionParams, SamplingParams
+
+    params = model_lib.init_params(cfg, torch.Generator(device="cuda").manual_seed(7))
+    engine = ServeEngine(cfg, params, max_slots=8, page_size=16, prefill_chunk=128,
+                         num_pages=8 * 40, device="cuda")
+    rng = np.random.default_rng(7)
+    for _ in range(4):
+        engine.submit(rng.integers(0, cfg.vocab, 512).astype(np.int32),
+                      SamplingParams(max_new_tokens=4), PrecisionParams(w_bits=8, kv_bits=8))
+
+    def step():
+        engine.step()
+        torch.cuda.synchronize()
+
+    step()
+    chunks = engine.stats.prefill_chunks
+    t0 = time.perf_counter()
+    step()
+    wall = time.perf_counter() - t0
+    prof = device_profile(torch, step, wall)
+    check(engine.stats.prefill_chunks == chunks + 2,
+          f"profiled engine steps ran {engine.stats.prefill_chunks - chunks} prefill "
+          "group calls, expected one each")
+    del engine, params
+    torch.cuda.empty_cache()
+    return {"requests": 4, "prompt": 512, "chunk": 128, "w_bits": 8, "kv_bits": 8,
+            "group_call_ms": wall * 1e3, **prof}
+
+
 def _p50(samples) -> float:
     ordered = sorted(samples)
     return ordered[len(ordered) // 2]
@@ -1069,11 +1154,15 @@ def main() -> int:
                 "mpmm_int": mpmm_int_cuda, "mqa_decode": mqa_decode_cuda}
 
     def count(path):
-        """Drive one path with every count at 0; its launches per kernel."""
+        """Drive one path with every count at 0; its launches per kernel
+        (and, apart, the CF matmul's launches at prefill M)."""
         for fn in counters.values():
             fn.launches = 0
+        mpmm_cuda.tensor_core_launches = 0
         result = path()
-        return result, {name: fn.launches for name, fn in counters.items()}
+        launches = {name: fn.launches for name, fn in counters.items()}
+        launches["mpmm_dequant_prefill_m"] = mpmm_cuda.tensor_core_launches
+        return result, launches
 
     _, cnn_launches = count(lambda: cnn_run(torch, gpu))
     emit({"phase": "cnn_launches", "launches": cnn_launches, "gpu": gpu})
@@ -1105,6 +1194,9 @@ def main() -> int:
           "gpu": gpu})
 
     torch.cuda.empty_cache()
+    emit({"phase": "engine_prefill_profile",
+          "what": "one chunk-prefill group call of the full engine (4 x 128 tokens)",
+          "profile": engine_prefill_profile(torch, llama), "gpu": gpu})
 
     # ---- waves: full zamba2-7b through the static-wave Server, twice
     (streams, wstats, wpeak, wwall, srv), wave_launches = count(
@@ -1167,6 +1259,8 @@ def main() -> int:
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": s["library_ms"], "case": s["case"],
+            **({"prefill": {**s["prefill"], "launches": by_path[path]["mpmm_dequant_prefill_m"]}}
+               if "prefill" in s else {}),
         })
     print(json.dumps({"kernels": kernels, "total_s": time.perf_counter() - t_start}))
     print(gpu)

@@ -4,92 +4,79 @@
 // Replaces repro/kernels/paged_prefill.py::paged_mqa_prefill_pallas (body
 // _prefill_kernel).  Same function: q [B, Hkv, C, G, D] (query rows
 // r = c * G + g) attends to (a) the ctx_lens[b] tokens already in the pool,
-// read in place through the page table and dequantized in registers, and
-// (b) the chunk's not-yet-stored K/V [B, Hkv, C, Dk], where key j is visible
-// to query c iff j <= c and j < q_lens[b].  Pool keys all sit below ctx, so
-// they are causal for free; a sliding window masks per query-key distance.
-// Padding query rows (c >= q_len) come out finite: they see the pool and the
-// valid chunk keys, and a row that sees nothing normalises 0 / 1e-20 = 0.
+// read in place through the page table, and (b) the chunk's not-yet-stored
+// K/V [B, Hkv, C, Dk], where key j is visible to query c iff j <= c and
+// j < q_lens[b].  Pool keys all sit below ctx, so they are causal for free; a
+// sliding window masks per query-key distance.  Padding query rows
+// (c >= q_len) come out finite: they see the pool and the valid chunk keys,
+// and a row that sees nothing normalises 0 / 1e-20 = 0.
 //
 // TPU -> Hopper: the Pallas kernel holds a whole chunk's [C*G, D] f32
-// accumulator in VMEM and walks page slots as a sequential grid axis.  At
-// C = 128, G = 3, D = 128 that accumulator alone is 196 KB, so here the query
-// rows are tiled across blocks: grid (b, kv_head, query tile of 16 rows),
-// each block looping over the live pool positions [win_lo, ctx) (win_lo =
-// max(ctx + 1 - window, 0), the first query's window start) and then over
-// the chunk keys it can see, carrying m / l / acc in shared memory.
+// accumulator in VMEM and walks page slots as a sequential grid axis.  Here
+// the query rows are tiled across blocks, FlashAttention-2 style: grid (b,
+// kv head, 64-row query tile), 4 warps, each owning 16 query rows whose Q
+// fragments, running max / sum and output accumulator stay in registers for
+// the whole block.  The block walks 64-key tiles: first the live pool
+// positions [win_lo, ctx) (win_lo from the window and the block's first
+// query), then the chunk keys its queries can see.
 //
-// What bounds it on an H100: at serving chunk sizes, the score and value
-// products (operations); at small chunks, the K/V bytes.  Each 32-key tile
-// resolves its payload rows into shared memory first, then every thread
-// issues 32-bit payload loads back to back (common.cuh: load_kv_tile).
-// Scores and the weighted sum run on the CUDA cores in f32 from shared
-// memory, and each K/V tile is re-read once per query tile (from L2):
-// simple, not tuned; tensor-core (wgmma) tiles are later work.
+// What bounds it on an H100: at serving chunk sizes the two products
+// (operations), at small chunks the K/V bytes and latency.  The design:
+// - key tiles are gathered through the page table with cp.async into a
+//   ring (one page of one head is ps rows of Dk bytes at stride Hkv * Dk,
+//   whole 16-byte copies at D = 128 for every kv_bits): the next two tiles'
+//   payload and scales (int8 / int4; the next tile for bf16) are in flight
+//   while the current one is converted and multiplied, and the page-table
+//   entries of the tile after those are already being read;
+// - the int8 / int4 payload is turned into bf16 in shared memory, exactly
+//   (integers of at most 8 bits), each thread a whole row in unrolled
+//   16-byte chunks, so S = Q K_int^T runs on the tensor cores
+//   (mma.sync.m16n8k16, f32 accumulate) with exact products, and column t is
+//   scaled by k_scale[t] * sm_scale afterwards, in f32;
+// - the online softmax runs in registers on the accumulator layout, with the
+//   row max and sum across the 4 lanes of a row by warp shuffles;
+// - P V on the tensor cores: v_scale[t] is folded into P in f32, and
+//   P * v_scale enters as two bf16 terms, hi = bf16(x) and lo = bf16(x - hi)
+//   (relative error 2^-17, where one bf16 rounding gives 2^-9 and flipped a
+//   greedy pick against the CPU); V_int (exact in bf16) is read with
+//   ldmatrix.trans.  The running sum l adds the f32 p, unscaled.
+// A head dim is zero-padded in shared memory to the next of 32, 64 and 128
+// (DP).  No atomics: the same inputs give the same bits.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int PF_THREADS = 128;
-constexpr int PF_TQ = 16;  // query rows per block
-constexpr int PF_KT = 32;  // keys per tile
+constexpr int PF_THREADS = 128;  // 4 warps x 16 query rows
+constexpr int PF_TQ = 64;        // query rows per block
+constexpr int PF_KT = 64;        // keys per tile
 
-struct Tile {
-  int64_t* rows_s;  // [KT] payload rows of the staged keys
-  float* q_s;    // [TQ][D]
-  float* acc_s;  // [TQ][D]
-  float* k_s;    // [KT][D + 1]
-  float* v_s;    // [KT][D]
-  float* p_s;    // [TQ][KT]
-  float* m_s;    // [TQ]
-  float* l_s;    // [TQ]
-  float* a_s;    // [TQ]
+// Shared-memory layout for head dim padded to DP: bf16 tiles of TP-element
+// rows (TP * 2 bytes is an odd multiple of 16, so the 8 rows an ldmatrix
+// reads hit distinct banks).
+// kv_bits 16: Q, then a 2-stage ring of K / V tiles that the products read
+// directly.  kv_bits 8 / 4: Q, a 3-stage ring of raw payload rows and raw
+// scales (1 or 1/2 byte a value, so a deeper ring fits), and the bf16 K / V
+// tiles plus per-key factors converted from the stage of the current tile.
+template <int DP, int KV_BITS>
+struct PfSmem {
+  static constexpr int TP = DP + 8;
+  static constexpr int TILE = PF_KT * TP * 2;  // one bf16 K or V tile, bytes
+  static constexpr int RAW_PITCH = KV_BITS == 8 ? DP : DP / 2;
+  static constexpr int RAW = PF_KT * RAW_PITCH;  // one raw K or V tile (8 / 4 bits)
+  static constexpr int Q = 0;
+  static constexpr int RING = Q + PF_TQ * TP * 2;
+  // one ring stage: [K tile, V tile] (16 bits) or [raw K, raw V, k scales, v scales]
+  static constexpr int STAGE = KV_BITS == 16 ? 2 * TILE : 2 * RAW + 2 * PF_KT * 4;
+  static constexpr int STAGES = KV_BITS == 16 ? 2 : 3;  // tiles in flight: STAGES - 1
+  static constexpr int CONV = RING + STAGES * STAGE;  // bf16 K, bf16 V, k factors, v factors
+  static constexpr int KF = CONV + 2 * TILE;
+  static constexpr int VF = KF + PF_KT * 4;
+  static constexpr int BYTES = KV_BITS == 16 ? CONV : VF + PF_KT * 4;
 };
 
-// One online-softmax step over a staged K/V tile of nt keys.  valid(i, t)
-// says whether query row i of the block sees key t of the tile.
-template <typename Valid>
-__device__ void online_update(const Tile& s, int d, int nt, float sm_scale,
-                              Valid valid) {
-  const int tid = threadIdx.x;
-  const int ldk = d + 1;
-  for (int i = tid; i < PF_TQ * PF_KT; i += blockDim.x) {
-    const int r = i / PF_KT, t = i % PF_KT;
-    float sc = -INFINITY;
-    if (t < nt && valid(r, t)) {
-      float dot = 0.f;
-      for (int e = 0; e < d; ++e) dot += s.q_s[r * d + e] * s.k_s[t * ldk + e];
-      sc = dot * sm_scale;
-    }
-    s.p_s[i] = sc;
-  }
-  __syncthreads();
-  for (int r = tid; r < PF_TQ; r += blockDim.x) {
-    const float m_prev = s.m_s[r];
-    float mx = m_prev;
-    for (int t = 0; t < nt; ++t) mx = fmaxf(mx, s.p_s[r * PF_KT + t]);
-    const float alpha = expf(m_prev - mx);
-    float sum = 0.f;
-    for (int t = 0; t < PF_KT; ++t) {
-      const float sc = s.p_s[r * PF_KT + t];
-      const float p = (t < nt && sc != -INFINITY) ? expf(sc - mx) : 0.f;
-      s.p_s[r * PF_KT + t] = p;
-      sum += p;
-    }
-    s.l_s[r] = s.l_s[r] * alpha + sum;
-    s.m_s[r] = mx;
-    s.a_s[r] = alpha;
-  }
-  __syncthreads();
-  for (int i = tid; i < PF_TQ * d; i += blockDim.x) {
-    const int r = i / d, e = i % d;
-    float acc = s.acc_s[i] * s.a_s[r];
-    for (int t = 0; t < nt; ++t) acc += s.p_s[r * PF_KT + t] * s.v_s[t * d + e];
-    s.acc_s[i] = acc;
-  }
-  __syncthreads();
-}
-
+template <int DP, int KV_BITS>
 __global__ void __launch_bounds__(PF_THREADS)
 paged_prefill_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hkv, C, G, D]
                      const void* __restrict__ k_pool,      // [L, P, ps, Hkv, Dk]
@@ -105,96 +92,396 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hkv, C, G, D]
                      const float* __restrict__ chunk_v_scale,
                      __nv_bfloat16* __restrict__ out,      // [B, Hkv, C, G, D]
                      int layer, int n_pages, int ps, int hkv, int g_size, int d,
-                     int w, int c_len, int kv_bits, int window, float sm_scale) {
-  extern __shared__ float smem[];
+                     int w, int c_len, int window, float sm_scale) {
+  using L = PfSmem<DP, KV_BITS>;
+  constexpr int TP = L::TP;
+  extern __shared__ __align__(16) uint8_t smem[];
   const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  const int ldk = d + 1;
+  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, qd = lane & 3;
   const int n_rows = c_len * g_size;
   const int r0 = blockIdx.z * PF_TQ;
   const int nr = min(PF_TQ, n_rows - r0);
-  Tile s;
-  s.rows_s = reinterpret_cast<int64_t*>(smem);
-  s.q_s = smem + 2 * PF_KT;
-  s.acc_s = s.q_s + PF_TQ * d;
-  s.k_s = s.acc_s + PF_TQ * d;
-  s.v_s = s.k_s + PF_KT * ldk;
-  s.p_s = s.v_s + PF_KT * d;
-  s.m_s = s.p_s + PF_TQ * PF_KT;
-  s.l_s = s.m_s + PF_TQ;
-  s.a_s = s.l_s + PF_TQ;
-
+  const int row_bytes = kv_row_bytes(d, KV_BITS);
   const int ctx = ctx_lens[b];
   const int qlen = q_lens[b];
-  const int win_lo = window > 0 ? max(ctx + 1 - window, 0) : 0;
-  const int64_t head_row0 = (int64_t)(b * hkv + h) * n_rows;  // row r of (b, h)
+  const int c_first = r0 / g_size, c_last = (r0 + nr - 1) / g_size;
+  const int64_t head_row0 = (int64_t)(b * hkv + h) * n_rows;  // query row r of (b, h)
+  const int64_t chunk_row0 = (int64_t)(b * hkv + h) * c_len;  // chunk key j of (b, h)
 
-  for (int i = tid; i < PF_TQ * d; i += blockDim.x) {
-    const int r = i / d, e = i % d;
-    s.q_s[i] = r < nr ? __bfloat162float(q[(head_row0 + r0 + r) * d + e]) : 0.f;
-    s.acc_s[i] = 0.f;
-  }
-  for (int r = tid; r < PF_TQ; r += blockDim.x) {
-    s.m_s[r] = SOFTMAX_M0;
-    s.l_s[r] = 0.f;
-  }
-  __syncthreads();
+  // key tiles: pool positions [win_lo, ctx), then chunk keys [j_lo, j_end)
+  const int win_lo = window > 0 ? max(ctx + c_first + 1 - window, 0) : 0;
+  const int n_pool = ctx > win_lo ? (ctx - win_lo + PF_KT - 1) / PF_KT : 0;
+  const int j_lo = window > 0 ? max(c_first + 1 - window, 0) : 0;
+  const int j_end = min(qlen, c_last + 1);
+  const int n_chunk = j_end > j_lo ? (j_end - j_lo + PF_KT - 1) / PF_KT : 0;
+  const int n_tiles = n_pool + n_chunk;
 
-  // (a) pool keys at positions [win_lo, ctx)
-  for (int t0 = win_lo; t0 < ctx; t0 += PF_KT) {
-    const int nt = min(PF_KT, ctx - t0);
-    for (int t = tid; t < nt; t += blockDim.x) {
-      const int pos = t0 + t;
-      const int page = tables[(int64_t)b * w + pos / ps];
-      const int64_t tok = ((int64_t)layer * n_pages + page) * ps + pos % ps;
-      s.rows_s[t] = tok * hkv + h;
+  // A head dim below DP leaves columns no copy writes: zero everything once,
+  // so they stay 0.  At d == DP every byte that is read is written first.
+  if (d < DP) {
+    for (int i = tid; i < L::BYTES / 16; i += PF_THREADS) {
+      reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
     }
     __syncthreads();
-    load_kv_tile(k_pool, v_pool, k_scale, v_scale, s.rows_s, nt, d, kv_bits, s.k_s, ldk,
-                 s.v_s);
-    __syncthreads();
-    online_update(s, d, nt, sm_scale, [&](int r, int t) {
-      if (r >= nr) return false;
-      const int c = (r0 + r) / g_size;
-      return window <= 0 || (ctx + c) - (t0 + t) < window;
-    });
   }
 
-  // (b) the chunk's own keys j < min(q_len, last query chunk index + 1)
-  const int c_last = (r0 + nr - 1) / g_size;
-  const int j_end = min(qlen, c_last + 1);
-  const int64_t chunk_row0 = (int64_t)(b * hkv + h) * c_len;
-  for (int j0 = 0; j0 < j_end; j0 += PF_KT) {
-    const int nt = min(PF_KT, j_end - j0);
-    for (int t = tid; t < nt; t += blockDim.x) s.rows_s[t] = chunk_row0 + j0 + t;
-    __syncthreads();
-    load_kv_tile(chunk_k, chunk_v, chunk_k_scale, chunk_v_scale, s.rows_s, nt, d, kv_bits,
-                 s.k_s, ldk, s.v_s);
-    __syncthreads();
-    online_update(s, d, nt, sm_scale, [&](int r, int t) {
-      if (r >= nr) return false;
-      const int c = (r0 + r) / g_size;
-      const int j = j0 + t;
-      return j <= c && (window <= 0 || c - j < window);
-    });
-  }
+  // The copies of a tile: thread (t = tid % 64, side = tid / 64) copies the
+  // K (side 0) or V (side 1) payload row of key t and, for int payloads, its
+  // scale; rows past the tile's keys are zero-filled.  tile_row resolves the
+  // row through the page table, two tiles before the copies it feeds, so
+  // the table load's latency hides behind the products.
+  const int my_t = tid & (PF_KT - 1), side = tid >> 6;  // side 0: K, 1: V
+  auto tile_row = [&](int i) -> int64_t {
+    const bool pool = i < n_pool;
+    const int pos = (pool ? win_lo + i * PF_KT : j_lo + (i - n_pool) * PF_KT) + my_t;
+    if (pos >= (pool ? ctx : j_end)) return -1;
+    if (!pool) return chunk_row0 + pos;
+    const int page = tables[(int64_t)b * w + pos / ps];
+    return (((int64_t)layer * n_pages + page) * ps + pos % ps) * hkv + h;
+  };
+  auto issue = [&](int i, int64_t row) {
+    const bool pool = i < n_pool;
+    const bool ok = row >= 0;
+    uint8_t* st = smem + L::RING + (i % L::STAGES) * L::STAGE;
+    uint8_t* dst = st + (KV_BITS == 16 ? side * L::TILE + my_t * TP * 2
+                                       : side * L::RAW + my_t * L::RAW_PITCH);
+    const uint8_t* base = static_cast<const uint8_t*>(
+        side == 0 ? (pool ? k_pool : chunk_k) : (pool ? v_pool : chunk_v));
+    const uint8_t* src = ok ? base + row * row_bytes : base;
+    auto copy_row = [&](auto vec) {
+      constexpr int V = decltype(vec)::value;
+      for (int off = 0; off < row_bytes; off += V) {
+        cp_async<V>(dst + off, ok ? src + off : base, ok);
+      }
+    };
+    if (row_bytes % 16 == 0) {
+      copy_row(std::integral_constant<int, 16>());
+    } else if (row_bytes % 8 == 0) {
+      copy_row(std::integral_constant<int, 8>());
+    } else {
+      copy_row(std::integral_constant<int, 4>());
+    }
+    if constexpr (KV_BITS < 16) {
+      const float* sb = side == 0 ? (pool ? k_scale : chunk_k_scale)
+                                  : (pool ? v_scale : chunk_v_scale);
+      float* sd = reinterpret_cast<float*>(st + 2 * L::RAW) + side * PF_KT + my_t;
+      cp_async<4>(sd, ok ? sb + row : sb, ok);
+    }
+  };
 
-  for (int i = tid; i < nr * d; i += blockDim.x) {
-    const int r = i / d, e = i % d;
-    out[(head_row0 + r0 + r) * d + e] =
-        __float2bfloat16(s.acc_s[i] / fmaxf(s.l_s[r], 1e-20f));
+  // the block's Q rows (bf16, zero-filled past nr rows) in one commit group
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L::Q);
+  auto copy_q = [&](auto vec) {
+    constexpr int V = decltype(vec)::value;
+    const int cpr = 2 * d / V;
+    for (int c = tid; c < PF_TQ * cpr; c += PF_THREADS) {
+      const int r = c / cpr, off = (c - r * cpr) * V;
+      const bool ok = r < nr;
+      const uint8_t* src = reinterpret_cast<const uint8_t*>(q + (head_row0 + r0 + r) * d);
+      cp_async<V>(reinterpret_cast<uint8_t*>(qs + r * TP) + off,
+                  ok ? src + off : reinterpret_cast<const uint8_t*>(q), ok);
+    }
+  };
+  if (d % 8 == 0) {
+    copy_q(std::integral_constant<int, 16>());
+  } else if (d % 4 == 0) {
+    copy_q(std::integral_constant<int, 8>());
+  } else {
+    copy_q(std::integral_constant<int, 4>());
+  }
+  cp_async_commit();
+  // then one commit group per tile (empty past the last), so waiting for all
+  // but the newest AHEAD - 1 groups means the oldest tile has landed
+  constexpr int AHEAD = L::STAGES - 1;
+#pragma unroll
+  for (int a = 0; a < AHEAD; ++a) {
+    if (a < n_tiles) issue(a, tile_row(a));
+    cp_async_commit();
+  }
+  // page-table lookups run two tiles ahead of the copies they feed
+  int64_t row_next = AHEAD < n_tiles ? tile_row(AHEAD) : -1;
+  int64_t row_after = AHEAD + 1 < n_tiles ? tile_row(AHEAD + 1) : -1;
+  cp_async_wait<AHEAD>();  // Q has landed
+  __syncthreads();
+
+  const bool warp_live = warp * 16 < nr;
+  uint32_t qf[DP / 16][4];
+#pragma unroll
+  for (int kd = 0; kd < DP / 16; ++kd) {
+    ldmatrix_x4(qf[kd], qs + (warp * 16 + (lane & 15)) * TP + kd * 16 + (lane >> 4) * 8);
+  }
+  // this lane's two query rows (g, g + 8): their chunk index, -1 if dead
+  int c_row[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = warp * 16 + g + 8 * hh;
+    c_row[hh] = r < nr ? (r0 + r) / g_size : -1;
+  }
+  // scores in the log2 domain: exp2(s * log2 e) = exp(s)
+  const float sm_log2 = sm_scale * 1.4426950408889634f;
+  float o[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_run[2] = {SOFTMAX_M0, SOFTMAX_M0}, l_run[2] = {0.f, 0.f};
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<AHEAD - 1>();
+    __syncthreads();  // tile i has landed; every warp is done with tile i - 1
+    if (i + AHEAD < n_tiles) {  // into the stage tile i - 1 used
+      issue(i + AHEAD, row_next);
+      row_next = row_after;
+      if (i + AHEAD + 2 < n_tiles) row_after = tile_row(i + AHEAD + 2);
+    }
+    cp_async_commit();
+    const bool pool = i < n_pool;
+    const int t0 = pool ? win_lo + i * PF_KT : j_lo + (i - n_pool) * PF_KT;
+    const int nt = min(PF_KT, (pool ? ctx : j_end) - t0);
+    const uint8_t* st = smem + L::RING + (i % L::STAGES) * L::STAGE;
+    const __nv_bfloat16* ks;
+    const __nv_bfloat16* vs;
+    const float* kf = nullptr;
+    const float* vf = nullptr;
+    if constexpr (KV_BITS == 16) {
+      ks = reinterpret_cast<const __nv_bfloat16*>(st);
+      vs = reinterpret_cast<const __nv_bfloat16*>(st + L::TILE);
+    } else {
+      // raw payload -> bf16 tiles (exact), scales -> per-key factors.
+      // Thread (t, side) converts row t of K or V in 16-byte chunks, fully
+      // unrolled; the chunk order is skewed by t so that the 8 lanes of a
+      // shared-memory phase read 8 different bank groups.
+      constexpr int CPR = L::RAW_PITCH / 16;  // chunks per raw row (zero past d)
+      uint8_t* kc = smem + L::CONV;
+      const uint8_t* src_row = st + side * L::RAW + my_t * L::RAW_PITCH;
+      uint8_t* dst_row = kc + side * L::TILE + my_t * TP * 2;
+#pragma unroll
+      for (int j = 0; j < CPR; ++j) {
+        const int ck = (j + my_t) & (CPR - 1);
+        const uint4 raw = *reinterpret_cast<const uint4*>(src_row + 16 * ck);
+        const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+        if constexpr (KV_BITS == 8) {  // 16 values -> 32 bytes
+          uint32_t o[8];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const uint32_t bw = words[u] ^ 0x80808080u;
+            o[2 * u] = pack_int_bf16x2(s8_biased_to_f32(bw, 0), s8_biased_to_f32(bw, 1));
+            o[2 * u + 1] = pack_int_bf16x2(s8_biased_to_f32(bw, 2), s8_biased_to_f32(bw, 3));
+          }
+          uint4* dst = reinterpret_cast<uint4*>(dst_row + 32 * ck);
+          dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
+          dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
+        } else {  // 32 values -> 64 bytes
+          uint4* dst = reinterpret_cast<uint4*>(dst_row + 64 * ck);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const uint32_t bw = words[u] ^ 0x88888888u;
+            dst[u] = make_uint4(s4x2_biased_to_bf16x2(bw, 0), s4x2_biased_to_bf16x2(bw, 1),
+                                s4x2_biased_to_bf16x2(bw, 2), s4x2_biased_to_bf16x2(bw, 3));
+          }
+        }
+      }
+      {
+        const float raw = reinterpret_cast<const float*>(st + 2 * L::RAW)[tid];
+        reinterpret_cast<float*>(smem + L::KF)[tid] = side == 0 ? raw * sm_log2 : raw;
+      }
+      __syncthreads();  // converted
+      ks = reinterpret_cast<const __nv_bfloat16*>(kc);
+      vs = reinterpret_cast<const __nv_bfloat16*>(kc + L::TILE);
+      kf = reinterpret_cast<const float*>(smem + L::KF);
+      vf = reinterpret_cast<const float*>(smem + L::VF);
+    }
+    if (!warp_live) continue;
+
+    // S = Q K^T: 16 rows x 64 keys per warp, f32
+    float s[PF_KT / 8][4];
+#pragma unroll
+    for (int j = 0; j < PF_KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < DP / 16; ++kd) {
+#pragma unroll
+      for (int np = 0; np < PF_KT / 16; ++np) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * TP + kd * 16 +
+                            ((lane >> 3) & 1) * 8);
+        mma_bf16_16816(s[2 * np], qf[kd], kb[0], kb[1]);
+        mma_bf16_16816(s[2 * np + 1], qf[kd], kb[2], kb[3]);
+      }
+    }
+    // scale, mask, online softmax on rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    float alpha[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      // the row sees tile keys t_lo..t_hi: pool keys all lie below the
+      // chunk (causal for free), chunk keys up to its own index c; a window
+      // cuts both from below; a dead row sees none
+      const int c = c_row[hh];
+      int t_lo = 0, t_hi = nt - 1;
+      if (c < 0) {
+        t_hi = -1;
+      } else if (pool) {
+        if (window > 0) t_lo = ctx + c - window + 1 - t0;
+      } else {
+        t_hi = min(t_hi, c - t0);
+        if (window > 0) t_lo = c - window + 1 - t0;
+      }
+      float mx = SOFTMAX_M0;
+#pragma unroll
+      for (int j = 0; j < PF_KT / 8; ++j) {
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int t = j * 8 + 2 * qd + e2;
+          const bool ok = t >= t_lo && t <= t_hi;
+          const float f = KV_BITS == 16 ? sm_log2 : kf[t];
+          const float v = ok ? s[j][2 * hh + e2] * f : -INFINITY;
+          s[j][2 * hh + e2] = v;
+          mx = fmaxf(mx, v);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[hh], mx);
+      alpha[hh] = exp2f(m_run[hh] - m_new);
+      m_run[hh] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < PF_KT / 8; ++j) {
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {  // masked: exp2(-inf) = 0
+          const float p = exp2f(s[j][2 * hh + e2] - m_new);
+          s[j][2 * hh + e2] = p;
+          sum += p;
+        }
+      }
+      l_run[hh] = l_run[hh] * alpha[hh] + sum;  // this lane's share of the row sum
+    }
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+    // O += (P * v_scale) V.  P's accumulator layout is the A fragment
+    // layout; P * v_scale (f32) goes in as two bf16 terms, hi + lo, so the
+    // weights keep about 16 bits (one bf16 rounding would keep 8)
+#pragma unroll
+    for (int kk = 0; kk < PF_KT / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int half_k = 0; half_k < 2; ++half_k) {  // keys 16kk + (0..7) and + (8..15)
+        const int j = 2 * kk + half_k;
+        const int t = j * 8 + 2 * qd;
+        const float v0 = KV_BITS == 16 ? 1.f : vf[t];
+        const float v1 = KV_BITS == 16 ? 1.f : vf[t + 1];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float x0 = s[j][2 * hh] * v0, x1 = s[j][2 * hh + 1] * v1;
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+          const __nv_bfloat162 lo =
+              __floats2bfloat162_rn(x0 - __low2float(hi), x1 - __high2float(hi));
+          ph[2 * half_k + hh] = *reinterpret_cast<const uint32_t*>(&hi);
+          pl[2 * half_k + hh] = *reinterpret_cast<const uint32_t*>(&lo);
+        }
+      }
+#pragma unroll
+      for (int dp = 0; dp < DP / 16; dp += 2) {  // 4 accumulators between dependent mma
+        uint32_t vb[2][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          ldmatrix_x4_trans(vb[u], vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * TP +
+                                       (dp + u) * 16 + (lane >> 4) * 8);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          mma_bf16_16816(o[2 * (dp + u)], ph, vb[u][0], vb[u][1]);
+          mma_bf16_16816(o[2 * (dp + u) + 1], ph, vb[u][2], vb[u][3]);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          mma_bf16_16816(o[2 * (dp + u)], pl, vb[u][0], vb[u][1]);
+          mma_bf16_16816(o[2 * (dp + u) + 1], pl, vb[u][2], vb[u][3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!warp_live) return;
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float l = l_run[hh];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / fmaxf(l, 1e-20f);
+    const int r = warp * 16 + g + 8 * hh;
+    if (r >= nr) continue;
+    __nv_bfloat16* orow = out + (head_row0 + r0 + r) * d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int e = j * 8 + 2 * qd;
+      if (e < d) {
+        __nv_bfloat162 v = __floats2bfloat162_rn(o[j][2 * hh] * inv, o[j][2 * hh + 1] * inv);
+        *reinterpret_cast<__nv_bfloat162*>(orow + e) = v;
+      }
+    }
   }
 }
 
-// Dynamic shared memory the kernel needs for one head dim, in bytes.
-size_t smem_bytes(int d) {
-  return sizeof(float) * (2 * PF_KT + 2 * PF_TQ * d + PF_KT * (d + 1) + PF_KT * d +
-                          PF_TQ * PF_KT + 3 * PF_TQ);
+template <int DP, int KV_BITS>
+cudaError_t launch_prefill(dim3 grid, cudaStream_t s, const void* q, const void* k_pool,
+                           const void* v_pool, const void* k_scale, const void* v_scale,
+                           const void* tables, const void* ctx_lens, const void* q_lens,
+                           const void* chunk_k, const void* chunk_v,
+                           const void* chunk_k_scale, const void* chunk_v_scale, void* out,
+                           int layer, int n_pages, int ps, int hkv, int g_size, int d, int w,
+                           int c_len, int window, float sm_scale) {
+  constexpr int smem = PfSmem<DP, KV_BITS>::BYTES;
+  auto kernel = paged_prefill_kernel<DP, KV_BITS>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, PF_THREADS, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), k_pool, v_pool,
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const int32_t*>(tables), static_cast<const int32_t*>(ctx_lens),
+      static_cast<const int32_t*>(q_lens), chunk_k, chunk_v,
+      static_cast<const float*>(chunk_k_scale), static_cast<const float*>(chunk_v_scale),
+      static_cast<__nv_bfloat16*>(out), layer, n_pages, ps, hkv, g_size, d, w, c_len, window,
+      sm_scale);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t dispatch_kv(int kv_bits, dim3 grid, cudaStream_t s, const void* q,
+                        const void* k_pool, const void* v_pool, const void* k_scale,
+                        const void* v_scale, const void* tables, const void* ctx_lens,
+                        const void* q_lens, const void* chunk_k, const void* chunk_v,
+                        const void* chunk_k_scale, const void* chunk_v_scale, void* out,
+                        int layer, int n_pages, int ps, int hkv, int g_size, int d, int w,
+                        int c_len, int window, float sm_scale) {
+#define PF_ARGS                                                                       \
+  grid, s, q, k_pool, v_pool, k_scale, v_scale, tables, ctx_lens, q_lens, chunk_k,   \
+      chunk_v, chunk_k_scale, chunk_v_scale, out, layer, n_pages, ps, hkv, g_size, d, \
+      w, c_len, window, sm_scale
+  if (kv_bits == 16) return launch_prefill<DP, 16>(PF_ARGS);
+  if (kv_bits == 8) return launch_prefill<DP, 8>(PF_ARGS);
+  if (kv_bits == 4) return launch_prefill<DP, 4>(PF_ARGS);
+  return cudaErrorInvalidValue;
+#undef PF_ARGS
 }
 
 }  // namespace
 
+// Query rows per block (grid z = ceil(C * G / this)).
+extern "C" int paged_prefill_rows_per_block() { return PF_TQ; }
+
 // Pointers are device pointers; scale pointers are null when kv_bits == 16.
-// window <= 0 means no window.  Returns cudaGetLastError() after the launch.
+// window <= 0 means no window.  The head dim is padded to 32, 64 or 128 in
+// shared memory; d > 128, an odd d or rows that are not whole 32-bit words
+// return cudaErrorInvalidValue without a launch.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int paged_prefill_bf16(const void* q, const void* k_pool, const void* v_pool,
                                   const void* k_scale, const void* v_scale,
                                   const void* tables, const void* ctx_lens,
@@ -204,18 +491,29 @@ extern "C" int paged_prefill_bf16(const void* q, const void* k_pool, const void*
                                   int layer, int n_pages, int ps, int hkv, int g_size,
                                   int d, int w, int c_len, int kv_bits, int window,
                                   float sm_scale, void* stream) {
-  const size_t smem = smem_bytes(d);
-  cudaError_t err = allow_smem(paged_prefill_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
+  if (d < 2 || d > 128 || d % 2 || kv_row_bytes(d, kv_bits) % 4) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int n_tiles = (c_len * g_size + PF_TQ - 1) / PF_TQ;
+  if (batch == 0 || n_tiles == 0) return (int)cudaSuccess;
   dim3 grid(batch, hkv, n_tiles);
-  paged_prefill_kernel<<<grid, PF_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), k_pool, v_pool,
-      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      static_cast<const int32_t*>(tables), static_cast<const int32_t*>(ctx_lens),
-      static_cast<const int32_t*>(q_lens), chunk_k, chunk_v,
-      static_cast<const float*>(chunk_k_scale), static_cast<const float*>(chunk_v_scale),
-      static_cast<__nv_bfloat16*>(out), layer, n_pages, ps, hkv, g_size, d, w, c_len,
-      kv_bits, window, sm_scale);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (d <= 32) {
+    err = dispatch_kv<32>(kv_bits, grid, s, q, k_pool, v_pool, k_scale, v_scale, tables,
+                          ctx_lens, q_lens, chunk_k, chunk_v, chunk_k_scale, chunk_v_scale,
+                          out, layer, n_pages, ps, hkv, g_size, d, w, c_len, window,
+                          sm_scale);
+  } else if (d <= 64) {
+    err = dispatch_kv<64>(kv_bits, grid, s, q, k_pool, v_pool, k_scale, v_scale, tables,
+                          ctx_lens, q_lens, chunk_k, chunk_v, chunk_k_scale, chunk_v_scale,
+                          out, layer, n_pages, ps, hkv, g_size, d, w, c_len, window,
+                          sm_scale);
+  } else {
+    err = dispatch_kv<128>(kv_bits, grid, s, q, k_pool, v_pool, k_scale, v_scale, tables,
+                           ctx_lens, q_lens, chunk_k, chunk_v, chunk_k_scale, chunk_v_scale,
+                           out, layer, n_pages, ps, hkv, g_size, d, w, c_len, window,
+                           sm_scale);
+  }
+  return (int)err;
 }

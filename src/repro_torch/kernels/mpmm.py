@@ -5,6 +5,7 @@ Three kernels replace ``repro/kernels/mpmm.py::mpmm_pallas``:
 - ``mpmm_cuda`` (``csrc/mpmm.cu``): dequant mode, CF order.  ``x [M, K]``
   bf16 times int8 ``[K, N]`` or K-packed int4 ``[K/2, N]`` weights, f32
   accumulation, the per-column f32 scale on the f32 sum, one cast to bf16.
+  :func:`launch_plan` picks its kernel, tiles and K split from the shape.
   Plain version :func:`repro_torch.kernels.ref.mpmm_ref`.
 - ``mpmm_ff_cuda`` (``csrc/mpmm_ff.cu``): dequant mode, FF order.  The same
   product with k outermost, K stages of 512 rows added in stage order into
@@ -34,6 +35,12 @@ _SMALL_M = 8  # rows the weight-streaming kernel takes (csrc: SM_MMAX)
 _SM_COLS = 64  # columns per block of that kernel (csrc: SM_COLS)
 _SM_KC = 512  # K rows it stages per chunk (csrc: SM_KC)
 _TARGET_BLOCKS = 264  # two waves of the H100's 132 SMs
+SMS = 132  # the H100's SMs
+TC_BLOCK_M = (128, 64)  # block rows of the tensor-core kernel (csrc: BM)
+TC_BN = 128  # its block columns (csrc: TC_BN)
+TC_BK = 64  # its K step; a split is a whole number of steps (csrc: TC_BK)
+TC_MIN_STEPS = 2  # K steps a split keeps at least
+TC_SPLIT_MIN_K = 512  # a shorter K is not split: the second pass would cost more
 
 
 def split_k(m: int, n: int, k: int) -> tuple[int, int]:
@@ -41,12 +48,68 @@ def split_k(m: int, n: int, k: int) -> tuple[int, int]:
     grid has about two blocks per SM, each split a whole number of x chunks
     (so int4 splits stay on byte rows)."""
     if m > _SMALL_M:
-        return 1, k
+        raise ValueError(f"split_k plans the M <= {_SMALL_M} kernel, got M={m}")
     col_blocks = -(-n // _SM_COLS)
     splits = max(1, min(-(-_TARGET_BLOCKS // col_blocks), k // _SM_KC))
     per = -(-k // splits)
     per = -(-per // _SM_KC) * _SM_KC
     return -(-k // per), per
+
+
+def tc_max_splits(k: int) -> int:
+    """The most splits the tensor-core kernel takes along K."""
+    return max(1, -(-k // TC_BK) // TC_MIN_STEPS) if k >= TC_SPLIT_MIN_K else 1
+
+
+def wave_fill(blocks: int) -> float:
+    """The share of block slots a grid fills over its waves: one block per
+    SM up to ``SMS`` blocks, two per SM above (their shared memory and
+    registers fit twice)."""
+    slots = SMS if blocks <= SMS else 2 * SMS
+    return blocks / (-(-blocks // slots) * slots)
+
+
+def launch_plan(m: int, n: int, k: int) -> dict:
+    """How ``mpmm_cuda`` launches an [M, K] x [K, N] product: the kernel
+    (small-M weight streaming for M <= 8, else the tensor-core tiles), its
+    block rows, the K split and the grid.
+
+    For the tensor-core kernel: where 128-row tiles alone give two waves of
+    blocks, no split.  Otherwise every (block rows, splits) whose grid stays
+    within two blocks per SM (or has no split) is scored by
+    ``wave_fill`` (a grid of 120-131 blocks, one per SM, fills its wave; one
+    of 144 leaves most SMs at one block while 12 run two), and the plan with
+    the fewest splits within 90% of the best fill wins, 128-row tiles on a
+    tie.  On the H100 this rule picked the fastest or a plan within 13% of it
+    at every shape of a sweep over llama3.2-3b's projections at M 128 / 256,
+    ResNet18's CF layers and zamba2-7b's in_proj (``tools/sweep_mpmm_plans.py``,
+    numbers in PERF.md)."""
+    if m <= _SMALL_M:
+        splits, per = split_k(m, n, k)
+        return {"kernel": "small_m", "block_m": 0, "block_n": _SM_COLS, "splits": splits,
+                "k_per_split": per, "grid": (-(-n // _SM_COLS), splits, 1)}
+    steps = -(-k // TC_BK)
+    col_tiles = -(-n // TC_BN)
+    if m > 64 and -(-m // 128) * col_tiles >= 2 * SMS:
+        block_m, per = 128, steps
+    else:
+        cands = {}
+        for bm in TC_BLOCK_M if m > 64 else TC_BLOCK_M[-1:]:
+            tiles = -(-m // bm) * col_tiles
+            for want in range(1, tc_max_splits(k) + 1):
+                per = -(-steps // want)
+                splits = -(-steps // per)
+                if splits > 1 and tiles * splits > 2 * SMS:
+                    break  # a split only to fill the card, never past two blocks per SM
+                cands[(bm, splits)] = (wave_fill(tiles * splits), per)
+        best = max(fill for fill, _ in cands.values())
+        block_m, splits = min((key for key, (fill, _) in cands.items() if fill >= 0.9 * best),
+                              key=lambda key: (key[1], -key[0]))
+        per = cands[(block_m, splits)][1]
+    per *= TC_BK
+    splits = -(-k // per)
+    return {"kernel": "tensor_core", "block_m": block_m, "block_n": TC_BN, "splits": splits,
+            "k_per_split": per, "grid": (col_tiles, -(-m // block_m), splits)}
 
 
 def mpmm_cuda(
@@ -61,6 +124,8 @@ def mpmm_cuda(
         raise ValueError(f"int4 weights pack K in pairs; K={k} is odd")
     if n % 8:
         raise ValueError(f"mpmm kernel reads 8 columns per load; N={n} % 8 != 0")
+    if k == 0:
+        raise ValueError("mpmm kernel needs K >= 1")
     if not x.is_cuda:
         raise ValueError("mpmm_cuda takes CUDA tensors")
     dev = x.device
@@ -68,7 +133,10 @@ def mpmm_cuda(
     expect(w_data, "w_data", torch.int8, (k // 2 if w_bits == 4 else k, n), dev, align=16)
     expect(w_scale.reshape(-1), "w_scale", torch.float32, (n,), dev, align=16)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-    splits, per = split_k(m, n, k)
+    if m == 0:
+        return out  # nothing to compute
+    plan = launch_plan(m, n, k)
+    splits = plan["splits"]
     partial = (
         torch.empty((splits, m, n), dtype=torch.float32, device=dev)
         if splits > 1 else out
@@ -76,15 +144,17 @@ def mpmm_cuda(
     lib = _build.lib()
     err = lib.mpmm_dequant_bf16(
         x.data_ptr(), w_data.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-        partial.data_ptr(), m, n, k, w_bits, splits, per,
+        partial.data_ptr(), m, n, k, w_bits, splits, plan["k_per_split"], plan["block_m"],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "mpmm_dequant_bf16")
     mpmm_cuda.launches += 1
+    mpmm_cuda.tensor_core_launches += plan["kernel"] == "tensor_core"
     return out
 
 
 mpmm_cuda.launches = 0
+mpmm_cuda.tensor_core_launches = 0  # of them, launches of the M > 8 kernel
 
 
 def _dims(x, w_data, w_bits: int, name: str) -> tuple[int, int, int]:

@@ -5,9 +5,10 @@ The kernel (``csrc/paged_prefill.cu``) replaces
 ``repro/kernels/paged_prefill.py::paged_mqa_prefill_pallas``: a C-token
 query chunk against the pages holding each row's ``ctx_lens`` cached tokens
 plus the chunk's own K/V under a causal mask, with the same in-register
-dequant and window as the decode kernel.  Query rows are tiled across blocks
-(a whole chunk's f32 accumulator does not fit one block's shared memory);
-see the source note.  The plain version is
+dequant and window as the decode kernel.  Query rows are tiled across blocks,
+``ROWS_PER_BLOCK`` to a block (:func:`launch_grid`), and the head dim is
+zero-padded to 32, 64 or 128 (:func:`padded_head_dim`); see the source
+note.  The plain version is
 :func:`repro_torch.kernels.ref.paged_mqa_prefill_ref`, which the dispatch
 wrapper (``ops.paged_mqa_prefill``) runs for CPU tensors.
 
@@ -21,7 +22,25 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import expect, pool_dtype, ptr, window_arg
 from repro_torch.kernels.ref import paged_mqa_prefill_ref
 
-__all__ = ["paged_mqa_prefill_cuda", "paged_mqa_prefill_ref"]
+__all__ = ["launch_grid", "padded_head_dim", "paged_mqa_prefill_cuda",
+           "paged_mqa_prefill_ref"]
+
+ROWS_PER_BLOCK = 64  # query rows of one block, 16 per warp (csrc: PF_TQ)
+HEAD_DIMS = (32, 64, 128)  # head dims the kernel is compiled for (csrc: DP)
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernel pads ``d`` to in shared memory."""
+    for dp in HEAD_DIMS:
+        if d <= dp:
+            return dp
+    raise ValueError(f"paged prefill kernel takes head dims up to {HEAD_DIMS[-1]}, got {d}")
+
+
+def launch_grid(b: int, hkv: int, c: int, g: int) -> tuple[int, int, int]:
+    """The kernel's grid: (batch, kv head, block of ``ROWS_PER_BLOCK`` of
+    the C * G query rows r = c * G + g)."""
+    return b, hkv, -(-(c * g) // ROWS_PER_BLOCK)
 
 
 def paged_mqa_prefill_cuda(
@@ -52,6 +71,7 @@ def paged_mqa_prefill_cuda(
         raise ValueError("paged_mqa_prefill_cuda takes CUDA tensors")
     if d % 2 or not 0 <= int(layer) < n_layers:
         raise ValueError(f"bad head dim {d} or layer {layer}")
+    padded_head_dim(d)
     dk = d // 2 if kv_bits == 4 else d
     pdt = pool_dtype(kv_bits)
     if (dk * pdt.itemsize) % 4:

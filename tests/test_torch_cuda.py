@@ -1,5 +1,7 @@
 """Each hand-written CUDA kernel of repro_torch against its plain PyTorch
-version, on the card: the W4/W8 dequant matmul in the CF and the FF order,
+version, on the card: the W4/W8 dequant matmul in the CF order (the
+weight-streaming kernel at M <= 8, the tensor-core kernel above, at ragged
+edges and at the serving paths' prefill shapes) and the FF order,
 the int-mode matmul (bit-exact against the CPU), paged decode and paged
 prefill, contiguous-cache decode (``mqa_decode``), at small ragged shapes,
 at llama3.2-3b's and zamba2-7b's widths and at ResNet18's conv shapes; and a
@@ -65,6 +67,74 @@ def test_mpmm_kernel_matches_plain(dev, w_bits, m, k, n):
     torch.cuda.synchronize()
     assert mpmm_cuda.launches == before + 1
     _close(got, ref.mpmm_ref(x, w_data, w_scale, w_bits=w_bits))
+
+
+# the tensor-core kernel (M > 8): ragged M, N % 16 != 0 (200), K with no
+# 16-byte x rows (130) or a ragged last K step and a split (1100)
+@pytest.mark.parametrize("w_bits", [4, 8])
+@pytest.mark.parametrize("m", [129, 300])
+@pytest.mark.parametrize("n", [200, 1032])
+@pytest.mark.parametrize("k", [96, 130, 1100])
+def test_mpmm_tensor_core_edges(dev, w_bits, m, k, n):
+    from repro_torch.kernels.mpmm import launch_plan
+
+    rng = np.random.default_rng(m + 3 * k + n)
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) / math.sqrt(k))
+    w_data, w_scale = ops.pack_weights(w, w_bits)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(torch.bfloat16)
+    x, w_data, w_scale = x.to(dev), w_data.to(dev), w_scale.to(dev)
+    assert launch_plan(m, n, k)["kernel"] == "tensor_core"
+    got = mpmm_cuda(x, w_data, w_scale, w_bits=w_bits)
+    _close(got, ref.mpmm_ref(x, w_data, w_scale, w_bits=w_bits))
+    assert torch.equal(got, mpmm_cuda(x, w_data, w_scale, w_bits=w_bits))
+
+
+@pytest.mark.parametrize(
+    "m,k,n,w_bits",
+    [(4096, 3584, 14576, 8),  # zamba2-7b in_proj at prefill M: 128-row tiles, no split
+     (256, 3072, 1024, 4),  # llama3.2-3b k/v projection: split along K
+     (128, 8192, 3072, 8)],  # llama3.2-3b down projection at the engine's chunk
+)
+def test_mpmm_path_shapes_repeat_bits(dev, m, k, n, w_bits):
+    """At the shapes the serving paths launch: within tolerance of the plain
+    version, and two runs give the same bits (the K split is summed in a
+    fixed order)."""
+    from repro_torch.kernels.mpmm import launch_plan
+
+    gen = torch.Generator(device=dev).manual_seed(m + n)
+    w_data, w_scale = ops.pack_weights(
+        torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k), w_bits)
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    got = mpmm_cuda(x, w_data, w_scale, w_bits=w_bits)
+    _close(got, ref.mpmm_ref(x, w_data, w_scale, w_bits=w_bits))
+    assert torch.equal(got, mpmm_cuda(x, w_data, w_scale, w_bits=w_bits))
+    assert (launch_plan(m, n, k)["splits"] > 1) == (m < 4096)
+
+
+def test_mpmm_entry_point_refuses_plans_that_do_not_fit(dev):
+    """The C entry point takes the wrapper's plan and refuses one that does
+    not cover K in whole K steps, or block rows it was not compiled for."""
+    from repro_torch.kernels import _build
+
+    m, k, n = 64, 1000, 128
+    x = torch.zeros(m, k, dtype=torch.bfloat16, device=dev)
+    w = torch.zeros(k, n, dtype=torch.int8, device=dev)
+    sc = torch.ones(n, device=dev)
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
+    part = torch.empty(16, m, n, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(splits, per, block_m, rows=m):
+        return _build.lib().mpmm_dequant_bf16(
+            x.data_ptr(), w.data_ptr(), sc.data_ptr(), out.data_ptr(), part.data_ptr(),
+            rows, n, k, 8, splits, per, block_m, stream)
+
+    assert launch(8, 128, 64) == 0
+    torch.cuda.synchronize()
+    for bad in ((7, 128, 64), (9, 128, 64), (8, 120, 64), (8, 128, 96), (4, 256, 32)):
+        assert launch(*bad) != 0, bad
+    assert launch(2, 512, 0, rows=8) == 0 and launch(2, 500, 0, rows=8) != 0
+    torch.cuda.synchronize()
 
 
 def test_mpmm_rejects_unported_modes(dev):
@@ -329,6 +399,76 @@ def test_paged_prefill_kernel_matches_plain(dev, kv_bits, window, c, hkv, g, d):
             sm_scale=1 / math.sqrt(d), kv_bits=kv_bits, window=window,
         )
         _close(got, exp)
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8, 16])
+@pytest.mark.parametrize("window", [None, 100])
+def test_paged_prefill_kernel_at_llama_width(dev, kv_bits, window):
+    """llama3.2-3b's heads (Hkv 8, G 3, D 128) at the engine's chunk C = 128,
+    contexts up to 384, ragged q_lens (a padding-only row too); two runs give
+    the same bits."""
+    rng = np.random.default_rng(kv_bits + (window or 0))
+    b, n_layers, ps, hkv, g, d, c = 4, 2, 16, 8, 3, 128, 128
+    w = -(-(384 + c) // ps)
+    n_pages = b * w + 2
+    kp, vp, ks, vs = _pools(rng, dev, kv_bits, n_layers, n_pages, ps, hkv, d)
+    tables = torch.from_numpy(
+        rng.permutation(n_pages)[: b * w].reshape(b, w).astype(np.int32)).to(dev)
+    ctx = torch.tensor([256, 200, 384, 0], dtype=torch.int32, device=dev)
+    q_lens = torch.tensor([c, 77, 1, 0], dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.normal(size=(b, c, hkv * g, d)).astype(np.float32))
+    q = q.to(torch.bfloat16).to(dev)
+    ck, cks = _tokens(rng, dev, kv_bits, (b, c, hkv), d)
+    cv, cvs = _tokens(rng, dev, kv_bits, (b, c, hkv), d)
+    args = (q, kp, vp, ks, vs, tables, ctx, q_lens, 1, ck, cv, cks, cvs)
+    got = ops.paged_mqa_prefill(*args, kv_bits=kv_bits, window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    exp = ref.paged_mqa_prefill_ref(*args, sm_scale=1 / math.sqrt(d), kv_bits=kv_bits,
+                                    window=window)
+    # row 3 has no context and no valid chunk key: its padding rows see
+    # nothing, 0 from the kernel (as the Pallas kernel gives), 0 from the plain
+    # version after its NaN guard
+    _close(got, exp)
+    assert torch.equal(got, ops.paged_mqa_prefill(*args, kv_bits=kv_bits, window=window))
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8, 16])
+@pytest.mark.parametrize("d", [40, 112])
+def test_paged_prefill_kernel_pads_head_dim(dev, kv_bits, d):
+    """Head dims that are no multiple of 16 are zero-padded in shared
+    memory; rows of 20, 40, 56, 80, 112 and 224 bytes take 4-, 8- and
+    16-byte copies."""
+    rng = np.random.default_rng(d + kv_bits)
+    b, n_layers, ps, hkv, g, c, w = 2, 1, 8, 2, 2, 20, 8
+    n_pages = b * w
+    kp, vp, ks, vs = _pools(rng, dev, kv_bits, n_layers, n_pages, ps, hkv, d)
+    tables = torch.from_numpy(rng.permutation(n_pages).reshape(b, w).astype(np.int32)).to(dev)
+    ctx = torch.tensor([30, 41], dtype=torch.int32, device=dev)
+    q_lens = torch.tensor([c, 9], dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.normal(size=(b, c, hkv * g, d)).astype(np.float32))
+    q = q.to(torch.bfloat16).to(dev)
+    ck, cks = _tokens(rng, dev, kv_bits, (b, c, hkv), d)
+    cv, cvs = _tokens(rng, dev, kv_bits, (b, c, hkv), d)
+    args = (q, kp, vp, ks, vs, tables, ctx, q_lens, 0, ck, cv, cks, cvs)
+    got = ops.paged_mqa_prefill(*args, kv_bits=kv_bits)
+    _close(got, ref.paged_mqa_prefill_ref(*args, sm_scale=1 / math.sqrt(d), kv_bits=kv_bits))
+
+
+def test_paged_prefill_kernel_layout_matches_wrapper(dev):
+    """The wrapper's grid plan uses the kernel's rows per block; head dims
+    past the largest compiled one are refused before a launch."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_prefill import ROWS_PER_BLOCK
+
+    assert _build.lib().paged_prefill_rows_per_block() == ROWS_PER_BLOCK
+    q = torch.zeros(1, 1, 2, 1, 136, dtype=torch.bfloat16, device=dev)
+    pool = torch.zeros(1, 2, 4, 1, 136, dtype=torch.bfloat16, device=dev)
+    chunk = torch.zeros(1, 1, 2, 136, dtype=torch.bfloat16, device=dev)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        paged_mqa_prefill_cuda(q, pool, pool, None, None, one.reshape(1, 1), one, one, 0,
+                               chunk, chunk, None, None, kv_bits=16, sm_scale=1.0)
 
 
 # ------------------------------------------------- contiguous-cache decode

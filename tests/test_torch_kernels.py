@@ -146,6 +146,78 @@ def test_paged_decode_ignores_stale_entries_past_length():
     np.testing.assert_array_equal(before.numpy(), run(dirty).numpy())
 
 
+# ------------------------------------------------ launch plans of the kernels
+# (M, K, N) the paths launch the CF kernel at: llama3.2-3b's projections at
+# the engine's chunk (M 128) and at M 256, zamba2-7b's in_proj / out_proj at
+# its prefill M (8 x 512), ResNet18's three CF layers at batch 8, and decode M
+PLAN_SHAPES = (
+    [(m, k, n) for m in (128, 256)
+     for k, n in [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072), (3072, 128256)]]
+    + [(4096, 3584, 14576), (4096, 7168, 3584)]
+    + [(6272, 64, 128), (1568, 128, 256), (392, 256, 512)]
+    + [(129, 96, 200), (300, 130, 1032), (8, 3072, 8192), (1, 8192, 3072)]
+)
+
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_mpmm_launch_plan_covers_the_shape(m, k, n):
+    """The tile / split chooser covers M, N and K exactly once; every split
+    starts on a whole K step (even, so int4 splits start on a byte row); the
+    tensor-core grid fills at least 90% of one wave of the H100's SMs or its
+    K split is exhausted, and a split never takes it past two blocks per SM."""
+    from repro_torch.kernels import mpmm as mp
+
+    plan = mp.launch_plan(m, n, k)
+    gx, gy, gz = plan["grid"]
+    splits, per = plan["splits"], plan["k_per_split"]
+    assert (gx - 1) * plan["block_n"] < n <= gx * plan["block_n"]
+    assert (splits - 1) * per < k <= splits * per
+    if m <= 8:
+        assert plan["kernel"] == "small_m" and (gy, gz) == (splits, 1)
+        assert per % 512 == 0
+        return
+    assert plan["kernel"] == "tensor_core" and gz == splits
+    bm = plan["block_m"]
+    assert bm in mp.TC_BLOCK_M and (gy - 1) * bm < m <= gy * bm
+    assert per % mp.TC_BK == 0 and per % 2 == 0
+    assert per >= min(k, mp.TC_MIN_STEPS * mp.TC_BK)
+    blocks = gx * gy * gz
+    assert blocks >= 0.9 * mp.SMS or splits == mp.tc_max_splits(k)
+    assert splits == 1 or blocks <= 2 * mp.SMS
+    assert mp.wave_fill(blocks) <= 1.0
+
+
+def test_mpmm_launch_plan_at_the_serving_shapes():
+    """The plans the numbers in PERF.md were measured with."""
+    from repro_torch.kernels.mpmm import launch_plan
+
+    assert launch_plan(4096, 14576, 3584)["grid"] == (114, 32, 1)
+    assert launch_plan(4096, 3584, 7168)["grid"] == (28, 32, 1)
+    assert launch_plan(256, 3072, 3072)["grid"] == (24, 2, 5)
+    assert launch_plan(128, 1024, 3072)["grid"] == (8, 2, 8)
+    assert launch_plan(392, 512, 256)["grid"] == (4, 7, 1)
+
+
+@pytest.mark.parametrize("c,g", [(1, 3), (5, 3), (32, 3), (128, 3), (128, 8), (21, 1),
+                                 (64, 1), (65, 1)])
+def test_paged_prefill_grid_covers_rows(c, g):
+    from repro_torch.kernels.paged_prefill import ROWS_PER_BLOCK, launch_grid
+
+    b, hkv, tiles = launch_grid(4, 8, c, g)
+    assert (b, hkv) == (4, 8)
+    assert (tiles - 1) * ROWS_PER_BLOCK < c * g <= tiles * ROWS_PER_BLOCK
+
+
+def test_paged_prefill_head_dim_padding():
+    from repro_torch.kernels.paged_prefill import padded_head_dim
+
+    for d in range(2, 129, 2):
+        dp = padded_head_dim(d)
+        assert dp % 16 == 0 and d <= dp and (dp == 32 or dp // 2 < d)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        padded_head_dim(130)
+
+
 # ------------------------------------------------------------ paged prefill
 @pytest.mark.parametrize("kv_bits", [4, 8, 16])
 @pytest.mark.parametrize("window", [None, 6])
