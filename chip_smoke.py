@@ -26,8 +26,9 @@ Phases, each printing one JSON line that names the card:
 4. cnn      -- the paper's CNN path: full ResNet18 (20 convs, 224x224x3 bf16
                input, batch 8, w8, the mixed FF/CF strategy) through
                models.cnn.run_network: per-layer decisions (17 FF / 3 CF),
-               images/s, peak memory; card vs CPU at batch 2 (bf16 card vs
-               bf16 and float32 CPU); a w4 run over layers 2-20; three layers
+               images/s, peak memory, the FF kernel's device time and
+               launches in one profiled run; card vs CPU at batch 2 (bf16
+               card vs bf16 and float32 CPU); a w4 run over layers 2-20; three layers
                through ops.mpconv(mode="int") on int16 activations, bit-exact
                against the CPU.
 5. engine   -- the full 28-layer llama3.2-3b with seeded random weights
@@ -41,7 +42,8 @@ Phases, each printing one JSON line that names the card:
                static-wave train.server.Server: 8 greedy requests of 512
                random tokens, 32 new tokens each, batch 8, w8/kv8; run
                twice, the streams must be identical; two decode steps
-               profiled; then full mamba2-130m (ssm) served the same way.
+               profiled (mqa_decode's device time and launches among them);
+               then full mamba2-130m (ssm) served the same way.
 7. kernels line -- each kernel's launches on its path (all > 0): the serving
                kernels in phase 5's first run, the FF and int matmuls in
                phase 4, contiguous-cache decode in phase 6's first zamba2
@@ -69,6 +71,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -94,7 +97,7 @@ TPU_KERNELS = {
                      "src/repro/kernels/paged_decode.py:153 (paged_mqa_decode_pallas)"),
     "paged_prefill": ("src/repro_torch/kernels/csrc/paged_prefill.cu",
                       "src/repro/kernels/paged_prefill.py:157 (paged_mqa_prefill_pallas)"),
-    "mpmm_ff_dequant": ("src/repro_torch/kernels/csrc/mpmm_ff.cu",
+    "mpmm_ff_dequant": ("src/repro_torch/kernels/csrc/mpmm.cu",
                         "src/repro/kernels/mpmm.py:174 (mpmm_pallas, FF dequant: "
                         "_mpmm_ff_kernel :148, pallas_call :244)"),
     "mpmm_int": ("src/repro_torch/kernels/csrc/mpmm_int.cu",
@@ -444,7 +447,7 @@ def cnn_kernel_cases(torch, timer, gpu, summary) -> None:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.mpmm import mpmm_cuda, mpmm_ff_cuda, mpmm_int_cuda
+    from repro_torch.kernels.mpmm import launch_plan, mpmm_cuda, mpmm_ff_cuda, mpmm_int_cuda
     from repro_torch.models.cnn_zoo import resnet18_layers
     from repro_torch.quant.pack import pack_int4, unpack_int4
 
@@ -475,8 +478,10 @@ def cnn_kernel_cases(torch, timer, gpu, summary) -> None:
         out_err = max_err(torch, out, ref.mpmm_ref(x, wd, ws, w_bits=w_bits), MPMM_TOL)
         w_deq = dequantized(wd, ws, w_bits)
         b_ms, b_by = bound(m * k * 2 + wd.numel() + m * n * 4, 2.0 * m * n * k)
+        plan = launch_plan(m, n, k, stage_k=ref.FF_STAGE_K)
         rec = {
             "case": f"{label} w{w_bits} M={m} K={k} N={n}", "max_abs_err": err, "tol": tol,
+            "kernel_plan": {key: plan[key] for key in ("block_m", "splits", "grid")},
             "scaled_bf16_max_abs_err": out_err, "scaled_tol": MPMM_TOL,
             "ms": timer(lambda: mpmm_ff_cuda(x, wd, w_bits=w_bits)),
             "plain_ms": timer(lambda: ref.mpmm_ff_ref(x, wd, w_bits=w_bits), iters=3),
@@ -738,7 +743,7 @@ def mqa_kernel_cases(torch, timer, gpu, summary) -> None:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.mqa_decode import mqa_decode_cuda
+    from repro_torch.kernels.mqa_decode import decode_plan, mqa_decode_cuda
     from repro_torch.quant.pack import unpack_int4
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -777,7 +782,7 @@ def mqa_kernel_cases(torch, timer, gpu, summary) -> None:
         rec = {
             "case": f"{label} kv{kv_bits} B={b} S={s} Hkv={hkv} G={g} D={d} "
                     f"lengths={min(lengths)}-{max(lengths)}",
-            "max_abs_err": err, "tol": ATTN_TOL,
+            "max_abs_err": err, "tol": ATTN_TOL, "plan": decode_plan(b, hkv, g, s),
             "ms": timer(lambda: mqa_decode_cuda(qg, kd, vd, ks, vs, lens, kv_bits=kv_bits,
                                                 sm_scale=sm)),
             "plain_ms": timer(plain, iters=3),
@@ -885,30 +890,45 @@ def waves_profile(torch, srv, cfg, prompt: int) -> dict:
     t0 = time.perf_counter()
     two_steps()
     wall = time.perf_counter() - t0
-    return device_profile(torch, two_steps, wall)
+    return device_profile(torch, two_steps, wall,
+                          sums={"mqa_decode": lambda name: "mqa_decode" in name})
 
 
 # --------------------------------------------------------------- phase 4
-def device_profile(torch, run_once, wall_s: float) -> dict:
+def ff_kernel(name: str) -> bool:
+    """A device kernel of the FF dequant order: the tensor-core kernel with
+    its FF epilogue (the last template argument) or its f32 stage sum."""
+    tc = re.search(r"mpmm_tc_kernel<([^>]*)>", name)
+    return bool(tc and tc.group(1).replace(" ", "").endswith(",true")) or \
+        "sum_stages<float>" in name
+
+
+def device_profile(torch, run_once, wall_s: float, sums=None) -> dict:
     """One network run under torch.profiler: device time by kernel (the
     events that ran on the card; a host op's device time would count its
     kernels twice), and the share of the unprofiled wall time ``wall_s`` the
     card was busy (the profiler slows the host, so its own wall time is not
-    used for the share)."""
+    used for the share).  ``sums`` maps a label to a test of a kernel's full
+    name: the device ms and launches of the kernels it picks."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run_once()
     by_kernel = {}
+    picked = {label: {"device_ms": 0.0, "launches": 0} for label in (sums or {})}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             by_kernel[e.key[:60]] = by_kernel.get(e.key[:60], 0.0) + e.device_time_total
+            for label, test in (sums or {}).items():
+                if test(e.key):
+                    picked[label]["device_ms"] += e.device_time_total / 1e3
+                    picked[label]["launches"] += e.count
     busy_ms = sum(by_kernel.values()) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {"device_busy_ms": busy_ms, "wall_ms": wall_s * 1e3,
             "device_busy_share": busy_ms / (wall_s * 1e3),
-            "top_kernels_us": {k: v for k, v in top}}
+            "top_kernels_us": {k: v for k, v in top}, **picked}
 
 
 def cnn_run(torch, gpu) -> None:
@@ -944,7 +964,9 @@ def cnn_run(torch, gpu) -> None:
         times.append(time.perf_counter() - t0)
     wall = sorted(times)[len(times) // 2]
     peak = torch.cuda.max_memory_allocated()
-    profile = device_profile(torch, lambda: run(x, params, layers), wall)
+    profile = device_profile(torch, lambda: run(x, params, layers), wall,
+                             sums={"ff_dequant": ff_kernel})
+    check(profile["ff_dequant"]["launches"] > 0, "the profiled run shows no FF kernel")
 
     # card vs CPU at batch 2: the CPU's bf16 run against its float32 run is
     # the noise; the card's bf16 run must be as close to the CPU's bf16 run

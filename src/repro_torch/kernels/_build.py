@@ -30,6 +30,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "mpmm_dequant_bf16": [_P] * 5 + [_I] * 7 + [_P],
     "mpmm_ff_dequant_f32": [_P] * 4 + [_I] * 6 + [_P],
+    "mpmm_ff_block_m": [_I] * 3,
     "mpmm_int_i32": [_P] * 4 + [_I] * 7 + [_P],
     "mqa_decode": [_P] * 8 + [_I] * 9 + [_F, _P],
     "paged_decode_bf16": [_P] * 13 + [_I] * 12 + [_F, _P],

@@ -1,6 +1,6 @@
-// Helpers shared by the kernels: the paged attention kernels (paged_decode.cu,
-// paged_prefill.cu), the FF-order matmuls (mpmm_ff.cu, mpmm_int.cu) and the
-// tensor-core pieces of the CF matmul (mpmm.cu) and paged prefill.
+// Helpers shared by the kernels: the attention kernels (paged_decode.cu,
+// paged_prefill.cu, mqa_decode.cu), the FF-order matmuls (mpmm.cu, mpmm_int.cu)
+// and the tensor-core pieces of the dequant matmul (mpmm.cu) and paged prefill.
 // Plain C interface, no PyTorch headers: the library is
 // built with nvcc alone and bound with ctypes (kernels/_build.py).
 #pragma once

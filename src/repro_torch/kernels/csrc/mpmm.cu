@@ -1,29 +1,43 @@
-// W4A16 / W8A16 dequant matmul for Hopper: out[M, N] = x[M, K] @ dequant(w).
+// W4A16 / W8A16 dequant matmul for Hopper: x[M, K] @ dequant(w), in both
+// dataflows of repro/kernels/mpmm.py::mpmm_pallas's dequant mode.
 //
-// Replaces repro/kernels/mpmm.py::mpmm_pallas in dequant mode with the CF
-// order (body _mpmm_cf_kernel): k innermost, f32 accumulation, the
-// per-column f32 scale applied to the f32 sum in the epilogue, one cast to
-// bf16.  Weights are int8 [K, N], or int4 packed along K [K/2, N] (byte row r
-// holds K index 2r in the low nibble and 2r + 1 in the high nibble), unpacked
-// in registers; int -> float is exact for |w| <= 127, so the numerics are
-// those of kernels/ref.py::mpmm_ref up to the order of the f32 sums.
+// CF order (entry mpmm_dequant_bf16; Pallas body _mpmm_cf_kernel): k
+// innermost, f32 accumulation, the per-column f32 scale applied to the f32
+// sum in the epilogue, one cast to bf16.  FF order (entry
+// mpmm_ff_dequant_f32; body _mpmm_ff_kernel, grid (k, m, n) with the 512-row
+// K stages outermost): each stage's product is summed from zero and the
+// stages are added into an unscaled f32 output in stage order,
+// ((p0 + p1) + p2) + ...; the wrapper applies the scale.  Weights are int8
+// [K, N], or int4 packed along K [K/2, N] (byte row r holds K index 2r in
+// the low nibble and 2r + 1 in the high nibble), unpacked in registers;
+// int -> float is exact for |w| <= 127, so the numerics are those of
+// kernels/ref.py::mpmm_ref / mpmm_ff_ref up to the order of the f32 sums.
 //
 // What bounds it on an H100: at decode M (a batch bucket of at most 8 rows)
 // the weight bytes.  Each weight byte is read once, by 8-byte loads that a
 // warp issues as whole 64-byte row segments; a split along K gives every SM work
 // when N is small, and a second pass sums the split partials in a fixed
-// order (no atomics, so results are the same run to run).  At prefill M the
-// product is bound by the tensor cores' operations (M = 4096) or, at M =
-// 128-400, by how many SMs its tiles keep busy.  The tensor-core kernel below
-// streams x and the packed weights through a 4-stage cp.async ring, turns
-// the weights into bf16 in registers and multiplies with wgmma (bf16 in, f32
-// accumulate) as the transposed product, the weights being its register
-// operand; the host picks 128- or 64-row tiles and a split along K so the
-// grid fills the card, and the same fixed-order second pass sums the splits.
+// order (no atomics, so results are the same run to run).  At prefill M and
+// at a CNN's conv shapes the product is bound by the tensor cores'
+// operations (M = 4096), by x's bytes (K = 147 or 576 at M = 25088-100352)
+// or, at M = 128-1568, by how many SMs its tiles keep busy.  One tensor-core
+// kernel serves both orders: it streams x and the packed weights through a
+// 4-stage cp.async ring, turns the weights into bf16 in registers and
+// multiplies with wgmma (bf16 in, f32 accumulate) as the transposed product,
+// the weights being its register operand; the host picks 128- or 64-row
+// tiles and the K split so the grid fills the card.  The two orders differ
+// only in the split and the epilogue: CF splits K freely and scales and
+// casts when it does not split; FF splits K at the 512-row stage boundaries
+// (Hopper blocks run in no order, so the Pallas grid's sequential stage axis
+// becomes the grid's z), writes each stage's unscaled f32 partial to a
+// [stages, M, N] spill buffer (out itself when K <= 512), and the same
+// fixed-order second pass adds the stages, as the Pallas FF grid does.
 //
 // Ragged M, N and K edges are masked inside the kernels (the JAX wrapper
-// pads to blocks instead).  The wrapper (kernels/mpmm.py) checks shapes,
-// types, N % 8 == 0 and 16-byte alignment before it launches.
+// pads to blocks instead).  The wrappers (kernels/mpmm.py) check shapes,
+// types and 16-byte alignment before they launch; the CF wrapper also
+// N % 8 == 0, while the FF order takes any N (weight rows of any length
+// are staged by plain byte loads).
 #include "common.cuh"
 
 namespace {
@@ -293,8 +307,12 @@ __device__ __forceinline__ uint64_t desc_k128(const void* p) {
 
 // X_VEC: K % 8 == 0, so x rows are whole 16-byte copies; otherwise (rows off
 // any 16-byte boundary) x goes through plain masked loads into the same ring.
-// W_VEC: bytes per weight copy, 16 when N % 16 == 0, else 8 (N % 8 == 0).
-template <int BM, int W_BITS, bool X_VEC, int W_VEC>
+// W_VEC: bytes per weight copy, 16 when N % 16 == 0, 8 when N % 8 == 0, else
+// 1: plain masked byte loads (FF order only; weight rows of any length).
+// FF: the FF order's epilogue, every split (K stage) written unscaled to its
+// slice of `partial` (which is out itself for one stage); otherwise CF: one
+// split writes scale * sum as bf16 to out, more write their partials.
+template <int BM, int W_BITS, bool X_VEC, int W_VEC, bool FF>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 mpmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
                const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
@@ -306,6 +324,7 @@ mpmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w
   constexpr int W_CHUNKS = WT::ROWS * TC_BN / W_VEC;
   static_assert(STAGE % 1024 == 0, "stages keep the swizzle's 1024-byte alignment");
   static_assert(X_CHUNKS % TC_THREADS == 0 && W_CHUNKS % TC_THREADS == 0, "copy split");
+  static_assert(FF || W_VEC >= 8, "the CF order takes N % 8 == 0");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
 
@@ -344,13 +363,23 @@ mpmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w
     }
     uint8_t* ws = st + X_BYTES;
     const int wr0 = W_BITS == 8 ? k0 : k0 / 2;
+    if constexpr (W_VEC == 1) {
+#pragma unroll 4  // a full unroll holds 32 loads in registers and spills
+      for (int c = tid; c < W_CHUNKS; c += TC_THREADS) {
+        const int r = c / TC_BN, nc = c % TC_BN;
+        const int gr = wr0 + r, gn = n0 + nc;
+        ws[r * WT::PITCH + nc] =
+            gr < w_row_end && gn < N ? (uint8_t)w[(int64_t)gr * N + gn] : (uint8_t)0;
+      }
+    } else {
 #pragma unroll
-    for (int i = 0; i < W_CHUNKS / TC_THREADS; ++i) {
-      const int c = tid + i * TC_THREADS;
-      const int r = c / (TC_BN / W_VEC), nc = (c % (TC_BN / W_VEC)) * W_VEC;
-      const int gr = wr0 + r, gn = n0 + nc;
-      const bool ok = gr < w_row_end && gn < N;  // N % W_VEC == 0: whole or nothing
-      cp_async<W_VEC>(ws + r * WT::PITCH + nc, ok ? w + (int64_t)gr * N + gn : w, ok);
+      for (int i = 0; i < W_CHUNKS / TC_THREADS; ++i) {
+        const int c = tid + i * TC_THREADS;
+        const int r = c / (TC_BN / W_VEC), nc = (c % (TC_BN / W_VEC)) * W_VEC;
+        const int gr = wr0 + r, gn = n0 + nc;
+        const bool ok = gr < w_row_end && gn < N;  // N % W_VEC == 0: whole or nothing
+        cp_async<W_VEC>(ws + r * WT::PITCH + nc, ok ? w + (int64_t)gr * N + gn : w, ok);
+      }
     }
   };
 
@@ -417,8 +446,8 @@ mpmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w
   // acc[4j + e]: fragment row g (e = 0, 1) or g + 8 (e = 2, 3) = weight column
   // wcol or wcol + 1; x row 8j + 2q (e = 0, 2) or 8j + 2q + 1 (e = 1, 3)
   const int gn = n0 + wcol;
-  if (gn >= N) return;  // N is even: the column pair is all in or all out
-  const bool direct = gridDim.z == 1;
+  if (gn >= N) return;  // with N even the column pair is all in or all out
+  const bool direct = !FF && gridDim.z == 1;
   float2 sc = make_float2(0.f, 0.f);
   if (direct) sc = *reinterpret_cast<const float2*>(scale + gn);
 #pragma unroll
@@ -432,19 +461,24 @@ mpmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w
         *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)gm * N + gn) =
             __floats2bfloat162_rn(v0 * sc.x, v1 * sc.y);
       } else {
-        *reinterpret_cast<float2*>(partial + ((int64_t)split * M + gm) * N + gn) =
-            make_float2(v0, v1);
+        float* p = partial + ((int64_t)split * M + gm) * N + gn;
+        if constexpr (W_VEC >= 8) {
+          *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+        } else {  // any N: rows may start off 8 bytes, the pair may straddle N
+          p[0] = v0;
+          if (gn + 1 < N) p[1] = v1;
+        }
       }
     }
   }
 }
 
-template <int BM, int W_BITS, bool X_VEC, int W_VEC>
+template <int BM, int W_BITS, bool X_VEC, int W_VEC, bool FF>
 cudaError_t launch_tc(const __nv_bfloat16* x, const int8_t* w, const float* scale,
                       __nv_bfloat16* out, float* partial, int M, int N, int K, int splits,
                       int k_per_split, cudaStream_t s) {
   constexpr int smem = tc_smem_bytes<BM, W_BITS>();
-  auto kernel = mpmm_tc_kernel<BM, W_BITS, X_VEC, W_VEC>;
+  auto kernel = mpmm_tc_kernel<BM, W_BITS, X_VEC, W_VEC, FF>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + TC_BN - 1) / TC_BN, (M + BM - 1) / BM, splits);
@@ -452,21 +486,59 @@ cudaError_t launch_tc(const __nv_bfloat16* x, const int8_t* w, const float* scal
   return cudaGetLastError();
 }
 
-template <int BM, int W_BITS>
+template <int BM, int W_BITS, bool FF, bool X_VEC>
+cudaError_t dispatch_w(const __nv_bfloat16* x, const int8_t* w, const float* scale,
+                       __nv_bfloat16* out, float* partial, int M, int N, int K, int splits,
+                       int k_per_split, cudaStream_t s) {
+  if (N % 16 == 0)
+    return launch_tc<BM, W_BITS, X_VEC, 16, FF>(x, w, scale, out, partial, M, N, K, splits,
+                                               k_per_split, s);
+  if (N % 8 == 0)
+    return launch_tc<BM, W_BITS, X_VEC, 8, FF>(x, w, scale, out, partial, M, N, K, splits,
+                                              k_per_split, s);
+  if constexpr (FF)
+    return launch_tc<BM, W_BITS, X_VEC, 1, FF>(x, w, scale, out, partial, M, N, K, splits,
+                                              k_per_split, s);
+  return cudaErrorInvalidValue;  // the CF order takes N % 8 == 0
+}
+
+template <bool FF>
 cudaError_t dispatch_tc(const __nv_bfloat16* x, const int8_t* w, const float* scale,
-                        __nv_bfloat16* out, float* partial, int M, int N, int K, int splits,
-                        int k_per_split, cudaStream_t s) {
-  const bool x_vec = K % 8 == 0, w_vec16 = N % 16 == 0;
-  if (x_vec) {
-    return w_vec16 ? launch_tc<BM, W_BITS, true, 16>(x, w, scale, out, partial, M, N, K,
-                                                     splits, k_per_split, s)
-                   : launch_tc<BM, W_BITS, true, 8>(x, w, scale, out, partial, M, N, K,
-                                                    splits, k_per_split, s);
-  }
-  return w_vec16 ? launch_tc<BM, W_BITS, false, 16>(x, w, scale, out, partial, M, N, K,
-                                                    splits, k_per_split, s)
-                 : launch_tc<BM, W_BITS, false, 8>(x, w, scale, out, partial, M, N, K,
-                                                   splits, k_per_split, s);
+                        __nv_bfloat16* out, float* partial, int M, int N, int K, int w_bits,
+                        int splits, int k_per_split, int block_m, cudaStream_t s) {
+  const bool x_vec = K % 8 == 0;
+#define MPMM_TC_CASE(BM, WB)                                                                \
+  if (block_m == BM && w_bits == WB)                                                        \
+    return x_vec ? dispatch_w<BM, WB, FF, true>(x, w, scale, out, partial, M, N, K, splits,  \
+                                                k_per_split, s)                             \
+                 : dispatch_w<BM, WB, FF, false>(x, w, scale, out, partial, M, N, K, splits, \
+                                                 k_per_split, s);
+  MPMM_TC_CASE(128, 8)
+  MPMM_TC_CASE(128, 4)
+  MPMM_TC_CASE(64, 8)
+  MPMM_TC_CASE(64, 4)
+#undef MPMM_TC_CASE
+  return cudaErrorInvalidValue;
+}
+
+constexpr int FF_STAGE_K = 512;  // the FF order's K stage (JAX: bk)
+
+// The share of block slots a grid of `blocks` fills over its waves: one
+// block per SM up to 132 blocks, two per SM above (kernels/mpmm.py::wave_fill).
+double wave_fill(int64_t blocks) {
+  const int64_t slots = blocks <= 132 ? 132 : 264;
+  return (double)blocks / (double)(((blocks + slots - 1) / slots) * slots);
+}
+
+// The FF order's block rows, by kernels/mpmm.py::launch_plan's rule with the
+// split fixed at the stages: 128 unless 64-row tiles fill the card's block
+// slots more than 1 / 0.9 times as well.
+int ff_block_m(int M, int N, int K) {
+  if (M <= 64) return 64;
+  const int64_t cols = (N + TC_BN - 1) / TC_BN, stages = (K + FF_STAGE_K - 1) / FF_STAGE_K;
+  const double f128 = wave_fill((M + 127) / 128 * cols * stages);
+  const double f64 = wave_fill((M + 63) / 64 * cols * stages);
+  return f128 >= 0.9 * fmax(f128, f64) ? 128 : 64;
 }
 
 }  // namespace
@@ -510,16 +582,8 @@ extern "C" int mpmm_dequant_bf16(const void* x, const void* w, const void* scale
                                                          k_per_split);
     }
   } else {
-    cudaError_t err;
-    if (block_m == 128) {
-      err = w_bits == 8 ? dispatch_tc<128, 8>(xp, wp, sp, op, pp, M, N, K, splits, k_per_split, s)
-                        : dispatch_tc<128, 4>(xp, wp, sp, op, pp, M, N, K, splits, k_per_split, s);
-    } else if (block_m == 64) {
-      err = w_bits == 8 ? dispatch_tc<64, 8>(xp, wp, sp, op, pp, M, N, K, splits, k_per_split, s)
-                        : dispatch_tc<64, 4>(xp, wp, sp, op, pp, M, N, K, splits, k_per_split, s);
-    } else {
-      return (int)cudaErrorInvalidValue;
-    }
+    const cudaError_t err = dispatch_tc<false>(xp, wp, sp, op, pp, M, N, K, w_bits, splits,
+                                               k_per_split, block_m, s);
     if (err != cudaSuccess) return (int)err;
   }
   if (splits > 1) {
@@ -529,3 +593,28 @@ extern "C" int mpmm_dequant_bf16(const void* x, const void* w, const void* scale
   }
   return (int)cudaGetLastError();
 }
+
+// The FF order.  x [M, K] bf16, w [K or K/2, N] int8 (int4 packed along K),
+// out [M, N] f32: the unscaled sum of the K stages of stage_k rows, in stage
+// order.  part: [stages, M, N] f32 scratch for the spilled stage partials when
+// stages > 1 (else unused); stage_k must be the compiled-in stage size (512)
+// and stages ceil(K / stage_k), else cudaErrorInvalidValue and nothing is
+// launched.  The block rows are mpmm_ff_block_m's.  Returns cudaGetLastError()
+// after the launches.
+extern "C" int mpmm_ff_dequant_f32(const void* x, const void* w, void* out, void* part,
+                                   int M, int N, int K, int w_bits, int stage_k, int stages,
+                                   void* stream) {
+  if (stage_k != FF_STAGE_K || !stages_fit(K, stage_k, stages)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* op = static_cast<float*>(out);
+  float* pp = stages > 1 ? static_cast<float*>(part) : op;
+  const cudaError_t err = dispatch_tc<true>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w), nullptr, nullptr,
+      pp, M, N, K, w_bits, stages, stage_k, ff_block_m(M, N, K), s);
+  if (err != cudaSuccess) return (int)err;
+  if (stages > 1) launch_sum_stages(pp, op, (int64_t)M * N, stages, s);
+  return (int)cudaGetLastError();
+}
+
+// The block rows mpmm_ff_dequant_f32 launches an [M, K] x [K, N] product with.
+extern "C" int mpmm_ff_block_m(int M, int N, int K) { return ff_block_m(M, N, K); }

@@ -26,7 +26,7 @@
 // K stage of stage_k rows (512, passed in by the wrapper); each
 // block spills its stage's partial to a [stages, M, N] int32 buffer in
 // device memory and a second kernel adds them in stage order (in uint32_t),
-// the partial sums of the Pallas FF grid (mpmm_ff.cu has the same shape).
+// the partial sums of the Pallas FF grid (the FF dequant order in mpmm.cu has the same shape).
 // Mod 2^32 both orders give the same bits.
 //
 // What bounds it on an H100: the 8-bit tensor-core operations (P plane pairs

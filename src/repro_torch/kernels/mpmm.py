@@ -7,9 +7,11 @@ Three kernels replace ``repro/kernels/mpmm.py::mpmm_pallas``:
   accumulation, the per-column f32 scale on the f32 sum, one cast to bf16.
   :func:`launch_plan` picks its kernel, tiles and K split from the shape.
   Plain version :func:`repro_torch.kernels.ref.mpmm_ref`.
-- ``mpmm_ff_cuda`` (``csrc/mpmm_ff.cu``): dequant mode, FF order.  The same
+- ``mpmm_ff_cuda`` (``csrc/mpmm.cu`` too): dequant mode, FF order.  The same
   product with k outermost, K stages of 512 rows added in stage order into
-  an unscaled f32 output.  Plain version
+  an unscaled f32 output.  It runs on the CF order's tensor-core kernel with
+  the K split fixed at the stages and an unscaled f32 epilogue
+  (``launch_plan(..., stage_k=512)``).  Plain version
   :func:`repro_torch.kernels.ref.mpmm_ff_ref`.
 - ``mpmm_int_cuda`` (``csrc/mpmm_int.cu``): int mode, CF or FF order.  int8 /
   int16 ``x`` times int4 / int8 / int16 weights, the exact int32 product mod
@@ -69,10 +71,14 @@ def wave_fill(blocks: int) -> float:
     return blocks / (-(-blocks // slots) * slots)
 
 
-def launch_plan(m: int, n: int, k: int) -> dict:
+def launch_plan(m: int, n: int, k: int, stage_k: int | None = None) -> dict:
     """How ``mpmm_cuda`` launches an [M, K] x [K, N] product: the kernel
     (small-M weight streaming for M <= 8, else the tensor-core tiles), its
-    block rows, the K split and the grid.
+    block rows, the K split and the grid.  With ``stage_k``, how
+    ``mpmm_ff_cuda`` launches it in the FF order: the tensor-core kernel at
+    any M, one split per ``stage_k``-row K stage, only the block rows chosen
+    (by the rule below with the split fixed; the C entry point
+    ``mpmm_ff_block_m`` applies the same rule).
 
     For the tensor-core kernel: where 128-row tiles alone give two waves of
     blocks, no split.  Otherwise every (block rows, splits) whose grid stays
@@ -84,12 +90,21 @@ def launch_plan(m: int, n: int, k: int) -> dict:
     at every shape of a sweep over llama3.2-3b's projections at M 128 / 256,
     ResNet18's CF layers and zamba2-7b's in_proj (``tools/sweep_mpmm_plans.py``,
     numbers in PERF.md)."""
+    col_tiles = -(-n // TC_BN)
+    if stage_k is not None:
+        splits = -(-k // stage_k)
+        fills = {bm: wave_fill(-(-m // bm) * col_tiles * splits)
+                 for bm in (TC_BLOCK_M if m > 64 else TC_BLOCK_M[-1:])}
+        best = max(fills.values())
+        block_m = next(bm for bm, fill in fills.items() if fill >= 0.9 * best)
+        return {"kernel": "tensor_core", "block_m": block_m, "block_n": TC_BN,
+                "splits": splits, "k_per_split": stage_k,
+                "grid": (col_tiles, -(-m // block_m), splits)}
     if m <= _SMALL_M:
         splits, per = split_k(m, n, k)
         return {"kernel": "small_m", "block_m": 0, "block_n": _SM_COLS, "splits": splits,
                 "k_per_split": per, "grid": (-(-n // _SM_COLS), splits, 1)}
     steps = -(-k // TC_BK)
-    col_tiles = -(-n // TC_BN)
     if m > 64 and -(-m // 128) * col_tiles >= 2 * SMS:
         block_m, per = 128, steps
     else:
@@ -171,15 +186,13 @@ def _dims(x, w_data, w_bits: int, name: str) -> tuple[int, int, int]:
     return m, k, n
 
 
-def _stage_scratch(m, n, k, stage_k, dtype, out) -> tuple[torch.Tensor, int]:
-    """(scratch, stages): the [stages, M, N] buffer the kernels spill their
-    K-stage partials to, and ceil(K / stage_k).  The kernels take both and
-    refuse a stage count that does not match; one stage writes ``out``
-    directly and needs none."""
-    stages = -(-k // stage_k)
+def _stage_scratch(m, n, stages, dtype, out) -> torch.Tensor:
+    """The [stages, M, N] buffer the kernels spill their K-stage partials
+    to.  The kernels take it with the stage count and refuse a count that
+    does not split K; one stage writes ``out`` directly and needs none."""
     if stages == 1:
-        return out, 1
-    return torch.empty((stages, m, n), dtype=dtype, device=out.device), stages
+        return out
+    return torch.empty((stages, m, n), dtype=dtype, device=out.device)
 
 
 def mpmm_ff_cuda(x: torch.Tensor, w_data: torch.Tensor, *, w_bits: int) -> torch.Tensor:
@@ -189,10 +202,11 @@ def mpmm_ff_cuda(x: torch.Tensor, w_data: torch.Tensor, *, w_bits: int) -> torch
         raise ValueError(f"mpmm kernel takes w_bits 4 or 8, got {w_bits}")
     m, k, n = _dims(x, w_data, w_bits, "mpmm_ff_cuda")
     dev = x.device
-    expect(x, "x", torch.bfloat16, (m, k), dev)
-    expect(w_data, "w_data", torch.int8, (k // 2 if w_bits == 4 else k, n), dev)
+    expect(x, "x", torch.bfloat16, (m, k), dev, align=16)
+    expect(w_data, "w_data", torch.int8, (k // 2 if w_bits == 4 else k, n), dev, align=16)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    part, stages = _stage_scratch(m, n, k, FF_STAGE_K, torch.float32, out)
+    stages = launch_plan(m, n, k, stage_k=FF_STAGE_K)["splits"]
+    part = _stage_scratch(m, n, stages, torch.float32, out)
     err = _build.lib().mpmm_ff_dequant_f32(
         x.data_ptr(), w_data.data_ptr(), out.data_ptr(), part.data_ptr(), m, n, k, w_bits,
         FF_STAGE_K, stages, torch.cuda.current_stream(dev).cuda_stream,
@@ -227,7 +241,8 @@ def mpmm_int_cuda(
     expect(w_data, "w_data", _INT_W[w_bits], (k // 2 if w_bits == 4 else k, n), dev)
     out = torch.empty((m, n), dtype=torch.int32, device=dev)
     stage_k = FF_STAGE_K if dataflow == "ff" else k  # CF: one stage of all K
-    part, stages = _stage_scratch(m, n, k, stage_k, torch.int32, out)
+    stages = -(-k // stage_k)
+    part = _stage_scratch(m, n, stages, torch.int32, out)
     err = _build.lib().mpmm_int_i32(
         x.data_ptr(), w_data.data_ptr(), out.data_ptr(), part.data_ptr(), m, n, k,
         _INT_X[x.dtype], w_bits, stage_k, stages, torch.cuda.current_stream(dev).cuda_stream,

@@ -225,6 +225,49 @@ def test_ff_entry_points_refuse_stages_that_do_not_split_k(dev, entry):
     assert launch(stages - 1) != 0 and launch(stages + 1) != 0
 
 
+# the FF order's stage counts 1, 2 and 9 (ragged last stages) at N = 64 (one
+# warpgroup's columns masked) and N = 512, an odd N (weights staged by plain
+# byte loads, column pairs straddling N), int4 with a ragged last stage
+@pytest.mark.parametrize(
+    "m,k,n,w_bits",
+    [(m, k, n, w) for k in (320, 1000, 4500) for n in (64, 512) for m, w in ((200, 8), (70, 4))]
+    + [(150, 1100, 77, 8), (150, 1100, 77, 4), (9, 520, 33, 8), (129, 1036, 96, 4)],
+)
+def test_mpmm_ff_kernel_stages_and_edges(dev, m, k, n, w_bits):
+    from repro_torch.kernels.mpmm import launch_plan
+
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    w_data, w_scale = ops.pack_weights(
+        torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k), w_bits)
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    before = mpmm_ff_cuda.launches
+    acc = mpmm_ff_cuda(x, w_data, w_bits=w_bits)
+    assert mpmm_ff_cuda.launches == before + 1
+    atol = k * 2.0**-22 * x.float().abs().max().item() * 127
+    torch.testing.assert_close(acc, ref.mpmm_ff_ref(x, w_data, w_bits=w_bits), atol=atol,
+                               rtol=1e-5)
+    assert torch.equal(acc, mpmm_ff_cuda(x, w_data, w_bits=w_bits))
+    _close(ops.mpmm(x, w_data, w_scale, w_bits=w_bits, dataflow="ff"),
+           ref.mpmm_ref(x, w_data, w_scale, w_bits=w_bits))
+    assert launch_plan(m, n, k, stage_k=ref.FF_STAGE_K)["splits"] == -(-k // 512)
+
+
+def test_mpmm_ff_entry_point_plan_matches_wrapper(dev):
+    """The FF entry point splits K at 512-row stages and picks its block rows
+    by the rule of launch_plan(..., stage_k=512), at ResNet18's FF layers
+    (batch 8) and small shapes."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mpmm import launch_plan
+
+    lib = _build.lib()
+    for m, k, n in [(100352, 147, 64), (25088, 576, 64), (6272, 576, 128), (6272, 1152, 128),
+                    (1568, 1152, 256), (1568, 2304, 256), (392, 2304, 512), (392, 4608, 512),
+                    (8, 3072, 8192), (64, 100, 10), (65, 100, 10), (300, 520, 130)]:
+        plan = launch_plan(m, n, k, stage_k=ref.FF_STAGE_K)
+        assert plan["k_per_split"] == 512 and plan["splits"] == -(-k // 512)
+        assert lib.mpmm_ff_block_m(m, n, k) == plan["block_m"], (m, k, n)
+
+
 # ------------------------------------------------------- mpmm, int mode
 def _int_operands(rng, m, k, n, w_bits, x_bits):
     xlim = 2 ** (x_bits - 1)
@@ -523,6 +566,34 @@ def test_mqa_decode_kernel_matches_plain(dev, kv_bits, b, s, hkv, g, d, lengths)
                                              kv_bits=kv_bits))
 
 
+# lengths around the 8-token tiles and the 32-position rounds of the block's
+# warps: 0, 1, 31, 32, 33 and S, with S a multiple of neither (77) or split
+# across blocks (300); D = 112 (kv4: 56-byte rows, 8-byte copies), G = 3
+# at D = 128, G = 5 (two query groups per kv head)
+@pytest.mark.parametrize("kv_bits", [4, 8])
+@pytest.mark.parametrize("s", [77, 300])
+@pytest.mark.parametrize("g,d", [(1, 112), (3, 128), (5, 64)])
+def test_mqa_decode_kernel_tile_boundaries(dev, kv_bits, s, g, d):
+    from repro_torch.kernels.mqa_decode import decode_plan
+
+    lengths = [0, 1, 31, 32, 33, s]
+    b, hkv = len(lengths), 2
+    rng = np.random.default_rng(s + g + kv_bits)
+    kd, vd, ks, vs = _contiguous_kv(rng, dev, kv_bits, b, s, hkv, d)
+    q = torch.from_numpy(rng.normal(size=(b, hkv * g, d)).astype(np.float32)).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    assert (decode_plan(b, hkv, g, s)["splits"] > 1) == (s == 300)
+    for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, dict(atol=1e-4, rtol=1e-4))):
+        qd = q.to(dtype)
+        got = ops.mqa_decode(qd, kd, vd, ks, vs, lens, kv_bits=kv_bits)
+        exp = ops.mqa_decode(qd.cpu(), kd.cpu(), vd.cpu(), ks.cpu(), vs.cpu(), lens.cpu(),
+                             kv_bits=kv_bits)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got[1:].float().cpu(), exp[1:].float(), **tol)
+        assert (got[0] == 0).all()
+        assert torch.equal(got, ops.mqa_decode(qd, kd, vd, ks, vs, lens, kv_bits=kv_bits))
+
+
 def test_mqa_decode_kernel_rejects_what_it_does_not_take(dev):
     kd = torch.zeros(1, 8, 2, 30, dtype=torch.int8, device=dev)  # 30-byte rows
     sc = torch.ones(1, 8, 2, 1, device=dev)
@@ -536,6 +607,16 @@ def test_mqa_decode_kernel_rejects_what_it_does_not_take(dev):
         mqa_decode_cuda(q, kd, kd, sc, sc, lens, kv_bits=8, sm_scale=1.0)
     with pytest.raises(ValueError, match="kv_bits"):
         mqa_decode_cuda(q.to(torch.bfloat16), kd, kd, sc, sc, lens, kv_bits=16, sm_scale=1.0)
+
+
+def test_mqa_decode_kernel_rejects_wide_heads(dev):
+    """Head dims past 128 raise in the wrapper (q quarters live in registers)."""
+    q = torch.zeros(1, 2, 1, 160, dtype=torch.bfloat16, device=dev)
+    kd = torch.zeros(1, 8, 2, 160, dtype=torch.int8, device=dev)
+    sc = torch.ones(1, 8, 2, 1, device=dev)
+    lens = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        mqa_decode_cuda(q, kd, kd, sc, sc, lens, kv_bits=8, sm_scale=1.0)
 
 
 def test_hybrid_prefill_and_decode_on_card_match_cpu(dev):

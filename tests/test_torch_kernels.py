@@ -198,6 +198,69 @@ def test_mpmm_launch_plan_at_the_serving_shapes():
     assert launch_plan(392, 512, 256)["grid"] == (4, 7, 1)
 
 
+# (M, K, N) the FF order runs at: ResNet18's FF layers at batch 8 (M = 8 Ho
+# Wo), the serving-shaped case of chip_smoke.py, and small ragged shapes
+FF_PLAN_SHAPES = [(100352, 147, 64), (25088, 576, 64), (6272, 576, 128), (6272, 1152, 128),
+                  (1568, 1152, 256), (1568, 2304, 256), (392, 2304, 512), (392, 4608, 512),
+                  (8, 3072, 8192), (1, 96, 40), (64, 100, 10), (65, 1100, 77)]
+
+
+@pytest.mark.parametrize("m,k,n", FF_PLAN_SHAPES)
+def test_mpmm_ff_launch_plan_splits_at_the_stages(m, k, n):
+    """The FF order's plan: one split per 512-row K stage (the JAX kernel's
+    bk), so each split's partial is a stage partial; the grid covers M and N
+    exactly once with 128- or 64-row tiles, 128 unless 64 fills the card's
+    block slots more than 1 / 0.9 times as well."""
+    from repro_torch.kernels import mpmm as mp
+    from repro_torch.kernels.ref import FF_STAGE_K
+
+    plan = mp.launch_plan(m, n, k, stage_k=FF_STAGE_K)
+    gx, gy, gz = plan["grid"]
+    assert plan["kernel"] == "tensor_core" and plan["k_per_split"] == FF_STAGE_K == 512
+    assert plan["splits"] == gz == -(-k // 512)
+    assert (gx - 1) * plan["block_n"] < n <= gx * plan["block_n"]
+    bm = plan["block_m"]
+    assert bm in mp.TC_BLOCK_M and (gy - 1) * bm < m <= gy * bm
+    fill = {b: mp.wave_fill(-(-m // b) * gx * gz) for b in mp.TC_BLOCK_M}
+    if m <= 64:
+        assert bm == 64
+    else:
+        assert (bm == 128) == (fill[128] >= 0.9 * max(fill.values()))
+
+
+@pytest.mark.parametrize("b,hkv,g,s", [(8, 32, 1, 552), (8, 32, 1, 545), (1, 32, 1, 32768),
+                                       (8, 8, 3, 1024), (3, 8, 3, 1000), (2, 4, 1, 70),
+                                       (1, 1, 8, 5), (2, 2, 5, 300), (64, 32, 1, 552)])
+def test_mqa_decode_plan_covers_the_positions(b, hkv, g, s):
+    """The decode kernel's split: whole 8-token tiles, the splits covering S
+    exactly once, at least MIN_SPLIT positions each (or one split), a grid
+    of blocks of 4 kv heads within TARGET_BLOCKS unless one split alone
+    passes it, and query groups of at most 4."""
+    from repro_torch.kernels import mqa_decode as md
+
+    plan = md.decode_plan(b, hkv, g, s)
+    splits, per, groups = plan["splits"], plan["per_split"], plan["groups"]
+    head_blocks = -(-hkv // md.BLOCK_HEADS)
+    assert plan["grid"] == (b, head_blocks * groups, splits)
+    assert per % md.SPLIT_UNIT == 0 and (splits - 1) * per < s <= splits * per
+    assert splits == 1 or per >= md.MIN_SPLIT
+    assert (groups - 1) * md.GROUP_QUERIES < g <= groups * md.GROUP_QUERIES
+    assert splits == 1 or b * head_blocks * groups * splits <= md.TARGET_BLOCKS
+
+
+def test_mqa_decode_plan_fills_the_card_at_zamba2():
+    """zamba2-7b's serving shape (8 rows x 32 kv heads of 545-552 positions)
+    and its 32k context (32 pairs) both give at least three blocks per SM."""
+    from repro_torch.kernels import mqa_decode as md
+    from repro_torch.kernels.mpmm import SMS
+
+    for b, s in ((8, 552), (1, 32768)):
+        gx, gy, gz = md.decode_plan(b, 32, 1, s)["grid"]
+        assert gx * gy * gz >= 3 * SMS
+    assert md.decode_plan(8, 32, 1, 552)["splits"] == 8
+    assert md.decode_plan(1, 32, 1, 32768)["splits"] == 66
+
+
 @pytest.mark.parametrize("c,g", [(1, 3), (5, 3), (32, 3), (128, 3), (128, 8), (21, 1),
                                  (64, 1), (65, 1)])
 def test_paged_prefill_grid_covers_rows(c, g):
