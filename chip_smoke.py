@@ -8,17 +8,18 @@ Phases, each printing one JSON line that names the card:
 1. build    -- nvcc builds the kernels under src/repro_torch/kernels/csrc.
 2. kernels  -- each hand-written kernel against its plain PyTorch version on
                the same inputs, in bf16 at llama3.2-3b's serving shapes (the
-               CF dequant matmul at decode M and at the prefill M of 128 and
-               256, and at zamba2-7b's in_proj / out_proj at M = 4096; two
-               runs of the tensor-core kernel and of paged prefill must give
-               the same bits) and at
+               CF dequant matmul at decode M 1-8 and at the prefill M of 128
+               and 256, and at zamba2-7b's in_proj / out_proj at M = 4096;
+               two runs of it at every M and of paged prefill must give the
+               same bits) and at
                ResNet18's conv shapes (the FF-order dequant matmul), and
                bit-exactly against the CPU's int32 matmul (the int-mode
-               matmul); the CF dequant matmul also at ResNet18's three CF
-               layers (the 1x1 stride-2 downsample convs): max abs error against the stated tolerance, the
-               kernel's time, the plain version's, a PyTorch library call's
-               as a yardstick, and the least time the card could take
-               (bound_ms).
+               matmul, also under a CF K split with a short last split); the
+               CF dequant matmul also at ResNet18's three CF layers (the 1x1
+               stride-2 downsample convs): max abs error against the stated
+               tolerance, the kernel's time, the plain version's, a PyTorch
+               library call's as a yardstick, and the least time the card
+               could take (bound_ms).
 3. step     -- a 2-layer cut of llama3.2-3b at full width (d_model 3072,
                vocab 128256): one chunked-prefill step and one decode step on
                the card (kernels) and on the CPU (plain versions); the logits
@@ -42,7 +43,8 @@ Phases, each printing one JSON line that names the card:
                static-wave train.server.Server: 8 greedy requests of 512
                random tokens, 32 new tokens each, batch 8, w8/kv8; run
                twice, the streams must be identical; two decode steps
-               profiled (mqa_decode's device time and launches among them);
+               profiled (the device time and launches of mqa_decode and of
+               the CF matmul's decode-M tile among them);
                then full mamba2-130m (ssm) served the same way.
 7. kernels line -- each kernel's launches on its path (all > 0): the serving
                kernels in phase 5's first run, the FF and int matmuls in
@@ -209,9 +211,11 @@ def kernel_cases(torch, timer, gpu) -> dict:
         note_case(summary, gpu, name, rec, representative)
 
     # ---- mpmm: w4/w8, every (K, N) of the serving path; M covers each
-    # decode batch bucket (one small-M kernel instantiation each), the
-    # engine's prefill chunk (128) and a larger prefill M; then zamba2-7b's
-    # in_proj / out_proj at its prefill M (8 x 512 tokens), w8
+    # decode batch bucket and two odd row counts (the 8-row tile takes any
+    # M <= 8), the engine's prefill chunk (128) and a larger prefill M;
+    # then zamba2-7b's in_proj / out_proj at its prefill M (8 x 512
+    # tokens), w8.  Every case's K split is summed in a fixed order, so two
+    # runs must give the same bits
     def mpmm_case(x, wd, ws, w_bits, w_deq):
         m, k = x.shape
         n = wd.shape[-1]
@@ -219,16 +223,15 @@ def kernel_cases(torch, timer, gpu) -> dict:
         exp = ref.mpmm_ref(x, wd, ws, w_bits=w_bits)
         err = max_err(torch, got, exp, MPMM_TOL)
         del exp
-        if m > 8:  # the tensor-core kernel: its K split is summed in a fixed order
-            check(torch.equal(got, mpmm_cuda(x, wd, ws, w_bits=w_bits)),
-                  f"mpmm w{w_bits} M={m} K={k} N={n}: two runs gave other bits")
+        check(torch.equal(got, mpmm_cuda(x, wd, ws, w_bits=w_bits)),
+              f"mpmm w{w_bits} M={m} K={k} N={n}: two runs gave other bits")
         nbytes = m * k * 2 + wd.numel() + n * 4 + m * n * 2
         flops = 2.0 * m * n * k
         b_ms, b_by = bound(nbytes, flops)
-        plan = launch_plan(m, n, k)
+        plan = launch_plan(m, n, k, w_bits=w_bits)
         rec = {
             "case": f"w{w_bits} M={m} K={k} N={n}", "max_abs_err": err, "tol": MPMM_TOL,
-            "kernel_plan": {key: plan[key] for key in ("kernel", "block_m", "splits", "grid")},
+            "kernel_plan": {key: plan[key] for key in ("block_m", "splits", "grid")},
             "ms": timer(lambda: mpmm_cuda(x, wd, ws, w_bits=w_bits)),
             "plain_ms": timer(lambda: ref.mpmm_ref(x, wd, ws, w_bits=w_bits), iters=3),
             "library_ms": timer(lambda: torch.matmul(x, w_deq)),
@@ -250,7 +253,7 @@ def kernel_cases(torch, timer, gpu) -> dict:
             wd, ws = ops.pack_weights(w, w_bits)
             w_deq = deq(wd, ws, w_bits)
             del w
-            for m in (1, 2, 4, 8, 128, 256):
+            for m in (1, 2, 3, 4, 5, 8, 128, 256):
                 x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
                 mpmm_case(x, wd, ws, w_bits, w_deq)
             del wd, ws, w_deq
@@ -447,7 +450,8 @@ def cnn_kernel_cases(torch, timer, gpu, summary) -> None:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.mpmm import launch_plan, mpmm_cuda, mpmm_ff_cuda, mpmm_int_cuda
+    from repro_torch.kernels.mpmm import (int_launch_plan, launch_plan, mpmm_cuda, mpmm_ff_cuda,
+                                          mpmm_int_cuda)
     from repro_torch.models.cnn_zoo import resnet18_layers
     from repro_torch.quant.pack import pack_int4, unpack_int4
 
@@ -583,9 +587,11 @@ def cnn_kernel_cases(torch, timer, gpu, summary) -> None:
         if x.dtype == torch.int8 and w_bits <= 8 and m > 16 and k % 8 == 0 and n % 8 == 0:
             w8 = unpack_int4(wd, 0) if w_bits == 4 else wd
             library_ms = timer(lambda: torch._int_mm(x, w8))
+        plan = int_launch_plan(m, n, k, dataflow)
         rec = {
             "case": f"{label} w{w_bits} x{8 * x.element_size()} {dataflow} M={m} K={k} N={n}",
             "max_abs_err": 0.0, "tol": "bit-exact", "plane_pairs": planes,
+            "kernel_plan": {key: plan[key] for key in ("block_m", "stage_k", "stages", "grid")},
             "ms": timer(lambda: mpmm_int_cuda(x, wd, w_bits=w_bits, dataflow=dataflow)),
             "plain_ms": host_ms(lambda: ref.mpmm_ref(x_cpu, wd_cpu, None, w_bits=w_bits,
                                                      mode="int")),
@@ -605,6 +611,11 @@ def cnn_kernel_cases(torch, timer, gpu, summary) -> None:
             for dataflow in ("cf", "ff"):
                 int_case(label, x, wd, w_bits, dataflow, representative=(
                     label, w_bits, x_bits, dataflow) == ("layer3.1.conv1 b2", 8, 16, "ff"))
+    # a CF split whose last split is short: 2240 rows = 8 x 256 + 192
+    for w_bits, x_bits in ((8, 8), (8, 16)):
+        x, wd = int_operands(392, 2240, 256, w_bits, x_bits)
+        for dataflow in ("cf", "ff"):
+            int_case("short last split", x, wd, w_bits, dataflow)
     x, wd = int_operands(392, 2304, 256, 16, 16, fill=32767)  # every sum wraps mod 2^32
     for dataflow in ("cf", "ff"):
         int_case("all-32767 wraparound", x, wd, 16, dataflow)
@@ -891,7 +902,15 @@ def waves_profile(torch, srv, cfg, prompt: int) -> dict:
     two_steps()
     wall = time.perf_counter() - t0
     return device_profile(torch, two_steps, wall,
-                          sums={"mqa_decode": lambda name: "mqa_decode" in name})
+                          sums={"mqa_decode": lambda name: "mqa_decode" in name,
+                                "mpmm_decode_m": decode_m_kernel,
+                                "mpmm_split_sums": lambda name: "mpmm_splitk_reduce" in name})
+
+
+def decode_m_kernel(name: str) -> bool:
+    """A device kernel of the CF dequant matmul at decode M: the
+    tensor-core kernel's 8-row tile (its first template argument)."""
+    return re.search(r"mpmm_tc_kernel<(\(int\))?8,", name.replace(" ", "")) is not None
 
 
 # --------------------------------------------------------------- phase 4
@@ -1180,10 +1199,10 @@ def main() -> int:
         (and, apart, the CF matmul's launches at prefill M)."""
         for fn in counters.values():
             fn.launches = 0
-        mpmm_cuda.tensor_core_launches = 0
+        mpmm_cuda.prefill_m_launches = 0
         result = path()
         launches = {name: fn.launches for name, fn in counters.items()}
-        launches["mpmm_dequant_prefill_m"] = mpmm_cuda.tensor_core_launches
+        launches["mpmm_dequant_prefill_m"] = mpmm_cuda.prefill_m_launches
         return result, launches
 
     _, cnn_launches = count(lambda: cnn_run(torch, gpu))
@@ -1234,8 +1253,11 @@ def main() -> int:
           "launches": wave_launches, "gpu": gpu})
     check(wstats.tokens_out == WAVE_REQUESTS * WAVE_NEW,
           f"waves tokens_out {wstats.tokens_out} != {WAVE_REQUESTS * WAVE_NEW}")
+    wprof = waves_profile(torch, srv, zamba, WAVE_PROMPT)
     emit({"phase": "waves_profile", "what": "two decode steps of a full wave",
-          "profile": waves_profile(torch, srv, zamba, WAVE_PROMPT), "gpu": gpu})
+          "profile": wprof, "gpu": gpu})
+    check(wprof["mpmm_decode_m"]["launches"] > 0,
+          "the profiled decode steps show no decode-M CF matmul")
     del srv
     torch.cuda.empty_cache()
     streams2, wstats2, _, wwall2, srv = waves_run(torch, 0, zamba, WAVE_REQUESTS,

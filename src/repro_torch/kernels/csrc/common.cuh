@@ -114,7 +114,8 @@ __host__ inline bool stages_fit(int K, int stage_k, int stages) {
   return stage_k > 0 && stages == (K + stage_k - 1) / stage_k;
 }
 
-// ---- tensor-core tiles fed by asynchronous copies (mpmm.cu, paged_prefill.cu)
+// ---- tensor-core tiles fed by asynchronous copies (mpmm.cu, mpmm_int.cu,
+// paged_prefill.cu)
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -189,6 +190,24 @@ __device__ __forceinline__ uint32_t s4x2_biased_to_bf16x2(uint32_t biased, int j
   __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&u);
   v = __hsub2(v, __floats2bfloat162_rn(136.f, 136.f));
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// int4, four at a time: the 16-bit word `biased` (= word ^ 0x8888) holds
+// byte 0 = nibbles (v0, v1) and byte 1 = (v2, v3), each v + 8 ->
+// lo = bf16x2 {v0, v1}, hi = bf16x2 {v2, v3}.  t = biased | biased << 12
+// puts v0, v1 at bits 0 and 16 and v2, v3 at bits 8 and 24, so one mask per
+// pair sets them as the mantissas of bf16 128 (ulp 1); 136 is subtracted,
+// exactly.  Half the instructions of two s4x2_biased_to_bf16x2 calls.
+__device__ __forceinline__ uint32_t bf16x2_minus_136(uint32_t u) {
+  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&u);
+  v = __hsub2(v, __floats2bfloat162_rn(136.f, 136.f));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ void s4x4_biased_to_bf16x2(uint32_t biased, uint32_t& lo,
+                                                      uint32_t& hi) {
+  const uint32_t t = biased | (biased << 12);
+  lo = bf16x2_minus_136((t & 0x000F000Fu) | 0x43004300u);
+  hi = bf16x2_minus_136(((t >> 8) & 0x000F000Fu) | 0x43004300u);
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory when it needs it.

@@ -14,24 +14,26 @@
 // kernels/ref.py::mpmm_ref / mpmm_ff_ref up to the order of the f32 sums.
 //
 // What bounds it on an H100: at decode M (a batch bucket of at most 8 rows)
-// the weight bytes.  Each weight byte is read once, by 8-byte loads that a
-// warp issues as whole 64-byte row segments; a split along K gives every SM work
-// when N is small, and a second pass sums the split partials in a fixed
-// order (no atomics, so results are the same run to run).  At prefill M and
-// at a CNN's conv shapes the product is bound by the tensor cores'
-// operations (M = 4096), by x's bytes (K = 147 or 576 at M = 25088-100352)
-// or, at M = 128-1568, by how many SMs its tiles keep busy.  One tensor-core
-// kernel serves both orders: it streams x and the packed weights through a
-// 4-stage cp.async ring, turns the weights into bf16 in registers and
-// multiplies with wgmma (bf16 in, f32 accumulate) as the transposed product,
-// the weights being its register operand; the host picks 128- or 64-row
-// tiles and the K split so the grid fills the card.  The two orders differ
-// only in the split and the epilogue: CF splits K freely and scales and
-// casts when it does not split; FF splits K at the 512-row stage boundaries
-// (Hopper blocks run in no order, so the Pallas grid's sequential stage axis
-// becomes the grid's z), writes each stage's unscaled f32 partial to a
-// [stages, M, N] spill buffer (out itself when K <= 512), and the same
-// fixed-order second pass adds the stages, as the Pallas FF grid does.
+// the weight bytes; at prefill M and at a CNN's conv shapes the tensor cores'
+// operations (M = 4096), x's bytes (K = 147 or 576 at M = 25088-100352) or,
+// at M = 128-1568, how many SMs its tiles keep busy.  One tensor-core kernel
+// serves every M and both orders: it streams x and the packed weights through
+// a cp.async ring, turns the weights into bf16 in registers and multiplies
+// with wgmma (bf16 in, f32 accumulate) as the transposed product, the weights
+// being its register operand; the host picks 128-, 64- or (M <= 8) 8-row
+// tiles and the K split so the grid fills the card.  At 8 rows a stage is
+// almost all weights (2 KB of x beside 16 KB of int8 or 8 KB of int4
+// weights, 128 K rows), and 4 of the ring's 5 stages are in flight per
+// block: 64 KB (int8) or 32 KB (int4), about 100 KB per SM, enough to cover
+// HBM's latency.  A K split's partials go through a second pass that sums
+// them in a fixed order (no atomics, so results are the same run to run).
+// The two orders differ only in the split and the epilogue: CF splits K
+// freely and scales and casts when it does not split; FF splits K at the
+// 512-row stage boundaries (Hopper blocks run in no order, so the Pallas
+// grid's sequential stage axis becomes the grid's z), writes each stage's
+// unscaled f32 partial to a [stages, M, N] spill buffer (out itself when
+// K <= 512), and the same fixed-order second pass adds the stages, as the
+// Pallas FF grid does.
 //
 // Ragged M, N and K edges are masked inside the kernels (the JAX wrapper
 // pads to blocks instead).  The wrappers (kernels/mpmm.py) check shapes,
@@ -41,126 +43,6 @@
 #include "common.cuh"
 
 namespace {
-
-// ---- small M: weight-streaming kernel -------------------------------------
-// 256 threads = 8 column groups x 32 K lanes; a thread owns 8 adjacent
-// columns, read as one 8-byte load per weight row (two K rows for int4), so
-// a warp's loads cover four whole 64-byte row segments.  MM (1, 2, 4 or 8)
-// is the number of x rows handled, so accumulators stay in registers.
-constexpr int SM_THREADS = 256;
-constexpr int SM_CPT = 8;                       // columns per thread
-constexpr int SM_CGROUPS = 8;                   // column groups per block
-constexpr int SM_COLS = SM_CPT * SM_CGROUPS;    // 64 columns per block
-constexpr int SM_KLANES = SM_THREADS / SM_CGROUPS;  // 32
-constexpr int SM_WARPS = SM_THREADS / 32;
-constexpr int SM_MMAX = 8;   // rows handled by this kernel
-constexpr int SM_KC = 512;   // K rows of x staged in shared memory at once
-
-template <int MM>
-__global__ void __launch_bounds__(SM_THREADS)
-mpmm_small_m_kernel(const __nv_bfloat16* __restrict__ x,
-                    const int8_t* __restrict__ w,
-                    const float* __restrict__ scale,
-                    __nv_bfloat16* __restrict__ out,
-                    float* __restrict__ partial, int M, int N, int K,
-                    int w_bits, int k_per_split) {
-  __shared__ float xs[MM][SM_KC];
-  __shared__ float red[SM_WARPS][MM][SM_COLS];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int cg = tid & 7;   // column group
-  const int kl = tid >> 3;  // K lane
-  const int col0 = blockIdx.x * SM_COLS + cg * SM_CPT;
-  const int split = blockIdx.y;
-  const int k_begin = split * k_per_split;
-  const int k_end = min(K, k_begin + k_per_split);
-  const bool live = col0 < N;  // N % 8 == 0: a live group has all 8 columns
-
-  float acc[MM][SM_CPT];
-#pragma unroll
-  for (int m = 0; m < MM; ++m)
-#pragma unroll
-    for (int c = 0; c < SM_CPT; ++c) acc[m][c] = 0.f;
-
-  for (int kc = k_begin; kc < k_end; kc += SM_KC) {
-    const int kn = min(SM_KC, k_end - kc);
-    for (int i = tid; i < MM * SM_KC; i += SM_THREADS) {
-      const int m = i / SM_KC, kk = i % SM_KC;
-      xs[m][kk] = (m < M && kk < kn)
-                      ? __bfloat162float(x[(int64_t)m * K + kc + kk])
-                      : 0.f;
-    }
-    __syncthreads();
-    if (live) {
-      if (w_bits == 8) {
-#pragma unroll 4
-        for (int kk = kl; kk < kn; kk += SM_KLANES) {
-          const uint2 word = *reinterpret_cast<const uint2*>(
-              w + (int64_t)(kc + kk) * N + col0);
-          float wv[SM_CPT];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            wv[c] = (float)(int8_t)(word.x >> (8 * c));
-            wv[4 + c] = (float)(int8_t)(word.y >> (8 * c));
-          }
-#pragma unroll
-          for (int m = 0; m < MM; ++m) {
-            const float xv = xs[m][kk];
-#pragma unroll
-            for (int c = 0; c < SM_CPT; ++c) acc[m][c] += xv * wv[c];
-          }
-        }
-      } else {  // w_bits == 4: kc and kn are even, one byte row = 2 K rows
-#pragma unroll 4
-        for (int pp = kl; pp < kn / 2; pp += SM_KLANES) {
-          const uint2 word = *reinterpret_cast<const uint2*>(
-              w + (int64_t)(kc / 2 + pp) * N + col0);
-          float lo[SM_CPT], hi[SM_CPT];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int8_t b0 = (int8_t)(word.x >> (8 * c)), b1 = (int8_t)(word.y >> (8 * c));
-            lo[c] = (float)nibble_lo(b0);
-            hi[c] = (float)nibble_hi(b0);
-            lo[4 + c] = (float)nibble_lo(b1);
-            hi[4 + c] = (float)nibble_hi(b1);
-          }
-#pragma unroll
-          for (int m = 0; m < MM; ++m) {
-            const float x0 = xs[m][2 * pp], x1 = xs[m][2 * pp + 1];
-#pragma unroll
-            for (int c = 0; c < SM_CPT; ++c) acc[m][c] += x0 * lo[c] + x1 * hi[c];
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // reduce the 4 K lanes of a warp (lanes 8 apart) with shuffles, then the
-  // 8 warps through shared memory, in a fixed order
-#pragma unroll
-  for (int m = 0; m < MM; ++m)
-#pragma unroll
-    for (int c = 0; c < SM_CPT; ++c) {
-      float v = acc[m][c];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (lane < 8) red[warp][m][cg * SM_CPT + c] = v;
-    }
-  __syncthreads();
-  for (int i = tid; i < MM * SM_COLS; i += SM_THREADS) {
-    const int m = i / SM_COLS, col = i % SM_COLS;
-    const int n = blockIdx.x * SM_COLS + col;
-    if (m >= M || n >= N) continue;
-    float s = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < SM_WARPS; ++wi) s += red[wi][m][col];
-    if (gridDim.y == 1) {
-      out[(int64_t)m * N + n] = __float2bfloat16(s * scale[n]);
-    } else {
-      partial[((int64_t)split * M + m) * N + n] = s;
-    }
-  }
-}
 
 // Sums the K-split partials in split order, applies the scale, casts.
 __global__ void mpmm_splitk_reduce(const float* __restrict__ partial,
@@ -175,19 +57,21 @@ __global__ void mpmm_splitk_reduce(const float* __restrict__ partial,
   out[i] = __float2bfloat16(s * scale[i % N]);
 }
 
-// ---- larger M: warpgroup tensor-core kernel on an asynchronous-copy ring --
+// ---- the warpgroup tensor-core kernel on an asynchronous-copy ring ---------
 // The product runs transposed, out^T = w^T x^T, on Hopper's warpgroup MMA
 // (wgmma): the dequantized weights are its register operand A (64 weight
 // columns per warpgroup, 16 per warp) and x arrives untouched in shared
-// memory as its operand B (BM x-rows by 64 k, K-major, in the 128-byte
-// swizzled layout the descriptor names).  Block tile: 128 weight columns
-// (2 warpgroups, 256 threads) by BM = 128 or 64 x-rows (chosen on the host
-// from the shape); K advances in 64-row steps through a ring of TC_STAGES
-// shared-memory stages filled by cp.async, the copies of the next
-// TC_STAGES - 1 steps in flight while the current one is multiplied.  The
-// weights land as they are stored, int8 or K-packed int4 (1 or 1/2 byte a
-// weight), and are turned into bf16 in registers right before the product
-// (exact for |w| <= 127).
+// memory as its operand B (BM x-rows by 64 k a slice, K-major, in the
+// 128-byte swizzled layout the descriptor names).  Block tile: 128 weight
+// columns (2 warpgroups, 256 threads) by BM = 128, 64 or 8 x-rows (chosen on
+// the host from the shape; 8 for M <= 8, where wgmma.m64n8k16 takes a slice
+// of x as one 8-row, 128-byte swizzle atom); K advances in tc_bk<BM>()-row
+// steps (64, or 128 at 8 rows) through a ring of tc_stages<BM>()
+// shared-memory stages filled by cp.async, the copies of the next stages - 1
+// steps in flight while the current one is multiplied.  The weights land as
+// they are stored, int8 or K-packed int4 (1 or 1/2 byte a weight), and are
+// turned into bf16 in registers right before the product (exact for
+// |w| <= 127).
 //
 // A fragments without a transpose: fragment row g of a warp's 16-row slice
 // takes weight column 2g, row g + 8 column 2g + 1, so one 16-bit shared load
@@ -198,23 +82,37 @@ __global__ void mpmm_splitk_reduce(const float* __restrict__ partial,
 constexpr int TC_THREADS = 256;
 constexpr int TC_BN = 128;
 constexpr int TC_BK = 64;
-constexpr int TC_STAGES = 4;
 
-template <int W_BITS>
+// K rows per step: 64; 128 at 8 rows, so that a block syncs and waits for
+// its products half as often per weight.  Ring depth: 4 stages; 5 at 8 rows,
+// whose stages are nearly all weights, so that more weight bytes are in
+// flight per SM.
+template <int BM>
+__host__ __device__ constexpr int tc_bk() {
+  return BM == 8 ? 2 * TC_BK : TC_BK;
+}
+template <int BM>
+__host__ __device__ constexpr int tc_stages() {
+  return BM == 8 ? 5 : 4;
+}
+
+template <int W_BITS, int BK>
 struct WTile {
-  static constexpr int ROWS = W_BITS == 8 ? TC_BK : TC_BK / 2;        // byte rows
+  static constexpr int ROWS = W_BITS == 8 ? BK : BK / 2;               // byte rows
   static constexpr int PITCH = W_BITS == 8 ? TC_BN + 16 : TC_BN + 32;  // bytes
 };
 
-// x tile: BM rows of 64 bf16 (128 bytes), then the weight tile; every stage
-// starts on a 1024-byte boundary (the swizzle repeats every 8 rows).
+// x tile: BK / 64 slices of BM rows of 64 bf16 (128 bytes a row, BM * 128
+// bytes a slice), then the weight tile; every slice and stage starts on a
+// 1024-byte boundary (the swizzle repeats every 8 rows).
 template <int BM, int W_BITS>
 __host__ __device__ constexpr int tc_stage_bytes() {
-  return BM * 128 + WTile<W_BITS>::ROWS * WTile<W_BITS>::PITCH;
+  using WT = WTile<W_BITS, tc_bk<BM>()>;
+  return BM * 2 * tc_bk<BM>() + WT::ROWS * WT::PITCH;
 }
 template <int BM, int W_BITS>
 constexpr int tc_smem_bytes() {
-  return TC_STAGES * tc_stage_bytes<BM, W_BITS>() + 1024;  // + alignment slack
+  return tc_stages<BM>() * tc_stage_bytes<BM, W_BITS>() + 1024;  // + alignment slack
 }
 
 // D[64 x 128] += A[64 x 16] * B[16 x 128]: wgmma.m64n128k16, bf16 in, f32 accumulate;
@@ -277,6 +175,17 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D[64 x 8] += A[64 x 16] * B[16 x 8]: wgmma.m64n8k16, the decode-M tile.
+__device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4], const uint32_t (&a)[4],
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -317,13 +226,17 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
 mpmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
                const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
                float* __restrict__ partial, int M, int N, int K, int k_per_split) {
-  using WT = WTile<W_BITS>;
-  constexpr int X_BYTES = BM * 128;
+  constexpr int BK = tc_bk<BM>();
+  using WT = WTile<W_BITS, BK>;
+  constexpr int SLICE = BM * 128;  // x bytes of 64 k
+  constexpr int X_BYTES = SLICE * (BK / 64);
+  constexpr int STAGES = tc_stages<BM>();
   constexpr int STAGE = tc_stage_bytes<BM, W_BITS>();
-  constexpr int X_CHUNKS = BM * 8;
+  constexpr int X_CHUNKS = BM * BK / 8;
   constexpr int W_CHUNKS = WT::ROWS * TC_BN / W_VEC;
   static_assert(STAGE % 1024 == 0, "stages keep the swizzle's 1024-byte alignment");
-  static_assert(X_CHUNKS % TC_THREADS == 0 && W_CHUNKS % TC_THREADS == 0, "copy split");
+  static_assert((X_CHUNKS % TC_THREADS == 0 || X_CHUNKS < TC_THREADS) &&
+                W_CHUNKS % TC_THREADS == 0, "copy split");
   static_assert(FF || W_VEC >= 8, "the CF order takes N % 8 == 0");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -335,29 +248,32 @@ mpmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w
   const int split = blockIdx.z;
   const int k_begin = split * k_per_split;
   const int k_end = min(K, k_begin + k_per_split);
-  const int n_kt = (k_end - k_begin + TC_BK - 1) / TC_BK;
+  const int n_kt = (k_end - k_begin + BK - 1) / BK;
   const int w_row_end = W_BITS == 8 ? k_end : k_end / 2;  // k_end is even for int4
 
   auto load_stage = [&](int kt) {
-    uint8_t* st = smem + (kt % TC_STAGES) * STAGE;
-    const int k0 = k_begin + kt * TC_BK;
-    // x row r, 16-byte chunk c lands at chunk c ^ (r % 8) of row r (128B swizzle)
+    uint8_t* st = smem + (kt % STAGES) * STAGE;
+    const int k0 = k_begin + kt * BK;
+    // x row r, 16-byte chunk c of a 64-k slice lands at chunk c ^ (r % 8) of
+    // row r of that slice (128B swizzle)
     if constexpr (X_VEC) {
 #pragma unroll
-      for (int i = 0; i < X_CHUNKS / TC_THREADS; ++i) {
+      for (int i = 0; i < (X_CHUNKS + TC_THREADS - 1) / TC_THREADS; ++i) {
         const int c = tid + i * TC_THREADS;
-        const int r = c >> 3, ch = c & 7;
+        if (X_CHUNKS < TC_THREADS && c >= X_CHUNKS) break;  // 8 rows: 128 chunks
+        const int r = (unsigned)c / (BK / 8), ch = (unsigned)c % (BK / 8);
         const int gm = m0 + r, gk = k0 + ch * 8;
         const bool ok = gm < M && gk < k_end;
-        cp_async<16>(st + r * 128 + ((ch ^ (r & 7)) << 4), ok ? x + (int64_t)gm * K + gk : x,
-                     ok);
+        cp_async<16>(st + (ch >> 3) * SLICE + r * 128 + (((ch & 7) ^ (r & 7)) << 4),
+                     ok ? x + (int64_t)gm * K + gk : x, ok);
       }
     } else {
-      for (int i = tid; i < BM * TC_BK; i += TC_THREADS) {
-        const int r = i / TC_BK, kk = i % TC_BK;
+      for (int i = tid; i < BM * BK; i += TC_THREADS) {
+        const int r = i / BK, kk = i % BK;
         const int gm = m0 + r, gk = k0 + kk;
-        *reinterpret_cast<__nv_bfloat16*>(st + r * 128 + (((kk >> 3) ^ (r & 7)) << 4) +
-                                          (kk & 7) * 2) =
+        const int slice = BK > 64 ? kk >> 6 : 0, k64 = BK > 64 ? kk & 63 : kk;
+        *reinterpret_cast<__nv_bfloat16*>(st + slice * SLICE + r * 128 +
+                                          (((k64 >> 3) ^ (r & 7)) << 4) + (kk & 7) * 2) =
             (gm < M && gk < k_end) ? x[(int64_t)gm * K + gk] : __float2bfloat16(0.f);
       }
     }
@@ -388,21 +304,21 @@ mpmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w
   for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
 
 #pragma unroll
-  for (int s = 0; s < TC_STAGES - 1; ++s) {
+  for (int s = 0; s < STAGES - 1; ++s) {
     if (s < n_kt) load_stage(s);
     cp_async_commit();  // empty groups keep the count uniform
   }
   for (int kt = 0; kt < n_kt; ++kt) {
-    cp_async_wait<TC_STAGES - 2>();  // step kt has landed
+    cp_async_wait<STAGES - 2>();  // step kt has landed
     fence_proxy_async();
     __syncthreads();  // ... for every thread; stage kt - 1 is free
-    if (kt + TC_STAGES - 1 < n_kt) load_stage(kt + TC_STAGES - 1);
+    if (kt + STAGES - 1 < n_kt) load_stage(kt + STAGES - 1);
     cp_async_commit();
-    const uint8_t* st = smem + (kt % TC_STAGES) * STAGE;
+    const uint8_t* st = smem + (kt % STAGES) * STAGE;
     const uint8_t* ws = st + X_BYTES + wcol;
-    uint32_t a[TC_BK / 16][4];
+    uint32_t a[BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       if constexpr (W_BITS == 8) {  // k rows 2q, 2q + 1, 2q + 8, 2q + 9 of this step
         const uint8_t* p = ws + (kk * 16 + 2 * q) * WT::PITCH;
         const uint32_t h0 = *reinterpret_cast<const uint16_t*>(p);
@@ -418,23 +334,24 @@ mpmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w
         a[kk][3] = pack_int_bf16x2(s8_biased_to_f32(hi, 1), s8_biased_to_f32(hi, 3));
       } else {  // byte rows q and q + 4 hold k (2q, 2q + 1) and (2q + 8, 2q + 9)
         const uint8_t* p = ws + (kk * 8 + q) * WT::PITCH;
-        const uint32_t lo = *reinterpret_cast<const uint16_t*>(p) ^ 0x8888u;
-        const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + 4 * WT::PITCH) ^ 0x8888u;
-        a[kk][0] = s4x2_biased_to_bf16x2(lo, 0);
-        a[kk][1] = s4x2_biased_to_bf16x2(lo, 1);
-        a[kk][2] = s4x2_biased_to_bf16x2(hi, 0);
-        a[kk][3] = s4x2_biased_to_bf16x2(hi, 1);
+        s4x4_biased_to_bf16x2(*reinterpret_cast<const uint16_t*>(p) ^ 0x8888u, a[kk][0],
+                              a[kk][1]);
+        s4x4_biased_to_bf16x2(*reinterpret_cast<const uint16_t*>(p + 4 * WT::PITCH) ^ 0x8888u,
+                              a[kk][2], a[kk][3]);
       }
     }
-    const uint64_t desc = desc_k128(st);
     fence_operands(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // the slice's descriptor, + 32 bytes of k per 16-k step within it
+      const uint64_t desc = desc_k128(st + (kk >> 2) * SLICE) + 2 * (kk & 3);
       if constexpr (BM == 128) {
-        wgmma_m64n128k16(acc, a[kk], desc + 2 * kk);  // + 32 bytes of k per step
+        wgmma_m64n128k16(acc, a[kk], desc);
+      } else if constexpr (BM == 64) {
+        wgmma_m64n64k16(acc, a[kk], desc);
       } else {
-        wgmma_m64n64k16(acc, a[kk], desc + 2 * kk);
+        wgmma_m64n8k16(acc, a[kk], desc);
       }
     }
     wgmma_commit();
@@ -517,6 +434,10 @@ cudaError_t dispatch_tc(const __nv_bfloat16* x, const int8_t* w, const float* sc
   MPMM_TC_CASE(128, 4)
   MPMM_TC_CASE(64, 8)
   MPMM_TC_CASE(64, 4)
+  if constexpr (!FF) {  // decode M: the CF order only
+    MPMM_TC_CASE(8, 8)
+    MPMM_TC_CASE(8, 4)
+  }
 #undef MPMM_TC_CASE
   return cudaErrorInvalidValue;
 }
@@ -545,47 +466,29 @@ int ff_block_m(int M, int N, int K) {
 
 // x [M, K] bf16, w [K or K/2, N] int8, scale [N] f32, out [M, N] bf16.
 // partial: [splits, M, N] f32 scratch when splits > 1 (else unused).
-// block_m: the tensor-core kernel's block rows (64 or 128) when M > 8.
-// k_per_split: K rows per split, a multiple of the kernel's K step (512 for
-// M <= 8, 64 above), with (splits - 1) * k_per_split < K <= splits *
-// k_per_split; the wrapper (kernels/mpmm.py::launch_plan) chooses both.
-// Returns cudaErrorInvalidValue without launching on a plan that does not
-// fit, else cudaGetLastError() after the launches.
+// block_m: the block rows (128, 64, or 8 for M <= 8).  k_per_split: K rows
+// per split, a multiple of the kernel's K step (tc_bk: 128 at 8 rows, else
+// 64), with (splits - 1) * k_per_split < K <= splits * k_per_split; the
+// wrapper (kernels/mpmm.py::launch_plan) chooses all three.  Returns
+// cudaErrorInvalidValue without launching on a plan that does not fit, else
+// cudaGetLastError() after the launches.
 extern "C" int mpmm_dequant_bf16(const void* x, const void* w, const void* scale,
                                  void* out, void* partial, int M, int N, int K,
                                  int w_bits, int splits, int k_per_split, int block_m,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* wp = static_cast<const int8_t*>(w);
   const auto* sp = static_cast<const float*>(scale);
   auto* op = static_cast<__nv_bfloat16*>(out);
   float* pp = static_cast<float*>(partial);
-  const int step = M <= SM_MMAX ? SM_KC : TC_BK;
-  if (splits < 1 || k_per_split < 1 || k_per_split % step ||
+  const int step = block_m == 8 ? tc_bk<8>() : TC_BK;
+  if (splits < 1 || k_per_split < 1 || k_per_split % step || (block_m == 8 && M > 8) ||
       (int64_t)splits * k_per_split < K || (int64_t)(splits - 1) * k_per_split >= K) {
     return (int)cudaErrorInvalidValue;
   }
-  if (M <= SM_MMAX) {
-    dim3 grid((N + SM_COLS - 1) / SM_COLS, splits);
-    if (M == 1) {
-      mpmm_small_m_kernel<1><<<grid, SM_THREADS, 0, s>>>(xp, wp, sp, op, pp, M, N, K, w_bits,
-                                                         k_per_split);
-    } else if (M == 2) {
-      mpmm_small_m_kernel<2><<<grid, SM_THREADS, 0, s>>>(xp, wp, sp, op, pp, M, N, K, w_bits,
-                                                         k_per_split);
-    } else if (M <= 4) {
-      mpmm_small_m_kernel<4><<<grid, SM_THREADS, 0, s>>>(xp, wp, sp, op, pp, M, N, K, w_bits,
-                                                         k_per_split);
-    } else {
-      mpmm_small_m_kernel<8><<<grid, SM_THREADS, 0, s>>>(xp, wp, sp, op, pp, M, N, K, w_bits,
-                                                         k_per_split);
-    }
-  } else {
-    const cudaError_t err = dispatch_tc<false>(xp, wp, sp, op, pp, M, N, K, w_bits, splits,
-                                               k_per_split, block_m, s);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = dispatch_tc<false>(static_cast<const __nv_bfloat16*>(x),
+                                             static_cast<const int8_t*>(w), sp, op, pp, M, N,
+                                             K, w_bits, splits, k_per_split, block_m, s);
+  if (err != cudaSuccess) return (int)err;
   if (splits > 1) {
     const int64_t total = (int64_t)M * N;
     mpmm_splitk_reduce<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(pp, sp, op, M, N,

@@ -15,9 +15,10 @@ Three kernels replace ``repro/kernels/mpmm.py::mpmm_pallas``:
   :func:`repro_torch.kernels.ref.mpmm_ff_ref`.
 - ``mpmm_int_cuda`` (``csrc/mpmm_int.cu``): int mode, CF or FF order.  int8 /
   int16 ``x`` times int4 / int8 / int16 weights, the exact int32 product mod
-  2^32 through radix-256 digit planes on the 8-bit tensor cores.  Plain
-  version ``ref.mpmm_ref(mode="int")``, run on CPU tensors (CUDA has no
-  int32 matmul).
+  2^32 through radix-256 digit planes on the 8-bit tensor cores.
+  :func:`int_launch_plan` picks its K split.  Plain version
+  ``ref.mpmm_ref(mode="int")``, run on CPU tensors (CUDA has no int32
+  matmul).
 
 The dispatch wrapper ``ops.mpmm`` runs the plain versions for CPU tensors;
 ``chip_smoke.py`` holds each kernel against its plain version.  Each
@@ -33,50 +34,44 @@ from repro_torch.kernels.ref import FF_STAGE_K, mpmm_ref
 
 __all__ = ["mpmm_cuda", "mpmm_ff_cuda", "mpmm_int_cuda", "mpmm_ref"]
 
-_SMALL_M = 8  # rows the weight-streaming kernel takes (csrc: SM_MMAX)
-_SM_COLS = 64  # columns per block of that kernel (csrc: SM_COLS)
-_SM_KC = 512  # K rows it stages per chunk (csrc: SM_KC)
-_TARGET_BLOCKS = 264  # two waves of the H100's 132 SMs
 SMS = 132  # the H100's SMs
-TC_BLOCK_M = (128, 64)  # block rows of the tensor-core kernel (csrc: BM)
+DECODE_M = 8  # the most rows the 8-row tile takes: the decode batch buckets
+DECODE_BK = 128  # the 8-row tile's K step; its splits are whole steps (csrc: tc_bk<8>)
+TC_BLOCK_M = (128, 64)  # block rows of the tensor-core kernel above DECODE_M (csrc: BM)
 TC_BN = 128  # its block columns (csrc: TC_BN)
 TC_BK = 64  # its K step; a split is a whole number of steps (csrc: TC_BK)
 TC_MIN_STEPS = 2  # K steps a split keeps at least
 TC_SPLIT_MIN_K = 512  # a shorter K is not split: the second pass would cost more
+INT_TILE = 64  # block rows and columns of the int-mode kernel (csrc: IB_M, IB_N)
+INT_SPLIT_MIN_K = 1024  # its CF order splits no shorter K: the second pass would cost more
 
 
-def split_k(m: int, n: int, k: int) -> tuple[int, int]:
-    """(splits, K rows per split) for the small-M kernel: split K until the
-    grid has about two blocks per SM, each split a whole number of x chunks
-    (so int4 splits stay on byte rows)."""
-    if m > _SMALL_M:
-        raise ValueError(f"split_k plans the M <= {_SMALL_M} kernel, got M={m}")
-    col_blocks = -(-n // _SM_COLS)
-    splits = max(1, min(-(-_TARGET_BLOCKS // col_blocks), k // _SM_KC))
-    per = -(-k // splits)
-    per = -(-per // _SM_KC) * _SM_KC
-    return -(-k // per), per
-
-
-def tc_max_splits(k: int) -> int:
-    """The most splits the tensor-core kernel takes along K."""
-    return max(1, -(-k // TC_BK) // TC_MIN_STEPS) if k >= TC_SPLIT_MIN_K else 1
-
-
-def wave_fill(blocks: int) -> float:
+def wave_fill(blocks: int, per_sm: int | None = None) -> float:
     """The share of block slots a grid fills over its waves: one block per
     SM up to ``SMS`` blocks, two per SM above (their shared memory and
-    registers fit twice)."""
-    slots = SMS if blocks <= SMS else 2 * SMS
+    registers fit twice); with ``per_sm``, that many per SM at any size."""
+    slots = SMS * per_sm if per_sm else (SMS if blocks <= SMS else 2 * SMS)
     return blocks / (-(-blocks // slots) * slots)
 
 
-def launch_plan(m: int, n: int, k: int, stage_k: int | None = None) -> dict:
-    """How ``mpmm_cuda`` launches an [M, K] x [K, N] product: the kernel
-    (small-M weight streaming for M <= 8, else the tensor-core tiles), its
-    block rows, the K split and the grid.  With ``stage_k``, how
-    ``mpmm_ff_cuda`` launches it in the FF order: the tensor-core kernel at
-    any M, one split per ``stage_k``-row K stage, only the block rows chosen
+def even_splits(k: int, step: int, min_steps: int) -> dict[int, int]:
+    """{splits: steps per split} for every split of K into whole ``step``-row
+    steps of at least ``min_steps`` each, the most even of each count
+    (K below ``TC_SPLIT_MIN_K`` is not split), in increasing splits."""
+    steps = -(-k // step)
+    opts = {1: steps}
+    if k >= TC_SPLIT_MIN_K:
+        for per in range(steps - 1, min_steps - 1, -1):
+            opts[-(-steps // per)] = per  # a smaller per of the same count is more even
+    return opts
+
+
+def launch_plan(m: int, n: int, k: int, stage_k: int | None = None,
+                w_bits: int | None = None) -> dict:
+    """How ``mpmm_cuda`` launches an [M, K] x [K, N] product on the
+    tensor-core kernel: its block rows, the K split and the grid.  With
+    ``stage_k``, how ``mpmm_ff_cuda`` launches it in the FF order: any M,
+    one split per ``stage_k``-row K stage, only the block rows chosen
     (by the rule below with the split fixed; the C entry point
     ``mpmm_ff_block_m`` applies the same rule).
 
@@ -89,7 +84,16 @@ def launch_plan(m: int, n: int, k: int, stage_k: int | None = None) -> dict:
     tie.  On the H100 this rule picked the fastest or a plan within 13% of it
     at every shape of a sweep over llama3.2-3b's projections at M 128 / 256,
     ResNet18's CF layers and zamba2-7b's in_proj (``tools/sweep_mpmm_plans.py``,
-    numbers in PERF.md)."""
+    numbers in PERF.md).
+
+    At decode M (M <= 8, where the plan needs ``w_bits``) the tile has 8
+    rows and the product is bound by the weight bytes: K is split in whole
+    128-row steps until the grid fills two blocks per SM at int4, one at
+    int8 (an int8 block's ring holds twice the weight bytes in flight, and
+    every split adds a partial to the second pass), the fewest splits within
+    90% of the best fill.  On the H100 this picked the fastest split or one
+    within 10% of it at every serving shape at M 1-8
+    (``tools/sweep_mpmm_plans.py decode``)."""
     col_tiles = -(-n // TC_BN)
     if stage_k is not None:
         splits = -(-k // stage_k)
@@ -100,10 +104,16 @@ def launch_plan(m: int, n: int, k: int, stage_k: int | None = None) -> dict:
         return {"kernel": "tensor_core", "block_m": block_m, "block_n": TC_BN,
                 "splits": splits, "k_per_split": stage_k,
                 "grid": (col_tiles, -(-m // block_m), splits)}
-    if m <= _SMALL_M:
-        splits, per = split_k(m, n, k)
-        return {"kernel": "small_m", "block_m": 0, "block_n": _SM_COLS, "splits": splits,
-                "k_per_split": per, "grid": (-(-n // _SM_COLS), splits, 1)}
+    if m <= DECODE_M:
+        if w_bits not in (4, 8):
+            raise ValueError(f"a decode-M plan takes w_bits 4 or 8, got {w_bits}")
+        opts = even_splits(k, DECODE_BK, 1)
+        fills = {s: wave_fill(col_tiles * s, per_sm=2 if w_bits == 4 else 1) for s in opts}
+        best = max(fills.values())
+        splits = min(s for s, fill in fills.items() if fill >= 0.9 * best)
+        per = opts[splits] * DECODE_BK
+        return {"kernel": "tensor_core", "block_m": DECODE_M, "block_n": TC_BN,
+                "splits": -(-k // per), "k_per_split": per, "grid": (col_tiles, 1, splits)}
     steps = -(-k // TC_BK)
     if m > 64 and -(-m // 128) * col_tiles >= 2 * SMS:
         block_m, per = 128, steps
@@ -111,9 +121,7 @@ def launch_plan(m: int, n: int, k: int, stage_k: int | None = None) -> dict:
         cands = {}
         for bm in TC_BLOCK_M if m > 64 else TC_BLOCK_M[-1:]:
             tiles = -(-m // bm) * col_tiles
-            for want in range(1, tc_max_splits(k) + 1):
-                per = -(-steps // want)
-                splits = -(-steps // per)
+            for splits, per in even_splits(k, TC_BK, TC_MIN_STEPS).items():
                 if splits > 1 and tiles * splits > 2 * SMS:
                     break  # a split only to fill the card, never past two blocks per SM
                 cands[(bm, splits)] = (wave_fill(tiles * splits), per)
@@ -150,7 +158,7 @@ def mpmm_cuda(
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     if m == 0:
         return out  # nothing to compute
-    plan = launch_plan(m, n, k)
+    plan = launch_plan(m, n, k, w_bits=w_bits)
     splits = plan["splits"]
     partial = (
         torch.empty((splits, m, n), dtype=torch.float32, device=dev)
@@ -164,12 +172,12 @@ def mpmm_cuda(
     )
     _build.check(err, "mpmm_dequant_bf16")
     mpmm_cuda.launches += 1
-    mpmm_cuda.tensor_core_launches += plan["kernel"] == "tensor_core"
+    mpmm_cuda.prefill_m_launches += m > DECODE_M
     return out
 
 
 mpmm_cuda.launches = 0
-mpmm_cuda.tensor_core_launches = 0  # of them, launches of the M > 8 kernel
+mpmm_cuda.prefill_m_launches = 0  # of them, launches at M > 8 (prefill M)
 
 
 def _dims(x, w_data, w_bits: int, name: str) -> tuple[int, int, int]:
@@ -222,13 +230,44 @@ _INT_X = {torch.int8: 8, torch.int16: 16}
 _INT_W = {4: torch.int8, 8: torch.int8, 16: torch.int16}
 
 
+def int_launch_plan(m: int, n: int, k: int, dataflow: str) -> dict:
+    """How ``mpmm_int_cuda`` launches an [M, K] x [K, N] int product: K in
+    ``stages`` ranges of ``stage_k`` rows (the grid's z; more than one are
+    summed in range order, mod 2^32), 64 x 64 output tiles.  FF: 512-row
+    stages.  CF: all of K in one range, or, from ``INT_SPLIT_MIN_K`` rows,
+    every split into whole 64-row tiles (at least two a split, the most even
+    of each count, and a split only up to two blocks per SM) is scored by
+    ``wave_fill``, and the fewest splits within 90% of the best fill win.
+    On the H100 this plan was the fastest or within 10% of it at every
+    ResNet18 int shape of a sweep of the splits and of 128-row tiles
+    (``tools/sweep_mpmm_plans.py``, numbers in PERF.md)."""
+    tiles = -(-n // INT_TILE) * -(-m // INT_TILE)
+    if dataflow == "ff":
+        stage_k = FF_STAGE_K
+    elif k < INT_SPLIT_MIN_K:
+        stage_k = k
+    else:
+        fills = {}
+        for splits, per in even_splits(k, TC_BK, TC_MIN_STEPS).items():
+            if splits > 1 and tiles * splits > 2 * SMS:
+                break  # a split only to fill the card, never past two blocks per SM
+            fills[splits] = (wave_fill(tiles * splits), per)
+        best = max(fill for fill, _ in fills.values())
+        splits = min(s for s, (fill, _) in fills.items() if fill >= 0.9 * best)
+        stage_k = fills[splits][1] * TC_BK if splits > 1 else k
+    stages = -(-k // stage_k)
+    return {"block_m": INT_TILE, "block_n": INT_TILE, "stage_k": stage_k, "stages": stages,
+            "grid": (-(-n // INT_TILE), -(-m // INT_TILE), stages)}
+
+
 def mpmm_int_cuda(
     x: torch.Tensor, w_data: torch.Tensor, *, w_bits: int, dataflow: str = "cf"
 ) -> torch.Tensor:
     """Launch the int-mode matmul on ``x``'s card: int8/int16 [M, K] times
     int4 (packed) / int8 / int16 weights -> [M, N] int32, exact mod 2^32, in
-    the CF order (each block walks all of K) or the FF order (512-row K
-    stages spilled side by side, then summed in stage order)."""
+    the CF order or the FF order (512-row K stages spilled side by side,
+    then summed in stage order); the CF order splits K the same way where
+    its output tiles alone leave the card idle (:func:`int_launch_plan`)."""
     if w_bits not in _INT_W:
         raise ValueError(f"int mode takes w_bits 4, 8 or 16, got {w_bits}")
     if x.dtype not in _INT_X:
@@ -240,8 +279,8 @@ def mpmm_int_cuda(
     expect(x, "x", x.dtype, (m, k), dev)
     expect(w_data, "w_data", _INT_W[w_bits], (k // 2 if w_bits == 4 else k, n), dev)
     out = torch.empty((m, n), dtype=torch.int32, device=dev)
-    stage_k = FF_STAGE_K if dataflow == "ff" else k  # CF: one stage of all K
-    stages = -(-k // stage_k)
+    plan = int_launch_plan(m, n, k, dataflow)
+    stage_k, stages = plan["stage_k"], plan["stages"]
     part = _stage_scratch(m, n, stages, torch.int32, out)
     err = _build.lib().mpmm_int_i32(
         x.data_ptr(), w_data.data_ptr(), out.data_ptr(), part.data_ptr(), m, n, k,

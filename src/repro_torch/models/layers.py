@@ -15,6 +15,7 @@ from typing import Any
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as ref_mod
 
 Params = dict[str, Any]
 
@@ -56,15 +57,26 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
 def dense(x: torch.Tensor, w) -> torch.Tensor:
     """Dense matmul dispatching on plain vs quantized weights: quantized
     dicts go through the multi-precision mpmm (f32 accumulate, per-column
-    scale in f32, one cast to x.dtype)."""
+    scale in f32, one cast to x.dtype).
+
+    A 16-bit dict runs in int mode, as the reference does: ``x`` truncated
+    toward zero to int32, the exact int32 product (mod 2^32), times the f32
+    scale, cast to x.dtype.  That is the int mode's plain version, which
+    takes any integer x; the card's int kernel takes int8 / int16 x only,
+    and a truncated float activation may not fit int16, so on the card a
+    16-bit dict raises."""
     if isinstance(w, dict):
         bits = int(w["bits"])
-        if bits >= 16:
-            raise NotImplementedError(
-                "16-bit quantized weights need int-mode mpmm, not ported yet "
-                "(ROADMAP Queue 2: FF/int-mode mpmm)"
-            )
-        return ops.mpmm(x, w["data"], w["scale"], w_bits=bits).to(x.dtype)
+        if bits < 16:
+            return ops.mpmm(x, w["data"], w["scale"], w_bits=bits).to(x.dtype)
+        if ops.on_card(x):
+            raise ValueError(
+                f"16-bit quantized weights run in int mode; the card's int kernel takes "
+                f"int8 / int16 activations, got {x.dtype}")
+        k, n = x.shape[-1], w["data"].shape[-1]
+        acc = ref_mod.mpmm_ref(x.reshape(-1, k).to(torch.int32), w["data"], w["scale"],
+                               w_bits=bits, mode="int")
+        return (acc.float() * w["scale"].float()).reshape(*x.shape[:-1], n).to(x.dtype)
     return torch.matmul(x, w.to(x.dtype))
 
 

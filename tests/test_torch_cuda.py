@@ -1,7 +1,7 @@
 """Each hand-written CUDA kernel of repro_torch against its plain PyTorch
 version, on the card: the W4/W8 dequant matmul in the CF order (the
-weight-streaming kernel at M <= 8, the tensor-core kernel above, at ragged
-edges and at the serving paths' prefill shapes) and the FF order,
+tensor-core kernel's 8-row tile at M <= 8, its 64- and 128-row tiles above,
+at ragged edges and at the serving paths' prefill shapes) and the FF order,
 the int-mode matmul (bit-exact against the CPU), paged decode and paged
 prefill, contiguous-cache decode (``mqa_decode``), at small ragged shapes,
 at llama3.2-3b's and zamba2-7b's widths and at ResNet18's conv shapes; and a
@@ -111,6 +111,38 @@ def test_mpmm_path_shapes_repeat_bits(dev, m, k, n, w_bits):
     assert (launch_plan(m, n, k)["splits"] > 1) == (m < 4096)
 
 
+# decode M: every batch bucket's row count and odd ones, K off the 64-row K
+# step (1100: int4 with K % 128 != 0; 130), N off the 128-column tile
+@pytest.mark.parametrize("w_bits", [4, 8])
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("k,n", [(1100, 200), (130, 1032), (3072, 1024)])
+def test_mpmm_decode_m_matches_plain_and_repeats_bits(dev, w_bits, m, k, n):
+    from repro_torch.kernels.mpmm import DECODE_M, launch_plan
+
+    gen = torch.Generator(device=dev).manual_seed(m * 13 + k + n)
+    w_data, w_scale = ops.pack_weights(
+        torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k), w_bits)
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    assert launch_plan(m, n, k, w_bits=w_bits)["block_m"] == DECODE_M
+    before = mpmm_cuda.launches
+    got = mpmm_cuda(x, w_data, w_scale, w_bits=w_bits)
+    torch.cuda.synchronize()
+    assert mpmm_cuda.launches == before + 1
+    _close(got, ref.mpmm_ref(x, w_data, w_scale, w_bits=w_bits))
+    assert torch.equal(got, mpmm_cuda(x, w_data, w_scale, w_bits=w_bits))
+
+
+def test_dense_w16_raises_on_the_card(dev):
+    """A 16-bit quantized weight runs in int mode, whose card kernel takes
+    int8 / int16 activations: a bf16 activation raises, naming its dtype."""
+    from repro_torch.models.layers import dense
+
+    w = {"data": torch.zeros(64, 32, dtype=torch.int16, device=dev),
+         "scale": torch.ones(1, 32, device=dev), "bits": 16}
+    with pytest.raises(ValueError, match="bfloat16"):
+        dense(torch.zeros(2, 64, dtype=torch.bfloat16, device=dev), w)
+
+
 def test_mpmm_entry_point_refuses_plans_that_do_not_fit(dev):
     """The C entry point takes the wrapper's plan and refuses one that does
     not cover K in whole K steps, or block rows it was not compiled for."""
@@ -133,7 +165,9 @@ def test_mpmm_entry_point_refuses_plans_that_do_not_fit(dev):
     torch.cuda.synchronize()
     for bad in ((7, 128, 64), (9, 128, 64), (8, 120, 64), (8, 128, 96), (4, 256, 32)):
         assert launch(*bad) != 0, bad
-    assert launch(2, 512, 0, rows=8) == 0 and launch(2, 500, 0, rows=8) != 0
+    # the 8-row tile (M <= 8 only) steps through K 128 rows at a time
+    assert launch(3, 384, 8, rows=8) == 0 and launch(4, 320, 8, rows=8) != 0
+    assert launch(3, 384, 8, rows=9) != 0 and launch(2, 512, 0, rows=8) != 0
     torch.cuda.synchronize()
 
 
@@ -294,6 +328,59 @@ def test_mpmm_int_kernel_bit_exact(dev, w_bits, x_bits, dataflow, m, k, n):
     torch.cuda.synchronize()
     assert mpmm_int_cuda.launches == before + 1 and got.dtype == torch.int32
     assert torch.equal(got.cpu(), exp)
+
+
+# a CF split with a short last split (2240 = 8 x 256 + 192; x rows 16-byte
+# copies at int8 and int16), odd K (x by plain loads), odd N (w likewise)
+# (int4 packs K in pairs, so odd K runs at 8 and 16 weight bits)
+@pytest.mark.parametrize(
+    "m,k,n,w_bits,x_bits",
+    [(m, k, n, w, x) for m, k, n in [(392, 2240, 256), (300, 147, 64), (150, 1100, 77)]
+     for w, x in [(8, 8), (4, 8), (16, 16), (8, 16), (4, 16)] if w != 4 or k % 2 == 0],
+)
+def test_mpmm_int_kernel_splits_and_edges(dev, m, k, n, w_bits, x_bits):
+    from repro_torch.kernels.mpmm import int_launch_plan
+
+    rng = np.random.default_rng(m + k + n + w_bits + x_bits)
+    x, wd = _int_operands(rng, m, k, n, w_bits, x_bits)
+    exp = ref.mpmm_ref(x, wd, None, w_bits=w_bits, mode="int")
+    for dataflow in ("cf", "ff"):
+        got = mpmm_int_cuda(x.to(dev), wd.to(dev), w_bits=w_bits, dataflow=dataflow)
+        assert torch.equal(got.cpu(), exp), dataflow
+    if (m, k) == (392, 2240):
+        plan = int_launch_plan(m, n, k, "cf")
+        assert plan["stages"] > 1 and k - (plan["stages"] - 1) * plan["stage_k"] < plan["stage_k"]
+
+
+def test_mpmm_int_entry_point_takes_the_host_plan(dev):
+    """The int entry point launches the K split int_launch_plan makes (whole
+    64-row tiles, a short last one) at ResNet18's int shapes (batch 1 and 2)
+    and small ones, and refuses a split off the K tiles."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mpmm import int_launch_plan
+
+    lib = _build.lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for m, k, n in [(12544, 147, 64), (3136, 576, 64), (784, 576, 128), (1568, 1152, 128),
+                    (392, 2304, 256), (196, 2304, 256), (98, 4608, 512), (49, 4608, 512),
+                    (392, 2240, 256), (64, 1100, 64), (37, 146, 72)]:
+        x = torch.zeros(m, k, dtype=torch.int8, device=dev)
+        w = torch.zeros(k, n, dtype=torch.int8, device=dev)
+        out = torch.empty(m, n, dtype=torch.int32, device=dev)
+        part = torch.empty(-(-k // 64), m, n, dtype=torch.int32, device=dev)
+
+        def launch(stage_k, stages):
+            return lib.mpmm_int_i32(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                    part.data_ptr(), m, n, k, 8, 8, stage_k, stages, stream)
+
+        for dataflow in ("cf", "ff"):
+            plan = int_launch_plan(m, n, k, dataflow)
+            assert launch(plan["stage_k"], plan["stages"]) == 0, (m, k, n, dataflow)
+        torch.cuda.synchronize()
+        if (m, k) == (64, 1100):  # 128-row ranges are whole tiles; 120-row ones are not
+            assert launch(128, 9) == 0 and launch(k, 1) == 0
+            torch.cuda.synchronize()
+            assert launch(120, 10) != 0 and launch(128, 8) != 0
 
 
 @pytest.mark.parametrize("dataflow", ["cf", "ff"])

@@ -167,22 +167,23 @@ def test_mpmm_launch_plan_covers_the_shape(m, k, n):
     K split is exhausted, and a split never takes it past two blocks per SM."""
     from repro_torch.kernels import mpmm as mp
 
-    plan = mp.launch_plan(m, n, k)
+    plan = mp.launch_plan(m, n, k, w_bits=4)
     gx, gy, gz = plan["grid"]
     splits, per = plan["splits"], plan["k_per_split"]
     assert (gx - 1) * plan["block_n"] < n <= gx * plan["block_n"]
     assert (splits - 1) * per < k <= splits * per
-    if m <= 8:
-        assert plan["kernel"] == "small_m" and (gy, gz) == (splits, 1)
-        assert per % 512 == 0
-        return
     assert plan["kernel"] == "tensor_core" and gz == splits
+    if m <= 8:  # decode M: one 8-row tile, K split to two blocks per SM
+        assert plan["block_m"] == mp.DECODE_M and gy == 1
+        assert per % mp.DECODE_BK == 0
+        assert gx * gz >= 0.9 * 2 * mp.SMS or splits == max(mp.even_splits(k, mp.DECODE_BK, 1))
+        return
     bm = plan["block_m"]
     assert bm in mp.TC_BLOCK_M and (gy - 1) * bm < m <= gy * bm
     assert per % mp.TC_BK == 0 and per % 2 == 0
     assert per >= min(k, mp.TC_MIN_STEPS * mp.TC_BK)
     blocks = gx * gy * gz
-    assert blocks >= 0.9 * mp.SMS or splits == mp.tc_max_splits(k)
+    assert blocks >= 0.9 * mp.SMS or splits == max(mp.even_splits(k, mp.TC_BK, mp.TC_MIN_STEPS))
     assert splits == 1 or blocks <= 2 * mp.SMS
     assert mp.wave_fill(blocks) <= 1.0
 
@@ -196,6 +197,96 @@ def test_mpmm_launch_plan_at_the_serving_shapes():
     assert launch_plan(256, 3072, 3072)["grid"] == (24, 2, 5)
     assert launch_plan(128, 1024, 3072)["grid"] == (8, 2, 8)
     assert launch_plan(392, 512, 256)["grid"] == (4, 7, 1)
+
+
+@pytest.mark.parametrize("w_bits", [4, 8])
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("k,n", [(3072, 3072), (3072, 1024), (8192, 3072), (3072, 128256),
+                                 (1100, 200), (96, 40), (4100, 8192)])
+def test_mpmm_decode_plan_covers_k_in_whole_tiles(m, k, n, w_bits):
+    """At M <= 8 every split starts on a whole 128-row K step (even, so an
+    int4 split starts on a byte row), the splits cover K exactly once with
+    the last one ragged or full, the plan does not depend on M, and the
+    fewest splits within 90% of the best fill of two blocks per SM (int4)
+    or one (int8) win; an M <= 8 plan without w_bits raises."""
+    from repro_torch.kernels import mpmm as mp
+
+    plan = mp.launch_plan(m, n, k, w_bits=w_bits)
+    splits, per = plan["splits"], plan["k_per_split"]
+    starts = [s * per for s in range(splits)]
+    assert all(s % mp.DECODE_BK == 0 and (s // 2) * 2 == s for s in starts)
+    assert starts[-1] < k <= starts[-1] + per
+    assert plan == mp.launch_plan(8, n, k, w_bits=w_bits)
+    with pytest.raises(ValueError, match="w_bits"):
+        mp.launch_plan(m, n, k)
+    opts = mp.even_splits(k, mp.DECODE_BK, 1)
+    assert opts[splits] * mp.DECODE_BK == per
+    per_sm = 2 if w_bits == 4 else 1
+    fill = {s: mp.wave_fill(-(-n // mp.TC_BN) * s, per_sm=per_sm) for s in opts}
+    assert fill[splits] >= 0.9 * max(fill.values())
+    assert all(fill[s] < 0.9 * max(fill.values()) for s in fill if s < splits)
+
+
+def _resnet18_int_shapes():
+    """(M, K, N) of every ResNet18 conv as a matmul at batch 1 and 2, the
+    batches the int mode is checked at."""
+    from repro_torch.models.cnn_zoo import resnet18_layers
+
+    shapes = set()
+    for l in resnet18_layers():
+        ho = (l.h + 2 * l.padding - l.k) // l.stride + 1
+        wo = (l.w + 2 * l.padding - l.k) // l.stride + 1
+        for b in (1, 2):
+            shapes.add((b * ho * wo, l.cin * l.k * l.k, l.cout))
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("dataflow", ["cf", "ff"])
+@pytest.mark.parametrize("m,k,n", _resnet18_int_shapes() + [(392, 2240, 256), (8, 1100, 64)])
+def test_mpmm_int_launch_plan_covers_k_and_fills_the_card(m, k, n, dataflow):
+    """The int kernel's plan: 64 x 64 output tiles; K ranges of stage_k rows
+    cover K exactly once; FF's are the 512-row stages; CF's are whole 64-row
+    K tiles when K is split (only from INT_SPLIT_MIN_K rows, at least two
+    tiles each, never past two blocks per SM), and the split fills at least
+    90% of the best fill any such split gives, with the fewest splits."""
+    from repro_torch.kernels import mpmm as mp
+
+    plan = mp.int_launch_plan(m, n, k, dataflow)
+    stage_k, stages = plan["stage_k"], plan["stages"]
+    gx, gy, gz = plan["grid"]
+    assert (stages - 1) * stage_k < k <= stages * stage_k and gz == stages
+    assert plan["block_m"] == plan["block_n"] == mp.INT_TILE == 64
+    assert (gx - 1) * 64 < n <= gx * 64 and (gy - 1) * 64 < m <= gy * 64
+    if dataflow == "ff":
+        assert stage_k == 512
+        return
+    if k < mp.INT_SPLIT_MIN_K:
+        assert stages == 1
+        return
+    if stages > 1:
+        assert stage_k % mp.TC_BK == 0 and stage_k >= 2 * mp.TC_BK
+        assert gx * gy * gz <= 2 * mp.SMS
+    steps = -(-k // mp.TC_BK)
+    fills = {}
+    for per in range(2, steps + 1):
+        s = -(-steps // per)
+        if s == 1 or gx * gy * s <= 2 * mp.SMS:
+            fills[s] = mp.wave_fill(gx * gy * s)
+    best = max(fills.values())
+    assert fills[stages] >= 0.9 * best
+    assert all(f < 0.9 * best for s, f in fills.items() if s < stages)
+
+
+def test_mpmm_int_launch_plan_at_resnet18():
+    """The plans the int numbers in PERF.md were measured with."""
+    from repro_torch.kernels.mpmm import int_launch_plan
+
+    assert int_launch_plan(392, 256, 2304, "cf")["grid"] == (4, 7, 9)
+    assert int_launch_plan(392, 256, 2304, "ff")["grid"] == (4, 7, 5)
+    assert int_launch_plan(3136, 64, 576, "cf")["grid"] == (1, 49, 1)
+    assert int_launch_plan(12544, 64, 147, "cf")["grid"] == (1, 196, 1)
+    plan = int_launch_plan(392, 256, 2240, "cf")  # a short last split: 3 of 4 tiles
+    assert plan["stages"] == 9 and 2240 - 8 * plan["stage_k"] == 192
 
 
 # (M, K, N) the FF order runs at: ResNet18's FF layers at batch 8 (M = 8 Ho

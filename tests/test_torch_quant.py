@@ -98,3 +98,35 @@ def test_quantize_params_byte_identical(bits):
     cmp(theirs, ours, "")
     assert ours["blocks"]["wq"]["data"].dtype == torch.int8
     assert ours["embed"].dtype == torch.bfloat16  # bf16 leaves carried over exactly
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_w16_matches_jax(dtype):
+    """A 16-bit quantized weight dict runs in int mode, as the reference's
+    ``layers.dense`` runs it: x truncated toward zero to int32 (values
+    that truncate to negative numbers and to zero included), the exact
+    int32 product, times the f32 scale, cast to x.dtype.  The dict is built
+    with numpy and carried across by ``params_from_numpy``.  float32 must
+    match bit for bit; bf16 within one bf16 rounding step (rtol 2^-8), the
+    cast being the only rounding after the exact integer product."""
+    from repro.models import layers as jlayers
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(16)
+    k, n = 96, 40
+    w = {"data": rng.integers(-32768, 32768, (k, n)).astype(np.int16),
+         "scale": (rng.random((1, n)) * 1e-4).astype(np.float32), "bits": 16}
+    x = (rng.normal(size=(2, 3, k)) * 40).astype(np.float32)
+    x[0, 0, :8] = [-3.7, -0.4, 0.6, 0.99, -0.99, 2.5, -2.5, 0.0]  # -3, 0, 0, 0, 0, 2, -2, 0
+    jx = jnp.asarray(x).astype(dtype)
+    exp = np.asarray(jlayers.dense(jx, jax.tree.map(jnp.asarray, w)).astype(jnp.float32))
+    ours = params_from_numpy({"w": w}, "cpu")["w"]
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = layers.dense(tx, ours)
+    assert got.dtype == tx.dtype and tuple(got.shape) == (2, 3, n)
+    trunc = tx.reshape(-1, k).to(torch.int32)[0, :8].tolist()
+    assert trunc == [-3, 0, 0, 0, 0, 2, -2, 0]
+    if dtype == "float32":
+        np.testing.assert_array_equal(got.numpy(), exp)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), exp, rtol=2.0**-8, atol=0)
