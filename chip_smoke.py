@@ -37,7 +37,9 @@ Phases, each printing one JSON line that names the card:
                512-token prompts (256 shared), 32 new tokens each, weight/KV
                precision cycling over (4,8) (8,4) (8,8) (16,16); run twice,
                the streams must be identical; then one chunk-prefill group
-               call (4 x 128 tokens, w8/kv8) under the profiler.
+               call (4 x 128 tokens, w8/kv8) under the profiler, and one
+               decode step (8 rows, w8/kv8, ctx ~515) under it: paged
+               decode's device time and launches, the card's busy share.
 6. waves    -- the full 81-layer zamba2-7b (hybrid: Mamba2 + shared
                attention) with seeded random weights served by the
                static-wave train.server.Server: 8 greedy requests of 512
@@ -51,7 +53,10 @@ Phases, each printing one JSON line that names the card:
                phase 4, contiguous-cache decode in phase 6's first zamba2
                run; the counts are set to 0 just before each path runs.
 
-Phase 2 also holds contiguous-cache decode (mqa_decode) against its plain
+Phase 2 holds paged decode at llama3.2-3b's heads (8 x 3 x 128; ctx 0, 1,
+17, 1024, with and without a window of 256), yi-9b's (4 x 8 x 128, ctx 1024,
+kv8 and kv4) and gemma3-1b's (1 x 4 x 256, a window of 1024 at ctx 2048).
+It also holds contiguous-cache decode (mqa_decode) against its plain
 version at zamba2-7b's serving shape (kv8 and kv4), a 32k context and
 llama3.2-3b's GQA shape; phase 3 also runs zamba2-7b cut to 7 layers at full
 width (prefill and two decode steps) on the card and on the CPU.
@@ -280,43 +285,46 @@ def kernel_cases(torch, timer, gpu) -> dict:
             return x.to(torch.bfloat16), None
         return ops.quantize_kv(x, kv_bits)
 
-    def kv_bytes(tokens, kv_bits):
-        per_tok = hkv * (d // 2 if kv_bits == 4 else d) * (2 if kv_bits == 16 else 1)
-        return tokens * 2 * (per_tok + (hkv * 4 if kv_bits < 16 else 0))
+    def kv_bytes(tokens, kv_bits, heads=hkv, dim=d):
+        per_tok = heads * (dim // 2 if kv_bits == 4 else dim) * (2 if kv_bits == 16 else 1)
+        return tokens * 2 * (per_tok + (heads * 4 if kv_bits < 16 else 0))
 
-    def gathered(pool, scale, tables, kv_bits, new, new_scale):
+    def gathered(pool, scale, tables, kv_bits, new, new_scale, groups=g):
         """[B, H, S, D] bf16 K or V for SDPA: the table's pages dequantized,
         then the new token(s) [B, T, Hkv, Dk], KV heads repeated to H."""
         sc = None if scale is None else ref.gather_pages(scale, tables)[layer]
         old = ref._dequant(ref.gather_pages(pool, tables)[layer], sc, kv_bits)
         full = torch.cat([old, ref._dequant(new, new_scale, kv_bits)], dim=1)
-        return full.to(torch.bfloat16).transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+        return full.to(torch.bfloat16).transpose(1, 2).repeat_interleave(groups, dim=1).contiguous()
 
     def touched(n, lo):
         """Table slots a row reads for live positions [lo, n)."""
         return -(-n // ps) - lo // ps if n > lo else 0
 
-    # ---- paged decode: B = 8, ctx in {0, 1, 17, 1024}, with and without a window
-    b = 8
-    for kv_bits in (4, 8, 16):
-        w = -(-1025 // ps)
+    # ---- paged decode: B = 8 at llama3.2-3b's heads, ctx in {0, 1, 17, 1024},
+    # with and without a window; yi-9b's heads (4 x 8 x 128) at ctx 1024 (kv8,
+    # kv4); gemma3-1b's (1 x 4 x 256) with its window of 1024 at ctx 2048 (kv8)
+    def decode_cases(kv_bits, ctxs, windows, heads=(hkv, g, d), label=""):
+        hk, gq, dd = heads
+        hh, b = hk * gq, 8
+        w = -(-(max(ctxs) + 1) // ps)
         n_pages = b * w + 4
-        kp, ks = payload((n_layers, n_pages, ps, hkv, d), kv_bits)
-        vp, vs = payload((n_layers, n_pages, ps, hkv, d), kv_bits)
+        kp, ks = payload((n_layers, n_pages, ps, hk, dd), kv_bits)
+        vp, vs = payload((n_layers, n_pages, ps, hk, dd), kv_bits)
         tables = torch.randperm(n_pages, generator=gen, device="cuda")[: b * w]
         tables = tables.reshape(b, w).to(torch.int32)
-        nk, nks = payload((b, hkv, d), kv_bits)
-        nv, nvs = payload((b, hkv, d), kv_bits)
-        q = torch.randn(b, h, d, generator=gen, device="cuda").to(torch.bfloat16)
-        qg = q.reshape(b, hkv, g, d)
-        for ctx in (0, 1, 17, 1024):
+        nk, nks = payload((b, hk, dd), kv_bits)
+        nv, nvs = payload((b, hk, dd), kv_bits)
+        q = torch.randn(b, hh, dd, generator=gen, device="cuda").to(torch.bfloat16)
+        qg = q.reshape(b, hk, gq, dd)
+        for ctx in ctxs:
             lengths = torch.tensor([max(ctx - (i % 3), 0) for i in range(b)],
                                    dtype=torch.int32, device="cuda")
-            for window in (None, 256):
+            for window in windows:
                 args = (kp, vp, ks, vs, tables, lengths, layer, nk, nv, nks, nvs)
-                sm = 1 / math.sqrt(d)
+                sm = 1 / math.sqrt(dd)
                 got = paged_mqa_decode_cuda(qg, *args, kv_bits=kv_bits, sm_scale=sm,
-                                            window=window).reshape(b, h, d)
+                                            window=window).reshape(b, hh, dd)
                 exp = ref.paged_mqa_decode_ref(q, *args, sm_scale=sm, kv_bits=kv_bits,
                                                window=window)
                 err = max_err(torch, got, exp, ATTN_TOL)
@@ -324,20 +332,22 @@ def kernel_cases(torch, timer, gpu) -> dict:
                 los = [max(n + 1 - window, 0) if window else 0 for n in lens]
                 live = [n - lo if n > lo else 0 for n, lo in zip(lens, los)]
                 slots = sum(touched(n, lo) for n, lo in zip(lens, los))
-                nbytes = 2 * q.numel() * 2 + kv_bytes(sum(live) + b, kv_bits) + 4 * (slots + b)
-                b_ms, b_by = bound(nbytes, 4.0 * h * d * sum(n + 1 for n in live))
+                nbytes = (2 * q.numel() * 2 + kv_bytes(sum(live) + b, kv_bits, hk, dd)
+                          + 4 * (slots + b))
+                b_ms, b_by = bound(nbytes, 4.0 * hh * dd * sum(n + 1 for n in live))
                 # library yardstick: SDPA over gathered, dequantized K/V + new token
                 one = lambda t: None if t is None else t[:, None]  # noqa: E731
-                kg = gathered(kp, ks, tables, kv_bits, one(nk), one(nks))
-                vg = gathered(vp, vs, tables, kv_bits, one(nv), one(nvs))
+                kg = gathered(kp, ks, tables, kv_bits, one(nk), one(nks), gq)
+                vg = gathered(vp, vs, tables, kv_bits, one(nv), one(nvs), gq)
                 pos = torch.arange(kg.shape[2], device="cuda")
                 mask = (pos[None] < lengths[:, None]) | (pos[None] == kg.shape[2] - 1)
                 if window:
                     mask &= pos[None] >= (lengths[:, None] + 1 - window)
                 mask = mask[:, None, None, :]
                 q4 = q[:, :, None, :]
+                heads_s = f"{label} {hk}x{gq}x{dd} " if label else ""
                 rec = {
-                    "case": f"kv{kv_bits} B={b} ctx={ctx} window={window}",
+                    "case": f"{heads_s}kv{kv_bits} B={b} ctx={ctx} window={window}",
                     "max_abs_err": err, "tol": ATTN_TOL,
                     "ms": timer(lambda: paged_mqa_decode_cuda(
                         qg, *args, kv_bits=kv_bits, sm_scale=sm, window=window)),
@@ -347,9 +357,15 @@ def kernel_cases(torch, timer, gpu) -> dict:
                         q4, kg, vg, attn_mask=mask)),
                     "bound_ms": b_ms, "bound_by": b_by,
                 }
-                note("paged_decode", rec, (kv_bits, ctx, window) == (8, 1024, None))
+                note("paged_decode", rec, (kv_bits, ctx, window, label) == (8, 1024, None, ""))
         del kp, vp, ks, vs
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
+
+    for kv_bits in (4, 8, 16):
+        decode_cases(kv_bits, (0, 1, 17, 1024), (None, 256))
+    for kv_bits in (8, 4):
+        decode_cases(kv_bits, (1024,), (None,), (4, 8, 128), "yi-9b heads")
+    decode_cases(8, (2048,), (1024,), (1, 4, 256), "gemma3-1b heads")
 
     # ---- paged prefill: C in {1, 32, 128}, ragged q_lens, ctx > 0
     b = 4
@@ -1145,6 +1161,54 @@ def engine_prefill_profile(torch, cfg) -> dict:
             "group_call_ms": wall * 1e3, **prof}
 
 
+def engine_decode_profile(torch, cfg) -> dict:
+    """One decode step of the full engine under torch.profiler: eight w8/kv8
+    requests of 512 random prompt tokens, prefilled in 128-token chunks,
+    then decoding as one group of 8 rows (one paged_decode_step: 28 layers
+    of paged decode at ctx ~515).  The first pure decode step warms up, the
+    second is timed without the profiler, the third runs under it: paged
+    decode's device time and launches, and the card's busy share of the
+    second step's wall time."""
+    import numpy as np
+
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.params import PrecisionParams, SamplingParams
+
+    params = model_lib.init_params(cfg, torch.Generator(device="cuda").manual_seed(11))
+    engine = ServeEngine(cfg, params, max_slots=8, page_size=16, prefill_chunk=128,
+                         num_pages=8 * 40, device="cuda")
+    rng = np.random.default_rng(11)
+    reqs = [engine.submit(rng.integers(0, cfg.vocab, 512).astype(np.int32),
+                          SamplingParams(max_new_tokens=16), PrecisionParams(w_bits=8, kv_bits=8))
+            for _ in range(8)]
+    while not all(r.out_tokens for r in reqs):
+        engine.step()
+
+    def step():
+        engine.step()
+        torch.cuda.synchronize()
+
+    step()
+    steps, chunks = engine.stats.decode_steps, engine.stats.prefill_chunks
+    t0 = time.perf_counter()
+    step()
+    wall = time.perf_counter() - t0
+    # the kernel and its merge launch
+    prof = device_profile(torch, step, wall,
+                          sums={"paged_decode": lambda name: "paged_decode" in name})
+    check(engine.stats.decode_steps == steps + 2 and engine.stats.prefill_chunks == chunks,
+          "the profiled engine steps were not one decode group call each")
+    ctx = [r.cache_len for r in reqs]
+    del engine, params
+    torch.cuda.empty_cache()
+    pd = prof["paged_decode"]
+    return {"requests": 8, "prompt": 512, "w_bits": 8, "kv_bits": 8, "rows": 8,
+            "ctx_after": ctx, "decode_step_ms": wall * 1e3,
+            "paged_decode_share_of_busy": pd["device_ms"] / max(prof["device_busy_ms"], 1e-9),
+            **prof}
+
+
 def _p50(samples) -> float:
     ordered = sorted(samples)
     return ordered[len(ordered) // 2]
@@ -1238,6 +1302,15 @@ def main() -> int:
     emit({"phase": "engine_prefill_profile",
           "what": "one chunk-prefill group call of the full engine (4 x 128 tokens)",
           "profile": engine_prefill_profile(torch, llama), "gpu": gpu})
+
+    torch.cuda.empty_cache()
+    dprof = engine_decode_profile(torch, llama)
+    emit({"phase": "engine_decode_profile",
+          "what": "one decode step of the full engine (8 rows, w8/kv8, ctx ~515)",
+          "profile": dprof, "gpu": gpu})
+    check(dprof["paged_decode"]["launches"] >= llama.n_layers,
+          f"the profiled decode step shows {dprof['paged_decode']['launches']} paged decode "
+          f"launches, expected at least one per layer ({llama.n_layers})")
 
     # ---- waves: full zamba2-7b through the static-wave Server, twice
     (streams, wstats, wpeak, wwall, srv), wave_launches = count(

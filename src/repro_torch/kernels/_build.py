@@ -33,8 +33,7 @@ _SIGNATURES = {
     "mpmm_ff_block_m": [_I] * 3,
     "mpmm_int_i32": [_P] * 4 + [_I] * 7 + [_P],
     "mqa_decode": [_P] * 8 + [_I] * 9 + [_F, _P],
-    "paged_decode_bf16": [_P] * 13 + [_I] * 12 + [_F, _P],
-    "paged_decode_tile_tokens": [],
+    "paged_decode_bf16": [_P] * 13 + [_I] * 13 + [_F, _P],
     "paged_prefill_bf16": [_P] * 13 + [_I] * 11 + [_F, _P],
     "paged_prefill_rows_per_block": [],
 }

@@ -1,13 +1,18 @@
-"""Paged flash-decode GQA attention: the CUDA kernel's wrapper and its plain
-version.
+"""Paged flash-decode GQA attention: the CUDA kernel's wrapper, its launch
+plan and its plain version.
 
 The kernel (``csrc/paged_decode.cu``) replaces
 ``repro/kernels/paged_decode.py::paged_mqa_decode_pallas``: one new token per
 row against the paged KV pool, read in place through the page tables, with
-int8/int4 pages dequantized in registers, an optional sliding window and the
-step's own token fused in as the last term.  It is bound by the live K/V
-bytes.  Each row's positions are split across blocks (flash-decoding) and a
-second launch merges the splits; see the source note for its design.  The plain version is
+an optional sliding window and the step's own token fused in.  It is bound
+by the live K/V bytes and by the latency of each warp's chain of tiles: a
+warp is a whole decoder of one (row, kv head, group of up to 8 queries,
+split), streams its pages as stored (int8, packed int4 or bf16) through its
+own ``cp.async`` ring with the page ids looked up a tile ahead, and runs
+both products on the tensor cores with the query group as the M side.
+:func:`decode_plan` splits each row's positions from the shapes alone (never
+reading ``lengths`` back); a second launch merges the splits in a fixed
+order; see the source note for its design.  The plain version is
 :func:`repro_torch.kernels.ref.paged_mqa_decode_ref`, which the dispatch
 wrapper (``ops.paged_mqa_decode``) runs for CPU tensors.
 
@@ -19,22 +24,44 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import expect, pool_dtype, ptr, window_arg
+from repro_torch.kernels.mpmm import SMS
 from repro_torch.kernels.ref import paged_mqa_decode_ref
 
-__all__ = ["paged_mqa_decode_cuda", "paged_mqa_decode_ref"]
+__all__ = ["decode_plan", "paged_mqa_decode_cuda", "paged_mqa_decode_ref"]
 
-_SPLIT_TOKENS = 128  # positions one block covers, at least
+MAX_HEAD_DIM = 256  # 8 groups of 32 dims in the P V fragments (csrc: NC)
+GROUP_QUERIES = 8  # queries a warp takes: the products' M rows (csrc: PD_GQ)
+TILE = 8  # positions per warp tile: splits cover whole tiles (csrc: PD_TT)
+BLOCK_WARPS = 4  # warps a block takes (csrc: PD_MAX_WARPS)
+MAX_SPLITS = 64  # splits a row takes at most (csrc: PD_MAX_SPLITS)
+MIN_SPLIT = 16  # a split keeps at least this many positions
+TARGET_WARPS = 4 * BLOCK_WARPS * SMS  # four blocks per SM: copies in flight on all
 
 
-def decode_splits(capacity: int, tile: int) -> tuple[int, int]:
-    """(splits, positions per split) for rows of at most ``capacity``
-    positions (the table width times the page size, known on the host
-    without reading the lengths back): about 128 positions per block, a
-    whole number of ``tile``-token tiles each, at most 64 splits."""
-    splits = max(1, min(64, -(-capacity // _SPLIT_TOKENS)))
-    per = -(-capacity // splits)
-    per = -(-per // tile) * tile
-    return -(-capacity // per), per
+def decode_plan(b: int, hkv: int, g: int, d: int, w: int, ps: int, window=None) -> dict:
+    """How ``paged_mqa_decode_cuda`` launches ``b`` rows of a table of ``w``
+    pages of ``ps`` positions, from the shapes alone (never the lengths): the
+    query groups per (row, kv head) (at most ``GROUP_QUERIES`` queries a
+    warp), and the split of the positions a row can span, the table's
+    capacity or the window where that is smaller, into whole tiles.  The
+    splits grow until the warps of full rows near ``TARGET_WARPS``, but not
+    below ``MIN_SPLIT`` positions or past ``MAX_SPLITS``.  llama3.2-3b's
+    serving shape (8 rows x 8 kv heads x 3 queries, 65 pages of 16) takes
+    33 splits of 32 positions, 528 blocks of 4 warps (4 an SM); a window of
+    256 there 16 of 16.  ``d`` only has to fit (``MAX_HEAD_DIM``)."""
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"the paged decode kernel takes head dims up to {MAX_HEAD_DIM}, got {d}")
+    groups = -(-g // GROUP_QUERIES)
+    cap = w * ps
+    span = cap if window is None else min(cap, int(window))
+    units = b * hkv * groups
+    want = max(1, min(TARGET_WARPS // units, span // MIN_SPLIT, MAX_SPLITS))
+    per = -(-span // want)
+    per = -(-per // TILE) * TILE
+    splits = -(-span // per)
+    return {"groups": groups, "group_queries": -(-g // groups), "span": span,
+            "splits": splits, "per_split": per,
+            "grid": (b, -(-hkv * groups * splits // BLOCK_WARPS))}
 
 
 def paged_mqa_decode_cuda(
@@ -70,9 +97,9 @@ def paged_mqa_decode_cuda(
         raise ValueError(f"K/V rows of {dk * pdt.itemsize} bytes are not whole 32-bit words")
     expect(q, "q", torch.bfloat16, (b, hkv, g, d), dev)
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-        expect(t, name, pdt, (n_layers, n_pages, ps, hkv, dk), dev)
+        expect(t, name, pdt, (n_layers, n_pages, ps, hkv, dk), dev, align=4)
     for name, t in (("new_k", new_k), ("new_v", new_v)):
-        expect(t, name, pdt, (b, hkv, dk), dev)
+        expect(t, name, pdt, (b, hkv, dk), dev, align=4)
     if kv_bits < 16:
         for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
             expect(t, name, torch.float32, (n_layers, n_pages, ps, hkv, 1), dev)
@@ -82,16 +109,20 @@ def paged_mqa_decode_cuda(
         k_scale = v_scale = new_k_scale = new_v_scale = None
     expect(tables, "tables", torch.int32, (b, w), dev)
     expect(lengths, "lengths", torch.int32, (b,), dev)
-    lib = _build.lib()
-    splits, per_split = decode_splits(w * ps, lib.paged_decode_tile_tokens())
+    win = window_arg(window)
+    plan = decode_plan(b, hkv, g, d, w, ps, win or None)
+    splits = plan["splits"]
     out = torch.empty_like(q)
-    part = torch.empty((b, hkv, splits, g * (d + 2)), dtype=torch.float32, device=dev)
-    err = lib.paged_decode_bf16(
+    part = None
+    if splits > 1:
+        part = torch.empty((b, hkv, g, splits, 4 * -(-d // 4) + 4), dtype=torch.float32,
+                           device=dev)
+    err = _build.lib().paged_decode_bf16(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale),
         ptr(v_scale), tables.data_ptr(), lengths.data_ptr(), new_k.data_ptr(),
         new_v.data_ptr(), ptr(new_k_scale), ptr(new_v_scale), out.data_ptr(),
-        part.data_ptr(), b, int(layer), n_pages, ps, hkv, g, d, w, kv_bits,
-        window_arg(window), splits, per_split, float(sm_scale),
+        ptr(part), b, int(layer), n_pages, ps, hkv, g, d, w, kv_bits,
+        win, plan["groups"], splits, plan["per_split"], float(sm_scale),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "paged_decode_bf16")

@@ -497,6 +497,133 @@ def test_paged_decode_kernel_matches_plain(dev, kv_bits, window, hkv, g, d, ps, 
         _close(got, exp)
 
 
+def _paged_case(rng, dev, kv_bits, b, hkv, g, d, ps, w, lengths, n_layers=2):
+    """Pools, shuffled tables, lengths, q and the step's own token."""
+    n_pages = b * w + 3
+    kp, vp, ks, vs = _pools(rng, dev, kv_bits, n_layers, n_pages, ps, hkv, d)
+    tables = torch.from_numpy(
+        rng.permutation(n_pages)[: b * w].reshape(b, w).astype(np.int32)
+    ).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.normal(size=(b, hkv * g, d)).astype(np.float32))
+    q = q.to(torch.bfloat16).to(dev)
+    nk, nks = _tokens(rng, dev, kv_bits, (b, hkv), d)
+    nv, nvs = _tokens(rng, dev, kv_bits, (b, hkv), d)
+    return q, (kp, vp, ks, vs, tables, lens, n_layers - 1, nk, nv, nks, nvs)
+
+
+def _paged_check(q, args, kv_bits, window):
+    """The kernel against the plain version; two calls give the same bits."""
+    got = ops.paged_mqa_decode(q, *args, kv_bits=kv_bits, window=window)
+    exp = ref.paged_mqa_decode_ref(q, *args, sm_scale=1 / math.sqrt(q.shape[-1]),
+                                   kv_bits=kv_bits, window=window)
+    _close(got, exp)
+    assert torch.equal(got, ops.paged_mqa_decode(q, *args, kv_bits=kv_bits, window=window))
+    return got
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8, 16])
+@pytest.mark.parametrize("window", [None, 256])
+def test_paged_decode_kernel_repeats_bits(dev, kv_bits, window):
+    """llama3.2-3b's serving shape (8 x 3 x 128, ps 16, ragged rows near
+    1024, split across blocks and merged by a second launch): within the
+    tolerance of the plain version, and two calls give the same bits."""
+    from repro_torch.kernels import paged_decode as pd
+
+    rng = np.random.default_rng(kv_bits + (window or 0))
+    q, args = _paged_case(rng, dev, kv_bits, 8, 8, 3, 128, 16, 65,
+                          [1024 - (i % 3) for i in range(8)])
+    _paged_check(q, args, kv_bits, window)
+    assert pd.decode_plan(8, 8, 3, 128, 65, 16, window)["splits"] > 1
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8, 16])
+@pytest.mark.parametrize("g", [4, 8])
+@pytest.mark.parametrize("d", [112, 256])
+def test_paged_decode_kernel_one_kv_head_wide_groups(dev, kv_bits, g, d):
+    """One kv head at G 4 and 8 (several query groups a head), D 112 (kv4:
+    56-byte rows, 8-byte copies) and D 256 (2 units a lane): gemma3-1b's
+    head shape and its window of 1024 among the rows."""
+    rng = np.random.default_rng(kv_bits + g + d)
+    lengths = [0, 5, 300, 777, 1100]
+    q, args = _paged_case(rng, dev, kv_bits, 5, 1, g, d, 16, 70, lengths)
+    for window in (None, 1024):
+        _paged_check(q, args, kv_bits, window)
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8, 16])
+@pytest.mark.parametrize("window", [None, 50])
+@pytest.mark.parametrize("ps", [16, 8])
+def test_paged_decode_kernel_lengths_at_tile_page_and_split_edges(dev, kv_bits, window, ps):
+    """Lengths at 8-token tiles, pages and the planned splits, each +-1, and
+    a full table; rows past their length hold stale pages."""
+    from repro_torch.kernels import paged_decode as pd
+
+    hkv, g, d, w = 2, 3, 64, 40
+    per = pd.decode_plan(1, hkv, g, d, w, ps, window)["per_split"]
+    edges = sorted({e + o for e in (8, 16, ps, 2 * ps, per, 2 * per, 3 * per, w * ps - 1)
+                    for o in (-1, 0, 1)} | {0, w * ps})
+    lengths = [n for n in edges if 0 <= n <= w * ps]
+    rng = np.random.default_rng(kv_bits + ps + (window or 0))
+    q, args = _paged_case(rng, dev, kv_bits, len(lengths), hkv, g, d, ps, w, lengths)
+    assert pd.decode_plan(len(lengths), hkv, g, d, w, ps, window)["per_split"] <= per
+    _paged_check(q, args, kv_bits, window)
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8, 16])
+def test_paged_decode_kernel_window_1024_at_ctx_2048(dev, kv_bits):
+    """A window of 1024 at context 2048: only the last 1023 cached positions
+    and the new token count; the window start falls mid-page and mid-tile."""
+    rng = np.random.default_rng(kv_bits)
+    lengths = [2048, 2047, 2040, 1500]
+    q, args = _paged_case(rng, dev, kv_bits, 4, 4, 2, 128, 16, 129, lengths)
+    _paged_check(q, args, kv_bits, 1024)
+
+
+@pytest.mark.parametrize("kv_bits,d", [(16, 34), (8, 40), (4, 8), (16, 256)])
+def test_paged_decode_kernel_odd_widths(dev, kv_bits, d):
+    """bf16 rows of D = 2 mod 4 (half a unit at the end), D 40 (a 16-dim
+    product step half past the row), D 8 at int4 (4-byte rows), bf16 rows of
+    D 256 (512-byte rows, 32 copies each), at page size 4."""
+    rng = np.random.default_rng(d)
+    q, args = _paged_case(rng, dev, kv_bits, 3, 2, 2, d, 4, 30, [0, 57, 120])
+    for window in (None, 21):
+        _paged_check(q, args, kv_bits, window)
+
+
+def test_paged_decode_kernel_entry_point_refuses_what_it_does_not_take(dev):
+    """The C entry point refuses a split that does not cover the table, a
+    split of a ragged tile, more than 64 splits, query groups that do not
+    match G, and head dims past 256; the wrapper raises for the last."""
+    from repro_torch.kernels import _build
+
+    rng = np.random.default_rng(0)
+    q, args = _paged_case(rng, dev, 8, 2, 2, 3, 64, 16, 4, [20, 64])
+    kp, vp, ks, vs, tables, lens, layer, nk, nv, nks, nvs = args
+    qg = q.reshape(2, 2, 3, 64)
+    out = torch.empty_like(qg)
+    part = torch.empty(2 * 2 * 3 * 64 * 68, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(n_groups, splits, per, d=64):
+        return _build.lib().paged_decode_bf16(
+            qg.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+            tables.data_ptr(), lens.data_ptr(), nk.data_ptr(), nv.data_ptr(), nks.data_ptr(),
+            nvs.data_ptr(), out.data_ptr(), part.data_ptr(), 2, layer, kp.shape[1], 16,
+            2, 3, d, 4, 8, 0, n_groups, splits, per, 0.125, stream)
+
+    assert launch(1, 2, 32) == 0
+    torch.cuda.synchronize()
+    for bad in ((1, 1, 32), (1, 2, 28), (1, 65, 8), (2, 2, 32), (1, 2, 32, 264)):
+        assert launch(*bad) != 0, bad
+    wide = torch.zeros(2, 2, 3, 264, dtype=torch.bfloat16, device=dev)
+    pool = torch.zeros(2, 8, 16, 2, 264, dtype=torch.bfloat16, device=dev)
+    new = torch.zeros(2, 2, 264, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        paged_mqa_decode_cuda(wide, pool, pool, None, None, tables, lens, 0, new, new, None,
+                              None, kv_bits=16, sm_scale=1.0)
+
+
 @pytest.mark.parametrize("kv_bits", [4, 8, 16])
 @pytest.mark.parametrize("window", [None, 19])
 @pytest.mark.parametrize("c", [1, 5, 32])

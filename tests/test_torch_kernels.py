@@ -352,6 +352,95 @@ def test_mqa_decode_plan_fills_the_card_at_zamba2():
     assert md.decode_plan(1, 32, 1, 32768)["splits"] == 66
 
 
+# (B, Hkv, G, D, W, ps, window): llama3.2-3b serving (65 pages of 16) with
+# and without a window, yi-9b's heads, gemma3-1b's (1 x 4 x 256, window
+# 1024), the reduced configs' heads with a short window, 12 queries a kv head
+# at ps 4, a one-page table, and many rows
+PAGED_PLAN_SHAPES = [
+    (8, 8, 3, 128, 65, 16, None), (8, 8, 3, 128, 65, 16, 256), (8, 4, 8, 128, 65, 16, None),
+    (8, 1, 4, 256, 129, 16, 1024), (3, 2, 2, 32, 4, 8, 7), (1, 1, 12, 64, 3, 4, None),
+    (2, 2, 3, 64, 1, 16, None), (64, 8, 3, 128, 200, 16, None),
+]
+
+
+@pytest.mark.parametrize("b,hkv,g,d,w,ps,window", PAGED_PLAN_SHAPES)
+def test_paged_decode_plan_covers_every_position_in_whole_tiles(b, hkv, g, d, w, ps, window):
+    """Splits of whole 8-token tiles that cover the span a row can reach (the
+    table's capacity, or the window where smaller) once, at least MIN_SPLIT
+    positions each unless there is one, at most MAX_SPLITS; query groups a
+    warp's registers hold; every live position of every length (from the
+    row's window start) falls in a planned split."""
+    from repro_torch.kernels import paged_decode as pd
+
+    plan = pd.decode_plan(b, hkv, g, d, w, ps, window)
+    cap = w * ps
+    span, per, splits = plan["span"], plan["per_split"], plan["splits"]
+    assert span == (cap if window is None else min(cap, window))
+    assert per % pd.TILE == 0 and (splits - 1) * per < span <= splits * per
+    assert 1 <= splits <= pd.MAX_SPLITS and (splits == 1 or per >= pd.MIN_SPLIT)
+    groups, gq = plan["groups"], plan["group_queries"]
+    assert (groups - 1) * gq < g <= groups * gq and gq <= pd.GROUP_QUERIES
+    assert plan["grid"] == (b, -(-hkv * groups * splits // pd.BLOCK_WARPS))
+    for length in range(cap + 1):
+        lo = max(length + 1 - window, 0) if window else 0
+        if length > lo:
+            assert (length - 1 - lo) // per < splits
+
+
+def test_paged_decode_plan_window_caps_the_span():
+    """A window of 256 over a 1040-position table plans over 256 positions:
+    no split lies wholly past the window (the first version planned 9 splits
+    of 128 there, most of them empty)."""
+    from repro_torch.kernels import paged_decode as pd
+
+    full = pd.decode_plan(8, 8, 3, 128, 65, 16)
+    windowed = pd.decode_plan(8, 8, 3, 128, 65, 16, 256)
+    assert windowed["span"] == 256 and full["span"] == 1040
+    assert (windowed["splits"] - 1) * windowed["per_split"] < 256
+    assert windowed["splits"] < full["splits"]
+    # a window wider than the table changes nothing
+    assert pd.decode_plan(8, 8, 3, 128, 65, 16, 4096) == full
+
+
+def test_paged_decode_plan_fills_the_card_at_llama():
+    """llama3.2-3b's serving shape (8 rows x 8 kv heads x 3 queries, ctx
+    1024 in a 65-page table) keeps at least three 4-warp blocks per SM busy
+    with live positions, in one wave of at most TARGET_WARPS warps."""
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels.mpmm import SMS
+
+    plan = pd.decode_plan(8, 8, 3, 128, 65, 16)
+    live_splits = -(-1024 // plan["per_split"])
+    warps = 8 * 8 * plan["groups"] * live_splits
+    assert 3 * SMS * pd.BLOCK_WARPS <= warps <= pd.TARGET_WARPS
+
+
+def test_paged_decode_plan_refuses_wide_heads():
+    """Head dims up to 256 fit the kernel's registers; wider ones raise
+    before any launch."""
+    from repro_torch.kernels import paged_decode as pd
+
+    assert pd.decode_plan(8, 1, 4, 256, 129, 16, 1024)["groups"] == 1
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        pd.decode_plan(8, 1, 4, 264, 129, 16)
+
+
+def test_paged_decode_plan_takes_no_tensor():
+    """The plan comes from shapes alone, so the wrapper never reads lengths
+    back to the host (a decode step stays capturable as a CUDA graph)."""
+    import inspect
+
+    from repro_torch.kernels import paged_decode as pd
+
+    params = inspect.signature(pd.decode_plan).parameters
+    assert list(params) == ["b", "hkv", "g", "d", "w", "ps", "window"]
+    plan = pd.decode_plan(8, 8, 3, 128, 65, 16, 256)
+    assert all(isinstance(v, int) for k, v in plan.items() if k != "grid")
+    src = inspect.getsource(pd.paged_mqa_decode_cuda)
+    for read_back in (".item(", ".tolist(", ".cpu(", ".numpy(", "int(lengths"):
+        assert read_back not in src
+
+
 @pytest.mark.parametrize("c,g", [(1, 3), (5, 3), (32, 3), (128, 3), (128, 8), (21, 1),
                                  (64, 1), (65, 1)])
 def test_paged_prefill_grid_covers_rows(c, g):

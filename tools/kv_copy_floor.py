@@ -1,16 +1,26 @@
 #!/usr/bin/env python3
-"""Times what the contiguous-cache decode kernel's copies alone cost: int8
-K/V rows streamed into shared memory in the kernel's layout, grid and split
+"""Times what the decode kernels' copies alone cost, beside the kernels.
+
+Contiguous cache (``contiguous``): int8 K/V rows streamed into shared
+memory in ``csrc/mqa_decode.cu``'s layout, grid and split
 (tools/kv_copy_floor.cu: 16-byte cp.async as the kernel does, 16-byte loads
 through registers, and one TMA bulk copy per row), beside the kernel itself
-(csrc/mqa_decode.cu, scales and arithmetic included) and a plain clone of the
-K payload.  Needs one CUDA card:
+(scales and arithmetic included) and a plain clone of the K payload.
 
-    python3 tools/kv_copy_floor.py > floor.jsonl
+Paged pool (``paged``): the live rows of [L, P, ps, Hkv, Dk] int8 / int4
+pages and their scales read through random page tables in
+``csrc/paged_decode.cu``'s grid, split, ring and page lookups
+(``decode_plan``), with no arithmetic, beside the paged kernel and SDPA on
+the gathered, dequantized K/V (the phase-2 yardstick of chip_smoke.py), at
+llama3.2-3b's serving shape and yi-9b's heads, B = 8, ctx 1024.
 
-One JSON line per shape of chip_smoke.py's phase 2 (kv8): median ms (CUDA
-events, L2 flushed before each launch, as chip_smoke.py times) and the read
-rate of the K/V payload.  The source is built with nvcc into build/.
+Needs one CUDA card:
+
+    python3 tools/kv_copy_floor.py [contiguous] [paged] > floor.jsonl
+
+One JSON line per shape: median ms (CUDA events, L2 flushed before each
+launch, as chip_smoke.py times) and the read rate of the K/V payload.  The
+source is built with nvcc into build/.
 """
 from __future__ import annotations
 
@@ -26,6 +36,9 @@ ROOT = Path(__file__).resolve().parents[1]
 SHAPES = [("zamba2 serving", 8, 552, 32, 1, 112), ("zamba2 long context", 1, 32768, 32, 1, 112),
           ("llama3.2-3b GQA", 8, 1024, 8, 3, 128)]
 ENGINES = ["cp.async 16 B", "registers 16 B", "cp.async.bulk"]
+# (label, B, ctx, Hkv, G, D, ps): llama3.2-3b serving and yi-9b's heads
+PAGED_SHAPES = [("llama3.2-3b serving", 8, 1024, 8, 3, 128, 16),
+                ("yi-9b heads", 8, 1024, 4, 8, 128, 16)]
 
 
 def main() -> int:
@@ -49,6 +62,8 @@ def main() -> int:
     lib.kv_copy_floor.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     lib.kv_copy_floor.restype = ctypes.c_int
+    lib.paged_copy_floor.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    lib.paged_copy_floor.restype = ctypes.c_int
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -67,7 +82,10 @@ def main() -> int:
         return sorted(times)[len(times) // 2]
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for label, b, s, hkv, g, d in SHAPES:
+    which = sys.argv[1:] or ["contiguous", "paged"]
+    if "paged" in which:
+        paged(torch, lib, timed, gen, stream, gpu)
+    for label, b, s, hkv, g, d in SHAPES if "contiguous" in which else []:
         kd, ks = ops.quantize_kv(torch.randn(b, s, hkv, d, generator=gen, device="cuda"), 8)
         vd, vs = ops.quantize_kv(torch.randn(b, s, hkv, d, generator=gen, device="cuda"), 8)
         q = torch.randn(b, hkv, g, d, generator=gen, device="cuda").to(torch.bfloat16)
@@ -92,6 +110,73 @@ def main() -> int:
         rec["clone K"] = {"ms": ms, "read_write_tb_per_s": 2 * kd.numel() / ms / 1e9}
         print(json.dumps(rec), flush=True)
     return 0
+
+
+def paged(torch, lib, timed, gen, stream, gpu) -> None:
+    """The paged pool's copy floor beside the paged kernel and SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_decode import decode_plan, paged_mqa_decode_cuda
+
+    n_layers, layer = 2, 1
+    for label, b, ctx, hkv, g, d, ps in PAGED_SHAPES:
+        for kv_bits in (8, 4):
+            w = -(-(ctx + 1) // ps)
+            n_pages = b * w + 4
+            shape = (n_layers, n_pages, ps, hkv, d)
+            kp, ks = ops.quantize_kv(torch.randn(*shape, generator=gen, device="cuda"), kv_bits)
+            vp, vs = ops.quantize_kv(torch.randn(*shape, generator=gen, device="cuda"), kv_bits)
+            nk, nks = ops.quantize_kv(torch.randn(b, hkv, d, generator=gen, device="cuda"),
+                                      kv_bits)
+            nv, nvs = ops.quantize_kv(torch.randn(b, hkv, d, generator=gen, device="cuda"),
+                                      kv_bits)
+            tables = torch.randperm(n_pages, generator=gen, device="cuda")[: b * w]
+            tables = tables.reshape(b, w).to(torch.int32)
+            lens = [ctx - (i % 3) for i in range(b)]
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            q = torch.randn(b, hkv, g, d, generator=gen, device="cuda").to(torch.bfloat16)
+            plan = decode_plan(b, hkv, g, d, w, ps)
+            sink = torch.empty(b * plan["grid"][1] * 128, device="cuda")
+            dk = kp.shape[-1]
+            payload = 2 * sum(lens) * hkv * (dk + 4)  # K and V rows and scales
+
+            def copy():
+                err = lib.paged_copy_floor(
+                    kp.data_ptr(), vp.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+                    tables.data_ptr(), lengths.data_ptr(), sink.data_ptr(), b, layer,
+                    n_pages, ps, hkv, d, w, kv_bits, 0, plan["groups"], plan["splits"],
+                    plan["per_split"], stream)
+                if err:
+                    raise RuntimeError(f"paged_copy_floor: CUDA error {err}")
+
+            args = (kp, vp, ks, vs, tables, lengths, layer, nk, nv, nks, nvs)
+            sm = 1 / math.sqrt(d)
+
+            def gathered(pool, scale, new, new_scale):
+                old = ref._dequant(ref.gather_pages(pool, tables)[layer],
+                                   ref.gather_pages(scale, tables)[layer], kv_bits)
+                full = torch.cat([old, ref._dequant(new[:, None], new_scale[:, None], kv_bits)],
+                                 dim=1)
+                return full.to(torch.bfloat16).transpose(1, 2).repeat_interleave(g, dim=1)
+
+            kg, vg = gathered(kp, ks, nk, nks), gathered(vp, vs, nv, nvs)
+            pos = torch.arange(kg.shape[2], device="cuda")
+            mask = ((pos[None] < lengths[:, None]) | (pos[None] == kg.shape[2] - 1))[:, None, None]
+            q4 = q.reshape(b, hkv * g, 1, d)
+            rec = {"case": f"{label} kv{kv_bits} B={b} ctx={ctx} Hkv={hkv} G={g} D={d} ps={ps}",
+                   "plan": plan, "payload_mb": payload / 1e6, "gpu": gpu}
+            for name, fn in (("paged copies", copy),
+                             ("paged_decode", lambda: paged_mqa_decode_cuda(
+                                 q, *args, kv_bits=kv_bits, sm_scale=sm)),
+                             ("sdpa", lambda: F.scaled_dot_product_attention(
+                                 q4, kg, vg, attn_mask=mask))):
+                ms = timed(fn)
+                rec[name] = {"ms": ms, "payload_tb_per_s": payload / ms / 1e9}
+            rec["bound_ms"] = payload / 3.35e12 * 1e3
+            print(json.dumps(rec), flush=True)
+            del kp, vp, ks, vs, kg, vg
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -2,9 +2,12 @@
 """Runs phase 2 of ``chip_smoke.py`` (every kernel against its plain version,
 with its time, the plain version's, the library call's and the bound) from
 the checkout at ROOT, and with ``cnn`` also its phase 4 (full ResNet18).
-Needs one CUDA card:
+With ``decode`` it runs only this checkout's engine decode-step profile
+(``chip_smoke.engine_decode_profile``: one decode step of full llama3.2-3b,
+8 rows, w8/kv8) on ROOT's package, which also profiles a commit whose
+chip_smoke.py has no such phase.  Needs one CUDA card:
 
-    python3 tools/smoke_phase2.py ROOT [cnn] > phase2.jsonl
+    python3 tools/smoke_phase2.py ROOT [cnn | decode] > phase2.jsonl
 
 ROOT may be another commit's checkout (``git archive`` of it into an ignored
 directory), whose kernels are built into ROOT/build: run parent and change
@@ -28,7 +31,10 @@ def main() -> int:
         return 2
     root = Path(sys.argv[1]).resolve()
     sys.path.insert(0, str(root / "src"))
-    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
+    decode = "decode" in sys.argv[2:]
+    here = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", (here if decode else root) / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -37,6 +43,12 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     _build.lib()
+    if decode:
+        from repro_torch.configs import get_config
+
+        smoke.emit({"phase": "engine_decode_profile", "root": str(root), "gpu": gpu,
+                    "profile": smoke.engine_decode_profile(torch, get_config("llama3.2-3b"))})
+        return 0
     timer = smoke.Timer(torch)
     summary = smoke.kernel_cases(torch, timer, gpu)
     smoke.cnn_kernel_cases(torch, timer, gpu, summary)
