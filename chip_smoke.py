@@ -8,9 +8,11 @@ Phases, each printing one JSON line that names the card:
 1. build    -- nvcc builds the kernels under src/repro_torch/kernels/csrc.
 2. kernels  -- each hand-written kernel against its plain PyTorch version on
                the same inputs, in bf16 at llama3.2-3b's serving shapes (the
-               CF dequant matmul at decode M 1-8 and at the prefill M of 128
-               and 256, and at zamba2-7b's in_proj / out_proj at M = 4096;
-               two runs of it at every M and of paged prefill must give the
+               CF dequant matmul at decode M 1-8, at a speculative round's
+               verify M of 40 and at the prefill M of 128 and 256, and at
+               zamba2-7b's in_proj / out_proj at M = 4096; paged prefill at
+               C 1, 32, 128 and at a verify window, C = 5 at B = 8; two runs
+               of the matmul at every M and of paged prefill must give the
                same bits) and at
                ResNet18's conv shapes (the FF-order dequant matmul), and
                bit-exactly against the CPU's int32 matmul (the int-mode
@@ -19,7 +21,10 @@ Phases, each printing one JSON line that names the card:
                stride-2 downsample convs): max abs error against the stated
                tolerance, the kernel's time, the plain version's, a PyTorch
                library call's as a yardstick, and the least time the card
-               could take (bound_ms).
+               could take (bound_ms).  Then the sampler
+               (ops.sample_tokens, plain torch ops) on the card against the
+               CPU at llama3.2-3b's vocabulary: bit-equal keys and uniforms,
+               equal tokens away from CDF boundaries.
 3. step     -- a 2-layer cut of llama3.2-3b at full width (d_model 3072,
                vocab 128256): one chunked-prefill step and one decode step on
                the card (kernels) and on the CPU (plain versions); the logits
@@ -40,6 +45,16 @@ Phases, each printing one JSON line that names the card:
                call (4 x 128 tokens, w8/kv8) under the profiler, and one
                decode step (8 rows, w8/kv8, ctx ~515) under it: paged
                decode's device time and launches, the card's busy share.
+               Then (a) the same traffic sampled (temperature 0.8, top_p
+               0.95, top_k 50 on every other request, seed = index), twice:
+               identical streams; (b) greedy speculation (spec_k 4) at
+               w8/kv8 with a w8 and a w4 draft: acceptance rate, tokens per
+               round, agreement with the spec-off streams; the w8 draft
+               must accept at least half its drafts; (c) sampled
+               speculation (temperature 0.8, w4 draft), twice: identical
+               streams; (d) one spec round under the profiler (8 rows, w8
+               target, w4 draft, kv8): verify and draft device times and
+               launches, the card's busy share.
 6. waves    -- the full 81-layer zamba2-7b (hybrid: Mamba2 + shared
                attention) with seeded random weights served by the
                static-wave train.server.Server: 8 greedy requests of 512
@@ -51,7 +66,10 @@ Phases, each printing one JSON line that names the card:
 7. kernels line -- each kernel's launches on its path (all > 0): the serving
                kernels in phase 5's first run, the FF and int matmuls in
                phase 4, contiguous-cache decode in phase 6's first zamba2
-               run; the counts are set to 0 just before each path runs.
+               run; the counts are set to 0 just before each path runs.  The
+               serving kernels must also launch on each of phase 5's sampled
+               and spec paths (counted apart: ``launches_by_path``), and
+               the CF matmul and paged prefill carry their verify case.
 
 Phase 2 holds paged decode at llama3.2-3b's heads (8 x 3 x 128; ctx 0, 1,
 17, 1024, with and without a window of 256), yi-9b's (4 x 8 x 128, ctx 1024,
@@ -96,6 +114,17 @@ PRECISIONS = [(4, 8), (8, 4), (8, 8), (16, 16)]
 ZAMBA_PREFILL_SHAPES = [(3584, 14576), (7168, 3584)]
 # the CF kernel's prefill-M case of the kernels line: (w_bits, M, K, N)
 PREFILL_MPMM_CASE = (8, 256, 3072, 3072)
+# speculative decoding in phase 5: draft tokens per round, and the rows of a
+# round's verify matmul at 8 rows (8 x (SPEC_K + 1) = 40)
+SPEC_K = 4
+VERIFY_M = 8 * (SPEC_K + 1)
+# its verify-M case of the kernels line: (w_bits, M, K, N)
+VERIFY_MPMM_CASE = (8, VERIFY_M, 3072, 3072)
+# phase 2's verify window: round-start contexts 512-1024 and q_lens
+# n_draft + 1 in 1..5, with a padding row (no context, q_len 0) as the
+# engine's pow2 bucket gives one
+VERIFY_CTX = [512, 1024, 700, 513, 1000, 640, 901, 0]
+VERIFY_Q_LENS = [1, 2, 3, 4, 5, 5, 3, 0]
 
 TPU_KERNELS = {
     "mpmm_dequant": ("src/repro_torch/kernels/csrc/mpmm.cu",
@@ -114,6 +143,8 @@ TPU_KERNELS = {
                    "src/repro/kernels/mqa_decode.py:101 (mqa_decode_pallas: _decode_kernel "
                    ":40, pallas_call :133)"),
 }
+# the profiled spec round's sum that counts each kernel's verify launches
+VERIFY_PROF = {"mpmm_dequant": "mpmm_verify_m", "paged_prefill": "paged_prefill_verify"}
 # the path each kernel's launches are read from in the kernels line
 KERNEL_PATH = {"mpmm_dequant": "serve", "paged_decode": "serve", "paged_prefill": "serve",
                "mpmm_ff_dequant": "cnn", "mpmm_int": "cnn", "mqa_decode": "waves"}
@@ -131,6 +162,8 @@ FF_LAYERS = ["conv1", "layer1.0.conv2", "layer3.1.conv1", "layer4.1.conv1"]
 CF_LAYERS = ["layer2.0.down", "layer3.0.down", "layer4.0.down"]  # the CF layers at w8
 INT_GRID = [(16, 16), (8, 8), (4, 8), (8, 16), (16, 8)]  # (w_bits, x_bits)
 INT_LAYERS = ["conv1", "layer2.0.down", "layer4.1.conv2"]  # phase 4 int mode: FF, CF, FF
+# the numbers of a phase-2 case that the kernels line carries
+LINE_KEYS = ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
 
 
 class SmokeFailure(AssertionError):
@@ -245,9 +278,9 @@ def kernel_cases(torch, timer, gpu) -> dict:
         rec["tflops"] = flops / rec["ms"] / 1e9
         rec["library_tflops"] = flops / rec["library_ms"] / 1e9
         note("mpmm_dequant", rec, (w_bits, m, k, n) == (4, 8, 3072, 8192))
-        if (w_bits, m, k, n) == PREFILL_MPMM_CASE:
-            summary["mpmm_dequant"]["prefill"] = {key: rec[key] for key in (
-                "case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}
+        for label, case in (("prefill", PREFILL_MPMM_CASE), ("verify", VERIFY_MPMM_CASE)):
+            if (w_bits, m, k, n) == case:
+                summary["mpmm_dequant"][label] = {key: rec[key] for key in LINE_KEYS}
 
     def deq(wd, ws, w_bits):
         return ((unpack_int4(wd, 0) if w_bits == 4 else wd).float() * ws).to(torch.bfloat16)
@@ -258,7 +291,7 @@ def kernel_cases(torch, timer, gpu) -> dict:
             wd, ws = ops.pack_weights(w, w_bits)
             w_deq = deq(wd, ws, w_bits)
             del w
-            for m in (1, 2, 3, 4, 5, 8, 128, 256):
+            for m in (1, 2, 3, 4, 5, 8, VERIFY_M, 128, 256):
                 x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
                 mpmm_case(x, wd, ws, w_bits, w_deq)
             del wd, ws, w_deq
@@ -367,20 +400,19 @@ def kernel_cases(torch, timer, gpu) -> dict:
         decode_cases(kv_bits, (1024,), (None,), (4, 8, 128), "yi-9b heads")
     decode_cases(8, (2048,), (1024,), (1, 4, 256), "gemma3-1b heads")
 
-    # ---- paged prefill: C in {1, 32, 128}, ragged q_lens, ctx > 0
-    b = 4
-    ctx_list = [256, 200, 384, 128]
-    for kv_bits in (4, 8, 16):
-        w = -(-(max(ctx_list) + 128) // ps)
+    # ---- paged prefill: C in {1, 32, 128}, ragged q_lens, ctx > 0; then a
+    # speculative verify window (C = SPEC_K + 1 at B = 8, VERIFY_CTX)
+    def prefill_cases(kv_bits, ctx_list, chunks, label=""):
+        b = len(ctx_list)
+        w = -(-(max(ctx_list) + max(c for c, _ in chunks)) // ps)
         n_pages = b * w + 4
         kp, ks = payload((n_layers, n_pages, ps, hkv, d), kv_bits)
         vp, vs = payload((n_layers, n_pages, ps, hkv, d), kv_bits)
         tables = torch.randperm(n_pages, generator=gen, device="cuda")[: b * w]
         tables = tables.reshape(b, w).to(torch.int32)
         ctx = torch.tensor(ctx_list, dtype=torch.int32, device="cuda")
-        for c in (1, 32, 128):
-            q_lens = torch.tensor([c, max(c - 1, 1), max(c // 2, 1), 1],
-                                  dtype=torch.int32, device="cuda")
+        for c, ql in chunks:
+            q_lens = torch.tensor(ql, dtype=torch.int32, device="cuda")
             q = torch.randn(b, c, h, d, generator=gen, device="cuda").to(torch.bfloat16)
             ck, cks = payload((b, c, hkv, d), kv_bits)
             cv, cvs = payload((b, c, hkv, d), kv_bits)
@@ -398,9 +430,9 @@ def kernel_cases(torch, timer, gpu) -> dict:
             err = max_err(torch, got, exp, ATTN_TOL)
             again = paged_mqa_prefill_cuda(qg, *kargs, kv_bits=kv_bits, sm_scale=sm)
             check(torch.equal(got, again.permute(0, 2, 1, 3, 4).reshape(b, c, h, d)),
-                  f"paged prefill kv{kv_bits} C={c}: two runs gave other bits")
-            ql = q_lens.tolist()
-            visible = sum(n + min(ci + 1, qn) for n, qn in zip(ctx_list, ql) for ci in range(c))
+                  f"paged prefill {label}kv{kv_bits} C={c}: two runs gave other bits")
+            # query positions past q_len are padding that nothing needs
+            visible = sum(n + ci + 1 for n, qn in zip(ctx_list, ql) for ci in range(qn))
             slots = sum(touched(n, 0) for n in ctx_list)
             # chunk keys j >= q_len are padding that no query sees
             nbytes = (2 * q.numel() * 2 + kv_bytes(sum(ctx_list) + sum(ql), kv_bits)
@@ -417,7 +449,7 @@ def kernel_cases(torch, timer, gpu) -> dict:
             mask = (kval[:, None, :] & (kpos[:, None, :] <= qpos[:, :, None]))[:, None]
             qt = q.transpose(1, 2)
             rec = {
-                "case": f"kv{kv_bits} B={b} C={c} ctx={ctx_list} q_lens={ql}",
+                "case": f"{label}kv{kv_bits} B={b} C={c} ctx={ctx_list} q_lens={ql}",
                 "max_abs_err": err, "tol": ATTN_TOL, "grid": launch_grid(b, hkv, c, g),
                 "ms": timer(lambda: paged_mqa_prefill_cuda(
                     qg, *kargs, kv_bits=kv_bits, sm_scale=sm)),
@@ -427,8 +459,16 @@ def kernel_cases(torch, timer, gpu) -> dict:
                     qt, kg, vg, attn_mask=mask)),
                 "bound_ms": b_ms, "bound_by": b_by,
             }
-            note("paged_prefill", rec, (kv_bits, c) == (8, 128))
+            note("paged_prefill", rec, (kv_bits, c, label) == (8, 128, ""))
+            if label and kv_bits == 8:
+                summary["paged_prefill"]["verify"] = {key: rec[key] for key in LINE_KEYS}
         del kp, vp, ks, vs
+
+    for kv_bits in (4, 8, 16):
+        prefill_cases(kv_bits, [256, 200, 384, 128],
+                      [(c, [c, max(c - 1, 1), max(c // 2, 1), 1]) for c in (1, 32, 128)])
+    for kv_bits in (8, 4, 16):
+        prefill_cases(kv_bits, VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)], "verify ")
     torch.cuda.empty_cache()
     return summary
 
@@ -441,6 +481,59 @@ def note_case(summary, gpu, name, rec, representative) -> None:
         summary[name].update({k: rec[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "case")})
     emit({"phase": "kernels", "kernel": name, **rec, "gpu": gpu})
+
+
+def near_cdf_boundary(torch, logits, temps, top_k, top_p, u, eps=1e-6):
+    """[B] bool: rows whose uniform lies within ``eps`` of a boundary of the
+    sampled distribution's CDF (float64, on the CPU), where an f32 sum in
+    another order may pick the neighbouring token."""
+    from repro_torch.kernels import ops
+
+    probs = ops.sampling_probs(logits, temps, top_k, top_p).double()
+    cdf = torch.cumsum(probs / probs.sum(-1, keepdim=True), dim=-1)
+    return ((cdf - u.double()[:, None]).abs() < eps).any(dim=-1)
+
+
+def sampler_case(torch, timer, gpu) -> dict:
+    """``ops.sample_tokens`` (plain torch ops: the port's threefry, the
+    top-k/top-p mask and the blocked inverse CDF) on the card against the
+    same function on the CPU, on identical f32 logits at llama3.2-3b's
+    vocabulary: B = 8, temperature 0.8, top_k 50, top_p 0.95.  Keys and
+    uniforms must be bit-equal, and the tokens equal on every row whose
+    uniform lies farther than 1e-6 from a CDF boundary.  Timed beside a
+    temperature-only draw (no vocabulary sort) and the greedy argmax."""
+    from repro_torch.kernels import ops, prng
+
+    gen = torch.Generator().manual_seed(5)
+    b, v = 8, 128256
+    logits = torch.randn(b, v, generator=gen) * 3
+    seeds = torch.arange(b, dtype=torch.int64)
+    pos = torch.arange(600, 600 + b, dtype=torch.int64)
+    temps, top_k, top_p = torch.full((b,), 0.8), torch.full((b,), 50), torch.full((b,), 0.95)
+    keys = ops.sample_keys(seeds, pos)
+    card = [t.cuda() for t in (logits, temps, top_k, top_p)]
+    keys_card = ops.sample_keys(seeds.cuda(), pos.cuda())
+    check(torch.equal(keys_card.cpu(), keys), "sample_keys: card and CPU keys differ")
+    u = prng.uniform(keys)
+    check(torch.equal(prng.uniform(keys_card).cpu(), u), "uniform: card and CPU differ")
+    want = ops.sample_tokens(logits, keys, temps, top_k, top_p)
+    got = ops.sample_tokens(card[0], keys_card, *card[1:]).cpu()
+    near = near_cdf_boundary(torch, logits, temps, top_k, top_p, u)
+    differ = got != want
+    check(not bool((differ & ~near).any()),
+          f"sample_tokens: card {got.tolist()} against CPU {want.tolist()} away from a "
+          "CDF boundary")
+    check(bool((got < v).all()), "sample_tokens drew outside the vocabulary")
+    rec = {"phase": "sampler", "case": f"B={b} V={v} temperature 0.8 top_k 50 top_p 0.95",
+           "tokens_equal": f"{b - int(differ.sum())}/{b}",
+           "rows_near_cdf_boundary": int(near.sum()),
+           "ms": timer(lambda: ops.sample_tokens(card[0], keys_card, *card[1:])),
+           "temperature_only_ms": timer(lambda: ops.sample_tokens(card[0], keys_card, card[1])),
+           "greedy_argmax_ms": timer(lambda: torch.argmax(card[0], dim=-1)),
+           "cpu_ms": host_ms(lambda: ops.sample_tokens(logits, keys, temps, top_k, top_p)),
+           "gpu": gpu}
+    emit(rec)
+    return rec
 
 
 def host_ms(fn, iters: int = 3) -> float:
@@ -1074,8 +1167,36 @@ def cnn_run(torch, gpu) -> None:
 
 
 # --------------------------------------------------------------- phase 5
-def engine_run(torch, seed: int, cfg):
-    """Serve the phase-4 traffic once; returns (streams, stats, peak bytes, s)."""
+def mixed_precision(i: int) -> dict:
+    w, kv = PRECISIONS[i % len(PRECISIONS)]
+    return {"w_bits": w, "kv_bits": kv}
+
+
+def w8kv8(i: int) -> dict:
+    return {"w_bits": 8, "kv_bits": 8}
+
+
+def greedy(i: int) -> dict:
+    return {}
+
+
+def sampled(i: int) -> dict:
+    """Phase 5's sampled traffic: temperature 0.8, top_p 0.95, top_k 50 on
+    every other request, seed = the request's index."""
+    return {"temperature": 0.8, "top_p": 0.95, "top_k": 50 if i % 2 == 0 else 0, "seed": i}
+
+
+def temperature_only(i: int) -> dict:
+    """Temperature 0.8 alone, seed = the request's index."""
+    return {"temperature": 0.8, "seed": i}
+
+
+def engine_run(torch, seed: int, cfg, sampling=greedy, precision=mixed_precision,
+               spec_k: int = 0, draft_bits: int = 4):
+    """Serve phase 5's traffic once: request i takes ``sampling(i)`` and
+    ``precision(i)`` (keyword arguments of SamplingParams / PrecisionParams);
+    ``spec_k`` and ``draft_bits`` are the engine's.  Returns (streams,
+    stats, peak bytes, s)."""
     import numpy as np
 
     from repro_torch.models import transformer as model_lib
@@ -1086,24 +1207,23 @@ def engine_run(torch, seed: int, cfg):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     engine = ServeEngine(cfg, params, max_slots=8, page_size=16, prefill_chunk=128,
-                         num_pages=8 * 40, device="cuda")
+                         num_pages=8 * 40, spec_k=spec_k, draft_bits=draft_bits, device="cuda")
     rng = np.random.default_rng(seed)
     shared = rng.integers(0, cfg.vocab, 256).astype(np.int32)
     prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, 256).astype(np.int32)])
                for _ in range(8)]
 
     def submit(i):
-        w, kv = PRECISIONS[i % len(PRECISIONS)]
-        return engine.submit(prompts[i], SamplingParams(max_new_tokens=32),
-                             PrecisionParams(w_bits=w, kv_bits=kv))
+        return engine.submit(prompts[i], SamplingParams(max_new_tokens=32, **sampling(i)),
+                             PrecisionParams(**precision(i)))
 
     t0 = time.perf_counter()
     # the first request of each precision warms the shared system prompt;
     # the rest arrive once it is cached, as followers of a system prompt do
-    first = [submit(i) for i in range(4)]
+    first = [submit(i) for i in range(len(PRECISIONS))]
     while not all(r.out_tokens for r in first):
         engine.step()
-    reqs = first + [submit(i) for i in range(4, 8)]
+    reqs = first + [submit(i) for i in range(len(PRECISIONS), 8)]
     streams = {r.rid: [] for r in reqs}
     for ev in engine.generate(reqs):
         if hasattr(ev, "token"):
@@ -1209,6 +1329,68 @@ def engine_decode_profile(torch, cfg) -> dict:
             **prof}
 
 
+def verify_m_kernel(name: str) -> bool:
+    """A device kernel of the CF dequant matmul above decode M: the
+    tensor-core kernel's 64- or 128-row tile (in a spec round: the verify's
+    M = 8 x (spec_k + 1) rows)."""
+    return "mpmm_tc_kernel" in name and not decode_m_kernel(name) and not ff_kernel(name)
+
+
+def spec_round_profile(torch, cfg) -> dict:
+    """One speculative round of the full engine under torch.profiler: eight
+    requests of 512 random prompt tokens, w8 target, w4 draft, kv8,
+    SPEC_K = 4, prefilled in 128-token chunks, then decoding as one spec
+    group of 8 rows (4 draft steps of paged decode at M = 8, one verify
+    window through paged prefill at M = 40).  The first round warms up, the
+    second is timed without the profiler, the third runs under it: paged
+    prefill (the verify), paged decode (the drafts) and the CF matmul at
+    verify M, by device time and launches, and the card's busy share of the
+    second round's wall time."""
+    import numpy as np
+
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.params import PrecisionParams, SamplingParams
+
+    params = model_lib.init_params(cfg, torch.Generator(device="cuda").manual_seed(13))
+    engine = ServeEngine(cfg, params, max_slots=8, page_size=16, prefill_chunk=128,
+                         num_pages=8 * 48, spec_k=SPEC_K, draft_bits=4, device="cuda")
+    rng = np.random.default_rng(13)
+    reqs = [engine.submit(rng.integers(0, cfg.vocab, 512).astype(np.int32),
+                          SamplingParams(max_new_tokens=64), PrecisionParams(w_bits=8, kv_bits=8))
+            for _ in range(8)]
+    while not all(r.out_tokens for r in reqs):
+        engine.step()
+
+    def step():
+        engine.step()
+        torch.cuda.synchronize()
+
+    step()
+    rounds, chunks = engine.stats.spec_rounds, engine.stats.prefill_chunks
+    t0 = time.perf_counter()
+    step()
+    wall = time.perf_counter() - t0
+    prof = device_profile(torch, step, wall, sums={
+        "paged_prefill_verify": lambda name: "paged_prefill" in name,
+        "paged_decode_draft": lambda name: "paged_decode" in name,
+        "mpmm_verify_m": verify_m_kernel,
+        "mpmm_decode_m_draft": decode_m_kernel,
+    })
+    check(engine.stats.spec_rounds == rounds + 2 and engine.stats.prefill_chunks == chunks,
+          "the profiled engine steps were not one spec round each")
+    check(prof["paged_prefill_verify"]["launches"] == cfg.n_layers,
+          f"the profiled round shows {prof['paged_prefill_verify']['launches']} paged prefill "
+          f"launches, expected one verify per layer ({cfg.n_layers})")
+    check(prof["paged_decode_draft"]["launches"] >= SPEC_K * cfg.n_layers,
+          "the profiled round shows fewer paged decode launches than SPEC_K drafts a layer")
+    ctx = [r.cache_len for r in reqs]
+    del engine, params
+    torch.cuda.empty_cache()
+    return {"requests": 8, "prompt": 512, "w_bits": 8, "draft_bits": 4, "kv_bits": 8,
+            "spec_k": SPEC_K, "rows": 8, "ctx_after": ctx, "round_ms": wall * 1e3, **prof}
+
+
 def _p50(samples) -> float:
     ordered = sorted(samples)
     return ordered[len(ordered) // 2]
@@ -1250,6 +1432,7 @@ def main() -> int:
     summary = kernel_cases(torch, timer, gpu)
     cnn_kernel_cases(torch, timer, gpu, summary)
     mqa_kernel_cases(torch, timer, gpu, summary)
+    sampler_case(torch, timer, gpu)
     step_card_vs_cpu(torch, gpu, llama)
     hybrid_step_card_vs_cpu(torch, gpu, zamba)
     torch.cuda.empty_cache()
@@ -1312,6 +1495,85 @@ def main() -> int:
           f"the profiled decode step shows {dprof['paged_decode']['launches']} paged decode "
           f"launches, expected at least one per layer ({llama.n_layers})")
 
+    # ---- (a) sampled: phase 5's traffic under the seeded sampler, twice
+    torch.cuda.empty_cache()
+    (s_streams, s_stats, _, s_wall), sampled_launches = count(
+        lambda: engine_run(torch, 0, llama, sampling=sampled))
+    s_streams2, s_stats2, _, s_wall2 = engine_run(torch, 0, llama, sampling=sampled)
+    check(s_streams == s_streams2, "two sampled runs with the same seeds gave other streams")
+    off_greedy = sum(a != b for a, b in zip(s_streams, streams))
+    emit({"phase": "engine_sampled", "sampling": "temperature 0.8, top_p 0.95, top_k 50 on "
+          "every other request, seed = request index", "tokens_out": s_stats.tokens_out,
+          "identical_streams": True, "streams_unlike_greedy": f"{off_greedy}/8",
+          "decode_tok_per_s": [s_stats.decode_tok_per_s, s_stats2.decode_tok_per_s],
+          "decode_call_ms_p50": [_p50(s_stats.decode_call_s) * 1e3,
+                                 _p50(s_stats2.decode_call_s) * 1e3],
+          "prefill_s": [s_stats.prefill_s, s_stats2.prefill_s], "wall_s": [s_wall, s_wall2],
+          "launches": sampled_launches, "gpu": gpu})
+    check(s_stats.tokens_out == 8 * 32, f"sampled tokens_out {s_stats.tokens_out} != 256")
+    check(off_greedy > 0, "every sampled stream equals its greedy stream")
+
+    # ---- (b) greedy speculation at (w8, kv8), spec_k = SPEC_K, against the
+    # spec-off greedy streams of the same requests
+    torch.cuda.empty_cache()
+    base, b_stats, _, _ = engine_run(torch, 0, llama, precision=w8kv8)
+    spec_launches = None
+    for draft_bits in (8, 4):
+        (sp, sp_stats, sp_peak, sp_wall), launches_db = count(
+            lambda: engine_run(torch, 0, llama, precision=w8kv8, spec_k=SPEC_K,
+                               draft_bits=draft_bits))
+        if draft_bits == 4:
+            spec_launches = launches_db
+        agree = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+                 for a, b in zip(sp, base)]
+        rows = sp_stats.occupancy_sum
+        emit({"phase": "engine_spec", "draft_bits": draft_bits, "w_bits": 8, "kv_bits": 8,
+              "spec_k": SPEC_K, "tokens_out": sp_stats.tokens_out,
+              "spec_rounds": sp_stats.spec_rounds, "spec_accept_rate": sp_stats.spec_accept_rate,
+              "spec_draft_tokens": sp_stats.spec_draft_tokens,
+              "spec_accepted_tokens": sp_stats.spec_accepted_tokens,
+              "decode_tokens_per_row_call": (sp_stats.tokens_out - 8) / max(rows, 1),
+              "streams_equal_to_spec_off": f"{sum(a == 32 for a in agree)}/8",
+              "tokens_agreeing_with_spec_off": agree,
+              "decode_tok_per_s": sp_stats.decode_tok_per_s,
+              "spec_off_decode_tok_per_s": b_stats.decode_tok_per_s,
+              "decode_call_ms_p50": _p50(sp_stats.decode_call_s) * 1e3,
+              "spec_off_decode_call_ms_p50": _p50(b_stats.decode_call_s) * 1e3,
+              "wall_s": sp_wall, "peak_mem_gb": sp_peak / 1e9, "launches": launches_db,
+              "gpu": gpu})
+        check(sp_stats.tokens_out == 8 * 32, f"spec tokens_out {sp_stats.tokens_out} != 256")
+        check(sp_stats.spec_rounds > 0, "no speculative round ran")
+        if draft_bits == 8:
+            check(sp_stats.spec_accept_rate >= 0.5,
+                  f"a w8 draft of the w8 target accepted {sp_stats.spec_accept_rate:.3f} of "
+                  "its drafts (< 0.5): bf16 noise cannot do that, a position, RoPE or page "
+                  "fault would")
+
+    # ---- (c) sampled speculation (temperature 0.8, draft_bits 4), twice
+    torch.cuda.empty_cache()
+    def spec_sampled_run():
+        return engine_run(torch, 0, llama, sampling=temperature_only, precision=w8kv8,
+                          spec_k=SPEC_K)
+
+    (ss, ss_stats, _, ss_wall), spec_sampled_launches = count(spec_sampled_run)
+    ss2, ss_stats2, _, ss_wall2 = spec_sampled_run()
+    check(ss == ss2, "two sampled spec runs with the same seeds gave other streams")
+    emit({"phase": "engine_spec_sampled", "sampling": "temperature 0.8, seed = request index",
+          "draft_bits": 4, "w_bits": 8, "kv_bits": 8, "spec_k": SPEC_K,
+          "identical_streams": True, "tokens_out": ss_stats.tokens_out,
+          "spec_rounds": ss_stats.spec_rounds, "spec_accept_rate": ss_stats.spec_accept_rate,
+          "decode_tokens_per_row_call": (ss_stats.tokens_out - 8) / max(ss_stats.occupancy_sum, 1),
+          "decode_tok_per_s": [ss_stats.decode_tok_per_s, ss_stats2.decode_tok_per_s],
+          "wall_s": [ss_wall, ss_wall2], "launches": spec_sampled_launches, "gpu": gpu})
+    check(ss_stats.tokens_out == 8 * 32, f"sampled spec tokens_out {ss_stats.tokens_out} != 256")
+
+    # ---- (d) one profiled spec round
+    torch.cuda.empty_cache()
+    sprof = spec_round_profile(torch, llama)
+    emit({"phase": "engine_spec_profile",
+          "what": "one spec round of the full engine (8 rows, w8 target, w4 draft, kv8, "
+                  f"spec_k {SPEC_K})", "profile": sprof, "gpu": gpu})
+
     # ---- waves: full zamba2-7b through the static-wave Server, twice
     (streams, wstats, wpeak, wwall, srv), wave_launches = count(
         lambda: waves_run(torch, 0, zamba, WAVE_REQUESTS, WAVE_PROMPT, WAVE_NEW))
@@ -1358,8 +1620,12 @@ def main() -> int:
     check(mamba_launches["mpmm_dequant"] > 0 and mamba_launches["mqa_decode"] == 0,
           f"mamba2-130m launches {mamba_launches}: expected the matmul and no attention")
 
-    by_path = {"serve": launches, "cnn": cnn_launches, "waves": wave_launches,
-               "waves_ssm": mamba_launches}
+    by_path = {"serve": launches, "sampled": sampled_launches, "spec": spec_launches,
+               "spec_sampled": spec_sampled_launches, "cnn": cnn_launches,
+               "waves": wave_launches, "waves_ssm": mamba_launches}
+    for path in ("sampled", "spec", "spec_sampled"):
+        for name in ("mpmm_dequant", "paged_decode", "paged_prefill"):
+            check(by_path[path][name] > 0, f"{name} was never launched on the {path} path")
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
         s = summary[name]
@@ -1378,6 +1644,10 @@ def main() -> int:
             "library_ms": s["library_ms"], "case": s["case"],
             **({"prefill": {**s["prefill"], "launches": by_path[path]["mpmm_dequant_prefill_m"]}}
                if "prefill" in s else {}),
+            # the verify case; its launches are the profiled spec round's
+            **({"verify": {**s["verify"], "launches_in_one_round": sprof[VERIFY_PROF[name]][
+                "launches"], "launches_spec_path": by_path["spec"][name]}}
+               if "verify" in s else {}),
         })
     print(json.dumps({"kernels": kernels, "total_s": time.perf_counter() - t_start}))
     print(gpu)

@@ -7,7 +7,8 @@ selector, as in the JAX package), patch extraction for convolutions, and
 device dispatch.  Dispatch rule: a tensor
 on the CPU goes to the kernel's plain version (``kernels/ref.py``); a CUDA
 tensor launches the hand-written kernel, or raises.  There is no fallback
-from one to the other.
+from one to the other.  The sampling ops at the end are plain torch ops on
+either device, as the JAX package's are XLA code.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from repro_torch.kernels import mpmm as mpmm_mod
 from repro_torch.kernels import mqa_decode as mqa_mod
 from repro_torch.kernels import paged_decode as decode_mod
 from repro_torch.kernels import paged_prefill as prefill_mod
+from repro_torch.kernels import prng
 from repro_torch.kernels import ref as ref_mod
 from repro_torch.quant.pack import pack_int4, unpack_int4
 
@@ -36,6 +38,12 @@ __all__ = [
     "mqa_decode",
     "paged_mqa_decode",
     "paged_mqa_prefill",
+    "paged_mqa_verify",
+    "sample_keys",
+    "sampling_probs",
+    "sample_from_probs",
+    "sample_tokens",
+    "sample_or_argmax",
 ]
 
 _INT_DTYPE = {4: torch.int8, 8: torch.int8, 16: torch.int16}
@@ -310,3 +318,138 @@ def paged_mqa_prefill(
         kv_bits=kv_bits, sm_scale=sm_scale, window=window,
     )
     return out.permute(0, 2, 1, 3, 4).reshape(b, c, h, d)
+
+
+def paged_mqa_verify(*args, **kwargs) -> torch.Tensor:
+    """Multi-token verify attention of speculative decoding.  A verify
+    window (the last emitted token and the drafts) *is* a causal self-chunk
+    at positions ``ctx_lens[b] + c``, so this is :func:`paged_mqa_prefill`,
+    the paged prefill kernel on the card, under the verify name."""
+    return paged_mqa_prefill(*args, **kwargs)
+
+
+# --------------------------------------------------------------- sampling ops
+# Seeded stochastic sampling of the serving engine (port of the JAX
+# package's sampling ops).  Every op is row-batched: each row carries its own
+# temperature, top_k, top_p and key.  Keys are
+# fold_in(fold_in(PRNGKey(seed), position), salt) through the port's own
+# threefry (kernels/prng.py), bit-equal to jax.random's, so the token at
+# stream position p depends only on (seed, p).  Greedy rows
+# (temperature <= 0) are the exact raw argmax.  These are plain torch ops on
+# either device; no hand-written kernel backs them (nor a Pallas one in JAX).
+
+
+def sample_keys(seeds: torch.Tensor, positions: torch.Tensor, salt: int = 0) -> torch.Tensor:
+    """[B] seeds + [B] stream positions -> [B, 2] int64 keys (32-bit words).
+
+    ``salt`` separates the independent draws one position needs
+    (serve/spec_decode.py: draft, accept, resample)."""
+    key = prng.prng_key(seeds)
+    return prng.fold_in(prng.fold_in(key, positions), salt)
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis with ``torch.sum``'s cascaded sum: the CPU
+    ``torch.softmax`` sums a 128k vocabulary in 16 sequential lanes and
+    lands ~1e-5 (relative) off, where XLA's sum is within 1e-8."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def _top_kp_mask(logits: torch.Tensor, top_k: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
+    """[B, V] keep-mask: top-k by logit rank, then nucleus top-p on the
+    renormalized survivors (HF warper order); top_k <= 0 and top_p >= 1
+    disable their stage.  One descending sort drives both stages.  JAX sorts
+    ascending (stable) and reverses, so equal logits come out highest index
+    first: the same order here, not ``descending=True``'s."""
+    b, v = logits.shape
+    k = torch.clamp(torch.where(top_k > 0, top_k, v), 1, v)
+    order = torch.argsort(logits, dim=-1, stable=True).flip(-1)
+    sl = torch.gather(logits, 1, order)
+    ranks = torch.arange(v, device=logits.device)[None, :]
+    keep_k = ranks < k[:, None]
+    probs = _softmax(torch.where(keep_k, sl, -torch.inf))
+    cum = torch.cumsum(probs, dim=-1)
+    # top_p >= 1 keeps everything explicitly: f32 tail mass can round
+    # cum - probs up to exactly 1.0
+    keep_p = ((cum - probs) < top_p[:, None]) | (top_p[:, None] >= 1.0)
+    keep = keep_k & keep_p
+    return torch.zeros_like(keep).scatter(1, order, keep)
+
+
+def _masked_logits(logits, top_k, top_p):
+    """The top-k/top-p mask applied; ``top_k=None`` / ``top_p=None`` skip
+    their stage, and with both None the vocabulary is never sorted."""
+    if top_k is None and top_p is None:
+        return logits
+    b = logits.shape[0]
+    if top_k is None:
+        top_k = torch.zeros(b, dtype=torch.int64, device=logits.device)
+    if top_p is None:
+        top_p = torch.ones(b, dtype=torch.float32, device=logits.device)
+    return torch.where(_top_kp_mask(logits, top_k, top_p), logits, -torch.inf)
+
+
+def sampling_probs(logits: torch.Tensor, temperature: torch.Tensor, top_k=None,
+                   top_p=None) -> torch.Tensor:
+    """[B, V] per-row sampling distribution after top-k -> top-p ->
+    temperature: softmax(masked_logits / temperature), a one-hot at the raw
+    argmax for greedy rows (temperature <= 0)."""
+    greedy = temperature <= 0.0
+    t = torch.clamp_min(temperature, 1e-6)[:, None]
+    probs = _softmax(_masked_logits(logits, top_k, top_p) / t)
+    onehot = torch.nn.functional.one_hot(torch.argmax(logits, dim=-1), logits.shape[-1])
+    return torch.where(greedy[:, None], onehot.to(probs.dtype), probs)
+
+
+def _inverse_cdf(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """[B, V] probs (unnormalized) + [B] uniforms -> [B] int32 indices.
+
+    JAX's blocked search in its summation order: ~sqrt(V) block sums, a
+    cumsum over the block totals, then a cumsum inside the chosen block.
+    Zero-probability tokens are never drawn."""
+    b, v = probs.shape
+    nb = 1 << ((v - 1).bit_length() + 1) // 2  # ~sqrt(V), a power of two
+    pad = (-v) % nb
+    if pad:
+        probs = torch.nn.functional.pad(probs, (0, pad))
+    vb = probs.shape[1] // nb
+    pb = probs.reshape(b, nb, vb)
+    cb = torch.cumsum(pb.sum(dim=-1), dim=-1)  # [B, nb] block cdf
+    r = u * cb[:, -1]  # threshold in unnormalized mass
+    blk = torch.clamp((cb <= r[:, None]).sum(dim=-1), 0, nb - 1)
+    prev = torch.gather(cb, 1, torch.clamp_min(blk - 1, 0)[:, None])[:, 0]
+    base = torch.where(blk > 0, prev, torch.zeros_like(prev))
+    rows = torch.arange(b, device=probs.device)
+    cs = base[:, None] + torch.cumsum(pb[rows, blk], dim=-1)
+    off = torch.clamp((cs <= r[:, None]).sum(dim=-1), 0, vb - 1)
+    return torch.clamp(blk * vb + off, 0, v - 1).to(torch.int32)
+
+
+def sample_from_probs(probs: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """Categorical draw per row: [B, V] probs + [B, 2] keys -> [B] int32,
+    one uniform per row (inverse CDF); a one-hot row returns its hot index."""
+    return _inverse_cdf(probs, prng.uniform(keys))
+
+
+def sample_tokens(logits: torch.Tensor, keys: torch.Tensor, temperature: torch.Tensor,
+                  top_k=None, top_p=None) -> torch.Tensor:
+    """[B] int32 next tokens: greedy rows are the exact raw argmax, sampled
+    rows draw from :func:`sampling_probs`' distribution (inverse CDF over the
+    unnormalized masked, scaled exponentials; one uniform per row)."""
+    greedy = temperature <= 0.0
+    t = torch.clamp_min(temperature, 1e-6)[:, None]
+    masked = _masked_logits(logits, top_k, top_p)
+    w = torch.exp((masked - masked.amax(dim=-1, keepdim=True)) / t)
+    sampled = _inverse_cdf(w, prng.uniform(keys))
+    return torch.where(greedy, torch.argmax(logits, dim=-1).to(torch.int32), sampled)
+
+
+def sample_or_argmax(logits: torch.Tensor, samp) -> torch.Tensor:
+    """[B] int32 next tokens of a group call: the bare argmax when ``samp``
+    is None (an all-greedy group), else :func:`sample_tokens` with keys from
+    ``samp = (temperature, top_k, top_p, seed, position)``."""
+    if samp is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    temps, top_ks, top_ps, seeds, positions = samp
+    return sample_tokens(logits, sample_keys(seeds, positions), temps, top_ks, top_ps)

@@ -230,9 +230,11 @@ def paged_mqa_decode_ref(
         g = _dequant(g, sc, kv_bits)
         nf = _dequant(new, new_scale, kv_bits)
         # one spare position so a full table (lengths == W*ps) still has
-        # room for this step's token
+        # room for this step's token; a row past even that (a draft step
+        # beyond its own window) drops it, as JAX's scatter does
         g = torch.cat([g, g.new_zeros(b, 1, hkv, d)], dim=1)
-        g[rows, lengths] = nf
+        inside = lengths <= s
+        g[rows[inside], lengths[inside]] = nf[inside]
         return g
 
     kf = gather(k_pool, k_scale, new_k, new_k_scale)

@@ -10,12 +10,19 @@ with no card present that raises instead of running on the CPU, so pass
 assigns weight precisions to requests round-robin, so one engine decodes
 W4A16 and W8A16 requests in the same step.  ``--shared-prefix N`` gives every
 request the same N-token system prompt (followers hit the prefix cache).
-Weights are random, drawn from ``--seed`` with a ``torch.Generator``.
+Weights and prompts are random, drawn from ``--seed``.
 
-This slice serves greedy decoding without speculation: ``--temperature``
-above 0, ``--top-k``, ``--top-p`` below 1 and ``--spec-k`` above 0 raise
-``NotImplementedError`` naming the ROADMAP item, as do archs the port's
-engine does not serve.
+Sampling: ``--temperature`` (0 = greedy argmax, the default), ``--top-k``
+and ``--top-p`` build each request's ``SamplingParams``; request ``i`` uses
+the sampling seed ``--seed + i``, so a rerun with the same seed replays
+every stream.  ``--spec-k K`` turns on self-speculative decoding: every
+request drafts up to K tokens a round with the ``--draft-bits`` weight set
+and verifies them in one pass at its own precision (exact acceptance when
+greedy, rejection sampling when sampled; the ``spec_*`` keys of the
+report).  Run on the CPU with ``--device cpu``, for example::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
+        --reduced --device cpu --temperature 0.8 --top-p 0.95 --spec-k 3
 
 Archs the JAX package's paged engine cannot host (the ssm and hybrid
 families: zamba2-7b, mamba2-130m) fall back, as there, to the static-wave
@@ -57,15 +64,18 @@ def build_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument("--no-prefix-cache", action="store_true")
     ap.add_argument("--spec-k", type=int, default=0, metavar="K",
-                    help="speculative draft tokens per round (not ported: must be 0)")
+                    help="speculative draft tokens per round (0 = plain decode)")
     ap.add_argument("--draft-bits", type=int, default=4, choices=(4, 8, 16),
-                    help="draft weight precision of speculative decoding (not ported)")
+                    help="weight precision of the speculative draft passes")
     ap.add_argument("--temperature", type=float, default=0.0,
-                    help="sampling temperature (not ported: must be 0, greedy)")
-    ap.add_argument("--top-k", type=int, default=0)
-    ap.add_argument("--top-p", type=float, default=1.0)
+                    help="sampling temperature (0 = greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="keep only the k highest logits before sampling (0 = disabled)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass (1.0 = disabled)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random weights and prompts")
+                    help="seed of the random weights and prompts; request i samples "
+                    "with seed + i")
     ap.add_argument("--eos-id", type=int, default=None,
                     help="stop token id: requests finish on emitting it")
     return ap
@@ -88,14 +98,6 @@ def main(argv: Optional[list[str]] = None) -> dict:
         arch = arch.reduced()
     if not engine_family(arch):
         return _serve_waves(args, arch)
-    if args.temperature > 0 or args.top_k or args.top_p < 1.0:
-        raise NotImplementedError(
-            "--temperature/--top-k/--top-p: sampling is not ported yet (ROADMAP: sampling)"
-        )
-    if args.spec_k:
-        raise NotImplementedError(
-            "--spec-k: speculative decoding is not ported yet (ROADMAP: spec decode)"
-        )
     if args.no_quantize:
         mix = [16]
     elif args.precision_mix:
@@ -118,12 +120,16 @@ def main(argv: Optional[list[str]] = None) -> dict:
         page_size=args.page_size,
         prefill_chunk=args.prefill_chunk,
         enable_prefix_cache=not args.no_prefix_cache,
+        spec_k=args.spec_k,
+        draft_bits=args.draft_bits,
         device=device,
     )
     reqs = [
         engine.submit(
             prompt(),
-            SamplingParams(max_new_tokens=args.new_tokens, eos_id=args.eos_id),
+            SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                           top_p=args.top_p, seed=args.seed + i,
+                           max_new_tokens=args.new_tokens, eos_id=args.eos_id),
             PrecisionParams(w_bits=mix[i % len(mix)], kv_bits=kv_bits),
         )
         for i in range(args.requests)
@@ -145,6 +151,10 @@ def main(argv: Optional[list[str]] = None) -> dict:
         "kv_bits": kv_bits,
         "requests": len(reqs),
         "shared_prefix": args.shared_prefix,
+        "temperature": args.temperature,
+        "top_k": args.top_k,
+        "top_p": args.top_p,
+        "seed": args.seed,
         "tokens_out": stats.tokens_out,
         "stream_events": stream_events,
         "prefill_s": stats.prefill_s,
@@ -159,6 +169,9 @@ def main(argv: Optional[list[str]] = None) -> dict:
         "mixed_precision_steps": stats.mixed_precision_steps,
         "mean_batch_occupancy": stats.mean_batch_occupancy,
         "preemptions": stats.preemptions,
+        "spec_k": args.spec_k,
+        "spec_rounds": stats.spec_rounds,
+        "spec_accept_rate": stats.spec_accept_rate,
         "finish_reasons": [o.finish_reason for o in outs],
         "outputs": [list(o.tokens[:16]) for o in outs],
     }

@@ -5,7 +5,8 @@ blockwise online softmax in plain PyTorch, in the same block order; the JAX
 one is pure JAX too, not a Pallas kernel.  ``decode_attention`` attends one
 token to a contiguous cache: its quantized branch is ``ops.mqa_decode``, the
 hand-written kernel on the card.  The paged entry points serve the
-continuous-batching engine.
+continuous-batching engine; the verify entry point of speculative decoding
+is the paged prefill kernel on a causal window.
 """
 from __future__ import annotations
 
@@ -188,3 +189,11 @@ def paged_prefill_attention(
         chunk_k, chunk_v, chunk_k_scale, chunk_v_scale,
         kv_bits=kv_bits, window=window,
     )
+
+
+def paged_verify_attention(*args, **kwargs) -> torch.Tensor:
+    """Speculative-verify attention: a verify window (the last emitted token
+    and the drafts, ``q_lens = n_draft + 1``) is a causal self-chunk, so this
+    is :func:`paged_prefill_attention` under the verify entry point
+    (kernels/ops.py::paged_mqa_verify states the kernel-level contract)."""
+    return paged_prefill_attention(*args, **kwargs)

@@ -7,6 +7,8 @@ bottom-up: ``params`` / ``outputs`` (the generation API's types),
 ``request``, ``kv_cache`` (paged pool with refcounts and copy-on-write),
 ``prefix_cache`` (block-hash chains, LRU), ``scheduler`` (FCFS admission,
 youngest-first preemption), ``prefill`` / ``decode`` (the model steps over
-the paged pool) and ``engine`` (``ServeEngine``).  Import the modules
+the paged pool), ``spec_decode`` (the self-speculative round: drafts at a
+cheap weight precision, one verify window, rejection sampling) and
+``engine`` (``ServeEngine``).  Import the modules
 directly; this package file imports nothing.
 """

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as model_lib
 from repro_torch.models.layers import apply_rope, dense, rms_norm, torch_dtype
@@ -121,16 +122,13 @@ def paged_decode_sample(
     params, tokens, lengths, tables, valid, samp, pool_k, pool_v, pool_ks, pool_vs,
     *, cfg: ArchConfig,
 ):
-    """One decode step and the next-token choice.  ``samp is None`` (an
-    all-greedy group) is the bare argmax, the only case this slice ports.
-    Returns (next_tokens [B] int32, pools)."""
-    if samp is not None:
-        raise NotImplementedError(
-            "sampled decoding (threefry-parity sampling) is not ported yet "
-            "(ROADMAP: sampling)"
-        )
+    """One decode step and the next-token choice: each row draws with its
+    own (temperature, top_k, top_p) under the position-keyed PRNG
+    (``kernels/ops.py::sample_tokens``; greedy rows are the exact argmax).
+    ``samp is None`` (an all-greedy group) is the bare argmax.  Returns
+    (next_tokens [B] int32, pools)."""
     logits, pools = paged_decode_step(
         params, tokens, lengths, tables, valid, pool_k, pool_v, pool_ks, pool_vs,
         cfg=cfg,
     )
-    return torch.argmax(logits, dim=-1).to(torch.int32), pools
+    return ops.sample_or_argmax(logits, samp), pools

@@ -23,7 +23,13 @@ One engine step:
      group makes ONE ``paged_decode_step`` call, which also writes the new
      K/V token into its page.  Batch and table widths are pow2-bucketed.  A
      step that decodes >= 2 precision groups counts in
-     ``stats.mixed_precision_steps``.
+     ``stats.mixed_precision_steps``.  Requests with ``spec_k > 0`` instead
+     run speculative rounds (serve/spec_decode.py), grouped by (w_bits,
+     draft_bits, kv_bits): up to ``spec_k`` drafts at the cheap
+     ``draft_bits`` weight set, one verify of the window at ``w_bits``
+     through the paged prefill kernel, rejection sampling (exact equality
+     for greedy rows), then the rejected tail pages go back to the pool
+     (``PagedKVCache.truncate``).
 
 ``submit(prompt, SamplingParams, PrecisionParams)`` enqueues a request;
 ``generate()`` streams one ``StreamEvent`` per emitted token plus a terminal
@@ -31,11 +37,17 @@ One engine step:
 (``"length"``) or the moment it emits its ``eos_id``/``stop_tokens``
 (``"stop"``); one whose context can never fit its page pool is FAILED.
 
-This slice serves greedy decoding of the dense family.  ``temperature >
-0``, ``top_k``, ``top_p < 1``, ``spec_k > 0`` and archs with frontend prefix
-embeddings (``prefix_len > 0``) raise ``NotImplementedError`` naming the
-ROADMAP item.  There are no jits and no donation: PyTorch runs eagerly, and
-the step functions update the pools in place.  The engine runs on the card
+Every group call ends in the position-keyed sampler
+(``kernels/ops.py::sample_tokens``): per-row temperature / top-k / top-p
+with keys ``fold_in(PRNGKey(seed), position)``, so a sampled stream is
+reproducible under a fixed seed whatever the batch composition, bucketing or
+preemptions, and ``temperature == 0`` rows are the exact argmax.
+
+The engine serves the dense family.  Archs with frontend prefix embeddings
+(``prefix_len > 0``) raise ``NotImplementedError`` naming the ROADMAP item.
+The JAX engine's deprecated flat-kwargs ``submit`` is not ported.  There are
+no jits and no donation: PyTorch runs eagerly, and the step functions update
+the pools in place.  The engine runs on the card
 unless the caller asks for the CPU (``device="cpu"``, which runs every
 kernel's plain version); with no card present the default raises.
 """
@@ -67,6 +79,7 @@ from repro_torch.serve.prefill import bucket_pow2, chunk_prefill_sample
 from repro_torch.serve.prefix_cache import PrefixCache, block_hashes
 from repro_torch.serve.request import RequestState, ServeRequest
 from repro_torch.serve.scheduler import Scheduler
+from repro_torch.serve.spec_decode import clip_stop, plan_windows, spec_decode_round
 
 _SUPPORTED_FAMILIES = ("dense",)
 
@@ -91,9 +104,9 @@ class EngineStats:
     preemptions: int = 0
     mixed_precision_steps: int = 0  # engine steps decoding >= 2 precision groups
     occupancy_sum: int = 0  # sum of decode group sizes (mean = /decode_steps)
-    spec_rounds: int = 0  # speculative rounds (always 0 in this slice)
-    spec_draft_tokens: int = 0
-    spec_accepted_tokens: int = 0
+    spec_rounds: int = 0  # draft + verify group calls
+    spec_draft_tokens: int = 0  # tokens drafted at draft_bits
+    spec_accepted_tokens: int = 0  # drafts the verify accepted and emission used
     failed: int = 0  # requests rejected at admission (context can't fit)
     group_calls: dict = field(default_factory=dict)  # (w_bits, kv_bits) -> calls
     prefix_hit_tokens: int = 0  # prompt tokens served from cached pages
@@ -115,6 +128,7 @@ class EngineStats:
 
     @property
     def spec_accept_rate(self) -> float:
+        """Fraction of drafted tokens the target-precision verify accepted."""
         return self.spec_accepted_tokens / max(self.spec_draft_tokens, 1)
 
     @property
@@ -145,6 +159,7 @@ class ServeEngine:
         prefill_chunk: int = 32,
         enable_prefix_cache: bool = True,
         spec_k: int = 0,
+        draft_bits: int = 4,
         device=None,
     ):
         if not self.supports(cfg):
@@ -160,8 +175,10 @@ class ServeEngine:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
-        if spec_k:
-            raise _not_ported("speculative decoding (spec_k > 0)", "spec decode")
+        if draft_bits not in (4, 8, 16):
+            raise ValueError(f"draft_bits must be 4, 8 or 16, got {draft_bits}")
+        self.spec_k = spec_k  # submit() default: 0 = plain decode
+        self.draft_bits = draft_bits  # submit() default draft precision
         self.device = resolve_device(device)
         self.cfg = cfg
         self.page_size = page_size
@@ -231,13 +248,12 @@ class ServeEngine:
     ) -> ServeRequest:
         """Enqueue one request: ``submit(prompt, SamplingParams(...),
         PrecisionParams(...))``.  Omitted params take the engine defaults
-        (greedy, 16 tokens; the config's precisions)."""
+        (greedy, 16 tokens; the config's precisions, the engine's spec_k and
+        draft_bits)."""
         sampling = SamplingParams() if sampling is None else sampling
         precision = PrecisionParams() if precision is None else precision
-        if sampling.temperature > 0.0 or sampling.top_k or sampling.top_p < 1.0:
-            raise _not_ported("sampling (temperature / top_k / top_p)", "sampling")
-        if precision.spec_k:
-            raise _not_ported("speculative decoding (spec_k > 0)", "spec decode")
+        spec_k = self.spec_k if precision.spec_k is None else precision.spec_k
+        draft_bits = self.draft_bits if precision.draft_bits is None else precision.draft_bits
         w_bits = self.cfg.serve_w_bits if precision.w_bits is None else precision.w_bits
         kv_bits = (
             self.cfg.serve_kv_bits if precision.kv_bits is None else precision.kv_bits
@@ -254,6 +270,11 @@ class ServeEngine:
             kv_bits=kv_bits,
             eos_id=sampling.eos_id,
             stop_tokens=sampling.stop_tokens,
+            spec_k=spec_k,
+            draft_bits=draft_bits,
+            temperature=sampling.temperature,
+            top_k=sampling.top_k,
+            top_p=sampling.top_p,
             seed=sampling.seed,
             arrival=self._next_arrival,
             submit_ts=time.perf_counter(),
@@ -381,6 +402,31 @@ class ServeEngine:
             self._chunk_group(reqs, chunk)
         self.stats.prefill_s += time.perf_counter() - t0
 
+    def _samp_arrays(self, reqs: list[ServeRequest], bsz: int):
+        """Per-row (temperature, top_k, top_p, seed, position) tensors of a
+        bucketed group call, or None when the whole group is greedy (the bare
+        argmax).  ``top_k`` / ``top_p`` are None when no row uses them, so a
+        temperature-only group never sorts the vocabulary; either way a row
+        draws the same token.  ``position`` is the request's next emission
+        index, the key coordinate that makes streams independent of batch
+        and preemption.  Padding rows stay greedy.  The five rows travel to
+        the device as one float64 array (each value exact in it) in one
+        copy."""
+        if all(r.greedy for r in reqs):
+            return None
+        host = np.zeros((5, bsz), np.float64)
+        host[2] = 1.0  # top_p disabled
+        for i, r in enumerate(reqs):
+            host[:, i] = (r.temperature, r.top_k, r.top_p, r.seed, len(r.out_tokens))
+        dev = self._tensor(host)
+        return (
+            dev[0].float(),
+            dev[1].long() if any(r.top_k > 0 for r in reqs) else None,
+            dev[2].float() if any(r.top_p < 1.0 for r in reqs) else None,
+            dev[3].long(),
+            dev[4].long(),
+        )
+
     def _chunk_group(self, reqs: list[ServeRequest], chunk: int) -> None:
         w_bits, kv_bits = reqs[0].w_bits, reqs[0].kv_bits
         cache = self.cache_for(kv_bits)
@@ -400,7 +446,8 @@ class ServeEngine:
         tables[:n] = cache.table_array(rids, width)
         first_tok, _ = chunk_prefill_sample(
             self.params_for(w_bits), self._tensor(tokens), self._tensor(q_start),
-            self._tensor(q_lens), self._tensor(tables), None, *cache.pools,
+            self._tensor(q_lens), self._tensor(tables), self._samp_arrays(reqs, bsz),
+            *cache.pools,
             cfg=self._group_cfg(kv_bits),
         )
         first = first_tok.cpu().numpy()
@@ -435,17 +482,33 @@ class ServeEngine:
         pc.register(hashes[:n_blocks], cache.table(req.rid)[:n_blocks])
 
     # ---------------------------------------------------------------- decode
+    def _step_need(self, req: ServeRequest) -> int:
+        """Cache positions this step may write for ``req``: the speculative
+        window (drafts and the verify's bonus slot) for a spec request, one
+        token otherwise."""
+        if req.spec_k and req.out_tokens and not self._prefilling(req):
+            remaining = req.max_new_tokens - len(req.out_tokens)
+            return min(req.spec_k, max(remaining - 1, 0)) + 1
+        return 1
+
     def _ensure_page_room(self) -> None:
         """Grow page tables for requests crossing a page boundary; preempt
         youngest-first when a pool is dry (the allocation path evicts LRU
-        prefix-cache pages before anyone is preempted)."""
+        prefix-cache pages before anyone is preempted).  A spec request asks
+        for its whole window but shrinks it to one token under pressure
+        before anyone is preempted: speculation never costs a batch-mate its
+        pages."""
         for req in sorted(self._sched.running, key=lambda r: r.arrival):
             if req.state is not RequestState.RUNNING:
                 continue
             cache = self.cache_for(req.kv_bits)
-            while req.cache_len + 1 > cache.capacity_tokens(req.rid):
+            need = self._step_need(req)
+            while req.cache_len + need > cache.capacity_tokens(req.rid):
                 if cache.can_allocate(1):
                     cache.extend(req.rid, 1)
+                    continue
+                if need > 1:
+                    need = 1  # shrink the speculative window, keep decoding
                     continue
                 victim = self._sched.pick_victim(kv_bits=req.kv_bits)
                 self._preempt(victim)
@@ -489,23 +552,32 @@ class ServeEngine:
         return tokens, lengths, tables, valid
 
     def _decode_groups(self) -> int:
-        """One batched call per (w_bits, kv_bits) group; each emits one
-        token per request."""
+        """One batched call per precision group: ``(w_bits, kv_bits)`` plain
+        decode groups emit one token per request; ``(w_bits, draft_bits,
+        kv_bits)`` speculative groups run one round each and emit
+        1..spec_k+1 tokens per request."""
         plain: dict[tuple[int, int], list[ServeRequest]] = {}
+        spec: dict[tuple[int, int, int], list[ServeRequest]] = {}
         for req in self._sched.running:
             if (
                 req.state is RequestState.RUNNING
                 and req.out_tokens
                 and not self._prefilling(req)
             ):
-                plain.setdefault(req.group_key, []).append(req)
+                if req.spec_k > 0:
+                    spec.setdefault(req.spec_group_key, []).append(req)
+                else:
+                    plain.setdefault(req.group_key, []).append(req)
         t0 = time.perf_counter()
         for (w_bits, kv_bits), reqs in sorted(plain.items()):
             self._plain_decode_group(reqs, w_bits, kv_bits)
+        for (w_bits, draft_bits, kv_bits), reqs in sorted(spec.items()):
+            self._spec_decode_group(reqs, w_bits, draft_bits, kv_bits)
         self.stats.decode_s += time.perf_counter() - t0
-        if len(plain) >= 2:
+        n_groups = len(plain) + len(spec)
+        if n_groups >= 2:
             self.stats.mixed_precision_steps += 1
-        return len(plain)
+        return n_groups
 
     def _plain_decode_group(
         self, reqs: list[ServeRequest], w_bits: int, kv_bits: int
@@ -517,7 +589,8 @@ class ServeEngine:
         t_call = time.perf_counter()
         sampled, _ = paged_decode_sample(
             self.params_for(w_bits), self._tensor(tokens), self._tensor(lengths),
-            self._tensor(tables), self._tensor(valid), None, *cache.pools,
+            self._tensor(tables), self._tensor(valid), self._samp_arrays(reqs, len(valid)),
+            *cache.pools,
             cfg=self._group_cfg(kv_bits),
         )
         next_tok = sampled[:n_real].cpu().numpy()
@@ -533,6 +606,72 @@ class ServeEngine:
         self.stats.occupancy_sum += len(reqs)
         key = (w_bits, kv_bits)
         self.stats.group_calls[key] = self.stats.group_calls.get(key, 0) + 1
+
+    def _spec_decode_group(
+        self, reqs: list[ServeRequest], w_bits: int, draft_bits: int, kv_bits: int
+    ) -> None:
+        """One speculative round for a same-precision group: draft at
+        ``draft_bits``, verify at ``w_bits`` under rejection sampling, emit
+        the accepted prefix and the resample / bonus token, then return the
+        rejected tail pages to the pool."""
+        reqs.sort(key=lambda r: r.arrival)
+        cache = self.cache_for(kv_bits)
+        spec_k = max(r.spec_k for r in reqs)
+        capacities = np.array([cache.capacity_tokens(r.rid) for r in reqs], np.int64)
+        n_draft = plan_windows(reqs, capacities, spec_k)
+        if not n_draft.any():
+            # every window shrank to one token (the budget's last token or
+            # page pressure): a plain decode call does the same job
+            self._plain_decode_group(reqs, w_bits, kv_bits)
+            return
+        n_real = len(reqs)
+        tokens, lengths, tables, valid = self._batch_arrays(cache, reqs)
+        nd = np.zeros(len(valid), np.int32)
+        nd[:n_real] = n_draft
+        t_call = time.perf_counter()
+        emit, accept, _ = spec_decode_round(
+            self.params_for(draft_bits), self.params_for(w_bits),
+            self._tensor(tokens), self._tensor(lengths), self._tensor(tables),
+            self._tensor(valid), self._tensor(nd), self._samp_arrays(reqs, len(valid)),
+            *cache.pools, cfg=self._group_cfg(kv_bits), spec_k=spec_k,
+        )
+        emit_np = emit[:n_real].cpu().numpy()  # the round's one read-back
+        accept_np = accept[:n_real].cpu().numpy()
+        self.stats.decode_call_s.append(time.perf_counter() - t_call)
+        for i, req in enumerate(reqs):
+            n_acc = int(accept_np[i])
+            emitted, stopped = clip_stop(req, [int(t) for t in emit_np[i, : n_acc + 1]])
+            req.out_tokens.extend(emitted)
+            req.cache_len += len(emitted)
+            self.stats.tokens_out += len(emitted)
+            self.stats.spec_draft_tokens += int(n_draft[i])
+            req.spec_drafted += int(n_draft[i])
+            # only accepted drafts the emission used: a stop token inside
+            # the window discards the accepted tail
+            used_acc = min(len(emitted) - 1, n_acc)
+            self.stats.spec_accepted_tokens += used_acc
+            req.spec_accepted += used_acc
+            self._truncate_tail(req)
+            if stopped or len(req.out_tokens) >= req.max_new_tokens:
+                self._finish(req)
+        self.stats.spec_rounds += 1
+        self.stats.decode_steps += 1
+        self.stats.occupancy_sum += len(reqs)
+        key = (w_bits, kv_bits)
+        self.stats.group_calls[key] = self.stats.group_calls.get(key, 0) + 1
+
+    def _truncate_tail(self, req: ServeRequest) -> None:
+        """Return table pages past ``req.cache_len`` to the pool, forgetting
+        any prefix-cache entry of a dropped page first (the verify window may
+        have written rejected-token K/V into it)."""
+        cache = self.cache_for(req.kv_bits)
+        tail = cache.table(req.rid)[cache.pages_for(req.cache_len):]
+        if not tail:
+            return
+        pc = self._prefix.get(req.kv_bits)
+        if pc is not None:
+            pc.forget_pages(tail)
+        cache.truncate(req.rid, req.cache_len)
 
     def step(self) -> bool:
         """One engine iteration; returns True if any work was done (failing

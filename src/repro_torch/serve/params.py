@@ -8,10 +8,11 @@ request's kernel calls, the KV-cache payload precision, and the speculative
 decoding knobs.  Both are frozen, so one instance can be shared across many
 ``submit()`` calls.
 
-The port serves greedy decoding (``temperature == 0.0``, the default)
-without speculation; the engine refuses sampled and speculative requests
-with ``NotImplementedError`` until those slices are ported (ROADMAP).  The
-types still validate every field the JAX package's do.
+Sampling is seeded and position-keyed: the token at stream position ``p``
+is drawn with the key ``fold_in(fold_in(PRNGKey(seed), p), salt)``
+(``kernels/ops.py::sample_keys``, the port's threefry bit-equal to
+``jax.random``), so a fixed seed replays the same stream whatever the batch
+composition or preemptions, and the JAX engine's stream too.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ class SamplingParams:
     top_k: keep only the k highest logits before sampling (0 = disabled).
     top_p: nucleus sampling — keep the smallest set of tokens whose
         cumulative probability reaches top_p (1.0 = disabled).
-    seed: per-request sampling seed.
+    seed: per-request sampling seed (position-keyed, see above).
     max_new_tokens: token budget; the request finishes when it is spent.
     eos_id / stop_tokens: emitting any of these finishes the request
         immediately (the stop token itself is kept in the output).

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as model_lib
 from repro_torch.models.layers import apply_rope, dense, rms_norm, torch_dtype
@@ -43,12 +44,19 @@ def chunk_forward(
     pool_vs,
     *,
     cfg: ArchConfig,
+    verify: bool = False,
 ):
     """Run one causal self-chunk through the model: returns (final-normed
     hidden states [B, C, D], pools) with the chunk's K/V written into its
-    pages.  Preconditions: every row's table covers positions
+    pages.  Shared by chunked prefill (which needs the last valid position's
+    logits) and speculative verify (serve/spec_decode.py, every window
+    position's); ``verify`` picks the attention entry point
+    (``paged_verify_attention`` or ``paged_prefill_attention``: the same
+    kernel).  Preconditions: every row's table covers positions
     ``[0, q_start + q_len)`` and positions ``[0, q_start)`` are already in
     the pool."""
+    attn_fn = (attn_mod.paged_verify_attention if verify
+               else attn_mod.paged_prefill_attention)
     quant = cfg.serve_kv_bits < 16
     bits = cfg.serve_kv_bits
     b, c = tokens.shape
@@ -74,7 +82,7 @@ def chunk_forward(
         if quant:
             kq, ksc = model_lib._quantize_token_kv(k, bits)
             vq, vsc = model_lib._quantize_token_kv(v, bits)
-            o = attn_mod.paged_prefill_attention(
+            o = attn_fn(
                 q, pool_k, pool_v, tables, q_start, q_lens, li, kq, vq,
                 window=win, k_scale=pool_ks, v_scale=pool_vs,
                 chunk_k_scale=ksc, chunk_v_scale=vsc, kv_bits=bits,
@@ -83,7 +91,7 @@ def chunk_forward(
         else:
             kc = k.to(pool_k.dtype)
             vc = v.to(pool_v.dtype)
-            o = attn_mod.paged_prefill_attention(
+            o = attn_fn(
                 q, pool_k, pool_v, tables, q_start, q_lens, li, kc, vc,
                 window=win, kv_bits=bits,
             )
@@ -118,16 +126,16 @@ def chunk_prefill_sample(
     params, tokens, q_start, q_lens, tables, samp, pool_k, pool_v, pool_ks, pool_vs,
     *, cfg: ArchConfig,
 ):
-    """One prefill chunk and the first-token choice.  ``samp is None`` (an
-    all-greedy group) is the bare argmax, the only case this slice ports.
-    Returns (first_tokens [B] int32, pools)."""
-    if samp is not None:
-        raise NotImplementedError(
-            "sampled decoding (threefry-parity sampling) is not ported yet "
-            "(ROADMAP: sampling)"
-        )
+    """One prefill chunk and the first-token choice: the logits at each row's
+    last valid position, then a position-keyed draw per row
+    (``kernels/ops.py::sample_tokens``; greedy rows are the exact argmax).
+    Only rows whose prompt completes in this chunk use their token.
+    ``samp`` is (temperature, top_k, top_p, seed, position), each [B], with
+    ``top_k`` / ``top_p`` None when no row uses them; ``samp is None`` (an
+    all-greedy group) is the bare argmax.  Returns (first_tokens [B] int32,
+    pools)."""
     logits, pools = chunk_prefill_step(
         params, tokens, q_start, q_lens, tables, pool_k, pool_v, pool_ks, pool_vs,
         cfg=cfg,
     )
-    return torch.argmax(logits, dim=-1).to(torch.int32), pools
+    return ops.sample_or_argmax(logits, samp), pools

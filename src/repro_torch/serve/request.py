@@ -9,12 +9,25 @@ engine groups same-``group_key`` requests into one batched call per decode
 step, and flattens ``serve/params.py``'s structured knobs onto the request
 at ``submit()``.
 
+``spec_k > 0`` opts the request into self-speculative decoding: each round
+drafts up to ``spec_k`` tokens with the cheap ``draft_bits`` weight set and
+verifies them in one multi-token pass at the request's own ``w_bits``
+(serve/spec_decode.py).  Greedy requests accept on exact token equality (the
+stream equals plain greedy decode); sampled requests run speculative
+rejection sampling, which keeps the target distribution without matching
+any particular plain-sampled stream token for token.
+
 Termination: a request finishes when it has emitted ``max_new_tokens``
 (``finish_reason == "length"``), or the moment it emits ``eos_id`` / any
-token in ``stop_tokens`` (``"stop"``, token kept).  A request whose context
-can never fit the page pool is FAILED (``"failed"``) with ``error`` set.
-Recompute-style preemption is safe for greedy decoding: a preempted request
-re-prefills ``prompt + out_tokens[:-1]`` and continues deterministically.
+token in ``stop_tokens`` (``"stop"``, token kept), in prefill, plain decode
+and the verify window alike.  A request whose context can never fit the
+page pool is FAILED (``"failed"``) with ``error`` set.
+
+Recompute-style preemption is safe in both decode modes: a preempted
+request re-prefills ``prompt + out_tokens[:-1]`` and continues: greedy
+deterministically, sampled because the token at position ``p`` is always
+drawn with the key ``fold_in(PRNGKey(seed), p)``, so the replay draws the
+tokens the uninterrupted run would have drawn.
 """
 from __future__ import annotations
 
@@ -75,6 +88,12 @@ class ServeRequest:
     def group_key(self) -> tuple[int, int]:
         """(w_bits, kv_bits) — requests with equal keys batch together."""
         return (self.w_bits, self.kv_bits)
+
+    @property
+    def spec_group_key(self) -> tuple[int, int, int]:
+        """(w_bits, draft_bits, kv_bits) — speculative rounds batch requests
+        that share both the draft and the verify weight set."""
+        return (self.w_bits, self.draft_bits, self.kv_bits)
 
     def is_stop(self, tok: int) -> bool:
         """True when emitting ``tok`` must terminate the request."""

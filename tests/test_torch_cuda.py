@@ -3,10 +3,11 @@ version, on the card: the W4/W8 dequant matmul in the CF order (the
 tensor-core kernel's 8-row tile at M <= 8, its 64- and 128-row tiles above,
 at ragged edges and at the serving paths' prefill shapes) and the FF order,
 the int-mode matmul (bit-exact against the CPU), paged decode and paged
-prefill, contiguous-cache decode (``mqa_decode``), at small ragged shapes,
-at llama3.2-3b's and zamba2-7b's widths and at ResNet18's conv shapes; and a
-reduced zamba2-7b (hybrid) prefill + decode step on the card against the
-CPU.
+prefill (also at a speculative verify window), contiguous-cache decode
+(``mqa_decode``), at small ragged shapes, at llama3.2-3b's and zamba2-7b's
+widths and at ResNet18's conv shapes; a reduced zamba2-7b (hybrid) prefill +
+decode step on the card against the CPU; and the sampler
+(``ops.sample_tokens``, plain torch ops) on the card against the CPU.
 
 Marked ``cuda``: on a machine without a card every test skips with a
 reason.  On the card:
@@ -26,7 +27,7 @@ import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ops, prng, ref  # noqa: E402
 from repro_torch.kernels.mpmm import mpmm_cuda, mpmm_ff_cuda, mpmm_int_cuda  # noqa: E402
 from repro_torch.kernels.mqa_decode import mqa_decode_cuda  # noqa: E402
 from repro_torch.kernels.paged_decode import paged_mqa_decode_cuda  # noqa: E402
@@ -688,6 +689,72 @@ def test_paged_prefill_kernel_at_llama_width(dev, kv_bits, window):
     # version after its NaN guard
     _close(got, exp)
     assert torch.equal(got, ops.paged_mqa_prefill(*args, kv_bits=kv_bits, window=window))
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8, 16])
+def test_paged_prefill_kernel_at_the_verify_shape(dev, kv_bits):
+    """A speculative verify window at llama3.2-3b's heads: B = 8, C = 5
+    (spec_k 4 + 1), q_lens 1-5 (n_draft + 1) with a padding row at 0,
+    round-start contexts 512-1024; two runs give the same bits."""
+    rng = np.random.default_rng(40 + kv_bits)
+    b, n_layers, ps, hkv, g, d, c = 8, 2, 16, 8, 3, 128, 5
+    ctx_list = [512, 1024, 700, 513, 1000, 640, 901, 0]
+    w = -(-(max(ctx_list) + c) // ps)
+    n_pages = b * w + 2
+    kp, vp, ks, vs = _pools(rng, dev, kv_bits, n_layers, n_pages, ps, hkv, d)
+    tables = torch.from_numpy(
+        rng.permutation(n_pages)[: b * w].reshape(b, w).astype(np.int32)).to(dev)
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
+    q_lens = torch.tensor([1, 2, 3, 4, 5, 5, 3, 0], dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.normal(size=(b, c, hkv * g, d)).astype(np.float32))
+    q = q.to(torch.bfloat16).to(dev)
+    ck, cks = _tokens(rng, dev, kv_bits, (b, c, hkv), d)
+    cv, cvs = _tokens(rng, dev, kv_bits, (b, c, hkv), d)
+    args = (q, kp, vp, ks, vs, tables, ctx, q_lens, 1, ck, cv, cks, cvs)
+    got = ops.paged_mqa_verify(*args, kv_bits=kv_bits)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    exp = ref.paged_mqa_prefill_ref(*args, sm_scale=1 / math.sqrt(d), kv_bits=kv_bits)
+    live = torch.arange(c, device=dev)[None, :] < q_lens[:, None]
+    _close(got[live], exp[live])
+    assert torch.equal(got, ops.paged_mqa_verify(*args, kv_bits=kv_bits))
+
+
+def near_cdf_boundary(logits, temps, top_k, top_p, u, eps=1e-6) -> torch.Tensor:
+    """[B] bool: rows whose uniform lies within ``eps`` of a boundary of the
+    sampled distribution's CDF (float64 on the CPU), where an f32 sum in
+    another order may pick the neighbouring token."""
+    probs = ops.sampling_probs(logits.cpu(), temps.cpu(), top_k.cpu(), top_p.cpu()).double()
+    cdf = torch.cumsum(probs / probs.sum(-1, keepdim=True), dim=-1)
+    return ((cdf - u.cpu().double()[:, None]).abs() < eps).any(dim=-1)
+
+
+def test_sample_tokens_on_card_match_cpu(dev):
+    """llama3.2-3b's vocabulary (128256, 9 padding columns at -1e30), B = 8,
+    temperature 0.8, top_k 50, top_p 0.95, on identical f32 logits: keys and
+    uniforms are bit-equal on the card and the CPU, and so are the tokens,
+    except where a uniform lies within 1e-6 of a CDF boundary."""
+    rng = np.random.default_rng(3)
+    b, v = 8, 128256
+    lg = torch.from_numpy((rng.standard_normal((b, v)) * 3).astype(np.float32))
+    lg[:, v - 9:] = -1e30
+    seeds = torch.from_numpy(rng.integers(0, 2**32, b))
+    pos = torch.from_numpy(rng.integers(0, 4096, b))
+    temps = torch.full((b,), 0.8)
+    top_k = torch.full((b,), 50)
+    top_p = torch.full((b,), 0.95)
+    keys = ops.sample_keys(seeds, pos)
+    keys_card = ops.sample_keys(seeds.to(dev), pos.to(dev))
+    assert torch.equal(keys_card.cpu(), keys)
+    u = prng.uniform(keys)
+    assert torch.equal(prng.uniform(keys_card).cpu(), u)
+    want = ops.sample_tokens(lg, keys, temps, top_k, top_p)
+    got = ops.sample_tokens(lg.to(dev), keys_card, temps.to(dev), top_k.to(dev),
+                            top_p.to(dev)).cpu()
+    near = near_cdf_boundary(lg, temps, top_k, top_p, u)
+    assert torch.equal(got[~near], want[~near])
+    greedy = ops.sample_tokens(lg.to(dev), keys_card, torch.zeros(b, device=dev))
+    assert torch.equal(greedy.cpu(), torch.argmax(lg, dim=-1).to(torch.int32))
 
 
 @pytest.mark.parametrize("kv_bits", [4, 8, 16])

@@ -2,8 +2,8 @@
 float32 llama3.2-3b (weights carried over with params_from_numpy): greedy
 streams are token-identical across a mixed (w_bits, kv_bits) batch over
 {4, 8, 16} with warm prefix-cache hits, and under forced preemption.  Also
-the port's serving CLI end to end on the CPU, and the sampling and
-speculative options this slice does not port raising."""
+the port's serving CLI end to end on the CPU, and the option the port does
+not serve yet (frontend prefix embeddings) raising."""
 import dataclasses
 import json
 import os
@@ -21,7 +21,6 @@ from repro.serve import PrecisionParams as JPrecision  # noqa: E402
 from repro.serve import SamplingParams as JSampling  # noqa: E402
 from repro.serve import ServeEngine as JEngine  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
-from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.params import PrecisionParams, SamplingParams  # noqa: E402
@@ -120,24 +119,12 @@ def test_oversized_request_fails(models):
 
 
 def test_unported_options_raise(models):
+    """Frontend prefix embeddings (prefix_len > 0) are not ported; sampling
+    and speculation are (tests/test_torch_sampling.py, test_torch_spec.py)."""
     _, tcfg, _, tparams = models
-    eng = ServeEngine(tcfg, tparams, device="cpu")
-    prompt = np.arange(5, dtype=np.int32)
-    for samp in (SamplingParams(temperature=0.7), SamplingParams(top_k=5),
-                 SamplingParams(top_p=0.9)):
-        with pytest.raises(NotImplementedError, match="ROADMAP: sampling"):
-            eng.submit(prompt, samp)
-    with pytest.raises(NotImplementedError, match="ROADMAP: spec decode"):
-        eng.submit(prompt, None, PrecisionParams(spec_k=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP: spec decode"):
-        ServeEngine(tcfg, tparams, spec_k=2, device="cpu")
     vlm = dataclasses.replace(tcfg, prefix_len=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(vlm, tparams, device="cpu")
-    for flags in (["--temperature", "0.8"], ["--top-k", "5"], ["--top-p", "0.5"],
-                  ["--spec-k", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserve.main(["--arch", "llama3.2-3b", "--reduced", "--device", "cpu", *flags])
 
 
 def test_launch_serve_cli_end_to_end():
