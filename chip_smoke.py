@@ -63,10 +63,25 @@ Phases, each printing one JSON line that names the card:
                profiled (the device time and launches of mqa_decode and of
                the CF matmul's decode-M tile among them);
                then full mamba2-130m (ssm) served the same way.
+               Phases 5 and 6 run their steps captured (serve/graphs.py:
+               CUDA graphs, the default); each path (greedy mixed
+               precision, sampled, greedy spec with a w8 and a w4 draft,
+               sampled spec, the zamba2-7b and mamba2-130m waves) runs once
+               more with every step eager (graphs.disable_capture()): the
+               streams and the kernel launches must be identical.  Each of
+               the four profiles (chunk group call, decode step, spec
+               round, wave decode steps) runs captured and eager; a
+               captured step also gets the CUDA-event time of one replay of
+               its graph, which stands for its busy time where the profiler
+               shows the replay only as cudaGraphLaunch.  A summary line
+               sets captured against eager: wall and busy ms per step,
+               decode tokens/s, peak memory, graphs captured and the
+               seconds spent capturing.
 7. kernels line -- each kernel's launches on its path (all > 0): the serving
                kernels in phase 5's first run, the FF and int matmuls in
                phase 4, contiguous-cache decode in phase 6's first zamba2
-               run; the counts are set to 0 just before each path runs.  The
+               run; the counts are set to 0 just before each path runs, and
+               a replayed step adds the launches its graph holds.  The
                serving kernels must also launch on each of phase 5's sampled
                and spec paths (counted apart: ``launches_by_path``), and
                the CF matmul and paged prefill carry their verify case.
@@ -958,11 +973,13 @@ def hybrid_step_card_vs_cpu(torch, gpu, base) -> None:
 
 
 # --------------------------------------------------------------- waves
-def waves_run(torch, seed: int, cfg, requests: int, prompt: int, new: int):
+def waves_run(torch, seed: int, cfg, requests: int, prompt: int, new: int,
+              capture: bool = True):
     """Serve ``requests`` greedy requests of ``prompt`` random tokens and
     ``new`` new tokens through the static-wave Server (batch 8, the arch's
-    w/kv bits), with weights drawn from ``seed``; returns (streams, stats,
-    peak bytes, wall s, server)."""
+    w/kv bits), with weights drawn from ``seed``, its decode step captured
+    (or eager: ``capture=False``); returns (streams, stats, peak bytes, wall
+    s, server)."""
     import numpy as np
 
     from repro_torch.models import transformer as model_lib
@@ -978,7 +995,8 @@ def waves_run(torch, seed: int, cfg, requests: int, prompt: int, new: int):
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, prompt).astype(np.int32),
                     max_new_tokens=new) for i in range(requests)]
     t0 = time.perf_counter()
-    srv.serve(reqs)
+    with capturing(capture):
+        srv.serve(reqs)
     wall = time.perf_counter() - t0
     for r in reqs:
         check(r.done and len(r.out_tokens) == new, f"request {r.rid}: {len(r.out_tokens)} "
@@ -989,31 +1007,30 @@ def waves_run(torch, seed: int, cfg, requests: int, prompt: int, new: int):
         wall, srv
 
 
-def waves_profile(torch, srv, cfg, prompt: int) -> dict:
+def waves_profile(torch, srv, cfg, prompt: int, capture: bool = True) -> dict:
     """Two decode steps of a full wave (8 x ``prompt`` tokens prefilled)
-    under torch.profiler: device time by kernel and the card's busy share of
-    the unprofiled wall time of two steps."""
-    from repro_torch.models import transformer as model_lib
-
+    through the Server's decode step, captured (or eager), under
+    torch.profiler: device time by kernel and the card's busy share of the
+    unprofiled wall time of two steps (see :func:`step_profile`)."""
     tokens = torch.randint(0, cfg.vocab, (8, prompt), device="cuda")
-    logits, cache = model_lib.prefill(srv.params, {"tokens": tokens}, cfg, srv.max_len)
-    tok = logits.argmax(-1)[:, None]
+    with capturing(capture):
+        tok, _ = srv.prefill_wave({"tokens": tokens})
 
     def two_steps():
-        nonlocal logits, cache, tok
-        for _ in range(2):
-            logits, cache = model_lib.decode_step(srv.params, tok, cache, cfg)
-            tok = logits.argmax(-1)[:, None]
+        nonlocal tok
+        with capturing(capture):
+            for _ in range(2):
+                tok = srv.decode_wave(tok)
         torch.cuda.synchronize()
 
-    two_steps()  # warm
+    two_steps()  # warm (and capture, the first time)
     t0 = time.perf_counter()
     two_steps()
     wall = time.perf_counter() - t0
-    return device_profile(torch, two_steps, wall,
-                          sums={"mqa_decode": lambda name: "mqa_decode" in name,
-                                "mpmm_decode_m": decode_m_kernel,
-                                "mpmm_split_sums": lambda name: "mpmm_splitk_reduce" in name})
+    return step_profile(torch, two_steps, wall, srv.graphs, "wave_decode", capture, replays=2,
+                        sums={"mqa_decode": lambda name: "mqa_decode" in name,
+                              "mpmm_decode_m": decode_m_kernel,
+                              "mpmm_split_sums": lambda name: "mpmm_splitk_reduce" in name})
 
 
 def decode_m_kernel(name: str) -> bool:
@@ -1045,7 +1062,10 @@ def device_profile(torch, run_once, wall_s: float, sums=None) -> dict:
         run_once()
     by_kernel = {}
     picked = {label: {"device_ms": 0.0, "launches": 0} for label in (sums or {})}
+    graph_launches = 0
     for e in prof.key_averages():
+        if e.key == "cudaGraphLaunch":
+            graph_launches += e.count
         if e.device_type == DeviceType.CUDA:
             by_kernel[e.key[:60]] = by_kernel.get(e.key[:60], 0.0) + e.device_time_total
             for label, test in (sums or {}).items():
@@ -1055,8 +1075,65 @@ def device_profile(torch, run_once, wall_s: float, sums=None) -> dict:
     busy_ms = sum(by_kernel.values()) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {"device_busy_ms": busy_ms, "wall_ms": wall_s * 1e3,
-            "device_busy_share": busy_ms / (wall_s * 1e3),
+            "device_busy_share": busy_ms / (wall_s * 1e3), "graph_launches": graph_launches,
             "top_kernels_us": {k: v for k, v in top}, **picked}
+
+
+def capturing(capture: bool):
+    """The serving steps captured (the default) or eager
+    (``graphs.disable_capture()``)."""
+    import contextlib
+
+    from repro_torch.serve import graphs
+
+    return contextlib.nullcontext() if capture else graphs.disable_capture()
+
+
+def last_captured(step_graphs, step: str):
+    """The last graph a StepGraphs captured for ``step``."""
+    return [g for key, g in step_graphs._graphs.items() if key[0] == step][-1]
+
+
+def replay_ms(torch, step_graphs, step: str, iters: int = 5) -> float:
+    """Median CUDA-event time of one replay of the last captured ``step``
+    of a StepGraphs: the card's time for the step's kernels back to back.
+    (A replay writes the step's K/V again, at the same positions, with the
+    same values.)"""
+    graph = last_captured(step_graphs, step).graph
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[iters // 2]
+
+
+def step_profile(torch, run_once, wall_s: float, step_graphs, step: str, capture: bool,
+                 replays: int = 1, sums=None) -> dict:
+    """:func:`device_profile` of a serving step, captured or eager.  A
+    captured step also gets its replay's CUDA-event time
+    (``replay_ms``, times ``replays`` replays a run); where the profiler
+    shows the replays only as ``cudaGraphLaunch``, with no kernels in them,
+    that time stands for the card's busy time (``busy_from``)."""
+    prof = device_profile(torch, run_once, wall_s, sums)
+    prof["captured"] = capture
+    prof["busy_from"] = "profiler"
+    if capture:
+        from repro_torch.serve import graphs
+
+        held = last_captured(step_graphs, step).launches
+        prof["launches_per_replay"] = {f"{fn.__name__}.{attr}": n for (fn, attr), n
+                                       in zip(graphs.COUNTERS, held) if n}
+        prof["replay_ms"] = replay_ms(torch, step_graphs, step) * replays
+        if prof["device_busy_ms"] < 0.05 * prof["replay_ms"]:
+            prof["busy_from"] = "cuda_events (the profiler shows the replay as cudaGraphLaunch)"
+            prof["device_busy_ms"] = prof["replay_ms"]
+            prof["device_busy_share"] = prof["replay_ms"] / prof["wall_ms"]
+    return prof
 
 
 def cnn_run(torch, gpu) -> None:
@@ -1192,11 +1269,13 @@ def temperature_only(i: int) -> dict:
 
 
 def engine_run(torch, seed: int, cfg, sampling=greedy, precision=mixed_precision,
-               spec_k: int = 0, draft_bits: int = 4):
+               spec_k: int = 0, draft_bits: int = 4, capture: bool = True):
     """Serve phase 5's traffic once: request i takes ``sampling(i)`` and
     ``precision(i)`` (keyword arguments of SamplingParams / PrecisionParams);
-    ``spec_k`` and ``draft_bits`` are the engine's.  Returns (streams,
-    stats, peak bytes, s)."""
+    ``spec_k`` and ``draft_bits`` are the engine's; the group calls are
+    captured (or eager: ``capture=False``).  Returns (streams, stats, peak
+    bytes, s, the engine's captured steps: {captured, replays,
+    capture_s})."""
     import numpy as np
 
     from repro_torch.models import transformer as model_lib
@@ -1218,16 +1297,17 @@ def engine_run(torch, seed: int, cfg, sampling=greedy, precision=mixed_precision
                              PrecisionParams(**precision(i)))
 
     t0 = time.perf_counter()
-    # the first request of each precision warms the shared system prompt;
-    # the rest arrive once it is cached, as followers of a system prompt do
-    first = [submit(i) for i in range(len(PRECISIONS))]
-    while not all(r.out_tokens for r in first):
-        engine.step()
-    reqs = first + [submit(i) for i in range(len(PRECISIONS), 8)]
-    streams = {r.rid: [] for r in reqs}
-    for ev in engine.generate(reqs):
-        if hasattr(ev, "token"):
-            streams[ev.rid].append(ev.token)
+    with capturing(capture):
+        # the first request of each precision warms the shared system prompt;
+        # the rest arrive once it is cached, as followers of a system prompt do
+        first = [submit(i) for i in range(len(PRECISIONS))]
+        while not all(r.out_tokens for r in first):
+            engine.step()
+        reqs = first + [submit(i) for i in range(len(PRECISIONS), 8)]
+        streams = {r.rid: [] for r in reqs}
+        for ev in engine.generate(reqs):
+            if hasattr(ev, "token"):
+                streams[ev.rid].append(ev.token)
     wall = time.perf_counter() - t0
     for r in reqs:  # tokens emitted before generate() began stream out first
         check(streams[r.rid] == r.out_tokens, f"request {r.rid}: stream != out_tokens")
@@ -1235,19 +1315,21 @@ def engine_run(torch, seed: int, cfg, sampling=greedy, precision=mixed_precision
               f"request {r.rid}: token outside the vocabulary (padded logits leaked)")
     peak = torch.cuda.max_memory_allocated()
     stats = engine.stats
+    steps = {"captured": engine.graphs.captured, "replays": engine.graphs.replays,
+             "capture_s": engine.graphs.capture_s}
     del engine, params
     torch.cuda.empty_cache()
-    return [tuple(r.out_tokens) for r in reqs], stats, peak, wall
+    return [tuple(r.out_tokens) for r in reqs], stats, peak, wall, steps
 
 
-def engine_prefill_profile(torch, cfg) -> dict:
-    """One chunk-prefill group call of the full engine under torch.profiler.
-    Four w8/kv8 requests of 512 random prompt tokens with a 128-token chunk:
-    every engine step prefills one chunk of all four in one group call (one
-    chunk_prefill_step of 4 x 128 tokens).  Step 1 warms up, step 2 (128
-    tokens of context) is timed without the profiler, step 3 (256 of
-    context) runs under it: device time by kernel, and the card's busy share
-    of step 2's wall time."""
+def engine_prefill_profile(torch, cfg, capture: bool = True) -> dict:
+    """One chunk-prefill group call of the full engine under torch.profiler,
+    captured (or eager).  Four w8/kv8 requests of 512 random prompt tokens
+    with a 128-token chunk: every engine step prefills one chunk of all four
+    in one group call (one chunk_prefill_step of 4 x 128 tokens).  Step 1
+    warms up (and captures), step 2 (128 tokens of context) is timed without
+    the profiler, step 3 (256 of context) runs under it: device time by
+    kernel, and the card's busy share of step 2's wall time."""
     import numpy as np
 
     from repro_torch.models import transformer as model_lib
@@ -1263,7 +1345,8 @@ def engine_prefill_profile(torch, cfg) -> dict:
                       SamplingParams(max_new_tokens=4), PrecisionParams(w_bits=8, kv_bits=8))
 
     def step():
-        engine.step()
+        with capturing(capture):
+            engine.step()
         torch.cuda.synchronize()
 
     step()
@@ -1271,7 +1354,7 @@ def engine_prefill_profile(torch, cfg) -> dict:
     t0 = time.perf_counter()
     step()
     wall = time.perf_counter() - t0
-    prof = device_profile(torch, step, wall)
+    prof = step_profile(torch, step, wall, engine.graphs, "chunk", capture)
     check(engine.stats.prefill_chunks == chunks + 2,
           f"profiled engine steps ran {engine.stats.prefill_chunks - chunks} prefill "
           "group calls, expected one each")
@@ -1281,14 +1364,14 @@ def engine_prefill_profile(torch, cfg) -> dict:
             "group_call_ms": wall * 1e3, **prof}
 
 
-def engine_decode_profile(torch, cfg) -> dict:
-    """One decode step of the full engine under torch.profiler: eight w8/kv8
-    requests of 512 random prompt tokens, prefilled in 128-token chunks,
-    then decoding as one group of 8 rows (one paged_decode_step: 28 layers
-    of paged decode at ctx ~515).  The first pure decode step warms up, the
-    second is timed without the profiler, the third runs under it: paged
-    decode's device time and launches, and the card's busy share of the
-    second step's wall time."""
+def engine_decode_profile(torch, cfg, capture: bool = True) -> dict:
+    """One decode step of the full engine under torch.profiler, captured (or
+    eager): eight w8/kv8 requests of 512 random prompt tokens, prefilled in
+    128-token chunks, then decoding as one group of 8 rows (one
+    paged_decode_step: 28 layers of paged decode at ctx ~515).  The first
+    pure decode step warms up (and captures), the second is timed without
+    the profiler, the third runs under it: paged decode's device time and
+    launches, and the card's busy share of the second step's wall time."""
     import numpy as np
 
     from repro_torch.models import transformer as model_lib
@@ -1302,21 +1385,22 @@ def engine_decode_profile(torch, cfg) -> dict:
     reqs = [engine.submit(rng.integers(0, cfg.vocab, 512).astype(np.int32),
                           SamplingParams(max_new_tokens=16), PrecisionParams(w_bits=8, kv_bits=8))
             for _ in range(8)]
-    while not all(r.out_tokens for r in reqs):
-        engine.step()
 
     def step():
-        engine.step()
+        with capturing(capture):
+            engine.step()
         torch.cuda.synchronize()
 
+    while not all(r.out_tokens for r in reqs):
+        step()
     step()
     steps, chunks = engine.stats.decode_steps, engine.stats.prefill_chunks
     t0 = time.perf_counter()
     step()
     wall = time.perf_counter() - t0
     # the kernel and its merge launch
-    prof = device_profile(torch, step, wall,
-                          sums={"paged_decode": lambda name: "paged_decode" in name})
+    prof = step_profile(torch, step, wall, engine.graphs, "decode", capture,
+                        sums={"paged_decode": lambda name: "paged_decode" in name})
     check(engine.stats.decode_steps == steps + 2 and engine.stats.prefill_chunks == chunks,
           "the profiled engine steps were not one decode group call each")
     ctx = [r.cache_len for r in reqs]
@@ -1336,8 +1420,9 @@ def verify_m_kernel(name: str) -> bool:
     return "mpmm_tc_kernel" in name and not decode_m_kernel(name) and not ff_kernel(name)
 
 
-def spec_round_profile(torch, cfg) -> dict:
-    """One speculative round of the full engine under torch.profiler: eight
+def spec_round_profile(torch, cfg, capture: bool = True) -> dict:
+    """One speculative round of the full engine under torch.profiler,
+    captured (or eager): eight
     requests of 512 random prompt tokens, w8 target, w4 draft, kv8,
     SPEC_K = 4, prefilled in 128-token chunks, then decoding as one spec
     group of 8 rows (4 draft steps of paged decode at M = 8, one verify
@@ -1348,6 +1433,9 @@ def spec_round_profile(torch, cfg) -> dict:
     second round's wall time."""
     import numpy as np
 
+    from repro_torch.kernels.mpmm import mpmm_cuda
+    from repro_torch.kernels.paged_decode import paged_mqa_decode_cuda
+    from repro_torch.kernels.paged_prefill import paged_mqa_prefill_cuda
     from repro_torch.models import transformer as model_lib
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.params import PrecisionParams, SamplingParams
@@ -1359,31 +1447,45 @@ def spec_round_profile(torch, cfg) -> dict:
     reqs = [engine.submit(rng.integers(0, cfg.vocab, 512).astype(np.int32),
                           SamplingParams(max_new_tokens=64), PrecisionParams(w_bits=8, kv_bits=8))
             for _ in range(8)]
-    while not all(r.out_tokens for r in reqs):
-        engine.step()
 
     def step():
-        engine.step()
+        with capturing(capture):
+            engine.step()
         torch.cuda.synchronize()
 
+    while not all(r.out_tokens for r in reqs):
+        step()
     step()
     rounds, chunks = engine.stats.spec_rounds, engine.stats.prefill_chunks
     t0 = time.perf_counter()
     step()
     wall = time.perf_counter() - t0
-    prof = device_profile(torch, step, wall, sums={
+    counters = {"paged_prefill_verify": (paged_mqa_prefill_cuda, "launches"),
+                "paged_decode_draft": (paged_mqa_decode_cuda, "launches"),
+                "mpmm_verify_m": (mpmm_cuda, "prefill_m_launches")}
+    before = {k: getattr(*c) for k, c in counters.items()}
+    prof = step_profile(torch, step, wall, engine.graphs, "spec", capture, sums={
         "paged_prefill_verify": lambda name: "paged_prefill" in name,
         "paged_decode_draft": lambda name: "paged_decode" in name,
         "mpmm_verify_m": verify_m_kernel,
         "mpmm_decode_m_draft": decode_m_kernel,
     })
+    # the launches of the profiled round by the wrappers' counts (a replay
+    # adds its capture's); paged decode's merge launches are not counted
+    prof["counted"] = {k: getattr(*c) - before[k] for k, c in counters.items()}
     check(engine.stats.spec_rounds == rounds + 2 and engine.stats.prefill_chunks == chunks,
           "the profiled engine steps were not one spec round each")
-    check(prof["paged_prefill_verify"]["launches"] == cfg.n_layers,
-          f"the profiled round shows {prof['paged_prefill_verify']['launches']} paged prefill "
-          f"launches, expected one verify per layer ({cfg.n_layers})")
-    check(prof["paged_decode_draft"]["launches"] >= SPEC_K * cfg.n_layers,
-          "the profiled round shows fewer paged decode launches than SPEC_K drafts a layer")
+    verifies = [prof["counted"]["paged_prefill_verify"]]
+    if prof["busy_from"] == "profiler":
+        verifies.append(prof["paged_prefill_verify"]["launches"])
+    for n in verifies:
+        check(n == cfg.n_layers, f"the profiled round shows {n} paged prefill launches, "
+              f"expected one verify per layer ({cfg.n_layers})")
+    check(prof["counted"]["paged_decode_draft"] == SPEC_K * cfg.n_layers,
+          "the profiled round counts other than SPEC_K paged decode launches a layer")
+    if prof["busy_from"] == "profiler":
+        check(prof["paged_decode_draft"]["launches"] >= SPEC_K * cfg.n_layers,
+              "the profiled round shows fewer paged decode launches than SPEC_K drafts a layer")
     ctx = [r.cache_len for r in reqs]
     del engine, params
     torch.cuda.empty_cache()
@@ -1455,7 +1557,28 @@ def main() -> int:
     _, cnn_launches = count(lambda: cnn_run(torch, gpu))
     emit({"phase": "cnn_launches", "launches": cnn_launches, "gpu": gpu})
     torch.cuda.empty_cache()
-    (streams, stats, peak, wall), launches = count(lambda: engine_run(torch, 0, llama))
+    def eager_twin(name, path, streams, launches, run):
+        """Run a path once more with every step eager: its streams and its
+        kernel launches must equal the captured run's."""
+        (e_streams, e_stats, e_peak, e_wall, *_), e_launches = count(run)
+        check(e_streams == streams, f"{name}: the eager streams differ from the captured ones")
+        check(e_launches == launches, f"{name}: eager launches {e_launches} != captured "
+              f"{launches}")
+        rec = {"phase": "eager_twin", "path": name, "identical_streams": True,
+               "identical_launches": True, "wall_s": e_wall, "peak_mem_gb": e_peak / 1e9,
+               "gpu": gpu}
+        if hasattr(e_stats, "decode_tok_per_s"):
+            rec.update(decode_tok_per_s=e_stats.decode_tok_per_s,
+                       decode_call_ms_p50=_p50(e_stats.decode_call_s) * 1e3)
+        else:
+            rec.update(decode_tok_per_s=e_stats.tokens_out / e_stats.decode_s,
+                       decode_step_ms=e_stats.decode_s / e_stats.decode_steps * 1e3)
+        emit(rec)
+        twins[path] = rec
+        return rec
+
+    twins = {}
+    (streams, stats, peak, wall, steps), launches = count(lambda: engine_run(torch, 0, llama))
     ttfts = sorted(stats.ttfts)
     emit({"phase": "engine", "model": "llama3.2-3b (28 layers, full width)",
           "requests": 8, "prompt": 512, "shared_prefix": 256, "new_tokens": 32,
@@ -1468,11 +1591,13 @@ def main() -> int:
           "mixed_precision_steps": stats.mixed_precision_steps,
           "preemptions": stats.preemptions, "prefill_chunks": stats.prefill_chunks,
           "decode_group_calls": {f"w{w}kv{k}": n for (w, k), n in stats.group_calls.items()},
-          "peak_mem_gb": peak / 1e9, "launches": launches, "gpu": gpu})
+          "peak_mem_gb": peak / 1e9, "captured_steps": steps, "launches": launches,
+          "gpu": gpu})
     check(stats.tokens_out == 8 * 32, f"tokens_out {stats.tokens_out} != 256")
     check(stats.prefix_hit_tokens > 0, "no prefix-cache hits")
     check(stats.mixed_precision_steps > 0, "no mixed-precision decode steps")
-    streams2, stats2, _, wall2 = engine_run(torch, 0, llama)
+    check(steps["captured"] > 0 and steps["replays"] > 0, f"no step captured and replayed: {steps}")
+    streams2, stats2, _, wall2, _ = engine_run(torch, 0, llama)
     check(streams == streams2, "a second run with the same seed gave other streams")
     emit({"phase": "engine_repeat", "identical_streams": True,
           "decode_tok_per_s": stats2.decode_tok_per_s, "decode_s": stats2.decode_s,
@@ -1480,26 +1605,31 @@ def main() -> int:
           "prefill_s": stats2.prefill_s, "wall_s": wall2,
           "ttft_ms_first": min(stats2.ttfts) * 1e3, "ttft_ms_last": max(stats2.ttfts) * 1e3,
           "gpu": gpu})
+    eager_twin("greedy mixed precision", "serve", streams, launches,
+               lambda: engine_run(torch, 0, llama, capture=False))
 
-    torch.cuda.empty_cache()
-    emit({"phase": "engine_prefill_profile",
-          "what": "one chunk-prefill group call of the full engine (4 x 128 tokens)",
-          "profile": engine_prefill_profile(torch, llama), "gpu": gpu})
-
-    torch.cuda.empty_cache()
-    dprof = engine_decode_profile(torch, llama)
-    emit({"phase": "engine_decode_profile",
-          "what": "one decode step of the full engine (8 rows, w8/kv8, ctx ~515)",
-          "profile": dprof, "gpu": gpu})
-    check(dprof["paged_decode"]["launches"] >= llama.n_layers,
-          f"the profiled decode step shows {dprof['paged_decode']['launches']} paged decode "
-          f"launches, expected at least one per layer ({llama.n_layers})")
+    profiles = {}
+    for capture in (True, False):
+        torch.cuda.empty_cache()
+        profiles[("chunk", capture)] = pprof = engine_prefill_profile(torch, llama, capture)
+        emit({"phase": "engine_prefill_profile", "captured": capture,
+              "what": "one chunk-prefill group call of the full engine (4 x 128 tokens)",
+              "profile": pprof, "gpu": gpu})
+        torch.cuda.empty_cache()
+        profiles[("decode", capture)] = dprof = engine_decode_profile(torch, llama, capture)
+        emit({"phase": "engine_decode_profile", "captured": capture,
+              "what": "one decode step of the full engine (8 rows, w8/kv8, ctx ~515)",
+              "profile": dprof, "gpu": gpu})
+        if dprof["busy_from"] == "profiler":
+            check(dprof["paged_decode"]["launches"] >= llama.n_layers,
+                  f"the profiled decode step shows {dprof['paged_decode']['launches']} paged "
+                  f"decode launches, expected at least one per layer ({llama.n_layers})")
 
     # ---- (a) sampled: phase 5's traffic under the seeded sampler, twice
     torch.cuda.empty_cache()
-    (s_streams, s_stats, _, s_wall), sampled_launches = count(
+    (s_streams, s_stats, _, s_wall, s_steps), sampled_launches = count(
         lambda: engine_run(torch, 0, llama, sampling=sampled))
-    s_streams2, s_stats2, _, s_wall2 = engine_run(torch, 0, llama, sampling=sampled)
+    s_streams2, s_stats2, _, s_wall2, _ = engine_run(torch, 0, llama, sampling=sampled)
     check(s_streams == s_streams2, "two sampled runs with the same seeds gave other streams")
     off_greedy = sum(a != b for a, b in zip(s_streams, streams))
     emit({"phase": "engine_sampled", "sampling": "temperature 0.8, top_p 0.95, top_k 50 on "
@@ -1509,19 +1639,23 @@ def main() -> int:
           "decode_call_ms_p50": [_p50(s_stats.decode_call_s) * 1e3,
                                  _p50(s_stats2.decode_call_s) * 1e3],
           "prefill_s": [s_stats.prefill_s, s_stats2.prefill_s], "wall_s": [s_wall, s_wall2],
-          "launches": sampled_launches, "gpu": gpu})
+          "captured_steps": s_steps, "launches": sampled_launches, "gpu": gpu})
     check(s_stats.tokens_out == 8 * 32, f"sampled tokens_out {s_stats.tokens_out} != 256")
     check(off_greedy > 0, "every sampled stream equals its greedy stream")
+    eager_twin("sampled", "sampled", s_streams, sampled_launches,
+               lambda: engine_run(torch, 0, llama, sampling=sampled, capture=False))
 
     # ---- (b) greedy speculation at (w8, kv8), spec_k = SPEC_K, against the
     # spec-off greedy streams of the same requests
     torch.cuda.empty_cache()
-    base, b_stats, _, _ = engine_run(torch, 0, llama, precision=w8kv8)
+    base, b_stats, _, _, _ = engine_run(torch, 0, llama, precision=w8kv8)
     spec_launches = None
     for draft_bits in (8, 4):
-        (sp, sp_stats, sp_peak, sp_wall), launches_db = count(
-            lambda: engine_run(torch, 0, llama, precision=w8kv8, spec_k=SPEC_K,
-                               draft_bits=draft_bits))
+        def spec_run(capture=True):
+            return engine_run(torch, 0, llama, precision=w8kv8, spec_k=SPEC_K,
+                              draft_bits=draft_bits, capture=capture)
+
+        (sp, sp_stats, sp_peak, sp_wall, sp_steps), launches_db = count(spec_run)
         if draft_bits == 4:
             spec_launches = launches_db
         agree = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
@@ -1539,8 +1673,8 @@ def main() -> int:
               "spec_off_decode_tok_per_s": b_stats.decode_tok_per_s,
               "decode_call_ms_p50": _p50(sp_stats.decode_call_s) * 1e3,
               "spec_off_decode_call_ms_p50": _p50(b_stats.decode_call_s) * 1e3,
-              "wall_s": sp_wall, "peak_mem_gb": sp_peak / 1e9, "launches": launches_db,
-              "gpu": gpu})
+              "wall_s": sp_wall, "peak_mem_gb": sp_peak / 1e9, "captured_steps": sp_steps,
+              "launches": launches_db, "gpu": gpu})
         check(sp_stats.tokens_out == 8 * 32, f"spec tokens_out {sp_stats.tokens_out} != 256")
         check(sp_stats.spec_rounds > 0, "no speculative round ran")
         if draft_bits == 8:
@@ -1548,15 +1682,17 @@ def main() -> int:
                   f"a w8 draft of the w8 target accepted {sp_stats.spec_accept_rate:.3f} of "
                   "its drafts (< 0.5): bf16 noise cannot do that, a position, RoPE or page "
                   "fault would")
+        eager_twin(f"greedy spec, w{draft_bits} draft", f"spec_w{draft_bits}", sp, launches_db,
+                   lambda: spec_run(capture=False))
 
     # ---- (c) sampled speculation (temperature 0.8, draft_bits 4), twice
     torch.cuda.empty_cache()
-    def spec_sampled_run():
+    def spec_sampled_run(capture=True):
         return engine_run(torch, 0, llama, sampling=temperature_only, precision=w8kv8,
-                          spec_k=SPEC_K)
+                          spec_k=SPEC_K, capture=capture)
 
-    (ss, ss_stats, _, ss_wall), spec_sampled_launches = count(spec_sampled_run)
-    ss2, ss_stats2, _, ss_wall2 = spec_sampled_run()
+    (ss, ss_stats, _, ss_wall, ss_steps), spec_sampled_launches = count(spec_sampled_run)
+    ss2, ss_stats2, _, ss_wall2, _ = spec_sampled_run()
     check(ss == ss2, "two sampled spec runs with the same seeds gave other streams")
     emit({"phase": "engine_spec_sampled", "sampling": "temperature 0.8, seed = request index",
           "draft_bits": 4, "w_bits": 8, "kv_bits": 8, "spec_k": SPEC_K,
@@ -1564,15 +1700,20 @@ def main() -> int:
           "spec_rounds": ss_stats.spec_rounds, "spec_accept_rate": ss_stats.spec_accept_rate,
           "decode_tokens_per_row_call": (ss_stats.tokens_out - 8) / max(ss_stats.occupancy_sum, 1),
           "decode_tok_per_s": [ss_stats.decode_tok_per_s, ss_stats2.decode_tok_per_s],
-          "wall_s": [ss_wall, ss_wall2], "launches": spec_sampled_launches, "gpu": gpu})
+          "wall_s": [ss_wall, ss_wall2], "captured_steps": ss_steps,
+          "launches": spec_sampled_launches, "gpu": gpu})
     check(ss_stats.tokens_out == 8 * 32, f"sampled spec tokens_out {ss_stats.tokens_out} != 256")
+    eager_twin("sampled spec", "spec_sampled", ss, spec_sampled_launches,
+               lambda: spec_sampled_run(capture=False))
 
-    # ---- (d) one profiled spec round
-    torch.cuda.empty_cache()
-    sprof = spec_round_profile(torch, llama)
-    emit({"phase": "engine_spec_profile",
-          "what": "one spec round of the full engine (8 rows, w8 target, w4 draft, kv8, "
-                  f"spec_k {SPEC_K})", "profile": sprof, "gpu": gpu})
+    # ---- (d) one profiled spec round, captured and eager
+    for capture in (True, False):
+        torch.cuda.empty_cache()
+        profiles[("spec", capture)] = sp_prof = spec_round_profile(torch, llama, capture)
+        emit({"phase": "engine_spec_profile", "captured": capture,
+              "what": "one spec round of the full engine (8 rows, w8 target, w4 draft, kv8, "
+                      f"spec_k {SPEC_K})", "profile": sp_prof, "gpu": gpu})
+    sprof = profiles[("spec", True)]
 
     # ---- waves: full zamba2-7b through the static-wave Server, twice
     (streams, wstats, wpeak, wwall, srv), wave_launches = count(
@@ -1585,14 +1726,19 @@ def main() -> int:
           "decode_s": wstats.decode_s, "decode_steps": wstats.decode_steps,
           "decode_step_ms": wstats.decode_s / wstats.decode_steps * 1e3,
           "prefill_s": wstats.prefill_s, "wall_s": wwall, "peak_mem_gb": wpeak / 1e9,
+          "captured_steps": {"captured": srv.graphs.captured, "replays": srv.graphs.replays,
+                             "capture_s": srv.graphs.capture_s},
           "launches": wave_launches, "gpu": gpu})
     check(wstats.tokens_out == WAVE_REQUESTS * WAVE_NEW,
           f"waves tokens_out {wstats.tokens_out} != {WAVE_REQUESTS * WAVE_NEW}")
-    wprof = waves_profile(torch, srv, zamba, WAVE_PROMPT)
-    emit({"phase": "waves_profile", "what": "two decode steps of a full wave",
-          "profile": wprof, "gpu": gpu})
-    check(wprof["mpmm_decode_m"]["launches"] > 0,
-          "the profiled decode steps show no decode-M CF matmul")
+    for capture in (True, False):
+        profiles[("wave", capture)] = wprof = waves_profile(torch, srv, zamba, WAVE_PROMPT,
+                                                            capture)
+        emit({"phase": "waves_profile", "captured": capture,
+              "what": "two decode steps of a full wave", "profile": wprof, "gpu": gpu})
+        if wprof["busy_from"] == "profiler":
+            check(wprof["mpmm_decode_m"]["launches"] > 0,
+                  "the profiled decode steps show no decode-M CF matmul")
     del srv
     torch.cuda.empty_cache()
     streams2, wstats2, _, wwall2, srv = waves_run(torch, 0, zamba, WAVE_REQUESTS,
@@ -1604,10 +1750,14 @@ def main() -> int:
           "decode_step_ms": wstats2.decode_s / wstats2.decode_steps * 1e3,
           "prefill_s": wstats2.prefill_s, "wall_s": wwall2, "gpu": gpu})
     torch.cuda.empty_cache()
+    eager_twin("zamba2-7b waves", "waves", streams, wave_launches,
+               lambda: waves_run(torch, 0, zamba, WAVE_REQUESTS, WAVE_PROMPT, WAVE_NEW,
+                                 capture=False))
+    torch.cuda.empty_cache()
 
     # ---- the ssm family: full mamba2-130m through the same waves
     mamba = get_config("mamba2-130m")
-    (_, mstats, mpeak, mwall, srv), mamba_launches = count(
+    (m_streams, mstats, mpeak, mwall, srv), mamba_launches = count(
         lambda: waves_run(torch, 0, mamba, 8, WAVE_PROMPT, WAVE_NEW))
     del srv
     emit({"phase": "waves_ssm", "model": "mamba2-130m (24 layers, full width)",
@@ -1619,6 +1769,33 @@ def main() -> int:
           "launches": mamba_launches, "gpu": gpu})
     check(mamba_launches["mpmm_dequant"] > 0 and mamba_launches["mqa_decode"] == 0,
           f"mamba2-130m launches {mamba_launches}: expected the matmul and no attention")
+    eager_twin("mamba2-130m waves", "waves_ssm", m_streams, mamba_launches,
+               lambda: waves_run(torch, 0, mamba, 8, WAVE_PROMPT, WAVE_NEW, capture=False))
+
+    # ---- captured against eager on this card, step by step and end to end
+    table = {}
+    for step in ("chunk", "decode", "spec", "wave"):
+        c, e = profiles[(step, True)], profiles[(step, False)]
+        table[step] = {"captured": {"wall_ms": c["wall_ms"], "busy_ms": c["device_busy_ms"],
+                                    "busy_from": c["busy_from"], "replay_ms": c["replay_ms"],
+                                    "launches_per_replay": c["launches_per_replay"]},
+                       "eager": {"wall_ms": e["wall_ms"], "busy_ms": e["device_busy_ms"]}}
+    emit({"phase": "capture_summary",
+          "steps": table, "step_what": {"chunk": "one chunk-prefill group call (4 x 128)",
+                                        "decode": "one engine decode step (8 rows, w8/kv8)",
+                                        "spec": "one spec round (8 rows, w8/w4, spec_k 4)",
+                                        "wave": "two zamba2-7b wave decode steps (8 rows)"},
+          "decode_tok_per_s": {"serve": [stats.decode_tok_per_s,
+                                         twins["serve"]["decode_tok_per_s"]],
+                               "waves": [wstats.tokens_out / wstats.decode_s,
+                                         twins["waves"]["decode_tok_per_s"]]},
+          "peak_mem_gb": {"serve": [peak / 1e9, twins["serve"]["peak_mem_gb"]],
+                          "waves": [wpeak / 1e9, twins["waves"]["peak_mem_gb"]]},
+          "order": "[captured, eager]",
+          "graphs_captured": {"serve": steps["captured"], "sampled": s_steps["captured"],
+                              "spec_sampled": ss_steps["captured"]},
+          "capture_s": {"serve": steps["capture_s"], "sampled": s_steps["capture_s"],
+                        "spec_sampled": ss_steps["capture_s"]}, "gpu": gpu})
 
     by_path = {"serve": launches, "sampled": sampled_launches, "spec": spec_launches,
                "spec_sampled": spec_sampled_launches, "cnn": cnn_launches,
@@ -1645,8 +1822,8 @@ def main() -> int:
             **({"prefill": {**s["prefill"], "launches": by_path[path]["mpmm_dequant_prefill_m"]}}
                if "prefill" in s else {}),
             # the verify case; its launches are the profiled spec round's
-            **({"verify": {**s["verify"], "launches_in_one_round": sprof[VERIFY_PROF[name]][
-                "launches"], "launches_spec_path": by_path["spec"][name]}}
+            **({"verify": {**s["verify"], "launches_in_one_round": sprof["counted"][
+                VERIFY_PROF[name]], "launches_spec_path": by_path["spec"][name]}}
                if "verify" in s else {}),
         })
     print(json.dumps({"kernels": kernels, "total_s": time.perf_counter() - t_start}))

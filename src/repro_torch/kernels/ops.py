@@ -398,7 +398,8 @@ def sampling_probs(logits: torch.Tensor, temperature: torch.Tensor, top_k=None,
     greedy = temperature <= 0.0
     t = torch.clamp_min(temperature, 1e-6)[:, None]
     probs = _softmax(_masked_logits(logits, top_k, top_p) / t)
-    onehot = torch.nn.functional.one_hot(torch.argmax(logits, dim=-1), logits.shape[-1])
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    onehot = vocab[None, :] == torch.argmax(logits, dim=-1, keepdim=True)
     return torch.where(greedy[:, None], onehot.to(probs.dtype), probs)
 
 

@@ -21,6 +21,8 @@ on.
 """
 from __future__ import annotations
 
+import numbers
+
 import torch
 
 __all__ = ["threefry2x32", "prng_key", "fold_in", "uniform"]
@@ -30,9 +32,13 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 
 
-def _u32(x) -> torch.Tensor:
-    """An integer tensor (or int) as int64 holding its low 32 bits."""
-    return torch.as_tensor(x).to(torch.int64) & _MASK
+def _u32(x, device=None) -> torch.Tensor:
+    """An integer tensor, or a Python int, as int64 holding its low 32 bits.
+    An int becomes a 0-d tensor filled on ``device``, never a copy from the
+    host, so a captured step (``serve/graphs.py``) holds no host pointer."""
+    if isinstance(x, numbers.Integral):
+        return torch.full((), int(x) & _MASK, dtype=torch.int64, device=device)
+    return torch.as_tensor(x, device=device).to(torch.int64) & _MASK
 
 
 def threefry2x32(key: torch.Tensor, x0, x1) -> tuple[torch.Tensor, torch.Tensor]:
@@ -40,8 +46,8 @@ def threefry2x32(key: torch.Tensor, x0, x1) -> tuple[torch.Tensor, torch.Tensor]
     returns the two output words, int64 in ``[0, 2**32)``."""
     k0, k1 = _u32(key[..., 0]), _u32(key[..., 1])
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    x0 = (_u32(x0).to(k0.device) + ks[0]) & _MASK
-    x1 = (_u32(x1).to(k0.device) + ks[1]) & _MASK
+    x0 = (_u32(x0, k0.device) + ks[0]) & _MASK
+    x1 = (_u32(x1, k0.device) + ks[1]) & _MASK
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
             x0 = (x0 + x1) & _MASK
@@ -59,7 +65,7 @@ def prng_key(seed) -> torch.Tensor:
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: the key hashed with the 32-bit ``data``."""
-    d = _u32(data).to(key.device)
+    d = _u32(data, key.device)
     return torch.stack(threefry2x32(key, torch.zeros_like(d), d), dim=-1)
 
 

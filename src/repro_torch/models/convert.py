@@ -11,7 +11,7 @@ The same walk carries the ssm/hybrid trees (stacked ``blocks``, ``tail``,
 the unstacked ``shared`` block).  ``cache_from_numpy`` carries a contiguous
 decode cache of ``transformer.init_cache`` / ``prefill`` (``pos``, ``k``,
 ``v``, ``k_scale``, ``v_scale``, ``ssm``, ``ssm_tail``); ``pos`` becomes a
-Python int, as the port's cache keeps it.
+0-d int32 tensor on ``device``, as the port's cache keeps it.
 
 ``cnn_params_from_numpy`` does the same for ``repro.models.cnn.init_network``'s
 list of ``(w_data, w_scale)`` pairs.
@@ -48,7 +48,7 @@ def params_from_numpy(tree: dict[str, Any], device) -> dict[str, Any]:
 
 
 def cache_from_numpy(cache: dict[str, Any], device) -> dict[str, Any]:
-    return {name: int(np.asarray(a)) if name == "pos" else tensor_from_numpy(a, device)
+    return {name: tensor_from_numpy(np.asarray(a, np.int32) if name == "pos" else a, device)
             for name, a in cache.items()}
 
 

@@ -11,12 +11,14 @@ Initialisation draws from an explicit ``torch.Generator`` on its device; the
 numbers differ from ``jax.random`` for the same seed, so parity tests carry
 JAX weights over with ``models/convert.py``.
 
-The contiguous cache is a dict like the JAX one, with ``pos`` a Python int.
-Unlike the JAX functions, which return new arrays, ``prefill`` fills the
-cache it allocates and ``decode_step`` writes this step's K/V and SSM states
-into the cache it is given, in place, and returns that same dict with
-``pos`` advanced: at full width a copy of the cache per step would double
-its memory and traffic.
+The contiguous cache is a dict like the JAX one, with ``pos`` a 0-d int32
+tensor on the cache's device.  Unlike the JAX functions, which return new
+arrays, ``prefill`` fills the cache it allocates (or the one it is given)
+and ``decode_step`` writes this step's K/V and SSM states into the cache it
+is given, in place, and returns that same dict with ``pos`` advanced in
+place: at full width a copy of the cache per step would double its memory
+and traffic.  ``decode_step`` never reads ``pos`` back to the host, so the
+static-wave server can capture it as a CUDA graph (``serve/graphs.py``).
 """
 from __future__ import annotations
 
@@ -231,7 +233,7 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, device=None) -> P
     if cfg.serve_kv_bits == 4:
         hd = hd // 2
     kv_dtype = torch.int8 if quant else torch_dtype(cfg.dtype)
-    cache: Params = {"pos": 0}
+    cache: Params = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
 
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -257,13 +259,14 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, device=None) -> P
     return cache
 
 
-def _write_cache_slab(cache_k: torch.Tensor, kq: torch.Tensor, pos: int) -> torch.Tensor:
-    """Write [B, S_new, ...] at sequence offset pos into [B, S_max, ...], in
-    place; the offset clamps so the slab fits, as JAX's
-    ``dynamic_update_slice`` does."""
-    pos = max(0, min(int(pos), cache_k.shape[1] - kq.shape[1]))
-    cache_k[:, pos:pos + kq.shape[1]] = kq
-    return cache_k
+def _write_cache_slab(cache_k: torch.Tensor, kq: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Write [B, S_new, ...] at sequence offset ``pos`` (a 0-d tensor on the
+    cache's device) into [B, S_max, ...], in place; the offset clamps so the
+    slab fits, as JAX's ``dynamic_update_slice`` does."""
+    n = kq.shape[1]
+    start = torch.clamp(pos.long(), 0, cache_k.shape[1] - n)
+    idx = start + torch.arange(n, device=cache_k.device)
+    return cache_k.index_copy_(1, idx, kq.to(cache_k.dtype))
 
 
 def _ssm_layer(p: Params, x: torch.Tensor, cfg: ArchConfig, dims, state=None):
@@ -285,14 +288,21 @@ def _logits(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return logits.masked_fill(pad, -1e30)
 
 
-def prefill(params: Params, batch: dict, cfg: ArchConfig, max_len: int):
+def prefill(params: Params, batch: dict, cfg: ArchConfig, max_len: int,
+            cache: Optional[Params] = None):
     """Processes the full prompt ``batch["tokens"] [B, S]``; returns
-    (last-token logits [B, V] f32, cache)."""
+    (last-token logits [B, V] f32, cache).  ``cache``, an ``init_cache(cfg,
+    B, max_len)`` dict, is zeroed and filled in place instead of a new one:
+    a captured decode step reads its buffers by address."""
     _check_served(cfg, "prefill")
     x, positions = _embed(params, batch, cfg)
     b, s, _ = x.shape
     quant = cfg.serve_kv_bits < 16
-    cache = init_cache(cfg, b, max_len, x.device)
+    if cache is None:
+        cache = init_cache(cfg, b, max_len, x.device)
+    else:
+        for buf in cache.values():
+            buf.zero_()
 
     def fill_kv(slot: int, k: torch.Tensor, v: torch.Tensor) -> None:
         if quant:
@@ -326,14 +336,15 @@ def prefill(params: Params, batch: dict, cfg: ArchConfig, max_len: int):
         for li in range(cache["ssm_tail"].shape[0] if "ssm_tail" in cache else 0):
             x, cache["ssm_tail"][li] = _ssm_layer(layer_params(params["tail"], li), x, cfg,
                                                   dims)
-    cache["pos"] = s
+    cache["pos"].fill_(s)
     return _logits(params, x, cfg), cache
 
 
-def _decode_attn(p: Params, x: torch.Tensor, cache_slice: dict, pos: int, cfg: ArchConfig,
-                 window):
+def _decode_attn(p: Params, x: torch.Tensor, cache_slice: dict, pos: torch.Tensor,
+                 cfg: ArchConfig, window):
     """One-layer decode attention: x [B,1,D] + this layer's cache slice
-    (views, written in place) -> (out [B,1,D], the slice)."""
+    (views, written in place) at the 0-d device position ``pos`` -> (out
+    [B,1,D], the slice)."""
     if cfg.serve_kv_bits == 4:
         raise NotImplementedError(
             "int4 KV payloads are nibble-packed; only the paged serve path "
@@ -345,7 +356,7 @@ def _decode_attn(p: Params, x: torch.Tensor, cache_slice: dict, pos: int, cfg: A
     q = dense(xn, p["wq"]).reshape(b, 1, h, hd)
     k = dense(xn, p["wk"]).reshape(b, 1, kv, hd)
     v = dense(xn, p["wv"]).reshape(b, 1, kv, hd)
-    posv = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    posv = pos.long().reshape(1, 1).expand(b, 1)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
     ck, cv = cache_slice["k"], cache_slice["v"]
@@ -374,7 +385,7 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params, cfg: ArchCo
     """One decode step: tokens [B, 1] -> (logits [B, V] f32, cache), the
     cache updated in place (see the module note)."""
     _check_served(cfg, "decode_step")
-    pos = int(cache["pos"])
+    pos = cache["pos"]
     x = params["embed"][tokens.long()].to(torch_dtype(cfg.dtype))  # [B, 1, D]
 
     if cfg.family == "dense":
@@ -400,5 +411,5 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params, cfg: ArchCo
         for li in range(cache["ssm_tail"].shape[0] if "ssm_tail" in cache else 0):
             x, cache["ssm_tail"][li] = _ssm_layer(layer_params(params["tail"], li), x, cfg,
                                                   dims, cache["ssm_tail"][li])
-    cache["pos"] = pos + 1
+    pos.add_(1)
     return _logits(params, x, cfg), cache

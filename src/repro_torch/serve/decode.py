@@ -9,16 +9,15 @@ tokens; the token being decoded enters the softmax as a fused extra term.
 Weight matmuls go through ``models.layers.dense``: the W4/W8 dequant kernel
 for quantized weights.
 
-The JAX ``lax.scan`` over layers is a Python loop here, and the pools are
-updated *in place*: right after layer ``l``'s attention the rows' new K/V are
-scattered into pool layer ``l`` with ``index_put_``.  That equals the JAX
-order (attention of every layer, then one scatter) because layer ``l``'s
-attention reads only pool layer ``l`` and only positions below each row's
-length, and the new token sits at the length.  Rows with ``valid[b] ==
-False`` are pow2-bucket padding: JAX drops their scatter through an
-out-of-range page id (``mode="drop"``); ``index_put_`` raises on such an
-index, so those rows, and any row whose slot falls at or past the table
-width W, are masked out of the scatter instead.
+The JAX ``lax.scan`` over layers is a Python loop here.  As in JAX, every
+layer's attention runs first (it reads only positions below each row's
+length, and the new token enters as the fused term), then one scatter
+writes the rows' new K/V of every layer into the pools, here *in place*.
+Rows with ``valid[b] == False`` are pow2-bucket padding: JAX drops their
+scatter through an out-of-range page id (``mode="drop"``).  Here those rows,
+and any row whose slot falls at or past the table width W, stay in a
+scatter of fixed shape and add nothing (:func:`scatter_rows`), so a step
+reads nothing back to the host and can be captured (``serve/graphs.py``).
 """
 from __future__ import annotations
 
@@ -31,27 +30,59 @@ from repro_torch.models import transformer as model_lib
 from repro_torch.models.layers import apply_rope, dense, rms_norm, torch_dtype
 
 
-def scatter_rows(pools, layer: int, pages, offs, new_kv) -> None:
-    """Write ``new_kv[i][n]`` to ``pools[i][layer, pages[n], offs[n]]`` in
-    place for each payload/scale pool (None pools are skipped)."""
+# each pool dtype's integer type of the same width (scatter_rows' bit view)
+_BITS = {torch.int8: torch.int8, torch.bfloat16: torch.int16, torch.float16: torch.int16,
+         torch.float32: torch.int32}
+
+
+def scatter_rows(pools, rows, live, new_kv) -> None:
+    """Write ``new_kv[i][l, n]`` over row ``rows[n]`` of ``pools[i][l]``,
+    seen as ``[P * page_size, ...]``, in place, for every layer l and every
+    n with ``live[n]``; a masked n writes nothing (None pools are skipped).
+    ``new_kv[i]`` holds every layer's rows, ``[L, N, ...]`` or ``[L, B, C,
+    ...]``: one scatter per pool a step, as JAX's one scatter after its
+    layer scan.
+
+    The fixed-shape form of JAX's ``mode="drop"`` scatter: every n adds
+    ``new - old`` to its row's integer bit pattern, or 0 where masked,
+    through ``index_add_``, whose duplicate rows sum (``index_put_``'s have
+    no defined winner), so a masked row may share a live row's target.
+    Integer addition wraps, so ``old + (new - old)`` is ``new`` bit for bit,
+    for int8 payloads, bf16 payloads and f32 scales alike."""
+    n_layers, per_layer = pools[0].shape[0], pools[0].shape[1] * pools[0].shape[2]
+    layer = torch.arange(n_layers, device=rows.device)[:, None] * per_layer
+    idx = (layer + rows[None, :]).reshape(-1)
+    mask = live[None, :].expand(n_layers, -1).reshape(-1, 1, 1)
     for pool, new in zip(pools, new_kv):
-        if pool is not None:
-            pool[layer].index_put_((pages, offs), new.to(pool.dtype))
+        if pool is None:
+            continue
+        bits = _BITS[pool.dtype]
+        dst = pool.view(bits).flatten(0, 2)  # [L * P * ps, Hkv, Dk]
+        new = new.to(pool.dtype).view(bits).reshape(idx.shape[0], *dst.shape[1:])
+        dst.index_add_(0, idx, torch.where(mask, new - dst[idx], 0))
+
+
+def stack_layers(appended) -> list:
+    """Per-layer ``(k, v, k_scale, v_scale)`` tuples -> the four stacked
+    along a leading layer dim (None where a pool is absent)."""
+    return [None if ts[0] is None else torch.stack(ts) for ts in zip(*appended)]
 
 
 def append_targets(tables, positions, live, page_size: int):
-    """Page ids, in-page offsets and the flat row selection for the tokens
-    at ``positions`` ([B] or [B, C]) whose ``live`` mask is set and whose
-    table slot lies inside the padded width W."""
+    """Pool rows (``page * page_size + offset``) of the tokens at
+    ``positions`` ([B] or [B, C]), flattened row-major, and the mask of
+    those that are written: ``live`` and a table slot inside the padded
+    width W.  A masked token gets row 0 and writes nothing through
+    :func:`scatter_rows`.  Fixed shapes: nothing is read back."""
     w = tables.shape[1]
-    slots = positions.long() // page_size
+    pos = positions.long()
+    slots = pos // page_size
     live = live & (slots < w)
     rows = torch.arange(tables.shape[0], device=tables.device)
-    rows = rows.reshape(-1, *([1] * (positions.dim() - 1))).expand_as(slots)
-    sel = live.reshape(-1).nonzero().squeeze(1)
-    pages = tables.long()[rows.reshape(-1)[sel], slots.reshape(-1)[sel]]
-    offs = positions.long().reshape(-1)[sel] % page_size
-    return pages, offs, sel
+    rows = rows.reshape(-1, *([1] * (pos.dim() - 1)))
+    pages = tables.long()[rows, torch.clamp(slots, max=w - 1)]
+    flat = torch.where(live, pages * page_size + pos % page_size, 0)
+    return flat.reshape(-1), live.reshape(-1)
 
 
 def paged_decode_step(
@@ -79,8 +110,9 @@ def paged_decode_step(
     pools = (pool_k, pool_v, pool_ks, pool_vs)
     x = params["embed"].to(torch_dtype(cfg.dtype))[tokens.long()]  # [B, 1, D]
     posv = lengths[:, None]  # [B, 1] per-row positions
-    pages, offs, sel = append_targets(tables, lengths, valid, page_size)
+    rows, live = append_targets(tables, lengths, valid, page_size)
     windows = model_lib._per_layer_window(cfg, cfg.n_layers)
+    appended = []  # each layer's (k, v, k_scale, v_scale), scattered after the loop
 
     for li in range(n_layers):
         p = model_lib.layer_params(params["blocks"], li)
@@ -108,10 +140,11 @@ def paged_decode_step(
                 window=win, kv_bits=bits,
             )
             new_kv = (kc, vc, None, None)
-        scatter_rows(pools, li, pages, offs, [None if t is None else t[sel] for t in new_kv])
+        appended.append(new_kv)
         x = x + dense(o.reshape(b, 1, h * hd), p["wo"])
         x = x + model_lib._mlp_block(p, x, cfg)
 
+    scatter_rows(pools, rows, live, stack_layers(appended))
     x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     logits = dense(x[:, -1], params["unembed"]).float()
     vocab_ok = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab

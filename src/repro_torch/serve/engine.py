@@ -45,11 +45,18 @@ preemptions, and ``temperature == 0`` rows are the exact argmax.
 
 The engine serves the dense family.  Archs with frontend prefix embeddings
 (``prefix_len > 0``) raise ``NotImplementedError`` naming the ROADMAP item.
-The JAX engine's deprecated flat-kwargs ``submit`` is not ported.  There are
-no jits and no donation: PyTorch runs eagerly, and the step functions update
-the pools in place.  The engine runs on the card
-unless the caller asks for the CPU (``device="cpu"``, which runs every
-kernel's plain version); with no card present the default raises.
+The JAX engine's deprecated flat-kwargs ``submit`` is not ported.  In place
+of the JAX engine's jits, every group call (chunk prefill, plain decode,
+spec round) runs through the engine's captured steps (``serve/graphs.py``):
+on the card each fixed-shape step is captured once as a CUDA graph per key
+(precision, pow2 batch bucket, pow2 table width, chunk, spec_k, sampling
+structure) and replayed after; ``graphs.disable_capture()`` runs them
+eagerly, as ``jax.disable_jit()`` does.  A call's integer inputs travel to
+the card in one copy, its sampling parameters in another, and its results
+come back in one read.  There is no donation: the step functions update the
+pools in place.  The engine runs on the card unless the caller asks for the
+CPU (``device="cpu"``, which runs every kernel's plain version, eagerly);
+with no card present the default raises.
 """
 from __future__ import annotations
 
@@ -65,6 +72,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as model_lib
+from repro_torch.serve import graphs
 from repro_torch.serve.decode import paged_decode_sample
 from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.serve.outputs import (
@@ -138,6 +146,17 @@ class EngineStats:
         return self.prefix_hit_tokens / max(total, 1)
 
 
+def _samp_views(dev, kind):
+    """``samp`` of a step from the packed float64 [5, B] tensor of
+    :meth:`ServeEngine._samp_host`: (temperature, top_k or None, top_p or
+    None, seed, position), or None for an all-greedy group."""
+    if dev is None:
+        return None
+    has_k, has_p = kind
+    return (dev[0].float(), dev[1].long() if has_k else None,
+            dev[2].float() if has_p else None, dev[3].long(), dev[4].long())
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
 
@@ -195,6 +214,7 @@ class ServeEngine:
         self._next_rid = 0
         self.finished: list[ServeRequest] = []
         self.stats = EngineStats()
+        self.graphs = graphs.StepGraphs(self.device)  # the captured group calls
 
     # -------------------------------------------------------------- plumbing
     def params_for(self, w_bits: int):
@@ -402,30 +422,43 @@ class ServeEngine:
             self._chunk_group(reqs, chunk)
         self.stats.prefill_s += time.perf_counter() - t0
 
-    def _samp_arrays(self, reqs: list[ServeRequest], bsz: int):
-        """Per-row (temperature, top_k, top_p, seed, position) tensors of a
-        bucketed group call, or None when the whole group is greedy (the bare
-        argmax).  ``top_k`` / ``top_p`` are None when no row uses them, so a
-        temperature-only group never sorts the vocabulary; either way a row
-        draws the same token.  ``position`` is the request's next emission
-        index, the key coordinate that makes streams independent of batch
-        and preemption.  Padding rows stay greedy.  The five rows travel to
-        the device as one float64 array (each value exact in it) in one
-        copy."""
+    def _samp_host(self, reqs: list[ServeRequest], bsz: int):
+        """(host, kind) of a bucketed group call's sampling parameters:
+        ``host`` is the float64 [5, B] array of per-row (temperature, top_k,
+        top_p, seed, position), each value exact in it, and ``kind`` is
+        (uses top_k, uses top_p); both None when the whole group is greedy
+        (the bare argmax).  A stage no row uses is None in the step's
+        ``samp`` (:func:`_samp_views`), so a temperature-only group never
+        sorts the vocabulary; either way a row draws the same token.
+        ``position`` is the request's next emission index, the key
+        coordinate that makes streams independent of batch and preemption.
+        Padding rows stay greedy."""
         if all(r.greedy for r in reqs):
-            return None
+            return None, None
         host = np.zeros((5, bsz), np.float64)
         host[2] = 1.0  # top_p disabled
         for i, r in enumerate(reqs):
             host[:, i] = (r.temperature, r.top_k, r.top_p, r.seed, len(r.out_tokens))
-        dev = self._tensor(host)
-        return (
-            dev[0].float(),
-            dev[1].long() if any(r.top_k > 0 for r in reqs) else None,
-            dev[2].float() if any(r.top_p < 1.0 for r in reqs) else None,
-            dev[3].long(),
-            dev[4].long(),
-        )
+        return host, (any(r.top_k > 0 for r in reqs), any(r.top_p < 1.0 for r in reqs))
+
+    def _group_call(self, step: str, kv_bits: int, static: tuple, arrays: list,
+                    reqs: list[ServeRequest], body) -> torch.Tensor:
+        """One group call through the captured steps: ``arrays`` (host int
+        arrays, batch-bucketed) travel to the card in one copy, the sampling
+        parameters in another, and ``body(*arrays as tensors, samp)`` is the
+        step, returning one tensor.  ``static`` names the weight sets (and
+        spec_k); the key adds the group's cfg, the arrays' shapes and the
+        sampling structure."""
+        flat, shapes = graphs.pack(arrays)
+        host, kind = self._samp_host(reqs, shapes[0][0])
+        inputs = (self._tensor(flat), None if host is None else self._tensor(host))
+        cfg = self._group_cfg(kv_bits)
+        key = graphs.step_key(step, cfg, (*static, shapes, kind), inputs)
+
+        def fn(ints, samp):
+            return body(*graphs.unpack(ints, shapes), _samp_views(samp, kind))
+
+        return self.graphs.run(key, fn, inputs)
 
     def _chunk_group(self, reqs: list[ServeRequest], chunk: int) -> None:
         w_bits, kv_bits = reqs[0].w_bits, reqs[0].kv_bits
@@ -444,13 +477,14 @@ class ServeEngine:
         width = bucket_pow2(max(len(cache.table(r)) for r in rids))
         tables = np.zeros((bsz, width), np.int32)
         tables[:n] = cache.table_array(rids, width)
-        first_tok, _ = chunk_prefill_sample(
-            self.params_for(w_bits), self._tensor(tokens), self._tensor(q_start),
-            self._tensor(q_lens), self._tensor(tables), self._samp_arrays(reqs, bsz),
-            *cache.pools,
-            cfg=self._group_cfg(kv_bits),
-        )
-        first = first_tok.cpu().numpy()
+        params, pools, cfg = self.params_for(w_bits), cache.pools, self._group_cfg(kv_bits)
+
+        def body(tables, tokens, q_start, q_lens, samp):
+            return chunk_prefill_sample(params, tokens, q_start, q_lens, tables, samp, *pools,
+                                        cfg=cfg)[0]
+
+        first = self._group_call("chunk", kv_bits, (w_bits,),
+                                 [tables, tokens, q_start, q_lens], reqs, body).cpu().numpy()
         self.stats.prefill_chunks += 1
         for i, req in enumerate(reqs):
             req.cache_len += int(q_lens[i])
@@ -586,13 +620,15 @@ class ServeEngine:
         cache = self.cache_for(kv_bits)
         n_real = len(reqs)
         tokens, lengths, tables, valid = self._batch_arrays(cache, reqs)
+        params, pools, cfg = self.params_for(w_bits), cache.pools, self._group_cfg(kv_bits)
+
+        def body(tables, tokens, lengths, valid, samp):
+            return paged_decode_sample(params, tokens, lengths, tables, valid != 0, samp,
+                                       *pools, cfg=cfg)[0]
+
         t_call = time.perf_counter()
-        sampled, _ = paged_decode_sample(
-            self.params_for(w_bits), self._tensor(tokens), self._tensor(lengths),
-            self._tensor(tables), self._tensor(valid), self._samp_arrays(reqs, len(valid)),
-            *cache.pools,
-            cfg=self._group_cfg(kv_bits),
-        )
+        sampled = self._group_call("decode", kv_bits, (w_bits,),
+                                   [tables, tokens, lengths, valid], reqs, body)
         next_tok = sampled[:n_real].cpu().numpy()
         self.stats.decode_call_s.append(time.perf_counter() - t_call)
         for i, req in enumerate(reqs):
@@ -628,15 +664,20 @@ class ServeEngine:
         tokens, lengths, tables, valid = self._batch_arrays(cache, reqs)
         nd = np.zeros(len(valid), np.int32)
         nd[:n_real] = n_draft
+        draft_params, params = self.params_for(draft_bits), self.params_for(w_bits)
+        pools, cfg = cache.pools, self._group_cfg(kv_bits)
+
+        def body(tables, tokens, lengths, valid, nd, samp):
+            emit, accept, _ = spec_decode_round(
+                draft_params, params, tokens, lengths, tables, valid != 0, nd, samp, *pools,
+                cfg=cfg, spec_k=spec_k)
+            return torch.cat([emit, accept[:, None].to(emit.dtype)], dim=1)
+
         t_call = time.perf_counter()
-        emit, accept, _ = spec_decode_round(
-            self.params_for(draft_bits), self.params_for(w_bits),
-            self._tensor(tokens), self._tensor(lengths), self._tensor(tables),
-            self._tensor(valid), self._tensor(nd), self._samp_arrays(reqs, len(valid)),
-            *cache.pools, cfg=self._group_cfg(kv_bits), spec_k=spec_k,
-        )
-        emit_np = emit[:n_real].cpu().numpy()  # the round's one read-back
-        accept_np = accept[:n_real].cpu().numpy()
+        out = self._group_call("spec", kv_bits, (w_bits, draft_bits, spec_k),
+                               [tables, tokens, lengths, valid, nd], reqs, body)
+        out = out[:n_real].cpu().numpy()  # the round's one read-back
+        emit_np, accept_np = out[:, :-1], out[:, -1]
         self.stats.decode_call_s.append(time.perf_counter() - t_call)
         for i, req in enumerate(reqs):
             n_acc = int(accept_np[i])

@@ -10,10 +10,11 @@ a fused term.  ``q_lens[b] <= C`` masks bucket padding.  Returns per-row
 logits at each row's *last valid* chunk position, so the call that
 completes a prompt yields the request's first output token.
 
-As in ``serve/decode.py`` the layer scan is a Python loop and each layer's
-chunk K/V goes into its pool layer in place right after that layer's
-attention; padding positions and slots at or past the table width are
-masked out of the ``index_put_`` (JAX drops them with ``mode="drop"``).
+As in ``serve/decode.py`` the layer scan is a Python loop, and every
+layer's chunk K/V goes into the pools in place in one scatter after it;
+padding positions and slots at or past the table width write nothing (JAX
+drops them with ``mode="drop"``; here a fixed-shape scatter,
+``decode.scatter_rows``).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as model_lib
 from repro_torch.models.layers import apply_rope, dense, rms_norm, torch_dtype
-from repro_torch.serve.decode import append_targets, scatter_rows
+from repro_torch.serve.decode import append_targets, scatter_rows, stack_layers
 
 
 def bucket_pow2(n: int) -> int:
@@ -67,8 +68,9 @@ def chunk_forward(
     cpos = torch.arange(c, device=tokens.device, dtype=torch.int32)
     posv = q_start[:, None] + cpos[None, :]  # [B, C] absolute positions
     live = cpos[None, :] < q_lens[:, None]
-    pages, offs, sel = append_targets(tables, posv, live, page_size)
+    rows, live = append_targets(tables, posv, live, page_size)
     windows = model_lib._per_layer_window(cfg, cfg.n_layers)
+    appended = []  # each layer's (k, v, k_scale, v_scale), scattered after the loop
 
     for li in range(n_layers):
         p = model_lib.layer_params(params["blocks"], li)
@@ -96,11 +98,11 @@ def chunk_forward(
                 window=win, kv_bits=bits,
             )
             new_kv = (kc, vc, None, None)
-        flat = [None if t is None else t.reshape(b * c, *t.shape[2:])[sel] for t in new_kv]
-        scatter_rows(pools, li, pages, offs, flat)
+        appended.append(new_kv)
         x = x + dense(o.reshape(b, c, h * hd), p["wo"])
         x = x + model_lib._mlp_block(p, x, cfg)
 
+    scatter_rows(pools, rows, live, stack_layers(appended))
     x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     return x, pools
 

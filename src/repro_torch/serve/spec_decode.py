@@ -79,7 +79,7 @@ def rejection_sample(
     n_draft = n_draft.long()
 
     def flat_keys(salt):  # one key per (row, slot)
-        return ops.sample_keys(seeds.repeat_interleave(k), pos.reshape(-1), salt)
+        return ops.sample_keys(seeds[:, None].expand(b, k).reshape(-1), pos.reshape(-1), salt)
 
     p_t = torch.gather(q_target[:, :k], 2, drafts[..., None])[..., 0]
     p_d = torch.gather(q_draft, 2, drafts[..., None])[..., 0]
@@ -186,8 +186,8 @@ def spec_decode_round(
 
     c = spec_k + 1
 
-    def rep(a):
-        return None if a is None else a.repeat_interleave(c)
+    def rep(a):  # each row's value for each of its c window slots
+        return None if a is None else a[:, None].expand(b, c).reshape(-1)
 
     q_tgt = ops.sampling_probs(
         logits.reshape(b * c, -1), rep(temps), rep(top_ks), rep(top_ps)

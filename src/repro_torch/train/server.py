@@ -10,6 +10,16 @@ contiguous-cache ``prefill`` / ``decode_step``: waves of ``batch_size``
 requests, prompts left-padded with token 0 to a common length, one position
 shared by the wave, greedy argmax, each request's first token from the
 prefill logits and each decode step feeding the newest token back.
+
+In place of the JAX ``Server``'s jitted ``_decode``, a wave's decode step
+and its argmax run as one captured step (``serve/graphs.py``), keyed by
+(cfg, B, max_len): on the card a CUDA graph captured on first use and
+replayed after, eagerly under ``graphs.disable_capture()`` and on the CPU.
+Its cache is the Server's own, one per wave size, which every wave's
+``prefill`` refills in place, since a captured step reads it by address.
+The wave's tokens stay on the device, in a [B, max_new] buffer read back
+once at the wave's end.  The one-shot prefill of a wave (the JAX
+``Server._prefill``) runs eagerly.
 """
 from __future__ import annotations
 
@@ -22,6 +32,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as model_lib
+from repro_torch.serve import graphs
 from repro_torch.serve.engine import ServeEngine, _to_device
 from repro_torch.serve.params import PrecisionParams, SamplingParams
 
@@ -99,6 +110,8 @@ class Server:
             params = _to_device(params, self.device)
             self._params = (model_lib.quantize_params(params, arch.serve_w_bits)
                             if quantize else params)
+            self.graphs = graphs.StepGraphs(self.device)  # the captured wave step
+            self._caches: dict[int, dict] = {}  # wave size -> its decode cache
         self.stats = ServeStats()
 
     @property
@@ -136,6 +149,29 @@ class Server:
             toks[i, s - len(r.prompt):] = r.prompt  # left-pad to align last token
         return {"tokens": torch.from_numpy(toks).to(self.device)}
 
+    def prefill_wave(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Prefill a wave (``batch["tokens"] [B, S]``) into the Server's
+        cache for B; returns (first tokens [B, 1], that cache)."""
+        b = batch["tokens"].shape[0]
+        if b not in self._caches:
+            self._caches[b] = model_lib.init_cache(self.arch, b, self.max_len, self.device)
+        logits, cache = model_lib.prefill(self._params, batch, self.arch, self.max_len,
+                                          cache=self._caches[b])
+        return logits.argmax(dim=-1, keepdim=True), cache
+
+    def decode_wave(self, tok: torch.Tensor) -> torch.Tensor:
+        """One decode step of a wave and its argmax, as a captured step:
+        tokens [B, 1] -> next tokens [B, 1], the Server's cache for B (the
+        last ``prefill_wave``'s) advanced in place."""
+        cache = self._caches[tok.shape[0]]
+
+        def step(tok):
+            logits, _ = model_lib.decode_step(self._params, tok, cache, self.arch)
+            return logits.argmax(dim=-1, keepdim=True)
+
+        key = graphs.step_key("wave_decode", self.arch, (self.w_bits, self.max_len), (tok,))
+        return self.graphs.run(key, step, (tok,))
+
     def _serve_waves(self, requests: list[Request]) -> list[Request]:
         """Waves of batch_size requests with one shared position."""
         pending = list(requests)
@@ -143,24 +179,20 @@ class Server:
             wave = pending[: self.batch_size]
             pending = pending[self.batch_size:]
             t0 = time.perf_counter()
-            batch = self._make_batch(wave)
-            logits, cache = model_lib.prefill(self._params, batch, self.arch, self.max_len)
+            tok, _ = self.prefill_wave(self._make_batch(wave))
             _sync(self.device)
             self.stats.prefill_s += time.perf_counter() - t0
             max_new = max(r.max_new_tokens for r in wave)
             t0 = time.perf_counter()
-            tok = logits.argmax(dim=-1)[:, None]
-            for _ in range(max_new):
-                picks = tok[:, 0].tolist()
-                for i, r in enumerate(wave):
-                    if len(r.out_tokens) < r.max_new_tokens:
-                        r.out_tokens.append(picks[i])
-                logits, cache = model_lib.decode_step(self._params, tok, cache, self.arch)
-                tok = logits.argmax(dim=-1)[:, None]
+            out = torch.empty((len(wave), max_new), dtype=tok.dtype, device=self.device)
+            for i in range(max_new):
+                out[:, i] = tok[:, 0]
+                tok = self.decode_wave(tok)
                 self.stats.decode_steps += 1
-            _sync(self.device)
+            picks = out.tolist()  # the wave's one read-back
             self.stats.decode_s += time.perf_counter() - t0
-            for r in wave:
+            for i, r in enumerate(wave):
+                r.out_tokens.extend(picks[i][: max(r.max_new_tokens - len(r.out_tokens), 0)])
                 r.done = True
                 self.stats.tokens_out += len(r.out_tokens)
         return requests

@@ -6,8 +6,13 @@ the int-mode matmul (bit-exact against the CPU), paged decode and paged
 prefill (also at a speculative verify window), contiguous-cache decode
 (``mqa_decode``), at small ragged shapes, at llama3.2-3b's and zamba2-7b's
 widths and at ResNet18's conv shapes; a reduced zamba2-7b (hybrid) prefill +
-decode step on the card against the CPU; and the sampler
-(``ops.sample_tokens``, plain torch ops) on the card against the CPU.
+decode step on the card against the CPU; the sampler
+(``ops.sample_tokens``, plain torch ops) on the card against the CPU; and
+the captured serving steps (``serve/graphs.py``): the engine's decode step,
+spec round and chunk call and the waves' decode step, captured and replayed
+three times with new inputs, bit-equal to the eager step (outputs and
+pools), a replay adding its capture's launch counts, and a step that reads
+the card back inside a capture raising.
 
 Marked ``cuda``: on a machine without a card every test skips with a
 reason.  On the card:
@@ -941,3 +946,224 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+# ------------------------------------------------------- captured steps
+# serve/graphs.py: each step captured, then replayed with new inputs, must
+# give the eager step's bits, and leave the pools (or the wave's cache) as
+# the eager step leaves them.  The eager reference runs under
+# torch.cuda.set_sync_debug_mode("error"): a step that reads the card back
+# to the host raises there, and could not be captured.
+def _llama(dev, kv_bits=8):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(), dtype="bfloat16",
+                              serve_kv_bits=kv_bits)
+    base = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    return cfg, {w: T.quantize_params(base, w) for w in (4, 8)}
+
+
+def _pool_pair(dev, cfg, n_pages=24, ps=16):
+    """Two equal random page pools (k, v, k_scale, v_scale) on the card."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    shape = (cfg.n_layers, n_pages, ps, cfg.n_kv_heads,
+             cfg.hd // 2 if cfg.serve_kv_bits == 4 else cfg.hd)
+    if cfg.serve_kv_bits < 16:
+        pools = [torch.randint(-100, 100, shape, generator=g, device=dev,
+                               dtype=torch.int8) for _ in range(2)]
+        pools += [torch.rand((*shape[:-1], 1), generator=g, device=dev) * 0.05
+                  for _ in range(2)]
+    else:
+        pools = [torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                 for _ in range(2)] + [None, None]
+    return pools, [None if p is None else p.clone() for p in pools]
+
+
+def _same_bits(a, b) -> bool:
+    if a is None:
+        return b is None
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+def _samp(dev, b, sampled):
+    """(host float64 [5, B] on the card, kind) as the engine packs them."""
+    if not sampled:
+        return None, None
+    host = np.zeros((5, b))
+    host[0], host[1], host[2], host[3], host[4] = 0.8, 20, 0.9, np.arange(b), 3
+    return torch.from_numpy(host).to(dev), (True, True)
+
+
+def _run_both(dev, step, cfg, static, arrays_by_call, samp, body):
+    """Call ``body`` through a StepGraphs (captured; pools A) and eagerly
+    under sync-debug "error" (pools B) for each call's arrays; every output
+    must be bit-equal.  Returns the StepGraphs."""
+    from repro_torch.serve import graphs
+    from repro_torch.serve.engine import _samp_views
+
+    g = graphs.StepGraphs(dev)
+    samp_dev, kind = samp
+    for arrays in arrays_by_call:
+        flat, shapes = graphs.pack(arrays)
+        inputs = (torch.from_numpy(flat).to(dev), samp_dev)
+        key = graphs.step_key(step, cfg, (*static, shapes, kind), inputs)
+
+        def fn(which):
+            return lambda ints, s: body(which, *graphs.unpack(ints, shapes), _samp_views(s, kind))
+
+        got = g.run(key, fn(0), inputs).clone()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with graphs.disable_capture():
+                want = fn(1)(*inputs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(got, want), step
+    assert g.captured == 1 and g.replays == len(arrays_by_call) - 1
+    return g
+
+
+def _decode_calls(rng, b, w, n_pages=24):
+    """Four decode calls at fixed (B, W): new tokens and lengths each time;
+    the last row is bucket padding."""
+    tables = rng.permutation(n_pages)[: b * w].reshape(b, w).astype(np.int32)
+    tables[-1] = 0
+    out = []
+    for i in range(4):
+        lengths = rng.integers(0, w * 16 - 8, b).astype(np.int32) + i
+        lengths[-1] = 0
+        valid = np.arange(b) < b - 1
+        out.append([tables, rng.integers(0, 512, (b, 1)), lengths, valid])
+    return out
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+@pytest.mark.parametrize("kv_bits", [4, 8, 16])
+def test_captured_decode_step_replays_eager_bits(dev, kv_bits, sampled):
+    from repro_torch.serve.decode import paged_decode_sample
+
+    cfg, params = _llama(dev, kv_bits)
+    pools = _pool_pair(dev, cfg)
+    calls = _decode_calls(np.random.default_rng(kv_bits), 4, 4)
+
+    def body(which, tables, tokens, lengths, valid, samp):
+        return paged_decode_sample(params[8], tokens, lengths, tables, valid != 0, samp,
+                                   *pools[which], cfg=cfg)[0]
+
+    _run_both(dev, "decode", cfg, (8,), calls, _samp(dev, 4, sampled), body)
+    assert all(_same_bits(a, b) for a, b in zip(*pools))
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+def test_captured_spec_round_replays_eager_bits(dev, sampled):
+    from repro_torch.serve.spec_decode import spec_decode_round
+
+    cfg, params = _llama(dev, 8)
+    pools = _pool_pair(dev, cfg)
+    rng = np.random.default_rng(5)
+    calls = [[*c, np.array([3, 1, 0, 0], np.int32)] for c in _decode_calls(rng, 4, 4)]
+
+    def body(which, tables, tokens, lengths, valid, nd, samp):
+        emit, accept, _ = spec_decode_round(params[4], params[8], tokens, lengths, tables,
+                                            valid != 0, nd, samp, *pools[which], cfg=cfg,
+                                            spec_k=3)
+        return torch.cat([emit, accept[:, None].to(emit.dtype)], dim=1)
+
+    _run_both(dev, "spec", cfg, (8, 4, 3), calls, _samp(dev, 4, sampled), body)
+    assert all(_same_bits(a, b) for a, b in zip(*pools))
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8, 16])
+def test_captured_chunk_call_replays_eager_bits(dev, kv_bits):
+    from repro_torch.serve.prefill import chunk_prefill_sample
+
+    cfg, params = _llama(dev, kv_bits)
+    pools = _pool_pair(dev, cfg)
+    rng = np.random.default_rng(9)
+    tables = rng.permutation(24)[:8].reshape(2, 4).astype(np.int32)
+    calls = [[tables, rng.integers(0, 512, (2, 16)), np.array([16 * i, 8 * i], np.int32),
+              np.array([16, 9 - i], np.int32)] for i in range(4)]
+
+    def body(which, tables, tokens, q_start, q_lens, samp):
+        return chunk_prefill_sample(params[8], tokens, q_start, q_lens, tables, samp,
+                                    *pools[which], cfg=cfg)[0]
+
+    _run_both(dev, "chunk", cfg, (8,), calls, (None, None), body)
+    assert all(_same_bits(a, b) for a, b in zip(*pools))
+
+
+def test_captured_wave_step_replays_eager_bits(dev):
+    """Reduced zamba2-7b (w8/kv8, bf16) waves: a captured Server and an
+    eager one, the same weights, four decode steps each after one prefill:
+    the same tokens and the same caches, bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import graphs
+    from repro_torch.train.server import Server
+
+    cfg = dataclasses.replace(get_config("zamba2-7b").reduced(), n_layers=5)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    srvs = [Server(cfg, params, batch_size=2, max_len=24, device=dev) for _ in range(2)]
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 9))).to(dev)
+    (tok_c, cache_c), (tok_e, cache_e) = [s.prefill_wave({"tokens": tokens}) for s in srvs]
+    for _ in range(4):
+        tok_c = srvs[0].decode_wave(tok_c).clone()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with graphs.disable_capture():
+                tok_e = srvs[1].decode_wave(tok_e)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(tok_c, tok_e)
+    assert srvs[0].graphs.captured == 1 and srvs[0].graphs.replays == 3
+    assert all(_same_bits(cache_c[k], cache_e[k]) for k in cache_c)
+    assert int(cache_c["pos"]) == 9 + 4
+
+
+def test_replays_add_the_captured_launch_counts(dev):
+    """The warm-up call counts its launches as they run; the capture adds
+    none (it ran nothing); every replay adds the capture's counts."""
+    from repro_torch.serve.decode import paged_decode_sample
+
+    cfg, params = _llama(dev, 8)
+    pools = _pool_pair(dev, cfg)
+    calls = _decode_calls(np.random.default_rng(3), 4, 4)
+
+    def body(which, tables, tokens, lengths, valid, samp):
+        return paged_decode_sample(params[8], tokens, lengths, tables, valid != 0, samp,
+                                   *pools[which], cfg=cfg)[0]
+
+    before = (mpmm_cuda.launches, paged_mqa_decode_cuda.launches)
+    _run_both(dev, "decode", cfg, (8,), calls[:1], (None, None), body)
+    one = (mpmm_cuda.launches - before[0], paged_mqa_decode_cuda.launches - before[1])
+    per_call = (one[0] // 2, one[1] // 2)  # the captured warm-up and the eager reference
+    assert per_call[1] == cfg.n_layers and per_call[0] > cfg.n_layers
+    before = (mpmm_cuda.launches, paged_mqa_decode_cuda.launches)
+    _run_both(dev, "decode", cfg, (8,), calls, (None, None), body)  # 1 warm-up, 3 replays
+    assert (mpmm_cuda.launches - before[0], paged_mqa_decode_cuda.launches - before[1]) == \
+        (8 * per_call[0], 8 * per_call[1])
+
+
+def test_a_step_that_syncs_inside_capture_raises(dev):
+    """A host read inside a step passes the eager warm-up but cannot be
+    captured: the call raises, keeps no graph, and returns nothing eager."""
+    from repro_torch.serve import graphs
+
+    g = graphs.StepGraphs(dev)
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+
+    def syncs(x):
+        return x * float(x.sum().item())
+
+    with pytest.raises(RuntimeError):
+        g.run(("syncs",), syncs, (x,))
+    assert g.captured == 0
+    torch.cuda.synchronize()
+    assert torch.equal(x * 2, torch.arange(0, 16, 2, dtype=torch.float32, device=dev))

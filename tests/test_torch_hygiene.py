@@ -40,7 +40,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     for name in ("core.isa", "core.dataflow", "core.perfmodel", "models.cnn",
                  "models.cnn_zoo", "launch.cnn", "device", "models.ssm",
                  "kernels.mqa_decode", "train.server", "configs.zamba2_7b",
-                 "configs.mamba2_130m"):
+                 "configs.mamba2_130m", "serve.graphs"):
         assert f"repro_torch.{name}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys

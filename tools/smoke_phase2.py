@@ -4,10 +4,11 @@ with its time, the plain version's, the library call's and the bound) from
 the checkout at ROOT, and with ``cnn`` also its phase 4 (full ResNet18).
 With ``decode`` it runs only this checkout's engine decode-step profile
 (``chip_smoke.engine_decode_profile``: one decode step of full llama3.2-3b,
-8 rows, w8/kv8) on ROOT's package, which also profiles a commit whose
-chip_smoke.py has no such phase.  Needs one CUDA card:
+8 rows, w8/kv8; captured, or eager with ``eager``) on ROOT's package, which
+also profiles a commit whose chip_smoke.py has no such phase (its package
+must have captured steps, ``serve/graphs.py``).  Needs one CUDA card:
 
-    python3 tools/smoke_phase2.py ROOT [cnn | decode] > phase2.jsonl
+    python3 tools/smoke_phase2.py ROOT [cnn | decode [eager]] > phase2.jsonl
 
 ROOT may be another commit's checkout (``git archive`` of it into an ignored
 directory), whose kernels are built into ROOT/build: run parent and change
@@ -46,8 +47,11 @@ def main() -> int:
     if decode:
         from repro_torch.configs import get_config
 
+        capture = "eager" not in sys.argv[2:]
         smoke.emit({"phase": "engine_decode_profile", "root": str(root), "gpu": gpu,
-                    "profile": smoke.engine_decode_profile(torch, get_config("llama3.2-3b"))})
+                    "captured": capture,
+                    "profile": smoke.engine_decode_profile(torch, get_config("llama3.2-3b"),
+                                                           capture)})
         return 0
     timer = smoke.Timer(torch)
     summary = smoke.kernel_cases(torch, timer, gpu)
