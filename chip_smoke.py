@@ -5,15 +5,21 @@
 
 Phases, each printing one JSON line that names the card:
 
-1. build    -- nvcc builds the kernels under src/repro_torch/kernels/csrc.
+1. build    -- nvcc builds the kernels under src/repro_torch/kernels/csrc;
+               ptxas -v's registers and spill bytes of paged prefill at
+               DP = 256 (one line, "phase": "ptxas").
 2. kernels  -- each hand-written kernel against its plain PyTorch version on
                the same inputs, in bf16 at llama3.2-3b's serving shapes (the
                CF dequant matmul at decode M 1-8, at a speculative round's
-               verify M of 40 and at the prefill M of 128 and 256, and at
+               verify M of 40 and at the prefill M of 128 and 256, at
+               mixtral-8x22b's expert products (6144 -> 16384 and 16384 ->
+               6144) at the engine's expert rows M = 1, 2 and 160, and at
                zamba2-7b's in_proj / out_proj at M = 4096; paged prefill at
-               C 1, 32, 128 and at a verify window, C = 5 at B = 8; two runs
-               of the matmul at every M and of paged prefill must give the
-               same bits) and at
+               C 1, 32, 128 and at a verify window, C = 5 at B = 8, and at
+               gemma3-1b's heads, 1 x 4 x 256, at ctx ~1536, C 128 and C 5,
+               with and without its window of 1024, and at D = 192, which
+               pads to 256; two runs of the matmul at every M and of paged
+               prefill must give the same bits) and at
                ResNet18's conv shapes (the FF-order dequant matmul), and
                bit-exactly against the CPU's int32 matmul (the int-mode
                matmul, also under a CF K split with a short last split); the
@@ -77,14 +83,39 @@ Phases, each printing one JSON line that names the card:
                sets captured against eager: wall and busy ms per step,
                decode tokens/s, peak memory, graphs captured and the
                seconds spent capturing.
-7. kernels line -- each kernel's launches on its path (all > 0): the serving
+7. models   -- the MoE family and the last dense configs, seeded random
+               weights: gemma3-1b cut to 6 of 26 layers (5 local + 1
+               global) at full width, one chunk (C 128 at ctx 1100 / 1300,
+               so the 1024 window binds) and one decode step card vs CPU by
+               phase 3's rule, near-tied rows witnessed by float32 and by
+               the card with plain paged attention (compare_logits);
+               mixtral-8x22b cut to 2 of 56 layers at full width, the same
+               step card vs CPU by phase 3's rule (routing and experts on
+               both); full gemma3-1b through ServeEngine, 8 greedy
+               requests of 1536 tokens, 16 new, (w, kv) over (4,8) (8,8),
+               and a greedy spec run (w8 target, w4 draft, spec_k 4) whose
+               verify runs paged prefill at D = 256; mixtral-8x22b at full
+               width cut to 4 of 56 layers, 8 greedy requests of 512
+               tokens, 16 new, (w, kv) over (4,8) (8,8) (16,16), then a
+               third, eager run instrumented to count per engine step the
+               CF launches, those made inside the MoE FFNs and the top-k
+               assignments dropped at capacity (its times not reported); full
+               minitron-4b, 2 requests, 8 new, w8/kv8; and reduced
+               kimi-k2-1t-a32b through the static waves, a path check of
+               its first_dense block and of mqa_decode.  Each runs captured
+               and once more eager (identical streams and launches).
+8. kernels line -- each kernel's launches on its path (all > 0): the serving
                kernels in phase 5's first run, the FF and int matmuls in
                phase 4, contiguous-cache decode in phase 6's first zamba2
                run; the counts are set to 0 just before each path runs, and
                a replayed step adds the launches its graph holds.  The
                serving kernels must also launch on each of phase 5's sampled
-               and spec paths (counted apart: ``launches_by_path``), and
-               the CF matmul and paged prefill carry their verify case.
+               and spec paths and on phase 7's engine paths (counted apart:
+               ``launches_by_path``); the CF matmul and paged prefill carry
+               their verify case, paged prefill its D = 256 case (with its
+               launches on the gemma3-1b paths) and the CF matmul its
+               cases at the experts' shapes and the launches made inside
+               the MoE FFNs on the mixtral path.
 
 Phase 2 holds paged decode at llama3.2-3b's heads (8 x 3 x 128; ctx 0, 1,
 17, 1024, with and without a window of 256), yi-9b's (4 x 8 x 128, ctx 1024,
@@ -108,6 +139,7 @@ the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -129,6 +161,14 @@ PRECISIONS = [(4, 8), (8, 4), (8, 8), (16, 16)]
 ZAMBA_PREFILL_SHAPES = [(3584, 14576), (7168, 3584)]
 # the CF kernel's prefill-M case of the kernels line: (w_bits, M, K, N)
 PREFILL_MPMM_CASE = (8, 256, 3072, 3072)
+# mixtral-8x22b's expert products as (K, N): gate / up (d_model -> d_ff) and
+# down (d_ff -> d_model), at the engine's expert rows M = cap =
+# max(1, T * top_k * 1.25 // 8): 1 and 2 in a decode step (a precision
+# group of 4 or 8 rows), 160 in a chunk group call (4 x 128 tokens)
+MIXTRAL_EXPERT_SHAPES = [(6144, 16384), (16384, 6144)]
+MIXTRAL_EXPERT_M = (1, 2, 160)
+# the expert call sites' cases of the kernels line: (w_bits, M, K, N)
+EXPERT_MPMM_CASES = {"decode": (4, 2, 6144, 16384), "prefill": (4, 160, 6144, 16384)}
 # speculative decoding in phase 5: draft tokens per round, and the rows of a
 # round's verify matmul at 8 rows (8 x (SPEC_K + 1) = 40)
 SPEC_K = 4
@@ -177,6 +217,21 @@ FF_LAYERS = ["conv1", "layer1.0.conv2", "layer3.1.conv1", "layer4.1.conv1"]
 CF_LAYERS = ["layer2.0.down", "layer3.0.down", "layer4.0.down"]  # the CF layers at w8
 INT_GRID = [(16, 16), (8, 8), (4, 8), (8, 16), (16, 8)]  # (w_bits, x_bits)
 INT_LAYERS = ["conv1", "layer2.0.down", "layer4.1.conv2"]  # phase 4 int mode: FF, CF, FF
+# gemma3-1b's attention (Hkv 1, G 4, head_dim 256, a 1024 window on 5 of 6
+# layers) in phase 2's paged prefill cases: ctx ~1536 (the engine phase's
+# prompt length), a 128-token chunk and a verify window
+GEMMA_HEADS = (1, 4, 256)
+GEMMA_WINDOW = 1024
+GEMMA_PREFILL_CTX = [1536, 1480, 1300, 1536]
+GEMMA_PREFILL_Q_LENS = [128, 127, 64, 1]
+GEMMA_VERIFY_CTX = [1536, 1530, 1400, 1100, 1536, 1200, 1300, 0]
+# phase 7: gemma3-1b's 1536-token prompts (so its window of 1024 binds on
+# the local layers), mixtral-8x22b cut to 4 of 56 layers at full width
+GEMMA_PROMPT = 1536
+GEMMA_PRECISIONS = [(4, 8), (8, 8)]
+MIXTRAL_LAYERS = 4
+MIXTRAL_PROMPT = 512
+MIXTRAL_PRECISIONS = [(4, 8), (8, 8), (16, 16)]
 # the numbers of a phase-2 case that the kernels line carries
 LINE_KEYS = ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
 
@@ -296,21 +351,27 @@ def kernel_cases(torch, timer, gpu) -> dict:
         for label, case in (("prefill", PREFILL_MPMM_CASE), ("verify", VERIFY_MPMM_CASE)):
             if (w_bits, m, k, n) == case:
                 summary["mpmm_dequant"][label] = {key: rec[key] for key in LINE_KEYS}
+        for label, case in EXPERT_MPMM_CASES.items():
+            if (w_bits, m, k, n) == case:
+                summary["mpmm_dequant"].setdefault("expert", {})[label] = {
+                    key: rec[key] for key in LINE_KEYS}
 
     def deq(wd, ws, w_bits):
         return ((unpack_int4(wd, 0) if w_bits == 4 else wd).float() * ws).to(torch.bfloat16)
 
-    for w_bits in (4, 8):
-        for k, n in MPMM_SHAPES:
-            w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
-            wd, ws = ops.pack_weights(w, w_bits)
-            w_deq = deq(wd, ws, w_bits)
-            del w
-            for m in (1, 2, 3, 4, 5, 8, VERIFY_M, 128, 256):
-                x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
-                mpmm_case(x, wd, ws, w_bits, w_deq)
-            del wd, ws, w_deq
-    torch.cuda.empty_cache()
+    for shapes, ms in ((MPMM_SHAPES, (1, 2, 3, 4, 5, 8, VERIFY_M, 128, 256)),
+                       (MIXTRAL_EXPERT_SHAPES, MIXTRAL_EXPERT_M)):
+        for w_bits in (4, 8):
+            for k, n in shapes:
+                w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+                wd, ws = ops.pack_weights(w, w_bits)
+                w_deq = deq(wd, ws, w_bits)
+                del w
+                for m in ms:
+                    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+                    mpmm_case(x, wd, ws, w_bits, w_deq)
+                del wd, ws, w_deq
+        torch.cuda.empty_cache()
     for k, n in ZAMBA_PREFILL_SHAPES:
         w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
         wd, ws = ops.pack_weights(w, 8)
@@ -416,74 +477,106 @@ def kernel_cases(torch, timer, gpu) -> dict:
     decode_cases(8, (2048,), (1024,), (1, 4, 256), "gemma3-1b heads")
 
     # ---- paged prefill: C in {1, 32, 128}, ragged q_lens, ctx > 0; then a
-    # speculative verify window (C = SPEC_K + 1 at B = 8, VERIFY_CTX)
-    def prefill_cases(kv_bits, ctx_list, chunks, label=""):
+    # speculative verify window (C = SPEC_K + 1 at B = 8, VERIFY_CTX); then
+    # gemma3-1b's heads (1 x 4 x 256) at ctx ~1536, C 128 and a verify
+    # window, with and without its window of 1024, and D = 192 (padded to 256)
+    def prefill_cases(kv_bits, ctx_list, chunks, label="", heads=(hkv, g, d), window=None,
+                      line=None):
+        """``line`` = (key, C): that C's case at kv8 is the kernels line's
+        ``key`` entry."""
+        hk, gq, dd = heads
+        hh = hk * gq
         b = len(ctx_list)
         w = -(-(max(ctx_list) + max(c for c, _ in chunks)) // ps)
         n_pages = b * w + 4
-        kp, ks = payload((n_layers, n_pages, ps, hkv, d), kv_bits)
-        vp, vs = payload((n_layers, n_pages, ps, hkv, d), kv_bits)
+        kp, ks = payload((n_layers, n_pages, ps, hk, dd), kv_bits)
+        vp, vs = payload((n_layers, n_pages, ps, hk, dd), kv_bits)
         tables = torch.randperm(n_pages, generator=gen, device="cuda")[: b * w]
         tables = tables.reshape(b, w).to(torch.int32)
         ctx = torch.tensor(ctx_list, dtype=torch.int32, device="cuda")
         for c, ql in chunks:
             q_lens = torch.tensor(ql, dtype=torch.int32, device="cuda")
-            q = torch.randn(b, c, h, d, generator=gen, device="cuda").to(torch.bfloat16)
-            ck, cks = payload((b, c, hkv, d), kv_bits)
-            cv, cvs = payload((b, c, hkv, d), kv_bits)
-            qg = q.reshape(b, c, hkv, g, d).permute(0, 2, 1, 3, 4).contiguous()
+            q = torch.randn(b, c, hh, dd, generator=gen, device="cuda").to(torch.bfloat16)
+            ck, cks = payload((b, c, hk, dd), kv_bits)
+            cv, cvs = payload((b, c, hk, dd), kv_bits)
+            qg = q.reshape(b, c, hk, gq, dd).permute(0, 2, 1, 3, 4).contiguous()
 
             def t(x):
                 return None if x is None else x.transpose(1, 2).contiguous()
 
             kargs = (kp, vp, ks, vs, tables, ctx, q_lens, layer, t(ck), t(cv), t(cks), t(cvs))
             pargs = (kp, vp, ks, vs, tables, ctx, q_lens, layer, ck, cv, cks, cvs)
-            sm = 1 / math.sqrt(d)
-            got = paged_mqa_prefill_cuda(qg, *kargs, kv_bits=kv_bits, sm_scale=sm)
-            got = got.permute(0, 2, 1, 3, 4).reshape(b, c, h, d)
-            exp = ref.paged_mqa_prefill_ref(q, *pargs, sm_scale=sm, kv_bits=kv_bits)
+            sm = 1 / math.sqrt(dd)
+            got = paged_mqa_prefill_cuda(qg, *kargs, kv_bits=kv_bits, sm_scale=sm,
+                                         window=window)
+            got = got.permute(0, 2, 1, 3, 4).reshape(b, c, hh, dd)
+            exp = ref.paged_mqa_prefill_ref(q, *pargs, sm_scale=sm, kv_bits=kv_bits,
+                                            window=window)
             err = max_err(torch, got, exp, ATTN_TOL)
-            again = paged_mqa_prefill_cuda(qg, *kargs, kv_bits=kv_bits, sm_scale=sm)
-            check(torch.equal(got, again.permute(0, 2, 1, 3, 4).reshape(b, c, h, d)),
+            again = paged_mqa_prefill_cuda(qg, *kargs, kv_bits=kv_bits, sm_scale=sm,
+                                           window=window)
+            check(torch.equal(got, again.permute(0, 2, 1, 3, 4).reshape(b, c, hh, dd)),
                   f"paged prefill {label}kv{kv_bits} C={c}: two runs gave other bits")
-            # query positions past q_len are padding that nothing needs
-            visible = sum(n + ci + 1 for n, qn in zip(ctx_list, ql) for ci in range(qn))
-            slots = sum(touched(n, 0) for n in ctx_list)
-            # chunk keys j >= q_len are padding that no query sees
-            nbytes = (2 * q.numel() * 2 + kv_bytes(sum(ctx_list) + sum(ql), kv_bits)
+            # what this run's data needs: each valid query sees its causal
+            # keys inside the window; a row reads its keys from the first
+            # query's window start on (query positions past q_len, and chunk
+            # keys j >= q_len, are padding that nothing needs)
+            def lo_of(n):
+                return max(n + 1 - window, 0) if window else 0
+
+            visible = sum(min(n + ci + 1, window or n + ci + 1)
+                          for n, qn in zip(ctx_list, ql) for ci in range(qn))
+            keys = sum(n - lo_of(n) + qn for n, qn in zip(ctx_list, ql) if qn)
+            slots = sum(touched(n, lo_of(n)) for n, qn in zip(ctx_list, ql) if qn)
+            nbytes = (2 * q.numel() * 2 + kv_bytes(keys, kv_bits, hk, dd)
                       + 4 * (slots + 2 * b))
-            b_ms, b_by = bound(nbytes, 4.0 * h * d * visible)
-            kg = gathered(kp, ks, tables, kv_bits, ck, cks)
-            vg = gathered(vp, vs, tables, kv_bits, cv, cvs)
-            s = w * ps
-            kpos = torch.cat([torch.arange(s, device="cuda").expand(b, s),
+            b_ms, b_by = bound(nbytes, 4.0 * hh * dd * visible)
+            kg = gathered(kp, ks, tables, kv_bits, ck, cks, gq)
+            vg = gathered(vp, vs, tables, kv_bits, cv, cvs, gq)
+            s_len = w * ps
+            kpos = torch.cat([torch.arange(s_len, device="cuda").expand(b, s_len),
                               ctx[:, None] + torch.arange(c, device="cuda")[None]], 1)
-            kval = torch.cat([torch.arange(s, device="cuda")[None] < ctx[:, None],
+            kval = torch.cat([torch.arange(s_len, device="cuda")[None] < ctx[:, None],
                               torch.arange(c, device="cuda")[None] < q_lens[:, None]], 1)
             qpos = ctx[:, None] + torch.arange(c, device="cuda")[None]
-            mask = (kval[:, None, :] & (kpos[:, None, :] <= qpos[:, :, None]))[:, None]
+            mask = kval[:, None, :] & (kpos[:, None, :] <= qpos[:, :, None])
+            if window:
+                mask &= kpos[:, None, :] > qpos[:, :, None] - window
+            mask = mask[:, None]
             qt = q.transpose(1, 2)
+            heads_s = "" if heads == (hkv, g, d) else f"{hk}x{gq}x{dd} "
             rec = {
-                "case": f"{label}kv{kv_bits} B={b} C={c} ctx={ctx_list} q_lens={ql}",
-                "max_abs_err": err, "tol": ATTN_TOL, "grid": launch_grid(b, hkv, c, g),
+                "case": f"{label}{heads_s}kv{kv_bits} B={b} C={c} ctx={ctx_list} q_lens={ql}"
+                        + (f" window={window}" if window else ""),
+                "max_abs_err": err, "tol": ATTN_TOL, "grid": launch_grid(b, hk, c, gq),
                 "ms": timer(lambda: paged_mqa_prefill_cuda(
-                    qg, *kargs, kv_bits=kv_bits, sm_scale=sm)),
+                    qg, *kargs, kv_bits=kv_bits, sm_scale=sm, window=window)),
                 "plain_ms": timer(lambda: ref.paged_mqa_prefill_ref(
-                    q, *pargs, sm_scale=sm, kv_bits=kv_bits), iters=3),
+                    q, *pargs, sm_scale=sm, kv_bits=kv_bits, window=window), iters=3),
                 "library_ms": timer(lambda: F.scaled_dot_product_attention(
                     qt, kg, vg, attn_mask=mask)),
                 "bound_ms": b_ms, "bound_by": b_by,
             }
             note("paged_prefill", rec, (kv_bits, c, label) == (8, 128, ""))
-            if label and kv_bits == 8:
-                summary["paged_prefill"]["verify"] = {key: rec[key] for key in LINE_KEYS}
+            if line and kv_bits == 8 and c == line[1]:
+                summary["paged_prefill"][line[0]] = {key: rec[key] for key in LINE_KEYS}
         del kp, vp, ks, vs
 
     for kv_bits in (4, 8, 16):
         prefill_cases(kv_bits, [256, 200, 384, 128],
                       [(c, [c, max(c - 1, 1), max(c // 2, 1), 1]) for c in (1, 32, 128)])
     for kv_bits in (8, 4, 16):
-        prefill_cases(kv_bits, VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)], "verify ")
+        prefill_cases(kv_bits, VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)], "verify ",
+                      line=("verify", SPEC_K + 1))
+    for kv_bits in (8, 4, 16):
+        for window in (GEMMA_WINDOW, None):
+            line = ("d256", 128) if window else None
+            prefill_cases(kv_bits, GEMMA_PREFILL_CTX, [(128, GEMMA_PREFILL_Q_LENS)],
+                          "gemma3-1b ", GEMMA_HEADS, window, line)
+            prefill_cases(kv_bits, GEMMA_VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)],
+                          "gemma3-1b verify ", GEMMA_HEADS, window)
+    prefill_cases(8, GEMMA_PREFILL_CTX, [(128, GEMMA_PREFILL_Q_LENS)], "D=192 (pads to 256) ",
+                  (1, 4, 192), GEMMA_WINDOW)
     torch.cuda.empty_cache()
     return summary
 
@@ -747,9 +840,11 @@ def cnn_kernel_cases(torch, timer, gpu, summary) -> None:
 
 
 # --------------------------------------------------------------- phase 3
-def step_card_vs_cpu(torch, gpu, base) -> None:
-    """One prefill chunk and one decode step of ``base`` cut to 2 layers, on
-    the card and on the CPU, for three (w_bits, kv_bits) pairs.
+def step_card_vs_cpu(torch, gpu, base, layers: int = 2, q_start=(0, 40), c: int = 32,
+                     what: str = "step", witness_all: bool = False) -> None:
+    """One prefill chunk (2 rows of ``c`` tokens at contexts ``q_start``)
+    and one decode step of ``base`` cut to ``layers`` layers, on the card
+    and on the CPU, for three (w_bits, kv_bits) pairs.
 
     Tolerance: card and CPU sum in other orders, so bf16 values may land a
     rounding step apart, and an int4 KV pool turns such a step into one int4
@@ -764,14 +859,26 @@ def step_card_vs_cpu(torch, gpu, base) -> None:
     CPU disagree on such a row, the float32 run is the witness: it must
     pick one of the two tokens, or both picks must lie within that row's
     bf16 noise (its largest |bf16 - float32| logit) of float32's top logit.
-    Each such row is reported with the three picks and the gap."""
+    Each such row is reported with the three picks and the gap.
+    ``witness_all`` takes float32 as the witness at every kv_bits, but at
+    int8 and 16-bit KV only on rows where float32's own top two logits lie
+    within the row's bf16 noise (among gemma3-1b's 262144 random logits they
+    may lie closer than one bf16 step, so two correct bf16 runs may pick
+    either); every other row must pick alike.  It adds a second witness: the
+    same step on the card with both paged attention kernels swapped for
+    their plain versions, which must lie within twice the bf16 noise of the
+    kernels' run and, on every split row with int8 or 16-bit KV, pick the
+    kernels' token: the split is then not the attention kernels' doing."""
     from repro_torch.models import transformer as model_lib
     from repro_torch.serve import decode, prefill
 
-    base = dataclasses.replace(base, n_layers=2)
+    arch, depth = base.name, base.n_layers
+    base = dataclasses.replace(base, n_layers=layers)
     gen = torch.Generator(device="cuda").manual_seed(1)
     params16 = model_lib.init_params(base, gen)
-    ps, n_pages, b, c = 16, 24, 2, 32
+    ps, b = 16, 2
+    w = max(8, -(-(max(q_start) + c + 1) // ps))  # table width, pages a row
+    n_pages = b * w + 8
     for w_bits, kv_bits in ((4, 8), (16, 16), (8, 4)):
         cfg = dataclasses.replace(base, serve_kv_bits=kv_bits)
         params = params16 if w_bits == 16 else model_lib.quantize_params(params16, w_bits)
@@ -785,10 +892,10 @@ def step_card_vs_cpu(torch, gpu, base) -> None:
                                    dtype=torch.int8) for _ in range(2)]
             pools += [torch.rand(*shape[:-1], 1, generator=gen, device="cuda") * 0.02
                       for _ in range(2)]
-        tables = torch.arange(2 * 8, dtype=torch.int32, device="cuda").reshape(2, 8) + 3
+        tables = torch.arange(b * w, dtype=torch.int32, device="cuda").reshape(b, w) + 3
         tokens = torch.randint(0, cfg.vocab, (b, c), generator=gen, device="cuda")
         next_tokens = torch.randint(0, cfg.vocab, (b, 1), generator=gen, device="cuda")
-        q_start = torch.tensor([0, 40], dtype=torch.int32, device="cuda")
+        starts = torch.tensor(q_start, dtype=torch.int32, device="cuda")
         q_lens = torch.tensor([c, c - 5], dtype=torch.int32, device="cuda")
         valid = torch.ones(b, dtype=torch.bool, device="cuda")
 
@@ -805,9 +912,9 @@ def step_card_vs_cpu(torch, gpu, base) -> None:
             run_cfg = dataclasses.replace(cfg, dtype="float32") if wide else cfg
             pl = [None if x is None else to(x).clone() for x in pools]
             logits_p, _ = prefill.chunk_prefill_step(
-                p, to(tokens), to(q_start), to(q_lens), to(tables), *pl, cfg=run_cfg)
+                p, to(tokens), to(starts), to(q_lens), to(tables), *pl, cfg=run_cfg)
             logits_d, _ = decode.paged_decode_step(
-                p, to(next_tokens), to(q_start + q_lens), to(tables), to(valid), *pl,
+                p, to(next_tokens), to(starts + q_lens), to(tables), to(valid), *pl,
                 cfg=run_cfg)
             return logits_p.cpu()[:, : cfg.vocab], logits_d.cpu()[:, : cfg.vocab]
 
@@ -818,22 +925,29 @@ def step_card_vs_cpu(torch, gpu, base) -> None:
         cpu = run("cpu")
         t_cpu = time.perf_counter() - t0
         cpu32 = run("cpu", wide=True)
-        rec = {"phase": "step", "model": "llama3.2-3b (2 of 28 layers, full width)",
+        plain = (None, None)
+        if witness_all:
+            with plain_paged_attention():
+                plain = run("cuda")
+        rec = {"phase": what, "model": f"{arch} ({layers} of {depth} layers, full width)",
                "w_bits": w_bits, "kv_bits": kv_bits, "batch": b, "chunk": c,
-               "card_s": t_card, "cpu_s": t_cpu, "gpu": gpu}
+               "q_start": list(q_start), "card_s": t_card, "cpu_s": t_cpu, "gpu": gpu}
         for i, name in enumerate(("prefill", "decode")):
-            compare_logits(torch, rec, name, f"{name} w{w_bits}kv{kv_bits}", on_card[i],
-                           cpu[i], cpu32[i], kv_bits)
+            compare_logits(torch, rec, name, f"{arch} {name} w{w_bits}kv{kv_bits}",
+                           on_card[i], cpu[i], cpu32[i], kv_bits, witness_all, plain[i])
         emit(rec)
         del params
     del params16
 
 
-def compare_logits(torch, rec, name, tag, a, e, f, kv_bits) -> None:
+def compare_logits(torch, rec, name, tag, a, e, f, kv_bits, witness_all=False,
+                   plain=None) -> None:
     """Card logits ``a`` against the CPU's bf16 ``e`` and float32 ``f`` runs
     of the same step (the rule of phase 3, described there): within twice
     the CPU's bf16 noise, the same argmax on every row with int8 or 16-bit
-    KV, and with int4 KV float32 as the witness where card and CPU split."""
+    KV, and with int4 KV (or, ``witness_all``, on near-tied rows at any KV)
+    float32 as the witness where card and CPU split; ``plain`` is the card
+    run with plain paged attention, the second witness of ``witness_all``."""
     b = a.shape[0]
     check(bool(torch.isfinite(a).all()), f"{tag}: non-finite logits")
     diff, noise = (a - e).abs(), (f - e).abs()
@@ -849,21 +963,66 @@ def compare_logits(torch, rec, name, tag, a, e, f, kv_bits) -> None:
           f"{tag}: card vs CPU logits differ by max {diff.max().item():.4g} / "
           f"mean {diff.mean().item():.4g}, over twice the bf16 noise "
           f"{noise.max().item():.4g} / {noise.mean().item():.4g}")
-    if kv_bits >= 8:
+    if kv_bits >= 8 and not witness_all:
         check(agree == b, f"{tag}: argmax differs between card and CPU")
         return
+    if plain is not None:
+        plain_diff = (a - plain).abs()
+        rec.update({f"{name}_vs_plain_attention_max_abs_err": plain_diff.max().item(),
+                    f"{name}_vs_plain_attention_mean_abs_err": plain_diff.mean().item(),
+                    f"{name}_plain_attention_argmax_agree":
+                        f"{int((a_top == plain.argmax(-1)).sum())}/{b}"})
+        check(plain_diff.max() <= 2 * noise.max() and plain_diff.mean() <= 2 * noise.mean(),
+              f"{tag}: the card's runs with kernel and with plain attention differ by max "
+              f"{plain_diff.max().item():.4g} / mean {plain_diff.mean().item():.4g}, over "
+              f"twice the bf16 noise")
+    f_two = f.topk(2, dim=-1).values
     split = []
     for r in torch.nonzero(a_top != e_top).flatten().tolist():
         ta, te, tf = int(a_top[r]), int(e_top[r]), int(f_top[r])
         gap = (f[r, tf] - torch.minimum(f[r, ta], f[r, te])).item()
+        top2_gap = (f_two[r, 0] - f_two[r, 1]).item()
         row_noise = noise[r].max().item()
-        split.append({"row": r, "card": ta, "cpu_bf16": te, "cpu_f32": tf,
-                      "f32_gap": gap, "row_bf16_noise": row_noise})
+        row = {"row": r, "card": ta, "cpu_bf16": te, "cpu_f32": tf, "f32_gap": gap,
+               "f32_top2_gap": top2_gap, "row_bf16_noise": row_noise}
+        if plain is not None:
+            row["card_plain_attention"] = int(plain[r].argmax())
+        split.append(row)
         check(tf in (ta, te) or gap <= row_noise,
               f"{tag} row {r}: card picks {ta}, CPU bf16 {te}, float32 {tf}; "
               f"the picks lie {gap:.4g} below float32's top, over the row's "
               f"bf16 noise {row_noise:.4g}")
+        if kv_bits >= 8:
+            check(top2_gap <= row_noise,
+                  f"{tag} row {r}: card picks {ta}, CPU {te}, though float32's top two "
+                  f"lie {top2_gap:.4g} apart, over the row's bf16 noise {row_noise:.4g}")
+            if plain is not None:
+                check(row["card_plain_attention"] == ta,
+                      f"{tag} row {r}: with plain attention the card picks "
+                      f"{row['card_plain_attention']}, with the kernels {ta}")
     rec[f"{name}_argmax_splits"] = split
+
+
+@contextlib.contextmanager
+def plain_paged_attention():
+    """Within the block, ``ops.paged_mqa_prefill`` and ``ops.paged_mqa_decode``
+    take their plain versions on the card too (a witness, not a path)."""
+    from repro_torch.kernels import ops, ref
+
+    saved = ops.paged_mqa_prefill, ops.paged_mqa_decode
+
+    def plain(fn):
+        def call(q, *args, kv_bits=8, window=None):
+            return fn(q, *args, sm_scale=1.0 / math.sqrt(q.shape[-1]), kv_bits=kv_bits,
+                      window=window)
+        return call
+
+    ops.paged_mqa_prefill = plain(ref.paged_mqa_prefill_ref)
+    ops.paged_mqa_decode = plain(ref.paged_mqa_decode_ref)
+    try:
+        yield
+    finally:
+        ops.paged_mqa_prefill, ops.paged_mqa_decode = saved
 
 
 def _tree_map(tree, fn):
@@ -1253,6 +1412,16 @@ def w8kv8(i: int) -> dict:
     return {"w_bits": 8, "kv_bits": 8}
 
 
+def gemma_precision(i: int) -> dict:
+    w, kv = GEMMA_PRECISIONS[i % len(GEMMA_PRECISIONS)]
+    return {"w_bits": w, "kv_bits": kv}
+
+
+def mixtral_precision(i: int) -> dict:
+    w, kv = MIXTRAL_PRECISIONS[i % len(MIXTRAL_PRECISIONS)]
+    return {"w_bits": w, "kv_bits": kv}
+
+
 def greedy(i: int) -> dict:
     return {}
 
@@ -1493,6 +1662,134 @@ def spec_round_profile(torch, cfg, capture: bool = True) -> dict:
             "spec_k": SPEC_K, "rows": 8, "ctx_after": ctx, "round_ms": wall * 1e3, **prof}
 
 
+# --------------------------------------------------------------- phase 7
+def ptxas_report(lib_path: Path, kernel: str = "paged_prefill_kernelILi256E") -> list:
+    """Registers, stack and spill bytes that ``ptxas -v`` gave each kernel
+    instantiation whose mangled name holds ``kernel`` (the build's log
+    beside the library): here paged prefill at DP = 256, one per kv_bits."""
+    out, cur = [], False
+    for line in lib_path.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = kernel in m.group(1)
+            if cur:
+                kv = re.search(kernel + r"Li(\d+)E", m.group(1))
+                out.append({"kv_bits": int(kv.group(1)) if kv else None})
+            continue
+        if not cur:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[-1].update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]),
+                           spill_load_bytes=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1]["registers"] = int(m[1])
+    return out
+
+
+def moe_counters(torch):
+    """Wrap ``models.moe.moe_ffn`` so that every call also counts the CF
+    kernel's launches made within it (``mpmm_cuda.launches``, read before
+    and after) and, on the card, the top-k assignments dropped at capacity
+    and all its assignments (padding rows' included).  For an eager run
+    whose times are not reported: the wrapper routes the tokens once more,
+    and ``read()`` reads the card back.  Returns (read, restore)."""
+    from repro_torch.kernels.mpmm import mpmm_cuda
+    from repro_torch.models import moe as moe_mod
+
+    real = moe_mod.moe_ffn
+    expert_launches = [0]
+    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+
+    def counted(x, params, *, top_k, capacity_factor=1.25, dispatch="replicated"):
+        x2 = x.reshape(-1, x.shape[-1])
+        e = params["router"].shape[-1]
+        _, eids, _, _ = moe_mod._route(x2, params["router"], top_k)
+        cap = int(max(1, (x2.shape[0] * top_k * capacity_factor) // e))
+        pos = moe_mod._positions_in_expert(eids.reshape(-1), e)
+        counts[0].add_((pos >= cap).sum())
+        counts[1].add_(pos.numel())
+        before = mpmm_cuda.launches
+        out = real(x, params, top_k=top_k, capacity_factor=capacity_factor, dispatch=dispatch)
+        expert_launches[0] += mpmm_cuda.launches - before
+        return out
+
+    def read():
+        dropped, assigned = counts.tolist()
+        return {"cf_launches": mpmm_cuda.launches, "expert_cf_launches": expert_launches[0],
+                "dropped_assignments": dropped, "assignments": assigned}
+
+    moe_mod.moe_ffn = counted
+    return read, lambda: setattr(moe_mod, "moe_ffn", real)
+
+
+def serve_run(torch, cfg, seed: int, requests: int, prompt: int, new: int, precision,
+              capture: bool = True, spec_k: int = 0, draft_bits: int = 4, per_step=None):
+    """Serve ``requests`` greedy requests of ``prompt`` random tokens,
+    ``new`` new tokens each, request i at ``precision(i)``, through
+    ServeEngine (8 slots, 16-token pages, 128-token chunks; ``spec_k`` and
+    ``draft_bits`` the engine's), weights drawn from ``seed``, the steps
+    captured (or eager).  ``per_step()`` returns a dict of counts, read
+    after every engine step (each step already reads its tokens back).
+    Returns (streams, stats, peak bytes, wall s, captured steps, per-step
+    differences of ``per_step``)."""
+    import numpy as np
+
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.params import PrecisionParams, SamplingParams
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = model_lib.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    pages = -(-(prompt + new + spec_k + 8) // 16)
+    engine = ServeEngine(cfg, params, max_slots=8, page_size=16, prefill_chunk=128,
+                         num_pages=requests * pages, spec_k=spec_k, draft_bits=draft_bits,
+                         device="cuda")
+    del params
+    rng = np.random.default_rng(seed)
+    reqs = [engine.submit(rng.integers(0, cfg.vocab, prompt).astype(np.int32),
+                          SamplingParams(max_new_tokens=new), PrecisionParams(**precision(i)))
+            for i in range(requests)]
+    deltas, last = [], per_step() if per_step else None
+    t0 = time.perf_counter()
+    with capturing(capture):
+        while not all(r.done for r in reqs):
+            check(engine.step(), f"{cfg.name}: the engine stalled")
+            if per_step:
+                now = per_step()
+                deltas.append({k: now[k] - last[k] for k in now})
+                last = now
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        check(len(r.out_tokens) == new, f"{cfg.name} request {r.rid}: {len(r.out_tokens)} "
+              f"tokens, expected {new}")
+        check(all(0 <= t < cfg.vocab for t in r.out_tokens),
+              f"{cfg.name} request {r.rid}: token outside the vocabulary")
+    steps = {"captured": engine.graphs.captured, "replays": engine.graphs.replays,
+             "capture_s": engine.graphs.capture_s}
+    peak = torch.cuda.max_memory_allocated()
+    stats = engine.stats
+    del engine
+    torch.cuda.empty_cache()
+    return [tuple(r.out_tokens) for r in reqs], stats, peak, wall, steps, deltas
+
+
+def serve_summary(stats, peak, wall, steps) -> dict:
+    """The numbers of a serve_run for its JSON line."""
+    return {"tokens_out": stats.tokens_out, "decode_tok_per_s": stats.decode_tok_per_s,
+            "decode_s": stats.decode_s, "decode_call_ms_p50": _p50(stats.decode_call_s) * 1e3,
+            "prefill_s": stats.prefill_s, "prefill_chunks": stats.prefill_chunks,
+            "ttft_ms_first": min(stats.ttfts) * 1e3, "ttft_ms_last": max(stats.ttfts) * 1e3,
+            "decode_group_calls": {f"w{w}kv{k}": n for (w, k), n in stats.group_calls.items()},
+            "mixed_precision_steps": stats.mixed_precision_steps,
+            "spec_rounds": stats.spec_rounds, "spec_accept_rate": stats.spec_accept_rate,
+            "wall_s": wall, "peak_mem_gb": peak / 1e9, "captured_steps": steps}
+
+
 def _p50(samples) -> float:
     ordered = sorted(samples)
     return ordered[len(ordered) // 2]
@@ -1525,6 +1822,12 @@ def main() -> int:
     _build.lib()
     emit({"phase": "build", "lib": lib_path.name, "nvcc_s": _build.last_build_seconds,
           "built_now": _build.last_build_seconds is not None, "gpu": gpu})
+    spills = ptxas_report(lib_path)
+    emit({"phase": "ptxas", "kernel": "paged_prefill_kernel<DP = 256, kv_bits>",
+          "instantiations": spills, "gpu": gpu})
+    check(sorted(e["kv_bits"] for e in spills) == [4, 8, 16] and
+          all("registers" in e and "spill_store_bytes" in e for e in spills),
+          f"ptxas -v reports no DP = 256 paged prefill instantiations: {spills}")
 
     from repro_torch.configs import get_config
 
@@ -1772,6 +2075,113 @@ def main() -> int:
     eager_twin("mamba2-130m waves", "waves_ssm", m_streams, mamba_launches,
                lambda: waves_run(torch, 0, mamba, 8, WAVE_PROMPT, WAVE_NEW, capture=False))
 
+    # ---- phase 7: gemma3-1b, mixtral-8x22b, minitron-4b, kimi-k2
+    gemma = get_config("gemma3-1b")
+    step_card_vs_cpu(torch, gpu, gemma, layers=6, q_start=(1100, 1300), c=128,
+                     what="step_gemma", witness_all=True)
+    torch.cuda.empty_cache()
+
+    def gemma_run(capture=True):
+        return serve_run(torch, gemma, 0, 8, GEMMA_PROMPT, 16, gemma_precision, capture)
+
+    (g_streams, g_stats, g_peak, g_wall, g_steps, _), gemma_launches = count(gemma_run)
+    emit({"phase": "engine_gemma", "model": "gemma3-1b (26 layers, full width)",
+          "requests": 8, "prompt": GEMMA_PROMPT, "new_tokens": 16,
+          "precisions": GEMMA_PRECISIONS, "window": gemma.window,
+          **serve_summary(g_stats, g_peak, g_wall, g_steps), "launches": gemma_launches,
+          "gpu": gpu})
+    check(g_stats.tokens_out == 8 * 16, f"gemma3-1b tokens_out {g_stats.tokens_out} != 128")
+    eager_twin("gemma3-1b", "gemma", g_streams, gemma_launches, lambda: gemma_run(False))
+    torch.cuda.empty_cache()
+
+    def gemma_spec_run(capture=True):
+        return serve_run(torch, gemma, 0, 4, GEMMA_PROMPT, 8, w8kv8, capture, spec_k=SPEC_K,
+                         draft_bits=4)
+
+    (gs_streams, gs_stats, gs_peak, gs_wall, gs_steps, _), gemma_spec_launches = count(
+        gemma_spec_run)
+    emit({"phase": "engine_gemma_spec", "model": "gemma3-1b (26 layers, full width)",
+          "requests": 4, "prompt": GEMMA_PROMPT, "new_tokens": 8, "w_bits": 8,
+          "draft_bits": 4, "kv_bits": 8, "spec_k": SPEC_K,
+          "spec_draft_tokens": gs_stats.spec_draft_tokens,
+          **serve_summary(gs_stats, gs_peak, gs_wall, gs_steps),
+          "launches": gemma_spec_launches, "gpu": gpu})
+    check(gs_stats.spec_rounds > 0, "gemma3-1b: no speculative round ran")
+    eager_twin("gemma3-1b greedy spec, w4 draft", "gemma_spec", gs_streams, gemma_spec_launches,
+               lambda: gemma_spec_run(False))
+    torch.cuda.empty_cache()
+
+    mixtral_full = get_config("mixtral-8x22b")
+    step_card_vs_cpu(torch, gpu, mixtral_full, layers=2, what="step_mixtral")
+    torch.cuda.empty_cache()
+    mixtral = dataclasses.replace(mixtral_full, n_layers=MIXTRAL_LAYERS)
+    mixtral_name = (f"mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers, full width: d_model "
+                    "6144, 48 heads of 128, 8 experts of d_ff 16384, top-2)")
+
+    def mixtral_run(capture=True, per_step=None):
+        return serve_run(torch, mixtral, 0, 8, MIXTRAL_PROMPT, 16, mixtral_precision, capture,
+                         per_step=per_step)
+
+    (x_streams, x_stats, x_peak, x_wall, x_steps, _), mixtral_launches = count(mixtral_run)
+    emit({"phase": "engine_mixtral", "model": mixtral_name,
+          "cut": f"depth {MIXTRAL_LAYERS} of 56 layers, so that the bf16, W8 and W4 trees fit",
+          "requests": 8, "prompt": MIXTRAL_PROMPT, "new_tokens": 16,
+          "precisions": MIXTRAL_PRECISIONS, **serve_summary(x_stats, x_peak, x_wall, x_steps),
+          "launches": mixtral_launches, "gpu": gpu})
+    check(x_stats.tokens_out == 8 * 16, f"mixtral tokens_out {x_stats.tokens_out} != 128")
+    eager_twin("mixtral-8x22b (4 layers)", "mixtral", x_streams, mixtral_launches,
+               lambda: mixtral_run(False))
+    torch.cuda.empty_cache()
+    # once more, eager and instrumented (its times are not reported): the CF
+    # launches inside the MoE FFNs and the assignments dropped at capacity,
+    # per engine step
+    read_moe, restore_moe = moe_counters(torch)
+    try:
+        (c_streams, *_, c_deltas), c_launches = count(lambda: mixtral_run(False, read_moe))
+    finally:
+        restore_moe()
+    check(c_streams == x_streams and c_launches == mixtral_launches,
+          "mixtral-8x22b: the instrumented run's streams or launches differ")
+    x_totals = {k: sum(d[k] for d in c_deltas) for k in c_deltas[0]}
+    emit({"phase": "engine_mixtral_counts", "model": mixtral_name,
+          "what": "an eager run instrumented to count (times not reported): CF launches "
+                  "in the step and inside the MoE FFNs, top-k assignments dropped at "
+                  "capacity", "moe_totals": x_totals, "per_step": c_deltas, "gpu": gpu})
+    check(x_totals["expert_cf_launches"] > 0, "no expert product ran through the CF kernel")
+    torch.cuda.empty_cache()
+
+    minitron = get_config("minitron-4b")
+
+    def minitron_run(capture=True):
+        return serve_run(torch, minitron, 0, 2, 256, 8, w8kv8, capture)
+
+    (n_streams, n_stats, n_peak, n_wall, n_steps, _), minitron_launches = count(minitron_run)
+    emit({"phase": "engine_minitron", "model": "minitron-4b (32 layers, full width)",
+          "requests": 2, "prompt": 256, "new_tokens": 8, "w_bits": 8, "kv_bits": 8,
+          **serve_summary(n_stats, n_peak, n_wall, n_steps), "launches": minitron_launches,
+          "gpu": gpu})
+    eager_twin("minitron-4b", "minitron", n_streams, minitron_launches,
+               lambda: minitron_run(False))
+    torch.cuda.empty_cache()
+
+    kimi = get_config("kimi-k2-1t-a32b").reduced()
+    (k_streams, k_stats, k_peak, k_wall, srv), kimi_launches = count(
+        lambda: waves_run(torch, 0, kimi, 8, 64, 8))
+    del srv
+    emit({"phase": "waves_kimi",
+          "what": "a path check on the card, not a measurement: first_dense and mqa_decode "
+                  "in the static waves, on reduced kimi-k2-1t-a32b (d_model 128, 4 layers: "
+                  "1 dense + 3 MoE of 8 experts, top-2, head_dim 32; full width does not "
+                  "fit one card)", "requests": 8, "prompt": 64, "new_tokens": 8,
+          "w_bits": kimi.serve_w_bits, "kv_bits": kimi.serve_kv_bits,
+          "tokens_out": k_stats.tokens_out, "wall_s": k_wall, "launches": kimi_launches,
+          "gpu": gpu})
+    check(kimi_launches["mqa_decode"] > 0 and kimi_launches["mpmm_dequant"] > 0,
+          f"kimi-k2 waves launches {kimi_launches}: expected mqa_decode and the CF matmul")
+    eager_twin("kimi-k2 waves (reduced)", "kimi_waves", k_streams, kimi_launches,
+               lambda: waves_run(torch, 0, kimi, 8, 64, 8, capture=False))
+    torch.cuda.empty_cache()
+
     # ---- captured against eager on this card, step by step and end to end
     table = {}
     for step in ("chunk", "decode", "spec", "wave"):
@@ -1799,8 +2209,11 @@ def main() -> int:
 
     by_path = {"serve": launches, "sampled": sampled_launches, "spec": spec_launches,
                "spec_sampled": spec_sampled_launches, "cnn": cnn_launches,
-               "waves": wave_launches, "waves_ssm": mamba_launches}
-    for path in ("sampled", "spec", "spec_sampled"):
+               "waves": wave_launches, "waves_ssm": mamba_launches, "gemma": gemma_launches,
+               "gemma_spec": gemma_spec_launches, "mixtral": mixtral_launches,
+               "minitron": minitron_launches, "kimi_waves": kimi_launches}
+    for path in ("sampled", "spec", "spec_sampled", "gemma", "gemma_spec", "mixtral",
+                 "minitron"):
         for name in ("mpmm_dequant", "paged_decode", "paged_prefill"):
             check(by_path[path][name] > 0, f"{name} was never launched on the {path} path")
     kernels = []
@@ -1825,6 +2238,16 @@ def main() -> int:
             **({"verify": {**s["verify"], "launches_in_one_round": sprof["counted"][
                 VERIFY_PROF[name]], "launches_spec_path": by_path["spec"][name]}}
                if "verify" in s else {}),
+            # gemma3-1b's head dim 256: launches on its engine and spec paths
+            **({"d256": {**s["d256"], "launches": by_path["gemma"][name],
+                         "launches_spec_path": by_path["gemma_spec"][name]}}
+               if "d256" in s else {}),
+            # the MoE experts' products on the mixtral path
+            # the MoE experts' products: their cases at mixtral's shapes,
+            # and the launches made inside the MoE FFNs on the mixtral path
+            **({"expert_call_sites": {**s["expert"], "path": "mixtral",
+                                      "launches": x_totals["expert_cf_launches"]}}
+               if "expert" in s else {}),
         })
     print(json.dumps({"kernels": kernels, "total_s": time.perf_counter() - t_start}))
     print(gpu)

@@ -97,6 +97,22 @@ class ArchConfig:
             )
         return self.n_layers * (attn + mlp) + 2 * v * d
 
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE: top_k experts only)."""
+        if not self.n_experts:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        h, kv, hd = self.n_heads, self.n_kv_heads, self.hd
+        attn = d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
+        act_moe = 3 * d * f * self.top_k + d * self.n_experts
+        dense_l = attn + 3 * d * f
+        moe_l = attn + act_moe
+        return (
+            self.first_dense * dense_l
+            + (self.n_layers - self.first_dense) * moe_l
+            + 2 * self.vocab * d
+        )
+
     def reduced(self) -> "ArchConfig":
         """CPU smoke-test variant: same family & topology, tiny dims."""
         return replace(
@@ -122,6 +138,10 @@ class ArchConfig:
 
 
 _REGISTRY: dict[str, str] = {
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "gemma3-1b": "repro_torch.configs.gemma3_1b",
+    "minitron-4b": "repro_torch.configs.minitron_4b",
     "llama3.2-3b": "repro_torch.configs.llama3_2_3b",
     "yi-9b": "repro_torch.configs.yi_9b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",

@@ -24,7 +24,7 @@
 // (operations), at small chunks the K/V bytes and latency.  The design:
 // - key tiles are gathered through the page table with cp.async into a
 //   ring (one page of one head is ps rows of Dk bytes at stride Hkv * Dk,
-//   whole 16-byte copies at D = 128 for every kv_bits): the next two tiles'
+//   whole 16-byte copies at D = 128 and 256 for every kv_bits): the next two tiles'
 //   payload and scales (int8 / int4; the next tile for bf16) are in flight
 //   while the current one is converted and multiplied, and the page-table
 //   entries of the tile after those are already being read;
@@ -40,8 +40,17 @@
 //   (relative error 2^-17, where one bf16 rounding gives 2^-9 and flipped a
 //   greedy pick against the CPU); V_int (exact in bf16) is read with
 //   ldmatrix.trans.  The running sum l adds the f32 p, unscaled.
-// A head dim is zero-padded in shared memory to the next of 32, 64 and 128
-// (DP).  No atomics: the same inputs give the same bits.
+// A head dim is zero-padded in shared memory to the next of 32, 64, 128 and
+// 256 (DP).  At DP <= 128 a warp keeps its Q fragments in registers for the
+// whole block; at DP = 256 they would take 64 registers a thread beside the
+// 128 f32 of the output accumulator and the 32 of the 16 x 64 S tile, past
+// the 255 a thread may have.  So at DP = 256 each K step reads its Q
+// fragment from the Q tile, which stays in shared memory for the whole
+// block, with ldmatrix, and a 64-key tile goes through S, the online softmax
+// and P V in two steps of 32 keys (16 registers of S).  Shared
+// memory at DP = 256 (TP = 264): kv16 168,960 bytes, kv8 201,728, kv4
+// 152,576, one block an SM; a deeper ring does not fit at kv8.  No atomics:
+// the same inputs give the same bits.
 #include <type_traits>
 
 #include "common.cuh"
@@ -205,10 +214,15 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hkv, C, G, D]
   __syncthreads();
 
   const bool warp_live = warp * 16 < nr;
-  uint32_t qf[DP / 16][4];
+  // this lane's ldmatrix row of the warp's 16 Q rows; the fragments stay in
+  // registers up to DP = 128 and are read per K step at DP = 256 (see above)
+  constexpr bool Q_IN_REGS = DP <= 128;
+  constexpr int KC = DP <= 128 ? PF_KT : 32;  // keys per softmax step
+  const __nv_bfloat16* q_lane = qs + (warp * 16 + (lane & 15)) * TP + (lane >> 4) * 8;
+  uint32_t qf[Q_IN_REGS ? DP / 16 : 1][4];
+  if constexpr (Q_IN_REGS) {
 #pragma unroll
-  for (int kd = 0; kd < DP / 16; ++kd) {
-    ldmatrix_x4(qf[kd], qs + (warp * 16 + (lane & 15)) * TP + kd * 16 + (lane >> 4) * 8);
+    for (int kd = 0; kd < DP / 16; ++kd) ldmatrix_x4(qf[kd], q_lane + kd * 16);
   }
   // this lane's two query rows (g, g + 8): their chunk index, -1 if dead
   int c_row[2];
@@ -293,116 +307,131 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hkv, C, G, D]
     }
     if (!warp_live) continue;
 
-    // S = Q K^T: 16 rows x 64 keys per warp, f32
-    float s[PF_KT / 8][4];
+    // the tile's keys in steps of KC, each its own online-softmax update: at
+    // DP = 256 the warp's 16 x 64 S tile would not fit in registers beside
+    // the output accumulator, so there KC = 32 (and a step past the tile's
+    // nt keys, all masked, is skipped: it would change nothing)
+#pragma unroll 1
+    for (int kc0 = 0; kc0 < (KC == PF_KT ? 1 : nt); kc0 += KC) {
+      // S = Q K^T: 16 rows x KC keys per warp, f32
+      float s[KC / 8][4];
 #pragma unroll
-    for (int j = 0; j < PF_KT / 8; ++j)
+      for (int j = 0; j < KC / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kd = 0; kd < DP / 16; ++kd) {
+      for (int kd = 0; kd < DP / 16; ++kd) {
+        uint32_t qa[4];
+        if constexpr (Q_IN_REGS) {
 #pragma unroll
-      for (int np = 0; np < PF_KT / 16; ++np) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * TP + kd * 16 +
-                            ((lane >> 3) & 1) * 8);
-        mma_bf16_16816(s[2 * np], qf[kd], kb[0], kb[1]);
-        mma_bf16_16816(s[2 * np + 1], qf[kd], kb[2], kb[3]);
-      }
-    }
-    // scale, mask, online softmax on rows g (e = 0, 1) and g + 8 (e = 2, 3)
-    float alpha[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      // the row sees tile keys t_lo..t_hi: pool keys all lie below the
-      // chunk (causal for free), chunk keys up to its own index c; a window
-      // cuts both from below; a dead row sees none
-      const int c = c_row[hh];
-      int t_lo = 0, t_hi = nt - 1;
-      if (c < 0) {
-        t_hi = -1;
-      } else if (pool) {
-        if (window > 0) t_lo = ctx + c - window + 1 - t0;
-      } else {
-        t_hi = min(t_hi, c - t0);
-        if (window > 0) t_lo = c - window + 1 - t0;
-      }
-      float mx = SOFTMAX_M0;
-#pragma unroll
-      for (int j = 0; j < PF_KT / 8; ++j) {
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-          const int t = j * 8 + 2 * qd + e2;
-          const bool ok = t >= t_lo && t <= t_hi;
-          const float f = KV_BITS == 16 ? sm_log2 : kf[t];
-          const float v = ok ? s[j][2 * hh + e2] * f : -INFINITY;
-          s[j][2 * hh + e2] = v;
-          mx = fmaxf(mx, v);
-        }
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[hh], mx);
-      alpha[hh] = exp2f(m_run[hh] - m_new);
-      m_run[hh] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < PF_KT / 8; ++j) {
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {  // masked: exp2(-inf) = 0
-          const float p = exp2f(s[j][2 * hh + e2] - m_new);
-          s[j][2 * hh + e2] = p;
-          sum += p;
-        }
-      }
-      l_run[hh] = l_run[hh] * alpha[hh] + sum;  // this lane's share of the row sum
-    }
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-    // O += (P * v_scale) V.  P's accumulator layout is the A fragment
-    // layout; P * v_scale (f32) goes in as two bf16 terms, hi + lo, so the
-    // weights keep about 16 bits (one bf16 rounding would keep 8)
-#pragma unroll
-    for (int kk = 0; kk < PF_KT / 16; ++kk) {
-      uint32_t ph[4], pl[4];
-#pragma unroll
-      for (int half_k = 0; half_k < 2; ++half_k) {  // keys 16kk + (0..7) and + (8..15)
-        const int j = 2 * kk + half_k;
-        const int t = j * 8 + 2 * qd;
-        const float v0 = KV_BITS == 16 ? 1.f : vf[t];
-        const float v1 = KV_BITS == 16 ? 1.f : vf[t + 1];
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const float x0 = s[j][2 * hh] * v0, x1 = s[j][2 * hh + 1] * v1;
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-          const __nv_bfloat162 lo =
-              __floats2bfloat162_rn(x0 - __low2float(hi), x1 - __high2float(hi));
-          ph[2 * half_k + hh] = *reinterpret_cast<const uint32_t*>(&hi);
-          pl[2 * half_k + hh] = *reinterpret_cast<const uint32_t*>(&lo);
-        }
-      }
-#pragma unroll
-      for (int dp = 0; dp < DP / 16; dp += 2) {  // 4 accumulators between dependent mma
-        uint32_t vb[2][4];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          ldmatrix_x4_trans(vb[u], vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * TP +
-                                       (dp + u) * 16 + (lane >> 4) * 8);
+          for (int e = 0; e < 4; ++e) qa[e] = qf[kd][e];
+        } else {
+          ldmatrix_x4(qa, q_lane + kd * 16);
         }
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          mma_bf16_16816(o[2 * (dp + u)], ph, vb[u][0], vb[u][1]);
-          mma_bf16_16816(o[2 * (dp + u) + 1], ph, vb[u][2], vb[u][3]);
+        for (int np = 0; np < KC / 16; ++np) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, ks + (kc0 + np * 16 + (lane & 7) + (lane >> 4) * 8) * TP + kd * 16 +
+                              ((lane >> 3) & 1) * 8);
+          mma_bf16_16816(s[2 * np], qa, kb[0], kb[1]);
+          mma_bf16_16816(s[2 * np + 1], qa, kb[2], kb[3]);
+        }
+      }
+      // scale, mask, online softmax on rows g (e = 0, 1) and g + 8 (e = 2, 3)
+      float alpha[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        // the row sees tile keys t_lo..t_hi: pool keys all lie below the
+        // chunk (causal for free), chunk keys up to its own index c; a window
+        // cuts both from below; a dead row sees none
+        const int c = c_row[hh];
+        int t_lo = 0, t_hi = nt - 1;
+        if (c < 0) {
+          t_hi = -1;
+        } else if (pool) {
+          if (window > 0) t_lo = ctx + c - window + 1 - t0;
+        } else {
+          t_hi = min(t_hi, c - t0);
+          if (window > 0) t_lo = c - window + 1 - t0;
+        }
+        float mx = SOFTMAX_M0;
+#pragma unroll
+        for (int j = 0; j < KC / 8; ++j) {
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2) {
+            const int t = kc0 + j * 8 + 2 * qd + e2;
+            const bool ok = t >= t_lo && t <= t_hi;
+            const float f = KV_BITS == 16 ? sm_log2 : kf[t];
+            const float v = ok ? s[j][2 * hh + e2] * f : -INFINITY;
+            s[j][2 * hh + e2] = v;
+            mx = fmaxf(mx, v);
+          }
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[hh], mx);
+        alpha[hh] = exp2f(m_run[hh] - m_new);
+        m_run[hh] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < KC / 8; ++j) {
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2) {  // masked: exp2(-inf) = 0
+            const float p = exp2f(s[j][2 * hh + e2] - m_new);
+            s[j][2 * hh + e2] = p;
+            sum += p;
+          }
+        }
+        l_run[hh] = l_run[hh] * alpha[hh] + sum;  // this lane's share of the row sum
+      }
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        o[j][0] *= alpha[0];
+        o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1];
+        o[j][3] *= alpha[1];
+      }
+      // O += (P * v_scale) V.  P's accumulator layout is the A fragment
+      // layout; P * v_scale (f32) goes in as two bf16 terms, hi + lo, so the
+      // weights keep about 16 bits (one bf16 rounding would keep 8)
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        uint32_t ph[4], pl[4];
+#pragma unroll
+        for (int half_k = 0; half_k < 2; ++half_k) {  // keys 16kk + (0..7) and + (8..15)
+          const int j = 2 * kk + half_k;
+          const int t = kc0 + j * 8 + 2 * qd;
+          const float v0 = KV_BITS == 16 ? 1.f : vf[t];
+          const float v1 = KV_BITS == 16 ? 1.f : vf[t + 1];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float x0 = s[j][2 * hh] * v0, x1 = s[j][2 * hh + 1] * v1;
+            const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+            const __nv_bfloat162 lo =
+                __floats2bfloat162_rn(x0 - __low2float(hi), x1 - __high2float(hi));
+            ph[2 * half_k + hh] = *reinterpret_cast<const uint32_t*>(&hi);
+            pl[2 * half_k + hh] = *reinterpret_cast<const uint32_t*>(&lo);
+          }
         }
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          mma_bf16_16816(o[2 * (dp + u)], pl, vb[u][0], vb[u][1]);
-          mma_bf16_16816(o[2 * (dp + u) + 1], pl, vb[u][2], vb[u][3]);
+        for (int dp = 0; dp < DP / 16; dp += 2) {  // 4 accumulators between dependent mma
+          uint32_t vb[2][4];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            ldmatrix_x4_trans(
+                vb[u], vs + (kc0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * TP +
+                           (dp + u) * 16 + (lane >> 4) * 8);
+          }
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            mma_bf16_16816(o[2 * (dp + u)], ph, vb[u][0], vb[u][1]);
+            mma_bf16_16816(o[2 * (dp + u) + 1], ph, vb[u][2], vb[u][3]);
+          }
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            mma_bf16_16816(o[2 * (dp + u)], pl, vb[u][0], vb[u][1]);
+            mma_bf16_16816(o[2 * (dp + u) + 1], pl, vb[u][2], vb[u][3]);
+          }
         }
       }
     }
@@ -478,8 +507,8 @@ cudaError_t dispatch_kv(int kv_bits, dim3 grid, cudaStream_t s, const void* q,
 extern "C" int paged_prefill_rows_per_block() { return PF_TQ; }
 
 // Pointers are device pointers; scale pointers are null when kv_bits == 16.
-// window <= 0 means no window.  The head dim is padded to 32, 64 or 128 in
-// shared memory; d > 128, an odd d or rows that are not whole 32-bit words
+// window <= 0 means no window.  The head dim is padded to 32, 64, 128 or 256
+// in shared memory; d > 256, an odd d or rows that are not whole 32-bit words
 // return cudaErrorInvalidValue without a launch.  Returns cudaGetLastError()
 // after the launch.
 extern "C" int paged_prefill_bf16(const void* q, const void* k_pool, const void* v_pool,
@@ -491,7 +520,7 @@ extern "C" int paged_prefill_bf16(const void* q, const void* k_pool, const void*
                                   int layer, int n_pages, int ps, int hkv, int g_size,
                                   int d, int w, int c_len, int kv_bits, int window,
                                   float sm_scale, void* stream) {
-  if (d < 2 || d > 128 || d % 2 || kv_row_bytes(d, kv_bits) % 4) {
+  if (d < 2 || d > 256 || d % 2 || kv_row_bytes(d, kv_bits) % 4) {
     return (int)cudaErrorInvalidValue;
   }
   const int n_tiles = (c_len * g_size + PF_TQ - 1) / PF_TQ;
@@ -509,8 +538,13 @@ extern "C" int paged_prefill_bf16(const void* q, const void* k_pool, const void*
                           ctx_lens, q_lens, chunk_k, chunk_v, chunk_k_scale, chunk_v_scale,
                           out, layer, n_pages, ps, hkv, g_size, d, w, c_len, window,
                           sm_scale);
-  } else {
+  } else if (d <= 128) {
     err = dispatch_kv<128>(kv_bits, grid, s, q, k_pool, v_pool, k_scale, v_scale, tables,
+                           ctx_lens, q_lens, chunk_k, chunk_v, chunk_k_scale, chunk_v_scale,
+                           out, layer, n_pages, ps, hkv, g_size, d, w, c_len, window,
+                           sm_scale);
+  } else {
+    err = dispatch_kv<256>(kv_bits, grid, s, q, k_pool, v_pool, k_scale, v_scale, tables,
                            ctx_lens, q_lens, chunk_k, chunk_v, chunk_k_scale, chunk_v_scale,
                            out, layer, n_pages, ps, hkv, g_size, d, w, c_len, window,
                            sm_scale);

@@ -7,8 +7,8 @@ query chunk against the pages holding each row's ``ctx_lens`` cached tokens
 plus the chunk's own K/V under a causal mask, with the same in-register
 dequant and window as the decode kernel.  Query rows are tiled across blocks,
 ``ROWS_PER_BLOCK`` to a block (:func:`launch_grid`), and the head dim is
-zero-padded to 32, 64 or 128 (:func:`padded_head_dim`); see the source
-note.  The plain version is
+zero-padded to 32, 64, 128 or 256 (:func:`padded_head_dim`); see the
+source note.  The plain version is
 :func:`repro_torch.kernels.ref.paged_mqa_prefill_ref`, which the dispatch
 wrapper (``ops.paged_mqa_prefill``) runs for CPU tensors.
 
@@ -26,7 +26,7 @@ __all__ = ["launch_grid", "padded_head_dim", "paged_mqa_prefill_cuda",
            "paged_mqa_prefill_ref"]
 
 ROWS_PER_BLOCK = 64  # query rows of one block, 16 per warp (csrc: PF_TQ)
-HEAD_DIMS = (32, 64, 128)  # head dims the kernel is compiled for (csrc: DP)
+HEAD_DIMS = (32, 64, 128, 256)  # head dims the kernel is compiled for (csrc: DP)
 
 
 def padded_head_dim(d: int) -> int:

@@ -24,8 +24,16 @@ report).  Run on the CPU with ``--device cpu``, for example::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
         --reduced --device cpu --temperature 0.8 --top-p 0.95 --spec-k 3
 
+Every registered arch resolves through ``get_config``: the dense configs
+(llama3.2-3b, yi-9b, minitron-4b, gemma3-1b with its 5:1 local:global
+window) and mixtral-8x22b (moe) run on the paged engine, for example::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
+        --reduced --device cpu --precision-mix 4,8
+
 Archs the JAX package's paged engine cannot host (the ssm and hybrid
-families: zamba2-7b, mamba2-130m) fall back, as there, to the static-wave
+families: zamba2-7b, mamba2-130m; moe with leading dense blocks:
+kimi-k2-1t-a32b) fall back, as there, to the static-wave
 ``Server`` (``train/server.py``) at the arch's own weight and KV precision,
 greedy only: sampling flags exit with a message naming the static-wave
 fallback, and the report has the JAX launcher's keys plus ``device``.
@@ -197,7 +205,8 @@ def _prompt_maker(args, arch):
 
 
 def _serve_waves(args, arch) -> dict:
-    """The static-wave fallback: recurrent-cache archs, greedy only."""
+    """The static-wave fallback: recurrent-cache archs and MoE with leading
+    dense blocks, greedy only."""
     import torch
 
     from repro_torch.models import transformer as model_lib

@@ -8,10 +8,14 @@ are arrays.  bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy arrays, which
 instead, so no JAX or ml_dtypes import is needed here.
 
 The same walk carries the ssm/hybrid trees (stacked ``blocks``, ``tail``,
-the unstacked ``shared`` block).  ``cache_from_numpy`` carries a contiguous
-decode cache of ``transformer.init_cache`` / ``prefill`` (``pos``, ``k``,
-``v``, ``k_scale``, ``v_scale``, ``ssm``, ``ssm_tail``); ``pos`` becomes a
-0-d int32 tensor on ``device``, as the port's cache keeps it.
+the unstacked ``shared`` block) and the moe trees: ``blocks.moe.router``
+[L, D, E] f32, the experts ``blocks.moe.{wg, wu, wd}`` [L, E, K, N] in bf16,
+f32 or quantized expert by expert (``data`` [L, E, K (/2), N], ``scale``
+[L, E, 1, N]), and the ``dense_blocks`` of a ``first_dense`` prefix.
+``cache_from_numpy`` carries a contiguous decode cache of
+``transformer.init_cache`` / ``prefill`` (``pos``, ``k``, ``v``,
+``k_scale``, ``v_scale``, ``ssm``, ``ssm_tail``); ``pos`` becomes a 0-d
+int32 tensor on ``device``, as the port's cache keeps it.
 
 ``cnn_params_from_numpy`` does the same for ``repro.models.cnn.init_network``'s
 list of ``(w_data, w_scale)`` pairs.

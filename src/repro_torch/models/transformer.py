@@ -1,7 +1,10 @@
 """The serving subset of ``repro/models/transformer.py``: parameters and
-quantization for the dense, ssm and hybrid families, the blocks the paged
-engine uses (dense), and the contiguous-cache ``prefill`` / ``decode_step``
-that the static-wave server runs (dense, ssm, hybrid).
+quantization for the dense, moe, ssm and hybrid families, the blocks the
+paged engine uses (dense and moe: :func:`ffn_block`), and the
+contiguous-cache ``prefill`` / ``decode_step`` that the static-wave server
+runs (dense, moe, ssm, hybrid).  An MoE model's leading dense layers
+(``first_dense``) are their own stack, ``params["dense_blocks"]``, run before
+the MoE ``blocks`` as the JAX functions run their unstacked prefix.
 
 Parameters are plain dicts of tensors with the JAX layout: per-layer
 weights stacked along a leading layer dim (``params["blocks"]["wq"]`` is
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_rope,
@@ -49,7 +53,7 @@ _QUANT_KEYS = {"wq", "wk", "wv", "wo", "wg", "wu", "wd", "in_proj", "out_proj", 
 def _not_ported(cfg: ArchConfig, what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} for the {cfg.family!r} family ({cfg.name}) is not ported yet "
-        "(ROADMAP: the other families)"
+        "(ROADMAP: vlm and audio)"
     )
 
 
@@ -80,6 +84,14 @@ def _init_dense_block(gen: torch.Generator, cfg: ArchConfig, dtype, *lead: int) 
     return {**_init_attn(gen, cfg, dtype, *lead), **_init_mlp(gen, cfg, dtype, *lead)}
 
 
+def _init_moe_block(gen: torch.Generator, cfg: ArchConfig, dtype, *lead: int) -> Params:
+    p = _init_attn(gen, cfg, dtype, *lead)
+    p["norm2"] = torch.ones(*lead, cfg.d_model, dtype=torch.float32, device=gen.device)
+    p["moe"] = moe_mod.init_moe_params(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, dtype,
+                                       *lead)
+    return p
+
+
 def _init_ssm_block(gen: torch.Generator, cfg: ArchConfig, dtype, n: int) -> Params:
     dims = ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_state, cfg.ssm_head_p)
     p = ssm_mod.init_ssm_params(gen, dims, dtype, n)
@@ -89,8 +101,9 @@ def _init_ssm_block(gen: torch.Generator, cfg: ArchConfig, dtype, n: int) -> Par
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
     """Random parameters on ``gen.device``, stacked over layers: dense
-    blocks, SSM blocks, or (hybrid) SSM blocks in groups of ``attn_every``,
-    an SSM tail of the remainder and one shared attention + MLP block."""
+    blocks; MoE blocks after ``first_dense`` dense ones; SSM blocks; or
+    (hybrid) SSM blocks in groups of ``attn_every``, an SSM tail of the
+    remainder and one shared attention + MLP block."""
     dtype = torch_dtype(cfg.dtype)
     dev = gen.device
     d = cfg.d_model
@@ -101,6 +114,10 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
     }
     if cfg.family == "dense":
         params["blocks"] = _init_dense_block(gen, cfg, dtype, cfg.n_layers)
+    elif cfg.family == "moe":
+        if cfg.first_dense:
+            params["dense_blocks"] = _init_dense_block(gen, cfg, dtype, cfg.first_dense)
+        params["blocks"] = _init_moe_block(gen, cfg, dtype, cfg.n_layers - cfg.first_dense)
     elif cfg.family == "ssm":
         params["blocks"] = _init_ssm_block(gen, cfg, dtype, cfg.n_layers)
     elif cfg.family == "hybrid":
@@ -117,8 +134,9 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
 def quantize_params(params: Params, bits: int) -> Params:
     """The paper's technique on the serving path: every large matmul weight
     becomes an int4/int8 payload + per-output-channel scale (stacked [L, K,
-    N] weights quantize layer by layer).  Embeddings stay in the model dtype
-    (a gather, not a matmul); norms stay f32."""
+    N] weights quantize layer by layer, MoE experts [L, E, K, N] expert by
+    expert, as the JAX ``vmap`` does).  Embeddings stay in the model dtype
+    (a gather, not a matmul); norms and the MoE router stay f32."""
 
     def walk(tree):
         out = {}
@@ -156,6 +174,21 @@ def _mlp_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return dense(act, p["mlp"]["wd"])
 
 
+def _moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    xn = rms_norm(x, p["norm2"].to(x.dtype), cfg.norm_eps)
+    return moe_mod.moe_ffn(xn, p["moe"], top_k=cfg.top_k,
+                           capacity_factor=cfg.capacity_factor, dispatch=cfg.moe_dispatch)
+
+
+def ffn_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """A layer's FFN residual term: its experts where it has them (an MoE
+    block; the auxiliary loss is dropped, as serving drops it), else its
+    dense MLP."""
+    if "moe" in p:
+        return _moe_block(p, x, cfg)[0]
+    return _mlp_block(p, x, cfg)
+
+
 def _per_layer_window(cfg: ArchConfig, n: int) -> Optional[list[int]]:
     """Per-layer window list (gemma3-style local:global patterns), or None
     if uniform."""
@@ -189,7 +222,7 @@ def _quantize_token_kv(kv: torch.Tensor, bits: int):
 # ================================================= contiguous-cache serving ====
 # The static-wave path (train/server.py): prefill the whole (left-padded)
 # prompt, then one decode step per token with one position shared by the batch.
-_SERVED = ("dense", "ssm", "hybrid")
+_SERVED = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_served(cfg: ArchConfig, what: str) -> None:
@@ -238,8 +271,8 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, device=None) -> P
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    n_attn = cfg.n_layers if cfg.family == "dense" else 0
-    if cfg.family != "dense":
+    n_attn = cfg.n_layers if cfg.family in ("dense", "moe") else 0
+    if not n_attn:
         dims = ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_state, cfg.ssm_head_p)
         state = (batch_size, dims.n_heads, dims.head_p, dims.state)
         if cfg.family == "ssm":
@@ -267,6 +300,14 @@ def _write_cache_slab(cache_k: torch.Tensor, kq: torch.Tensor, pos: torch.Tensor
     start = torch.clamp(pos.long(), 0, cache_k.shape[1] - n)
     idx = start + torch.arange(n, device=cache_k.device)
     return cache_k.index_copy_(1, idx, kq.to(cache_k.dtype))
+
+
+def _attn_stack(params: Params) -> list[Params]:
+    """Each layer's parameters of an attention stack (dense or moe), in
+    cache order: an MoE model's ``first_dense`` dense layers, then its
+    blocks."""
+    stacks = [params[k] for k in ("dense_blocks", "blocks") if k in params]
+    return [layer_params(st, li) for st in stacks for li in range(st["norm1"].shape[0])]
 
 
 def _ssm_layer(p: Params, x: torch.Tensor, cfg: ArchConfig, dims, state=None):
@@ -313,13 +354,12 @@ def prefill(params: Params, batch: dict, cfg: ArchConfig, max_len: int,
         cache["k"][slot, :, :s] = k
         cache["v"][slot, :, :s] = v
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         windows = _per_layer_window(cfg, cfg.n_layers)
-        for li in range(cfg.n_layers):
-            p = layer_params(params["blocks"], li)
+        for li, p in enumerate(_attn_stack(params)):
             a, k, v = _attn_block(p, x, positions, cfg, layer_window(cfg, windows, li))
             x = x + a
-            x = x + _mlp_block(p, x, cfg)
+            x = x + ffn_block(p, x, cfg)
             fill_kv(li, k, v)
     else:
         dims = ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_state, cfg.ssm_head_p)
@@ -388,14 +428,13 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params, cfg: ArchCo
     pos = cache["pos"]
     x = params["embed"][tokens.long()].to(torch_dtype(cfg.dtype))  # [B, 1, D]
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         windows = _per_layer_window(cfg, cfg.n_layers)
-        for li in range(cfg.n_layers):
-            p = layer_params(params["blocks"], li)
+        for li, p in enumerate(_attn_stack(params)):
             a, _ = _decode_attn(p, x, _cache_slice(cache, li), pos, cfg,
                                 layer_window(cfg, windows, li))
             x = x + a
-            x = x + _mlp_block(p, x, cfg)
+            x = x + ffn_block(p, x, cfg)
     else:
         dims = ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_state, cfg.ssm_head_p)
         every = cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers

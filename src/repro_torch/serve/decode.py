@@ -142,7 +142,7 @@ def paged_decode_step(
             new_kv = (kc, vc, None, None)
         appended.append(new_kv)
         x = x + dense(o.reshape(b, 1, h * hd), p["wo"])
-        x = x + model_lib._mlp_block(p, x, cfg)
+        x = x + model_lib.ffn_block(p, x, cfg)  # dense MLP or MoE experts
 
     scatter_rows(pools, rows, live, stack_layers(appended))
     x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)

@@ -43,8 +43,12 @@ with keys ``fold_in(PRNGKey(seed), position)``, so a sampled stream is
 reproducible under a fixed seed whatever the batch composition, bucketing or
 preemptions, and ``temperature == 0`` rows are the exact argmax.
 
-The engine serves the dense family.  Archs with frontend prefix embeddings
-(``prefix_len > 0``) raise ``NotImplementedError`` naming the ROADMAP item.
+The engine serves the dense and moe families (an MoE layer's experts run
+inside the same chunk / decode / spec steps, ``models/moe.py``); as in JAX,
+an MoE model with leading dense blocks (``first_dense``) is refused, since
+the engine keeps one uniform stack of layers over its page pools.  Archs
+with frontend prefix embeddings (``prefix_len > 0``) raise
+``NotImplementedError`` naming the ROADMAP item.
 The JAX engine's deprecated flat-kwargs ``submit`` is not ported.  In place
 of the JAX engine's jits, every group call (chunk prefill, plain decode,
 spec round) runs through the engine's captured steps (``serve/graphs.py``):
@@ -89,7 +93,7 @@ from repro_torch.serve.request import RequestState, ServeRequest
 from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.spec_decode import clip_stop, plan_windows, spec_decode_round
 
-_SUPPORTED_FAMILIES = ("dense",)
+_SUPPORTED_FAMILIES = ("dense", "moe")
 
 
 def _to_device(tree, device):
@@ -164,8 +168,11 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 class ServeEngine:
     @staticmethod
     def supports(cfg: ArchConfig) -> bool:
-        """The port's engine serves the dense family in this slice."""
-        return cfg.family in _SUPPORTED_FAMILIES
+        """The JAX engine's rule over the families the port serves: one
+        uniform stack of attention layers, so no leading dense MoE blocks."""
+        return cfg.family in _SUPPORTED_FAMILIES and not (
+            cfg.family == "moe" and cfg.first_dense
+        )
 
     def __init__(
         self,
@@ -182,13 +189,18 @@ class ServeEngine:
         device=None,
     ):
         if not self.supports(cfg):
+            if cfg.family == "moe":
+                raise NotImplementedError(
+                    f"ServeEngine needs a uniform attention-cache stack: {cfg.name} has "
+                    f"{cfg.first_dense} leading dense MoE block(s); serve it through the "
+                    "static waves (train/server.py)")
             raise _not_ported(
-                f"serving the {cfg.family!r} family ({cfg.name})", "the other families"
+                f"serving the {cfg.family!r} family ({cfg.name})", "vlm and audio"
             )
         if cfg.prefix_len:
             raise _not_ported(
                 "one-shot prefill of frontend prefix embeddings (prefix_len > 0)",
-                "the other families",
+                "vlm and audio",
             )
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")

@@ -3,9 +3,11 @@
 Hand a ``Server`` a list of ``Request``s and get them back completed.  The
 families the JAX package's paged engine hosts (dense, vlm, audio, and moe
 without leading dense blocks) go to an engine; of those the port's
-``ServeEngine`` serves the dense family, and the others raise
+``ServeEngine`` serves dense and moe, and vlm / audio raise
 ``NotImplementedError``.  Every other family (ssm and hybrid recurrent
-caches) is served by the static-wave scheduler over ``models.transformer``'s
+caches, and moe with leading dense blocks such as kimi-k2, whose unstacked
+prefix the paged engine does not host) is served by the static-wave
+scheduler over ``models.transformer``'s
 contiguous-cache ``prefill`` / ``decode_step``: waves of ``batch_size``
 requests, prompts left-padded with token 0 to a common length, one position
 shared by the wave, greedy argmax, each request's first token from the
@@ -93,7 +95,7 @@ class Server:
             if not ServeEngine.supports(arch):
                 raise NotImplementedError(
                     f"serving the {arch.family!r} family ({arch.name}) is not ported "
-                    "yet (ROADMAP: the other families)"
+                    "yet (ROADMAP: vlm and audio)"
                 )
             pages_per_slot = -(-max_len // page_size)
             self.engine = ServeEngine(
@@ -102,10 +104,10 @@ class Server:
                 device=self.device,
             )
         else:
-            if arch.family not in ("ssm", "hybrid"):
+            if arch.family not in ("ssm", "hybrid", "moe"):
                 raise NotImplementedError(
                     f"static-wave serving of the {arch.family!r} family ({arch.name}) is "
-                    "not ported yet (ROADMAP: the other families)"
+                    "not ported yet (ROADMAP: vlm and audio)"
                 )
             params = _to_device(params, self.device)
             self._params = (model_lib.quantize_params(params, arch.serve_w_bits)

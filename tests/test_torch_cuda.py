@@ -3,7 +3,10 @@ version, on the card: the W4/W8 dequant matmul in the CF order (the
 tensor-core kernel's 8-row tile at M <= 8, its 64- and 128-row tiles above,
 at ragged edges and at the serving paths' prefill shapes) and the FF order,
 the int-mode matmul (bit-exact against the CPU), paged decode and paged
-prefill (also at a speculative verify window), contiguous-cache decode
+prefill (also at a speculative verify window, and at gemma3-1b's head dim
+256 and at 160 / 192, which pad to 256), the MoE FFN (``models/moe.py``:
+the CF kernel per expert) against the CPU's plain path, captured and eager,
+contiguous-cache decode
 (``mqa_decode``), at small ragged shapes, at llama3.2-3b's and zamba2-7b's
 widths and at ResNet18's conv shapes; a reduced zamba2-7b (hybrid) prefill +
 decode step on the card against the CPU; the sampler
@@ -791,13 +794,122 @@ def test_paged_prefill_kernel_layout_matches_wrapper(dev):
     from repro_torch.kernels.paged_prefill import ROWS_PER_BLOCK
 
     assert _build.lib().paged_prefill_rows_per_block() == ROWS_PER_BLOCK
-    q = torch.zeros(1, 1, 2, 1, 136, dtype=torch.bfloat16, device=dev)
-    pool = torch.zeros(1, 2, 4, 1, 136, dtype=torch.bfloat16, device=dev)
-    chunk = torch.zeros(1, 1, 2, 136, dtype=torch.bfloat16, device=dev)
+    q = torch.zeros(1, 1, 2, 1, 264, dtype=torch.bfloat16, device=dev)
+    pool = torch.zeros(1, 2, 4, 1, 264, dtype=torch.bfloat16, device=dev)
+    chunk = torch.zeros(1, 1, 2, 264, dtype=torch.bfloat16, device=dev)
     one = torch.ones(1, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="head dims up to 128"):
+    with pytest.raises(ValueError, match="head dims up to 256"):
         paged_mqa_prefill_cuda(q, pool, pool, None, None, one.reshape(1, 1), one, one, 0,
                                chunk, chunk, None, None, kv_bits=16, sm_scale=1.0)
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8, 16])
+@pytest.mark.parametrize("window", [None, 1024])
+@pytest.mark.parametrize("d", [160, 192, 256])
+def test_paged_prefill_kernel_wide_heads(dev, kv_bits, window, d):
+    """gemma3-1b's heads (Hkv 1, G 4) at D 256, and at D 160 and 192, which
+    pad to 256: a 128-token chunk and a verify window (C 5) over contexts up
+    to 1300, where a window of 1024 binds, ragged q_lens and a padding row;
+    two runs give the same bits."""
+    rng = np.random.default_rng(d + kv_bits + (window or 0))
+    b, n_layers, ps, hkv, g = 4, 2, 16, 1, 4
+    ctx_list = [1300, 1100, 700, 0]
+    for c, ql in ((128, [128, 100, 1, 0]), (5, [5, 3, 1, 0])):
+        w = -(-(max(ctx_list) + c) // ps)
+        n_pages = b * w + 2
+        kp, vp, ks, vs = _pools(rng, dev, kv_bits, n_layers, n_pages, ps, hkv, d)
+        tables = torch.from_numpy(
+            rng.permutation(n_pages)[: b * w].reshape(b, w).astype(np.int32)).to(dev)
+        ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
+        q_lens = torch.tensor(ql, dtype=torch.int32, device=dev)
+        q = torch.from_numpy(rng.normal(size=(b, c, hkv * g, d)).astype(np.float32))
+        q = q.to(torch.bfloat16).to(dev)
+        ck, cks = _tokens(rng, dev, kv_bits, (b, c, hkv), d)
+        cv, cvs = _tokens(rng, dev, kv_bits, (b, c, hkv), d)
+        args = (q, kp, vp, ks, vs, tables, ctx, q_lens, 1, ck, cv, cks, cvs)
+        before = paged_mqa_prefill_cuda.launches
+        got = ops.paged_mqa_prefill(*args, kv_bits=kv_bits, window=window)
+        torch.cuda.synchronize()
+        assert paged_mqa_prefill_cuda.launches == before + 1
+        assert torch.isfinite(got.float()).all()
+        exp = ref.paged_mqa_prefill_ref(*args, sm_scale=1 / math.sqrt(d), kv_bits=kv_bits,
+                                        window=window)
+        live = torch.arange(c, device=dev)[None, :] < q_lens[:, None]
+        _close(got[live], exp[live])
+        assert torch.equal(got, ops.paged_mqa_prefill(*args, kv_bits=kv_bits, window=window))
+
+
+# ------------------------------------------------------------------ MoE
+def _moe_case(bits, seed=0):
+    """moe_ffn's parameters (D 512, F 1024, 8 experts; W4/W8 quantized per
+    expert, or bf16) and 2 x 64 bf16 tokens, on the CPU."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import quantize_dense_weight
+
+    gen = torch.Generator().manual_seed(seed)
+    params = moe.init_moe_params(gen, 512, 1024, 8, torch.bfloat16)
+    if bits < 16:
+        params = {k: v if k == "router" else quantize_dense_weight(v, bits)
+                  for k, v in params.items()}
+    x = torch.randn(2, 64, 512, generator=gen).to(torch.bfloat16)
+    return params, x
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_moe_ffn_on_card_matches_cpu(dev, bits):
+    """moe_ffn on 128 tokens, top-2 of 8 (capacity 40): the card's routing
+    (ids, slots, drops) equals the CPU's; its bf16 output, through the CF
+    kernel once per expert and product for W4/W8, is within twice the CPU
+    bf16 run's distance from the CPU float32 run (the rule of chip_smoke.py's
+    phase 3), in the largest and the mean difference."""
+    from repro_torch.models import moe
+
+    params, x = _moe_case(bits)
+    card_params = _to(params, dev)
+    te, ce = (moe._route(t.reshape(-1, 512), p["router"], 2)[1] for t, p in
+              ((x.to(dev), card_params), (x, params)))
+    assert torch.equal(te.cpu(), ce)
+    before = mpmm_cuda.launches
+    card = moe.moe_ffn(x.to(dev), card_params, top_k=2)[0]
+    torch.cuda.synchronize()
+    assert mpmm_cuda.launches - before == (3 * 8 if bits < 16 else 0)
+    cpu = moe.moe_ffn(x, params, top_k=2)[0]
+    wide = {k: v.float() if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16 else v
+            for k, v in params.items()}
+    f32 = moe.moe_ffn(x.float(), wide, top_k=2)[0]
+    a, e = card.cpu().float(), cpu.float()
+    assert torch.isfinite(a).all()
+    diff, noise = (a - e).abs(), (f32 - e).abs()
+    assert diff.max() <= 2 * noise.max() and diff.mean() <= 2 * noise.mean()
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_moe_ffn_captured_replays_eager_bits(dev, bits):
+    """moe_ffn captured once as a step (serve/graphs.py) and replayed with
+    new tokens equals the eager call bit for bit; the eager call runs under
+    sync-debug "error", so it reads nothing back to the host."""
+    from repro_torch.models import moe
+    from repro_torch.serve import graphs
+
+    params, _ = _moe_case(bits)
+    params = _to(params, dev)
+    g = graphs.StepGraphs(dev)
+    gen = torch.Generator(device=dev).manual_seed(bits)
+
+    def fn(x):
+        return moe.moe_ffn(x, params, top_k=2)[0]
+
+    for _ in range(3):
+        x = torch.randn(2, 64, 512, generator=gen, device=dev).to(torch.bfloat16)
+        got = g.run(("moe", bits), fn, (x,)).clone()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with graphs.disable_capture():
+                want = fn(x)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(got, want)
+    assert g.captured == 1 and g.replays == 2
 
 
 # ------------------------------------------------- contiguous-cache decode

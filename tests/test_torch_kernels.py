@@ -454,11 +454,12 @@ def test_paged_prefill_grid_covers_rows(c, g):
 def test_paged_prefill_head_dim_padding():
     from repro_torch.kernels.paged_prefill import padded_head_dim
 
-    for d in range(2, 129, 2):
+    for d in range(2, 257, 2):
         dp = padded_head_dim(d)
         assert dp % 16 == 0 and d <= dp and (dp == 32 or dp // 2 < d)
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        padded_head_dim(130)
+    assert padded_head_dim(192) == 256 and padded_head_dim(256) == 256
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        padded_head_dim(258)
 
 
 # ------------------------------------------------------------ paged prefill

@@ -106,7 +106,7 @@ def test_decode_step_refuses_kv4_and_unported_families():
     assert cache["k"].shape[-1] == tcfg.hd // 2  # nibble-packed, as in JAX
     with pytest.raises(NotImplementedError, match="int4 KV"):
         tT.decode_step(ours, torch.zeros(1, 1, dtype=torch.int64), cache, tcfg)
-    for fam in ("moe", "vlm", "audio"):
+    for fam in ("vlm", "audio"):
         bad = dataclasses.replace(tcfg, family=fam)
         for fn in (lambda: tT.init_cache(bad, 1, 8),
                    lambda: tT.prefill(ours, {"tokens": torch.zeros(1, 2, dtype=torch.int64)},
@@ -158,8 +158,8 @@ def test_server_waves_match_jax(name, n_layers, quantize):
 
 
 def test_server_routes_families_by_the_jax_rule():
-    """Dense goes to the port's engine; vlm/audio/moe, which JAX's paged
-    engine hosts, raise instead of being served by waves."""
+    """Dense goes to the port's engine; vlm/audio, which JAX's paged engine
+    hosts, raise instead of being served by waves (moe: tests/test_torch_moe.py)."""
     dense = tget("llama3.2-3b").reduced()
     assert engine_family(dense) and not engine_family(tget("zamba2-7b"))
     srv = Server(dense, tT.init_params(dense, torch.Generator().manual_seed(0)),
@@ -167,7 +167,7 @@ def test_server_routes_families_by_the_jax_rule():
     reqs = [Request(rid=0, prompt=np.arange(1, 6, dtype=np.int32), max_new_tokens=3)]
     srv.serve(reqs)
     assert srv.engine is not None and len(reqs[0].out_tokens) == 3
-    for fam, first_dense in (("vlm", 0), ("audio", 0), ("moe", 0), ("moe", 1)):
+    for fam, first_dense in (("vlm", 0), ("audio", 0)):
         cfg = dataclasses.replace(dense, family=fam, first_dense=first_dense)
         with pytest.raises(NotImplementedError, match="not ported"):
             Server(cfg, {}, device="cpu")
