@@ -104,7 +104,29 @@ Phases, each printing one JSON line that names the card:
                kimi-k2-1t-a32b through the static waves, a path check of
                its first_dense block and of mqa_decode.  Each runs captured
                and once more eager (identical streams and launches).
-8. kernels line -- each kernel's launches on its path (all > 0): the serving
+8. prefix   -- the vlm and audio archs through the engine's one-shot prefix
+               prefill, seeded random weights: paligemma-3b cut to 2 of 18
+               layers at full width, the one-shot prefill (256 prefix
+               embeddings + 32 tokens, its cache written into pages by
+               PagedKVCache.write_prompt) and one decode step card vs CPU by
+               phase 3's rule, near-tied rows witnessed as for gemma3-1b; the
+               prefix drawn on the card against the CPU's draw; full
+               paligemma-3b through ServeEngine, 8 greedy requests of 512
+               tokens after its 256 prefix embeddings, 32 new, (w, kv) over
+               (4,8) (8,8) (16,16), twice (identical streams), and a greedy
+               spec run (w8 target, w4 draft, spec_k 4: paged prefill at
+               1 x 8 x 256 in every verify); full musicgen-medium, 8
+               requests of 512 after 64 prefix embeddings, 32 new, (w, kv)
+               over (8,8) (4,4) (paged decode at G = 1); each captured and
+               once more eager (identical streams and launches).  Then the
+               paper's executable core on the card: SAU(bit_accurate=True)
+               and pe_multiply on CUDA tensors bit-equal to the CPU at INT4 /
+               INT8 / INT16, and a 16 -> 16 channel 3x3 conv assembled by
+               core.assembler.assemble_conv and run by
+               core.interpreter.run_program on the CPU, bit-equal to the same
+               layer through the int-mode matmul on the card (its patches as
+               ops.mpconv forms them), FF and CF, at each precision.
+9. kernels line -- each kernel's launches on its path (all > 0): the serving
                kernels in phase 5's first run, the FF and int matmuls in
                phase 4, contiguous-cache decode in phase 6's first zamba2
                run; the counts are set to 0 just before each path runs, and
@@ -115,11 +137,16 @@ Phases, each printing one JSON line that names the card:
                their verify case, paged prefill its D = 256 case (with its
                launches on the gemma3-1b paths) and the CF matmul its
                cases at the experts' shapes and the launches made inside
-               the MoE FFNs on the mixtral path.
+               the MoE FFNs on the mixtral path; paged decode its cases at
+               musicgen-medium's heads (24 x 1 x 64) and paligemma-3b's (1 x 8
+               x 256) with their launches on those paths, paged prefill its
+               paligemma-3b verify case with the launches on that spec path.
 
 Phase 2 holds paged decode at llama3.2-3b's heads (8 x 3 x 128; ctx 0, 1,
 17, 1024, with and without a window of 256), yi-9b's (4 x 8 x 128, ctx 1024,
-kv8 and kv4) and gemma3-1b's (1 x 4 x 256, a window of 1024 at ctx 2048).
+kv8 and kv4), gemma3-1b's (1 x 4 x 256, a window of 1024 at ctx 2048),
+musicgen-medium's (24 x 1 x 64, ctx 600, kv8 and kv4) and paligemma-3b's (1
+x 8 x 256, ctx 784); paged prefill also at paligemma-3b's verify window.
 It also holds contiguous-cache decode (mqa_decode) against its plain
 version at zamba2-7b's serving shape (kv8 and kv4), a 32k context and
 llama3.2-3b's GQA shape; phase 3 also runs zamba2-7b cut to 7 layers at full
@@ -232,6 +259,20 @@ GEMMA_PRECISIONS = [(4, 8), (8, 8)]
 MIXTRAL_LAYERS = 4
 MIXTRAL_PROMPT = 512
 MIXTRAL_PRECISIONS = [(4, 8), (8, 8), (16, 16)]
+# phase 8: the archs with a frontend prefix, served through the one-shot
+# prefill: 512-token prompts after the prefix (256 embeddings for
+# paligemma-3b, 64 for musicgen-medium), 32 new tokens
+PREFIX_PROMPT, PREFIX_NEW = 512, 32
+PALI_PRECISIONS = [(4, 8), (8, 8), (16, 16)]
+MUSIC_PRECISIONS = [(8, 8), (4, 4)]
+# their attention in phase 2: paged decode at a served context (prefix +
+# prompt + some new tokens), paged prefill at paligemma-3b's verify window
+MUSIC_HEADS, MUSIC_DECODE_CTX = (24, 1, 64), 600
+PALI_HEADS, PALI_DECODE_CTX = (1, 8, 256), 784
+PALI_VERIFY_CTX = [768, 800, 790, 769, 777, 783, 795, 0]
+# the ISA program checked against the int-mode matmul: a 16 -> 16 channel
+# 3x3 conv over 8 x 8, padding 1
+ISA_LAYER = dict(cin=16, cout=16, k=3, h=8, w=8, stride=1, padding=1)
 # the numbers of a phase-2 case that the kernels line carries
 LINE_KEYS = ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
 
@@ -253,8 +294,13 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+_T0 = time.perf_counter()
+
+
 def emit(record: dict) -> None:
-    print(json.dumps(record), flush=True)
+    """Print one JSON line, stamped with the seconds since the script began
+    (``t_s``: where the smoke's time goes)."""
+    print(json.dumps({**record, "t_s": round(time.perf_counter() - _T0, 1)}), flush=True)
 
 
 def bound(nbytes: float, flops: float, peak: float = PEAK_FLOPS) -> tuple[float, str]:
@@ -413,7 +459,9 @@ def kernel_cases(torch, timer, gpu) -> dict:
     # ---- paged decode: B = 8 at llama3.2-3b's heads, ctx in {0, 1, 17, 1024},
     # with and without a window; yi-9b's heads (4 x 8 x 128) at ctx 1024 (kv8,
     # kv4); gemma3-1b's (1 x 4 x 256) with its window of 1024 at ctx 2048 (kv8)
-    def decode_cases(kv_bits, ctxs, windows, heads=(hkv, g, d), label=""):
+    def decode_cases(kv_bits, ctxs, windows, heads=(hkv, g, d), label="", line=None):
+        """``line``: this call's kv8 case is the kernels line's ``line``
+        entry."""
         hk, gq, dd = heads
         hh, b = hk * gq, 8
         w = -(-(max(ctxs) + 1) // ps)
@@ -467,6 +515,8 @@ def kernel_cases(torch, timer, gpu) -> dict:
                     "bound_ms": b_ms, "bound_by": b_by,
                 }
                 note("paged_decode", rec, (kv_bits, ctx, window, label) == (8, 1024, None, ""))
+                if line and kv_bits == 8:
+                    summary["paged_decode"][line] = {key: rec[key] for key in LINE_KEYS}
         del kp, vp, ks, vs
         torch.cuda.empty_cache()
 
@@ -475,6 +525,10 @@ def kernel_cases(torch, timer, gpu) -> dict:
     for kv_bits in (8, 4):
         decode_cases(kv_bits, (1024,), (None,), (4, 8, 128), "yi-9b heads")
     decode_cases(8, (2048,), (1024,), (1, 4, 256), "gemma3-1b heads")
+    for kv_bits in (8, 4):
+        decode_cases(kv_bits, (MUSIC_DECODE_CTX,), (None,), MUSIC_HEADS, "musicgen-medium heads",
+                     "g1_d64")
+    decode_cases(8, (PALI_DECODE_CTX,), (None,), PALI_HEADS, "paligemma-3b heads", "g8_d256")
 
     # ---- paged prefill: C in {1, 32, 128}, ragged q_lens, ctx > 0; then a
     # speculative verify window (C = SPEC_K + 1 at B = 8, VERIFY_CTX); then
@@ -577,6 +631,9 @@ def kernel_cases(torch, timer, gpu) -> dict:
                           "gemma3-1b verify ", GEMMA_HEADS, window)
     prefill_cases(8, GEMMA_PREFILL_CTX, [(128, GEMMA_PREFILL_Q_LENS)], "D=192 (pads to 256) ",
                   (1, 4, 192), GEMMA_WINDOW)
+    for kv_bits in (8, 4, 16):
+        prefill_cases(kv_bits, PALI_VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)],
+                      "paligemma-3b verify ", PALI_HEADS, line=("paligemma_verify", SPEC_K + 1))
     torch.cuda.empty_cache()
     return summary
 
@@ -1727,8 +1784,9 @@ def moe_counters(torch):
 
 def serve_run(torch, cfg, seed: int, requests: int, prompt: int, new: int, precision,
               capture: bool = True, spec_k: int = 0, draft_bits: int = 4, per_step=None):
-    """Serve ``requests`` greedy requests of ``prompt`` random tokens,
-    ``new`` new tokens each, request i at ``precision(i)``, through
+    """Serve ``requests`` greedy requests of ``prompt`` random tokens (after
+    the arch's prefix embeddings, if it has a frontend), ``new`` new tokens
+    each, request i at ``precision(i)``, through
     ServeEngine (8 slots, 16-token pages, 128-token chunks; ``spec_k`` and
     ``draft_bits`` the engine's), weights drawn from ``seed``, the steps
     captured (or eager).  ``per_step()`` returns a dict of counts, read
@@ -1744,7 +1802,7 @@ def serve_run(torch, cfg, seed: int, requests: int, prompt: int, new: int, preci
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     params = model_lib.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
-    pages = -(-(prompt + new + spec_k + 8) // 16)
+    pages = -(-(cfg.prefix_len + prompt + new + spec_k + 8) // 16)
     engine = ServeEngine(cfg, params, max_slots=8, page_size=16, prefill_chunk=128,
                          num_pages=requests * pages, spec_k=spec_k, draft_bits=draft_bits,
                          device="cuda")
@@ -1793,6 +1851,272 @@ def serve_summary(stats, peak, wall, steps) -> dict:
 def _p50(samples) -> float:
     ordered = sorted(samples)
     return ordered[len(ordered) // 2]
+
+
+# --------------------------------------------------------------- phase 8
+def pali_precision(i: int) -> dict:
+    w, kv = PALI_PRECISIONS[i % len(PALI_PRECISIONS)]
+    return {"w_bits": w, "kv_bits": kv}
+
+
+def music_precision(i: int) -> dict:
+    w, kv = MUSIC_PRECISIONS[i % len(MUSIC_PRECISIONS)]
+    return {"w_bits": w, "kv_bits": kv}
+
+
+def prefix_draw_card_vs_cpu(torch, cfg, batch: int) -> dict:
+    """The frontend's standard normals (``prng.normal``, before the
+    1/sqrt(d_model) scaling) drawn on the card and on the CPU from the same
+    key: the uniforms are integer hashes, so the draws may differ only where
+    ``log1p`` or ``sqrt`` round otherwise, within 8 float32 ulps of the
+    largest draw."""
+    from repro_torch.kernels import prng
+
+    shape = (batch, cfg.prefix_len, cfg.d_model)
+    key = prng.fold_in(prng.prng_key(0), batch)
+    card = prng.normal(key.cuda(), shape).cpu()
+    cpu = prng.normal(key, shape)
+    err = (card - cpu).abs().max().item()
+    top = cpu.abs().max().item()
+    tol = 8 * 2.0 ** (math.floor(math.log2(top)) - 23)
+    check(bool(torch.isfinite(card).all()) and err <= tol,
+          f"{cfg.name} prefix draw: card vs CPU differ by {err:.3g} (tolerance {tol:.3g})")
+    return {"shape": list(shape), "max_abs_err": err, "tol": tol,
+            "equal_fraction": (card == cpu).float().mean().item()}
+
+
+def prefix_step_card_vs_cpu(torch, gpu, base, layers: int = 2, prompt: int = 32) -> None:
+    """The one-shot prefix prefill of ``base`` cut to ``layers`` layers at
+    full width (``transformer.prefill`` over the prefix embeddings and 2
+    rows of ``prompt`` tokens, its contiguous cache written into pages by
+    ``PagedKVCache.write_prompt``) and one paged decode step after it, on
+    the card (kernels) and on the CPU (plain versions), for three (w_bits,
+    kv_bits) pairs, judged by phase 3's rule with float32 and the card with
+    plain paged attention as witnesses on near-tied rows (``witness_all``:
+    257216 random logits).  Both runs take the CPU's prefix draw."""
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.models.frontends import prefix_embeddings
+    from repro_torch.serve import decode
+    from repro_torch.serve.kv_cache import PagedKVCache
+
+    arch, depth = base.name, base.n_layers
+    base = dataclasses.replace(base, n_layers=layers)
+    params16 = model_lib.init_params(base, torch.Generator(device="cuda").manual_seed(1))
+    gen = torch.Generator().manual_seed(1)
+    b, ps = 2, 16
+    plen = base.prefix_len + prompt
+    prefix = prefix_embeddings(base, b, device="cpu")
+    tokens = torch.randint(0, base.vocab, (b, prompt), generator=gen)
+    next_tokens = torch.randint(0, base.vocab, (b, 1), generator=gen)
+    for w_bits, kv_bits in ((4, 8), (16, 16), (8, 4)):
+        cfg = dataclasses.replace(base, serve_kv_bits=kv_bits)
+        params = params16 if w_bits == 16 else model_lib.quantize_params(params16, w_bits)
+        cpu_params = _tree_map(params, lambda t: t.cpu())  # copied once for both CPU runs
+
+        def run(device, wide=False):
+            """(prefill logits, decode logits) on ``device``; ``wide`` runs
+            the model in float32 (bf16 weights widen exactly)."""
+            def to(t):
+                if t is None:
+                    return None
+                t = t.to(device)
+                return t.float() if wide and t.dtype == torch.bfloat16 else t
+
+            p = _tree_map(params if device == "cuda" else cpu_params, to)
+            run_cfg = dataclasses.replace(cfg, dtype="float32") if wide else cfg
+            cache = PagedKVCache(run_cfg, num_pages=b * (plen // ps + 2), page_size=ps,
+                                 kv_bits=kv_bits, device=device)
+            max_len = cache.pages_for(plen) * ps
+            logits_p, kv = model_lib.prefill(
+                p, {"tokens": to(tokens), "prefix_emb": to(prefix)}, run_cfg, max_len)
+            for i in range(b):
+                cache.allocate(i, cache.pages_for(plen))
+                cache.write_prompt(i, *(kv[n][:, i] for n in ("k", "v", "k_scale", "v_scale")
+                                        if n in kv))
+                cache.extend(i, 1)  # the decode step's token opens a page
+            tables = torch.from_numpy(cache.table_array(list(range(b)), len(cache.table(0))))
+            lengths = torch.full((b,), plen, dtype=torch.int32)
+            valid = torch.ones(b, dtype=torch.bool)
+            logits_d, _ = decode.paged_decode_step(
+                p, to(next_tokens), to(lengths), to(tables), to(valid), *cache.pools,
+                cfg=run_cfg)
+            return logits_p.cpu()[:, : cfg.vocab], logits_d.cpu()[:, : cfg.vocab]
+
+        t0 = time.perf_counter()
+        on_card = run("cuda")
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = run("cpu")
+        t_cpu = time.perf_counter() - t0
+        cpu32 = run("cpu", wide=True)
+        with plain_paged_attention():
+            plain = run("cuda")
+        rec = {"phase": "step_prefix", "model": f"{arch} ({layers} of {depth} layers, full width)",
+               "w_bits": w_bits, "kv_bits": kv_bits, "batch": b, "prefix": base.prefix_len,
+               "prompt": prompt, "card_s": t_card, "cpu_s": t_cpu, "gpu": gpu}
+        for i, name in enumerate(("prefill", "decode")):
+            compare_logits(torch, rec, name, f"{arch} one-shot {name} w{w_bits}kv{kv_bits}",
+                           on_card[i], cpu[i], cpu32[i], kv_bits, True, plain[i])
+        emit(rec)
+        del params, cpu_params
+    del params16
+
+
+def isa_on_card(torch, gpu) -> None:
+    """The paper's executable core on the card.  (a) The SAU model's 4-bit
+    multiplier combination (``core.sau``) on CUDA tensors: ``pe_multiply``
+    over every INT4 operand pair and 2**20 random INT8 / INT16 pairs, and
+    ``SAU(bit_accurate=True)`` tiles, bit-equal to the CPU.  (b) An ISA
+    program: ISA_LAYER assembled by ``assemble_conv`` and run by
+    ``run_program`` (numpy, on the CPU) against the same conv through the
+    int-mode matmul on the card, its patches as ``ops.mpconv`` forms them
+    (NHWC, feature order (cin, kh, kw)), FF and CF: bit-exact at INT4 (int4
+    weights, int8 activations), INT8 and INT16."""
+    import numpy as np
+
+    from repro_torch.core import sau
+    from repro_torch.core.assembler import assemble_conv
+    from repro_torch.core.dataflow import ConvLayer
+    from repro_torch.core.interpreter import run_program
+    from repro_torch.core.isa import Dataflow
+    from repro_torch.core.precision import Precision
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mpmm import mpmm_int_cuda
+    from repro_torch.quant.pack import pack_int4
+
+    rng = np.random.default_rng(0)
+    tile = sau.SAU(tile_r=4, tile_c=4)
+    layer = ConvLayer("isa", **ISA_LAYER)
+    for prec in (Precision.INT4, Precision.INT8, Precision.INT16):
+        spec = prec.spec
+        if prec is Precision.INT4:
+            vals = torch.arange(spec.qmin, spec.qmax + 1, dtype=torch.int32)
+            a, b = vals[:, None].expand(16, 16), vals[None, :].expand(16, 16)
+        else:
+            a, b = (torch.from_numpy(rng.integers(spec.qmin, spec.qmax + 1, 1 << 20)
+                                     .astype(np.int32)) for _ in range(2))
+        prod = sau.pe_multiply(a.cuda(), b.cuda(), prec).cpu()
+        check(torch.equal(prod, sau.pe_multiply(a, b, prec)) and
+              torch.equal(prod.long(), a.long() * b.long()),
+              f"pe_multiply {prec.name} on the card != the CPU / the direct product")
+        tiles = [(torch.from_numpy(rng.integers(spec.qmin, spec.qmax + 1, (4, 24))
+                                   .astype(np.int32)),
+                  torch.from_numpy(rng.integers(spec.qmin, spec.qmax + 1, (24, 4))
+                                   .astype(np.int32))) for _ in range(8)]
+        acc = torch.zeros(4, 4, dtype=torch.int32)
+        for x, w in tiles:
+            got = tile(acc.cuda(), x.cuda(), w.cuda(), prec, bit_accurate=True).cpu()
+            check(torch.equal(got, tile(acc, x, w, prec, bit_accurate=True)) and
+                  torch.equal(got, tile(acc, x, w, prec)),
+                  f"SAU(bit_accurate=True) {prec.name} on the card != the CPU")
+        # the program and the int-mode matmul on one conv
+        lim = (spec.qmin, spec.qmax + 1)
+        x = rng.integers(*lim, (layer.cin, layer.h, layer.w)).astype(np.int32)
+        w = rng.integers(*lim, (layer.cout, layer.cin, layer.k, layer.k)).astype(np.int32)
+        x_dtype = torch.int16 if prec is Precision.INT16 else torch.int8
+        xi = torch.from_numpy(x).permute(1, 2, 0)[None].to(x_dtype).cuda()
+        patches = ref.conv_patches(xi, layer.k, layer.stride, layer.padding)
+        patches = patches.reshape(-1, patches.shape[-1]).contiguous()
+        wk = torch.from_numpy(w).permute(1, 2, 3, 0).reshape(-1, layer.cout)
+        wd = wk.to(torch.int16 if prec is Precision.INT16 else torch.int8)
+        if prec is Precision.INT4:
+            wd = pack_int4(wd, dim=-2)
+        wd = wd.contiguous().cuda()
+        rec = {"phase": "isa_program", "layer": ISA_LAYER, "precision": prec.name,
+               "pe_multiply_pairs": a.numel(), "sau_tiles": len(tiles), "gpu": gpu}
+        for df in (Dataflow.FF, Dataflow.CF):
+            prog = assemble_conv(layer, x, w, prec, df)
+            t0 = time.perf_counter()
+            exp = run_program(prog)
+            sim_s = time.perf_counter() - t0
+            before = mpmm_int_cuda.launches
+            got = mpmm_int_cuda(patches, wd, w_bits=spec.bits, dataflow=df.name.lower())
+            check(mpmm_int_cuda.launches == before + 1, "the int-mode matmul did not launch")
+            got = got.reshape(layer.h_out, layer.w_out, layer.cout).permute(2, 0, 1).cpu()
+            check(np.array_equal(got.numpy().astype(np.int64), exp),
+                  f"ISA program {prec.name} {df.name} != the int-mode matmul on the card")
+            rec[df.name.lower()] = {"instructions": prog.n_instructions,
+                                    "simulator_s": sim_s, "bit_exact": True}
+        emit(rec)
+
+
+def prefix_paths(torch, gpu, count, eager_twin) -> dict:
+    """Phase 8's serving: the prefix draw and the 2-layer paligemma-3b cut
+    card vs CPU, then full paligemma-3b (twice, and speculative) and full
+    musicgen-medium through ServeEngine's one-shot prefix prefill, each path
+    once more eager through ``eager_twin``.  ``count(path)`` runs a path
+    with every launch count at 0.  Returns each path's launches."""
+    from repro_torch.configs import get_config
+
+    pali, music = get_config("paligemma-3b"), get_config("musicgen-medium")
+    emit({"phase": "prefix_draw", "what": "the frontend's standard normals for 8 requests "
+          "drawn on the card against the CPU's draw",
+          "draws": {c.name: prefix_draw_card_vs_cpu(torch, c, 8) for c in (pali, music)},
+          "gpu": gpu})
+    prefix_step_card_vs_cpu(torch, gpu, pali)
+    torch.cuda.empty_cache()
+
+    def prefix_checks(name, stats, requests=8):
+        check(stats.tokens_out == requests * PREFIX_NEW,
+              f"{name} tokens_out {stats.tokens_out} != {requests * PREFIX_NEW}")
+        check(stats.prefills == requests and stats.prefill_chunks == 0
+              and stats.prefix_hit_tokens == 0,
+              f"{name}: {stats.prefills} prefills, {stats.prefill_chunks} chunk calls, "
+              f"{stats.prefix_hit_tokens} prefix hits: not the one-shot prefill alone")
+
+    def pali_run(capture=True):
+        return serve_run(torch, pali, 0, 8, PREFIX_PROMPT, PREFIX_NEW, pali_precision, capture)
+
+    (p_streams, p_stats, p_peak, p_wall, p_steps, _), pali_launches = count(pali_run)
+    emit({"phase": "engine_paligemma", "model": "paligemma-3b (18 layers, full width)",
+          "requests": 8, "prefix": pali.prefix_len, "prompt": PREFIX_PROMPT,
+          "new_tokens": PREFIX_NEW, "precisions": PALI_PRECISIONS,
+          **serve_summary(p_stats, p_peak, p_wall, p_steps), "launches": pali_launches,
+          "gpu": gpu})
+    prefix_checks("paligemma-3b", p_stats)
+    p_streams2, p_stats2, _, p_wall2, _, _ = pali_run()
+    check(p_streams == p_streams2, "paligemma-3b: a second run with the same seed gave other "
+          "streams")
+    emit({"phase": "engine_paligemma_repeat", "identical_streams": True,
+          "decode_tok_per_s": p_stats2.decode_tok_per_s, "prefill_s": p_stats2.prefill_s,
+          "ttft_ms_last": max(p_stats2.ttfts) * 1e3, "wall_s": p_wall2, "gpu": gpu})
+    eager_twin("paligemma-3b", "paligemma", p_streams, pali_launches, lambda: pali_run(False))
+    torch.cuda.empty_cache()
+
+    def pali_spec_run(capture=True):
+        return serve_run(torch, pali, 0, 8, PREFIX_PROMPT, PREFIX_NEW, w8kv8, capture,
+                         spec_k=SPEC_K, draft_bits=4)
+
+    (ps_streams, ps_stats, ps_peak, ps_wall, ps_steps, _), pali_spec_launches = count(
+        pali_spec_run)
+    emit({"phase": "engine_paligemma_spec", "model": "paligemma-3b (18 layers, full width)",
+          "requests": 8, "prefix": pali.prefix_len, "prompt": PREFIX_PROMPT,
+          "new_tokens": PREFIX_NEW, "w_bits": 8, "draft_bits": 4, "kv_bits": 8,
+          "spec_k": SPEC_K, "spec_draft_tokens": ps_stats.spec_draft_tokens,
+          **serve_summary(ps_stats, ps_peak, ps_wall, ps_steps),
+          "launches": pali_spec_launches, "gpu": gpu})
+    prefix_checks("paligemma-3b spec", ps_stats)
+    check(ps_stats.spec_rounds > 0, "paligemma-3b: no speculative round ran")
+    eager_twin("paligemma-3b greedy spec, w4 draft", "paligemma_spec", ps_streams,
+               pali_spec_launches, lambda: pali_spec_run(False))
+    torch.cuda.empty_cache()
+
+    def music_run(capture=True):
+        return serve_run(torch, music, 0, 8, PREFIX_PROMPT, PREFIX_NEW, music_precision,
+                         capture)
+
+    (u_streams, u_stats, u_peak, u_wall, u_steps, _), music_launches = count(music_run)
+    emit({"phase": "engine_musicgen", "model": "musicgen-medium (48 layers, full width)",
+          "requests": 8, "prefix": music.prefix_len, "prompt": PREFIX_PROMPT,
+          "new_tokens": PREFIX_NEW, "precisions": MUSIC_PRECISIONS,
+          **serve_summary(u_stats, u_peak, u_wall, u_steps), "launches": music_launches,
+          "gpu": gpu})
+    prefix_checks("musicgen-medium", u_stats)
+    eager_twin("musicgen-medium", "musicgen", u_streams, music_launches,
+               lambda: music_run(False))
+    torch.cuda.empty_cache()
+    return {"paligemma": pali_launches, "paligemma_spec": pali_spec_launches,
+            "musicgen": music_launches}
 
 
 def main() -> int:
@@ -2182,6 +2506,10 @@ def main() -> int:
                lambda: waves_run(torch, 0, kimi, 8, 64, 8, capture=False))
     torch.cuda.empty_cache()
 
+    # ---- phase 8: the vlm and audio archs, then the paper's core on the card
+    prefix_launches = prefix_paths(torch, gpu, count, eager_twin)
+    isa_on_card(torch, gpu)
+
     # ---- captured against eager on this card, step by step and end to end
     table = {}
     for step in ("chunk", "decode", "spec", "wave"):
@@ -2211,11 +2539,19 @@ def main() -> int:
                "spec_sampled": spec_sampled_launches, "cnn": cnn_launches,
                "waves": wave_launches, "waves_ssm": mamba_launches, "gemma": gemma_launches,
                "gemma_spec": gemma_spec_launches, "mixtral": mixtral_launches,
-               "minitron": minitron_launches, "kimi_waves": kimi_launches}
+               "minitron": minitron_launches, "kimi_waves": kimi_launches,
+               **prefix_launches}
     for path in ("sampled", "spec", "spec_sampled", "gemma", "gemma_spec", "mixtral",
-                 "minitron"):
+                 "minitron", "paligemma_spec"):
         for name in ("mpmm_dequant", "paged_decode", "paged_prefill"):
             check(by_path[path][name] > 0, f"{name} was never launched on the {path} path")
+    # the one-shot prefix prefill runs plain attention; paged prefill serves
+    # those archs only in spec verifies
+    for path in ("paligemma", "musicgen"):
+        check(by_path[path]["mpmm_dequant"] > 0 and by_path[path]["paged_decode"] > 0
+              and by_path[path]["paged_prefill"] == 0,
+              f"{path} launches {by_path[path]}: expected the CF matmul and paged decode, "
+              "and no paged prefill")
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
         s = summary[name]
@@ -2242,12 +2578,21 @@ def main() -> int:
             **({"d256": {**s["d256"], "launches": by_path["gemma"][name],
                          "launches_spec_path": by_path["gemma_spec"][name]}}
                if "d256" in s else {}),
-            # the MoE experts' products on the mixtral path
             # the MoE experts' products: their cases at mixtral's shapes,
             # and the launches made inside the MoE FFNs on the mixtral path
             **({"expert_call_sites": {**s["expert"], "path": "mixtral",
                                       "launches": x_totals["expert_cf_launches"]}}
                if "expert" in s else {}),
+            # the vlm / audio archs' attention: paged decode at musicgen's
+            # and paligemma's heads, paged prefill at paligemma's verify
+            **({"g1_d64": {**s["g1_d64"], "launches": by_path["musicgen"][name]}}
+               if "g1_d64" in s else {}),
+            **({"g8_d256": {**s["g8_d256"], "launches": by_path["paligemma"][name],
+                            "launches_spec_path": by_path["paligemma_spec"][name]}}
+               if "g8_d256" in s else {}),
+            **({"paligemma_verify": {**s["paligemma_verify"],
+                                     "launches_spec_path": by_path["paligemma_spec"][name]}}
+               if "paligemma_verify" in s else {}),
         })
     print(json.dumps({"kernels": kernels, "total_s": time.perf_counter() - t_start}))
     print(gpu)

@@ -1,8 +1,8 @@
 """ArchConfig: one dataclass describing an architecture, plus the registry
 the launcher and tests resolve ``--arch <id>`` against.
 
-A copy of ``repro/configs/base.py`` (the port imports nothing of ``repro``).
-The registry lists only the archs the port serves.
+A copy of ``repro/configs/base.py`` (the port imports nothing of ``repro``);
+the registry lists the same archs.
 """
 from __future__ import annotations
 
@@ -146,6 +146,8 @@ _REGISTRY: dict[str, str] = {
     "yi-9b": "repro_torch.configs.yi_9b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
+    "paligemma-3b": "repro_torch.configs.paligemma_3b",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
 }
 
 

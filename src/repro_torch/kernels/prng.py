@@ -17,19 +17,31 @@ on.
 - ``fold_in(key, d)`` = ``threefry2x32(key, (0, d))``;
 - ``uniform(key)``: ``jax.random.uniform(key, ())``: the bits
   ``b0 ^ b1`` of ``threefry2x32(key, (0, 0))``, their top 23 as the
-  mantissa of a float in [1, 2), minus 1.
+  mantissa of a float in [1, 2), minus 1;
+- ``normal(key, shape)``: ``jax.random.normal(key, shape, float32)``: the
+  bits of element ``i`` (row-major) are ``b0 ^ b1`` of ``threefry2x32(key,
+  (i >> 32, i & 0xFFFFFFFF))``, made uniform as above on ``[nextafter(-1,
+  0), 1)``, then ``sqrt(2) * erfinv(u)`` with XLA's float32 ``erf_inv``
+  (Giles' polynomials), whose steps are rounded once each as XLA's fused
+  multiply-adds round them.  The uniforms are bit-equal to JAX's; the
+  normals lie within an ulp or two of JAX's (``log1p`` may round
+  otherwise).
 """
 from __future__ import annotations
 
+import math
 import numbers
 
+import numpy as np
 import torch
 
-__all__ = ["threefry2x32", "prng_key", "fold_in", "uniform"]
+__all__ = ["threefry2x32", "prng_key", "fold_in", "uniform", "normal_uniforms", "normal"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
+_SQRT2 = float(np.float32(math.sqrt(2.0)))
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 
 
 def _u32(x, device=None) -> torch.Tensor:
@@ -73,5 +85,48 @@ def uniform(key: torch.Tensor) -> torch.Tensor:
     """``jax.random.uniform(key, ())`` per key: float32 in [0, 1)."""
     zero = torch.zeros(key.shape[:-1], dtype=torch.int64, device=key.device)
     b0, b1 = threefry2x32(key, zero, zero)
-    bits = ((b0 ^ b1) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+    return _to_unit(b0 ^ b1)
+
+
+def _to_unit(bits: torch.Tensor) -> torch.Tensor:
+    """32 random bits -> float32 in [0, 1): the top 23 as the mantissa of a
+    float in [1, 2), minus 1."""
+    return (((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0)
+
+
+# XLA's ErfInv32: degree-9 polynomials in w = -log1p(-x^2) - 2.5 (w < 5) or
+# sqrt(w) - 3, highest power first
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``erf_inv`` as XLA computes it; each Horner step is evaluated
+    in float64 and rounded once, as a fused multiply-add."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    p = torch.full_like(w, 0.0)
+    for lo5, hi5 in zip(_ERFINV_LT5, _ERFINV_GE5):
+        coef = torch.where(lt, torch.tensor(lo5, dtype=torch.float32, device=x.device),
+                           torch.tensor(hi5, dtype=torch.float32, device=x.device))
+        p = (coef.double() + p * w).float().double()
+    out = p.float() * x
+    return torch.where(x.abs() == 1, x * torch.finfo(torch.float32).max, out)
+
+
+def normal_uniforms(key: torch.Tensor, shape) -> torch.Tensor:
+    """The uniforms :func:`normal` starts from: ``jax.random.uniform(key,
+    shape, jnp.float32, nextafter(-1, 0), 1)``, flat, on the key's device."""
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=key.device)
+    b0, b1 = threefry2x32(key, idx >> 32, idx & _MASK)
+    # (maxval - minval) rounds to 2.0 in float32, so the scaling is exact
+    return torch.clamp_min(_to_unit(b0 ^ b1) * 2.0 + _NORMAL_LO, _NORMAL_LO)
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape, jnp.float32)`` for one key ``[2]``,
+    drawn on the key's device (see the module note)."""
+    return (_erfinv(normal_uniforms(key, shape)) * _SQRT2).reshape(shape)

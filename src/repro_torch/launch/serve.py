@@ -26,10 +26,15 @@ report).  Run on the CPU with ``--device cpu``, for example::
 
 Every registered arch resolves through ``get_config``: the dense configs
 (llama3.2-3b, yi-9b, minitron-4b, gemma3-1b with its 5:1 local:global
-window) and mixtral-8x22b (moe) run on the paged engine, for example::
+window), mixtral-8x22b (moe) and the archs with a frontend prefix
+(paligemma-3b, vlm; musicgen-medium, audio: their prompts follow the stub
+frontend's ``prefix_len`` embeddings, prefilled in one shot with no prefix
+cache) run on the paged engine, for example::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
         --reduced --device cpu --precision-mix 4,8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
+        --reduced --device cpu
 
 Archs the JAX package's paged engine cannot host (the ssm and hybrid
 families: zamba2-7b, mamba2-130m; moe with leading dense blocks:
@@ -118,7 +123,7 @@ def main(argv: Optional[list[str]] = None) -> dict:
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model_lib.init_params(arch, gen)
-    max_len = args.prompt_len + args.new_tokens + 8
+    max_len = arch.prefix_len + args.prompt_len + args.new_tokens + 8
 
     pages_per_slot = -(-max_len // args.page_size)
     engine = ServeEngine(
@@ -221,7 +226,7 @@ def _serve_waves(args, arch) -> dict:
     prompt = _prompt_maker(args, arch)
     device = resolve_device(args.device)
     params = model_lib.init_params(arch, torch.Generator(device=device).manual_seed(args.seed))
-    max_len = args.prompt_len + args.new_tokens + 8
+    max_len = arch.prefix_len + args.prompt_len + args.new_tokens + 8
     srv = Server(arch, params, batch_size=args.batch_size, max_len=max_len,
                  quantize=not args.no_quantize, device=device)
     del params

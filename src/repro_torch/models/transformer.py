@@ -1,8 +1,11 @@
 """The serving subset of ``repro/models/transformer.py``: parameters and
-quantization for the dense, moe, ssm and hybrid families, the blocks the
-paged engine uses (dense and moe: :func:`ffn_block`), and the
-contiguous-cache ``prefill`` / ``decode_step`` that the static-wave server
-runs (dense, moe, ssm, hybrid).  An MoE model's leading dense layers
+quantization for every family (dense, moe, ssm, hybrid, and vlm / audio,
+whose backbone is the dense stack), the blocks the paged engine uses (dense,
+vlm, audio and moe: :func:`ffn_block`), and the contiguous-cache ``prefill``
+/ ``decode_step``: the static-wave server runs them (dense, moe, ssm,
+hybrid), and the paged engine's one-shot prefill of the vlm and audio archs
+runs ``prefill``, whose ``batch["prefix_emb"]`` (``models/frontends.py``)
+is prepended to the token embeddings.  An MoE model's leading dense layers
 (``first_dense``) are their own stack, ``params["dense_blocks"]``, run before
 the MoE ``blocks`` as the JAX functions run their unstacked prefix.
 
@@ -47,14 +50,9 @@ from repro_torch.quant.pack import pack_int4
 
 Params = dict[str, Any]
 _GLOBAL_WINDOW = 1 << 30  # "no window" sentinel (per-layer window lists)
+_DENSE_STACK = ("dense", "vlm", "audio")  # one stack of dense blocks
+_ATTN_STACK = _DENSE_STACK + ("moe",)  # attention in every layer
 _QUANT_KEYS = {"wq", "wk", "wv", "wo", "wg", "wu", "wd", "in_proj", "out_proj", "unembed"}
-
-
-def _not_ported(cfg: ArchConfig, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} for the {cfg.family!r} family ({cfg.name}) is not ported yet "
-        "(ROADMAP: vlm and audio)"
-    )
 
 
 def _init_attn(gen: torch.Generator, cfg: ArchConfig, dtype, *lead: int) -> Params:
@@ -101,7 +99,7 @@ def _init_ssm_block(gen: torch.Generator, cfg: ArchConfig, dtype, n: int) -> Par
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
     """Random parameters on ``gen.device``, stacked over layers: dense
-    blocks; MoE blocks after ``first_dense`` dense ones; SSM blocks; or
+    blocks (dense, vlm, audio); MoE blocks after ``first_dense`` dense ones; SSM blocks; or
     (hybrid) SSM blocks in groups of ``attn_every``, an SSM tail of the
     remainder and one shared attention + MLP block."""
     dtype = torch_dtype(cfg.dtype)
@@ -112,7 +110,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
         "unembed": dense_init(gen, d, cfg.padded_vocab, dtype),
         "final_norm": torch.ones(d, dtype=torch.float32, device=dev),
     }
-    if cfg.family == "dense":
+    if cfg.family in _DENSE_STACK:
         params["blocks"] = _init_dense_block(gen, cfg, dtype, cfg.n_layers)
     elif cfg.family == "moe":
         if cfg.first_dense:
@@ -127,7 +125,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
             params["tail"] = _init_ssm_block(gen, cfg, dtype, rem)
         params["shared"] = _init_dense_block(gen, cfg, dtype)
     else:
-        raise _not_ported(cfg, "init_params")
+        raise ValueError(f"unknown family {cfg.family!r}")
     return params
 
 
@@ -221,15 +219,8 @@ def _quantize_token_kv(kv: torch.Tensor, bits: int):
 
 # ================================================= contiguous-cache serving ====
 # The static-wave path (train/server.py): prefill the whole (left-padded)
-# prompt, then one decode step per token with one position shared by the batch.
-_SERVED = ("dense", "moe", "ssm", "hybrid")
-
-
-def _check_served(cfg: ArchConfig, what: str) -> None:
-    if cfg.family not in _SERVED:
-        raise _not_ported(cfg, what)
-    if cfg.prefix_len:
-        raise _not_ported(cfg, f"{what} with frontend prefix embeddings")
+# prompt, then one decode step per token with one position shared by the
+# batch; and the engine's one-shot prefill of the vlm and audio archs.
 
 
 def _attn_block(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
@@ -248,9 +239,12 @@ def _attn_block(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ArchCo
 
 
 def _embed(params: Params, batch: dict, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x [B,S,D], positions [B,S])."""
+    """Returns (x [B,S,D], positions [B,S]); with a frontend, the [B, P, D]
+    ``batch["prefix_emb"]`` comes first and positions run over P + S."""
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
+    if cfg.prefix_len:
+        x = torch.cat([batch["prefix_emb"].to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     return x, positions
@@ -260,7 +254,6 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, device=None) -> P
     """Pre-allocated decode cache.  KV payloads are int8 when
     cfg.serve_kv_bits < 16 (nibble-packed along the head dim at 4 bits),
     in the model dtype otherwise; SSM states are f32."""
-    _check_served(cfg, "init_cache")
     kv, hd = cfg.n_kv_heads, cfg.hd
     quant = cfg.serve_kv_bits < 16
     if cfg.serve_kv_bits == 4:
@@ -271,7 +264,7 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, device=None) -> P
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    n_attn = cfg.n_layers if cfg.family in ("dense", "moe") else 0
+    n_attn = cfg.n_layers if cfg.family in _ATTN_STACK else 0
     if not n_attn:
         dims = ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_state, cfg.ssm_head_p)
         state = (batch_size, dims.n_heads, dims.head_p, dims.state)
@@ -331,11 +324,11 @@ def _logits(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 def prefill(params: Params, batch: dict, cfg: ArchConfig, max_len: int,
             cache: Optional[Params] = None):
-    """Processes the full prompt ``batch["tokens"] [B, S]``; returns
+    """Processes the full prompt ``batch["tokens"] [B, S]`` (after
+    ``batch["prefix_emb"]`` where the arch has a frontend); returns
     (last-token logits [B, V] f32, cache).  ``cache``, an ``init_cache(cfg,
     B, max_len)`` dict, is zeroed and filled in place instead of a new one:
     a captured decode step reads its buffers by address."""
-    _check_served(cfg, "prefill")
     x, positions = _embed(params, batch, cfg)
     b, s, _ = x.shape
     quant = cfg.serve_kv_bits < 16
@@ -354,7 +347,7 @@ def prefill(params: Params, batch: dict, cfg: ArchConfig, max_len: int,
         cache["k"][slot, :, :s] = k
         cache["v"][slot, :, :s] = v
 
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in _ATTN_STACK:
         windows = _per_layer_window(cfg, cfg.n_layers)
         for li, p in enumerate(_attn_stack(params)):
             a, k, v = _attn_block(p, x, positions, cfg, layer_window(cfg, windows, li))
@@ -424,11 +417,10 @@ def _cache_slice(cache: Params, i: int) -> dict:
 def decode_step(params: Params, tokens: torch.Tensor, cache: Params, cfg: ArchConfig):
     """One decode step: tokens [B, 1] -> (logits [B, V] f32, cache), the
     cache updated in place (see the module note)."""
-    _check_served(cfg, "decode_step")
     pos = cache["pos"]
     x = params["embed"][tokens.long()].to(torch_dtype(cfg.dtype))  # [B, 1, D]
 
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in _ATTN_STACK:
         windows = _per_layer_window(cfg, cfg.n_layers)
         for li, p in enumerate(_attn_stack(params)):
             a, _ = _decode_attn(p, x, _cache_slice(cache, li), pos, cfg,

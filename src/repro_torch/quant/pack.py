@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["pack_int4", "unpack_int4"]
+__all__ = ["pack_int4", "unpack_int4", "pack_int4_hi_lo"]
 
 
 def pack_int4(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -36,3 +36,13 @@ def unpack_int4(packed: torch.Tensor, dim: int = -1) -> torch.Tensor:
     shape = list(packed.shape)
     shape[dim] *= 2
     return stacked.reshape(shape)
+
+
+def pack_int4_hi_lo(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Splits wider ints into (hi, lo) 4-bit digit planes (int8 storage):
+    ``x == hi * 16 + lo`` with lo in [0, 15] unsigned and hi signed, the
+    radix-16 digit split the SAU uses for 8-bit operands (``core/sau.py``)."""
+    x = x.to(torch.int32)
+    lo = x & 0x0F
+    hi = (x - lo) >> 4
+    return hi.to(torch.int8), lo.to(torch.int8)

@@ -43,12 +43,20 @@ with keys ``fold_in(PRNGKey(seed), position)``, so a sampled stream is
 reproducible under a fixed seed whatever the batch composition, bucketing or
 preemptions, and ``temperature == 0`` rows are the exact argmax.
 
-The engine serves the dense and moe families (an MoE layer's experts run
-inside the same chunk / decode / spec steps, ``models/moe.py``); as in JAX,
-an MoE model with leading dense blocks (``first_dense``) is refused, since
-the engine keeps one uniform stack of layers over its page pools.  Archs
-with frontend prefix embeddings (``prefix_len > 0``) raise
-``NotImplementedError`` naming the ROADMAP item.
+The engine serves the dense, vlm, audio and moe families (an MoE layer's
+experts run inside the same chunk / decode / spec steps, ``models/moe.py``);
+as in JAX, an MoE model with leading dense blocks (``first_dense``) is
+refused, since the engine keeps one uniform stack of layers over its page
+pools.  Archs with frontend prefix embeddings (``prefix_len > 0``: the vlm
+and audio archs) keep the JAX engine's one-shot prefill and no prefix cache,
+since prefix embeddings are not token-addressable: admitted requests are
+grouped by (w_bits, kv_bits, prefix + prompt length), and each group runs
+``transformer.prefill`` once, eagerly, over the prefix of
+``models/frontends.py`` and the prompt; its contiguous cache is scattered
+into each request's pages in place (``PagedKVCache.write_prompt``), and the
+first token is the argmax of its logits, or ``ops.sample_tokens`` under the
+same keys as every other step.  Decode steps and spec rounds then run
+through the captured steps as for every arch.
 The JAX engine's deprecated flat-kwargs ``submit`` is not ported.  In place
 of the JAX engine's jits, every group call (chunk prefill, plain decode,
 spec round) runs through the engine's captured steps (``serve/graphs.py``):
@@ -75,7 +83,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as model_lib
+from repro_torch.models.frontends import prefix_embeddings
 from repro_torch.serve import graphs
 from repro_torch.serve.decode import paged_decode_sample
 from repro_torch.serve.kv_cache import PagedKVCache
@@ -93,7 +103,7 @@ from repro_torch.serve.request import RequestState, ServeRequest
 from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.spec_decode import clip_stop, plan_windows, spec_decode_round
 
-_SUPPORTED_FAMILIES = ("dense", "moe")
+_SUPPORTED_FAMILIES = ("dense", "vlm", "audio", "moe")
 
 
 def _to_device(tree, device):
@@ -161,15 +171,11 @@ def _samp_views(dev, kind):
             dev[2].float() if has_p else None, dev[3].long(), dev[4].long())
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
-
-
 class ServeEngine:
     @staticmethod
     def supports(cfg: ArchConfig) -> bool:
-        """The JAX engine's rule over the families the port serves: one
-        uniform stack of attention layers, so no leading dense MoE blocks."""
+        """The JAX engine's rule: one uniform stack of attention layers, so
+        attention families only, and no leading dense MoE blocks."""
         return cfg.family in _SUPPORTED_FAMILIES and not (
             cfg.family == "moe" and cfg.first_dense
         )
@@ -189,19 +195,11 @@ class ServeEngine:
         device=None,
     ):
         if not self.supports(cfg):
-            if cfg.family == "moe":
-                raise NotImplementedError(
-                    f"ServeEngine needs a uniform attention-cache stack: {cfg.name} has "
-                    f"{cfg.first_dense} leading dense MoE block(s); serve it through the "
-                    "static waves (train/server.py)")
-            raise _not_ported(
-                f"serving the {cfg.family!r} family ({cfg.name})", "vlm and audio"
-            )
-        if cfg.prefix_len:
-            raise _not_ported(
-                "one-shot prefill of frontend prefix embeddings (prefix_len > 0)",
-                "vlm and audio",
-            )
+            what = (f"{cfg.first_dense} leading dense MoE block(s)" if cfg.family == "moe"
+                    else f"the {cfg.family!r} family")
+            raise NotImplementedError(
+                f"ServeEngine needs a uniform attention-cache stack: {cfg.name} has {what}; "
+                "serve it through the static waves (train/server.py)")
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         if spec_k < 0:
@@ -215,7 +213,10 @@ class ServeEngine:
         self.page_size = page_size
         self.num_pages = num_pages if num_pages is not None else max_slots * 32
         self.prefill_chunk = prefill_chunk
-        self._prefix_enabled = enable_prefix_cache
+        # frontend prefix embeddings are not token-addressable: those archs
+        # keep the one-shot grouped prefill and no prefix cache
+        self._legacy_prefill = bool(cfg.prefix_len)
+        self._prefix_enabled = enable_prefix_cache and not self._legacy_prefill
         self._sched = Scheduler(max_slots)
         # w_bits -> param tree (quantized lazily)
         self._params = {16: _to_device(params, self.device)}
@@ -251,12 +252,12 @@ class ServeEngine:
         return dataclasses.replace(self.cfg, serve_kv_bits=kv_bits)
 
     def _prefill_len(self, req: ServeRequest) -> int:
-        return len(req.feed_tokens())
+        return self.cfg.prefix_len + len(req.feed_tokens())
 
     def _max_ctx(self, req: ServeRequest) -> int:
         """Largest cache the request can ever need (the final emitted token
         is never fed back)."""
-        return len(req.prompt) + req.max_new_tokens - 1
+        return self.cfg.prefix_len + len(req.prompt) + req.max_new_tokens - 1
 
     def _prefilling(self, req: ServeRequest) -> bool:
         return req.cache_len < self._prefill_len(req)
@@ -527,6 +528,57 @@ class ServeEngine:
             self._block_hashes[req.rid] = hashes
         pc.register(hashes[:n_blocks], cache.table(req.rid)[:n_blocks])
 
+    # ------------------------------------------ one-shot prefill (prefix_len)
+    def _admit_and_prefill(self) -> list[ServeRequest]:
+        """Admit what fits (each request's prefix + prompt pages reserved
+        this round) and prefill every admitted request, one call per (w_bits,
+        kv_bits, length) group."""
+        reserved: dict[int, int] = {}  # kv_bits -> pages spoken for this round
+
+        def fits(req: ServeRequest) -> bool:
+            if not self._admissible(req):
+                return False
+            cache = self.cache_for(req.kv_bits)
+            need = cache.pages_for(self._prefill_len(req))
+            if cache.num_free - reserved.get(req.kv_bits, 0) < need:
+                return False
+            reserved[req.kv_bits] = reserved.get(req.kv_bits, 0) + need
+            return True
+
+        admitted = self._sched.admit(fits)
+        groups: dict[tuple, list[ServeRequest]] = {}
+        for req in admitted:
+            groups.setdefault((req.w_bits, req.kv_bits, self._prefill_len(req)), []).append(req)
+        t0 = time.perf_counter()
+        for (w_bits, kv_bits, plen), reqs in groups.items():
+            self._prefill_group(reqs, w_bits, kv_bits, plen)
+        self.stats.prefill_s += time.perf_counter() - t0
+        return admitted
+
+    def _prefill_group(self, reqs: list[ServeRequest], w_bits: int, kv_bits: int,
+                       plen: int) -> None:
+        """One eager ``transformer.prefill`` over the group's prefix
+        embeddings and prompts, its cache rows written into each request's
+        pages; the first token comes from its logits."""
+        cache = self.cache_for(kv_bits)
+        max_len = cache.pages_for(plen) * self.page_size
+        batch = {"tokens": self._tensor(np.stack([r.feed_tokens() for r in reqs])),
+                 "prefix_emb": prefix_embeddings(self.cfg, len(reqs), device=self.device)}
+        logits, kv = model_lib.prefill(self.params_for(w_bits), batch,
+                                       self._group_cfg(kv_bits), max_len)
+        host, kind = self._samp_host(reqs, len(reqs))
+        samp = None if host is None else _samp_views(self._tensor(host), kind)
+        first = ops.sample_or_argmax(logits, samp).cpu().numpy()
+        for i, req in enumerate(reqs):
+            cache.allocate(req.rid, cache.pages_for(plen))
+            if cache.quantized:
+                cache.write_prompt(req.rid, kv["k"][:, i], kv["v"][:, i],
+                                   kv["k_scale"][:, i], kv["v_scale"][:, i])
+            else:
+                cache.write_prompt(req.rid, kv["k"][:, i], kv["v"][:, i])
+            req.cache_len = plen
+            self._on_prefill_done(req, int(first[i]))
+
     # ---------------------------------------------------------------- decode
     def _step_need(self, req: ServeRequest) -> int:
         """Cache positions this step may write for ``req``: the speculative
@@ -730,16 +782,20 @@ class ServeEngine:
         """One engine iteration; returns True if any work was done (failing
         an inadmissible request counts: it empties the queue)."""
         failed_before = self.stats.failed
-        admitted = self._sched.admit(self._try_admit)
-        pumping = any(
-            r.state is RequestState.RUNNING and self._prefilling(r)
-            for r in self._sched.running
-        )
-        self._prefill_pump()
+        if self._legacy_prefill:
+            worked = bool(self._admit_and_prefill())
+        else:
+            admitted = self._sched.admit(self._try_admit)
+            pumping = any(
+                r.state is RequestState.RUNNING and self._prefilling(r)
+                for r in self._sched.running
+            )
+            self._prefill_pump()
+            worked = bool(admitted) or pumping
         self._ensure_page_room()
         n_groups = self._decode_groups()
         self.stats.engine_steps += 1
-        return bool(admitted) or pumping or n_groups > 0 or self.stats.failed > failed_before
+        return worked or n_groups > 0 or self.stats.failed > failed_before
 
     def _stalled(self) -> RuntimeError:
         free = {b: c.num_allocatable for b, c in self._caches.items()}

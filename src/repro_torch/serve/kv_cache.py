@@ -19,8 +19,9 @@ runs dry.
 
 Book-keeping is host-side Python.  The payload tensors live on the engine's
 device and are updated *in place*: the decode and prefill steps scatter new
-tokens into them with ``index_put_``, and ``fork_page`` copies one page over
-another.  (The JAX package updates its pools functionally and donates the
+tokens into them with ``index_put_``, ``write_prompt`` scatters a one-shot
+prefill's contiguous rows into a request's pages with ``index_copy_``, and
+``fork_page`` copies one page over another.  (The JAX package updates its pools functionally and donates the
 old buffers; here there is nothing to donate.)
 """
 from __future__ import annotations
@@ -197,6 +198,24 @@ class PagedKVCache:
         self._tables[rid][idx] = new
         self.decref(old)
         return new
+
+    def write_prompt(self, rid: int, k, v, k_scale=None, v_scale=None) -> None:
+        """Scatter a prefilled contiguous cache row into rid's pages, in
+        place: k / v are [L, S_pad, Hkv, Dk] (scales [L, S_pad, Hkv, 1]) with
+        S_pad == len(table) * page_size.  The pools keep their storage (the
+        JAX package rebinds its pools; here a captured step reads them by
+        address, so a new tensor would leave it reading stale memory)."""
+        table = self._tables[rid]
+        n, ps = len(table), self.page_size
+        if k.shape[1] != n * ps:
+            raise ValueError(f"prompt cache len {k.shape[1]} != {n}*{ps}")
+        pages = torch.tensor(table, dtype=torch.int64, device=self.device)
+        rows = [(self.k, k), (self.v, v)]
+        if self.quantized:
+            rows += [(self.k_scale, k_scale), (self.v_scale, v_scale)]
+        for pool, row in rows:
+            paged = row.reshape(row.shape[0], n, ps, *row.shape[2:])
+            pool.index_copy_(1, pages, paged.to(pool.dtype))
 
     def table(self, rid: int) -> list[int]:
         return list(self._tables[rid])

@@ -1,10 +1,8 @@
 """Synchronous serving facade (port of ``repro/train/server.py``).
 
 Hand a ``Server`` a list of ``Request``s and get them back completed.  The
-families the JAX package's paged engine hosts (dense, vlm, audio, and moe
-without leading dense blocks) go to an engine; of those the port's
-``ServeEngine`` serves dense and moe, and vlm / audio raise
-``NotImplementedError``.  Every other family (ssm and hybrid recurrent
+families the paged engine hosts (dense, vlm, audio, and moe without leading
+dense blocks) go to the port's ``ServeEngine``.  Every other family (ssm and hybrid recurrent
 caches, and moe with leading dense blocks such as kimi-k2, whose unstacked
 prefix the paged engine does not host) is served by the static-wave
 scheduler over ``models.transformer``'s
@@ -92,11 +90,6 @@ class Server:
         self.device = resolve_device(device)
         self.engine = None
         if engine_family(arch):
-            if not ServeEngine.supports(arch):
-                raise NotImplementedError(
-                    f"serving the {arch.family!r} family ({arch.name}) is not ported "
-                    "yet (ROADMAP: vlm and audio)"
-                )
             pages_per_slot = -(-max_len // page_size)
             self.engine = ServeEngine(
                 arch, params, max_slots=batch_size,
@@ -104,11 +97,6 @@ class Server:
                 device=self.device,
             )
         else:
-            if arch.family not in ("ssm", "hybrid", "moe"):
-                raise NotImplementedError(
-                    f"static-wave serving of the {arch.family!r} family ({arch.name}) is "
-                    "not ported yet (ROADMAP: vlm and audio)"
-                )
             params = _to_device(params, self.device)
             self._params = (model_lib.quantize_params(params, arch.serve_w_bits)
                             if quantize else params)

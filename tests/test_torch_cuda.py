@@ -3,8 +3,10 @@ version, on the card: the W4/W8 dequant matmul in the CF order (the
 tensor-core kernel's 8-row tile at M <= 8, its 64- and 128-row tiles above,
 at ragged edges and at the serving paths' prefill shapes) and the FF order,
 the int-mode matmul (bit-exact against the CPU), paged decode and paged
-prefill (also at a speculative verify window, and at gemma3-1b's head dim
-256 and at 160 / 192, which pad to 256), the MoE FFN (``models/moe.py``:
+prefill (also at a speculative verify window, at gemma3-1b's head dim 256
+and at 160 / 192, which pad to 256, at one query head per kv head as
+musicgen-medium has, and paged prefill at paligemma-3b's verify window), the
+MoE FFN (``models/moe.py``:
 the CF kernel per expert) against the CPU's plain path, captured and eager,
 contiguous-cache decode
 (``mqa_decode``), at small ragged shapes, at llama3.2-3b's and zamba2-7b's
@@ -15,7 +17,9 @@ the captured serving steps (``serve/graphs.py``): the engine's decode step,
 spec round and chunk call and the waves' decode step, captured and replayed
 three times with new inputs, bit-equal to the eager step (outputs and
 pools), a replay adding its capture's launch counts, and a step that reads
-the card back inside a capture raising.
+the card back inside a capture raising; the one-shot prefix prefill's
+``PagedKVCache.write_prompt`` keeping every card pool's storage, and a decode
+step captured before such a prefill reading its pages on replay.
 
 Marked ``cuda``: on a machine without a card every test skips with a
 reason.  On the card:
@@ -631,6 +635,76 @@ def test_paged_decode_kernel_entry_point_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="head dims up to 256"):
         paged_mqa_decode_cuda(wide, pool, pool, None, None, tables, lens, 0, new, new, None,
                               None, kv_bits=16, sm_scale=1.0)
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8, 16])
+@pytest.mark.parametrize("window", [None, 50])
+@pytest.mark.parametrize("hkv,w,lengths", [(6, 12, [0, 1, 37, 100, 192]),
+                                           (24, 40, [575, 600, 640, 320, 1])])
+def test_paged_decode_kernel_one_query_head_per_kv_head(dev, kv_bits, window, hkv, w, lengths):
+    """G = 1 (multi-head attention, no query groups) at D 64: several kv
+    heads with ragged rows, and musicgen-medium's 24 heads at its serving
+    context (64 prefix + 512 prompt tokens and more)."""
+    rng = np.random.default_rng(kv_bits + hkv + (window or 0))
+    q, args = _paged_case(rng, dev, kv_bits, 5, hkv, 1, 64, 16, w, lengths)
+    _paged_check(q, args, kv_bits, window)
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8, 16])
+@pytest.mark.parametrize("window", [None, 19])
+@pytest.mark.parametrize("c", [1, 5, 32])
+def test_paged_prefill_kernel_one_query_head_per_kv_head(dev, kv_bits, window, c):
+    """G = 1 at D 64 (musicgen-medium's attention) over 6 kv heads: chunks
+    and a verify-sized window with ragged q_lens; two runs give the same
+    bits."""
+    rng = np.random.default_rng(kv_bits * 10 + c)
+    b, n_layers, ps, hkv, d, w = 3, 2, 8, 6, 64, 12
+    n_pages = b * w
+    kp, vp, ks, vs = _pools(rng, dev, kv_bits, n_layers, n_pages, ps, hkv, d)
+    tables = torch.from_numpy(
+        rng.permutation(n_pages)[: b * w].reshape(b, w).astype(np.int32)).to(dev)
+    ctx = torch.tensor([0, 13, 60], dtype=torch.int32, device=dev)
+    q_lens = torch.tensor([c, max(c - 2, 0), (c + 1) // 2], dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.normal(size=(b, c, hkv, d)).astype(np.float32))
+    q = q.to(torch.bfloat16).to(dev)
+    ck, cks = _tokens(rng, dev, kv_bits, (b, c, hkv), d)
+    cv, cvs = _tokens(rng, dev, kv_bits, (b, c, hkv), d)
+    args = (q, kp, vp, ks, vs, tables, ctx, q_lens, 1, ck, cv, cks, cvs)
+    got = ops.paged_mqa_prefill(*args, kv_bits=kv_bits, window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    exp = ref.paged_mqa_prefill_ref(*args, sm_scale=1 / math.sqrt(d), kv_bits=kv_bits,
+                                    window=window)
+    _close(got, exp)
+    assert torch.equal(got, ops.paged_mqa_prefill(*args, kv_bits=kv_bits, window=window))
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8, 16])
+def test_paged_prefill_kernel_at_paligemma_verify(dev, kv_bits):
+    """A spec verify window (C 5, q_lens 1-5 and a padding row) at
+    paligemma-3b's heads: 1 kv head, G 8, D 256, contexts of 256 prefix +
+    512 prompt tokens and more."""
+    rng = np.random.default_rng(70 + kv_bits)
+    b, n_layers, ps, hkv, g, d, c = 8, 2, 16, 1, 8, 256, 5
+    ctx_list = [768, 800, 790, 769, 777, 783, 795, 0]
+    w = -(-(max(ctx_list) + c) // ps)
+    n_pages = b * w + 2
+    kp, vp, ks, vs = _pools(rng, dev, kv_bits, n_layers, n_pages, ps, hkv, d)
+    tables = torch.from_numpy(
+        rng.permutation(n_pages)[: b * w].reshape(b, w).astype(np.int32)).to(dev)
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
+    q_lens = torch.tensor([1, 2, 3, 4, 5, 5, 3, 0], dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.normal(size=(b, c, hkv * g, d)).astype(np.float32))
+    q = q.to(torch.bfloat16).to(dev)
+    ck, cks = _tokens(rng, dev, kv_bits, (b, c, hkv), d)
+    cv, cvs = _tokens(rng, dev, kv_bits, (b, c, hkv), d)
+    args = (q, kp, vp, ks, vs, tables, ctx, q_lens, 1, ck, cv, cks, cvs)
+    got = ops.paged_mqa_verify(*args, kv_bits=kv_bits)
+    torch.cuda.synchronize()
+    exp = ref.paged_mqa_prefill_ref(*args, sm_scale=1 / math.sqrt(d), kv_bits=kv_bits)
+    live = torch.arange(c, device=dev)[None, :] < q_lens[:, None]
+    _close(got[live], exp[live])
+    assert torch.equal(got, ops.paged_mqa_verify(*args, kv_bits=kv_bits))
 
 
 @pytest.mark.parametrize("kv_bits", [4, 8, 16])
@@ -1279,3 +1353,76 @@ def test_a_step_that_syncs_inside_capture_raises(dev):
     assert g.captured == 0
     torch.cuda.synchronize()
     assert torch.equal(x * 2, torch.arange(0, 16, 2, dtype=torch.float32, device=dev))
+
+
+# ------------------------------------------- the one-shot prefix prefill
+@pytest.mark.parametrize("kv_bits", [4, 8, 16])
+def test_write_prompt_keeps_the_card_pools(dev, kv_bits):
+    """``PagedKVCache.write_prompt`` on card pools: every pool keeps its
+    storage, and the pages hold what the CPU pool's write gives."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve.kv_cache import PagedKVCache
+
+    cfg = dataclasses.replace(get_config("musicgen-medium").reduced(), serve_kv_bits=kv_bits)
+    caches = [PagedKVCache(cfg, num_pages=12, page_size=4, kv_bits=kv_bits, device=d)
+              for d in (dev, "cpu")]
+    rng = np.random.default_rng(kv_bits)
+    dk = cfg.hd // 2 if kv_bits == 4 else cfg.hd
+    shape = (cfg.n_layers, 12, cfg.n_kv_heads, dk)
+    if kv_bits < 16:
+        rows = [torch.from_numpy(rng.integers(-128, 128, shape).astype(np.int8))
+                for _ in range(2)]
+        rows += [torch.from_numpy(rng.random((*shape[:-1], 1)).astype(np.float32))
+                 for _ in range(2)]
+    else:
+        rows = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(torch.bfloat16)
+                for _ in range(2)]
+    ptrs = [p.data_ptr() for p in caches[0].pools if p is not None]
+    for c in caches:
+        c.allocate(0, 2)
+        c.allocate(1, 3)
+        c.write_prompt(1, *[r.to(c.device) for r in rows])
+    torch.cuda.synchronize()
+    assert [p.data_ptr() for p in caches[0].pools if p is not None] == ptrs
+    for a, b in zip(*(c.pools for c in caches)):
+        assert _same_bits(None if a is None else a.cpu(), b)
+
+
+def test_captured_decode_reads_a_later_one_shot_prefill(dev):
+    """Reduced paligemma-3b (bf16, w8 / kv8) on the card: request 1 is
+    prefilled and decoded (its decode step captured); request 2, admitted
+    after it, is prefilled in one shot into pages the captured step then
+    reads on replay.  Its stream equals an eager engine's, where every pool
+    is read afresh, and no pool moved."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import graphs
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.params import PrecisionParams, SamplingParams
+
+    cfg = get_config("paligemma-3b").reduced()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(0)
+    p1, p2 = (rng.integers(0, cfg.vocab, 20).astype(np.int32) for _ in range(2))
+    prec = PrecisionParams(w_bits=8, kv_bits=8)
+
+    def submit(eng, prompt):
+        return eng.submit(prompt, SamplingParams(max_new_tokens=6), prec)
+
+    eng = ServeEngine(cfg, params, max_slots=1, page_size=8, num_pages=8, device=dev)
+    submit(eng, p1)
+    eng.run()
+    ptrs = [p.data_ptr() for p in eng.cache_for(8).pools]
+    captured, replays = eng.graphs.captured, eng.graphs.replays
+    assert captured >= 1 and replays >= 1
+    r2 = submit(eng, p2)
+    eng.run()
+    assert eng.graphs.captured == captured and eng.graphs.replays == replays + 5
+    assert [p.data_ptr() for p in eng.cache_for(8).pools] == ptrs
+    eager = ServeEngine(cfg, params, max_slots=1, page_size=8, num_pages=8, device=dev)
+    with graphs.disable_capture():
+        e2 = submit(eager, p2)
+        eager.run()
+    assert r2.out_tokens == e2.out_tokens and len(r2.out_tokens) == 6

@@ -2,8 +2,9 @@
 float32 llama3.2-3b (weights carried over with params_from_numpy): greedy
 streams are token-identical across a mixed (w_bits, kv_bits) batch over
 {4, 8, 16} with warm prefix-cache hits, and under forced preemption.  Also
-the port's serving CLI end to end on the CPU, and the option the port does
-not serve yet (frontend prefix embeddings) raising."""
+the port's serving CLI end to end on the CPU, the JAX engine's deprecated
+flat-kwargs submit (not ported) raising, and a vlm engine (prefix
+embeddings, one-shot prefill) serving with no prefix cache."""
 import dataclasses
 import json
 import os
@@ -119,12 +120,24 @@ def test_oversized_request_fails(models):
 
 
 def test_unported_options_raise(models):
-    """Frontend prefix embeddings (prefix_len > 0) are not ported; sampling
-    and speculation are (tests/test_torch_sampling.py, test_torch_spec.py)."""
+    """The JAX engine's deprecated flat-kwargs ``submit(prompt, 16,
+    w_bits=4)`` is not ported and raises.  Frontend prefix embeddings
+    (prefix_len > 0) are: a vlm engine over the same dense weights serves on
+    the CPU through the one-shot prefill, with no prefix cache even when one
+    is asked for (their parity with JAX: tests/test_torch_frontends.py)."""
     _, tcfg, _, tparams = models
-    vlm = dataclasses.replace(tcfg, prefix_len=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(vlm, tparams, device="cpu")
+    eng = ServeEngine(tcfg, tparams, device="cpu")
+    with pytest.raises(TypeError):
+        eng.submit(np.arange(5, dtype=np.int32), 16, w_bits=4)
+    vlm = dataclasses.replace(tcfg, family="vlm", prefix_len=4)
+    eng = ServeEngine(vlm, tparams, max_slots=2, page_size=4, enable_prefix_cache=True,
+                      device="cpu")
+    reqs = [eng.submit(np.arange(1, 7, dtype=np.int32), SamplingParams(max_new_tokens=3))
+            for _ in range(2)]
+    eng.run()
+    assert all(len(r.out_tokens) == 3 for r in reqs)
+    assert eng._prefix == {} and eng.stats.prefix_hit_tokens == 0
+    assert eng.stats.prefills == 2 and eng.stats.prefill_chunks == 0
 
 
 def test_launch_serve_cli_end_to_end():

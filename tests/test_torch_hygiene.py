@@ -40,7 +40,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     for name in ("core.isa", "core.dataflow", "core.perfmodel", "models.cnn",
                  "models.cnn_zoo", "launch.cnn", "device", "models.ssm",
                  "kernels.mqa_decode", "train.server", "configs.zamba2_7b",
-                 "configs.mamba2_130m", "serve.graphs"):
+                 "configs.mamba2_130m", "serve.graphs", "core.sau", "core.assembler",
+                 "core.interpreter", "quant.quantize", "models.frontends",
+                 "configs.paligemma_3b", "configs.musicgen_medium"):
         assert f"repro_torch.{name}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys

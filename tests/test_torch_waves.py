@@ -106,13 +106,14 @@ def test_decode_step_refuses_kv4_and_unported_families():
     assert cache["k"].shape[-1] == tcfg.hd // 2  # nibble-packed, as in JAX
     with pytest.raises(NotImplementedError, match="int4 KV"):
         tT.decode_step(ours, torch.zeros(1, 1, dtype=torch.int64), cache, tcfg)
+    # the vlm and audio families, once refused, take the dense stack's
+    # attention cache, as in JAX
     for fam in ("vlm", "audio"):
-        bad = dataclasses.replace(tcfg, family=fam)
-        for fn in (lambda: tT.init_cache(bad, 1, 8),
-                   lambda: tT.prefill(ours, {"tokens": torch.zeros(1, 2, dtype=torch.int64)},
-                                      bad, 8)):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                fn()
+        jcfg = dataclasses.replace(cfg, family=fam, serve_kv_bits=8)
+        tcache = tT.init_cache(dataclasses.replace(tcfg, family=fam, serve_kv_bits=8), 1, 8)
+        jshapes = {k: tuple(v.shape) for k, v in jT.init_cache(jcfg, 1, 8).items()}
+        assert {k: tuple(v.shape) for k, v in tcache.items()} == jshapes
+        assert "ssm" not in tcache and tcache["k"].shape[0] == tcfg.n_layers
 
 
 def test_param_count_and_init_shapes_match_jax():
@@ -158,8 +159,8 @@ def test_server_waves_match_jax(name, n_layers, quantize):
 
 
 def test_server_routes_families_by_the_jax_rule():
-    """Dense goes to the port's engine; vlm/audio, which JAX's paged engine
-    hosts, raise instead of being served by waves (moe: tests/test_torch_moe.py)."""
+    """Dense goes to the port's engine, and so do vlm/audio, which JAX's paged
+    engine hosts (moe: tests/test_torch_moe.py)."""
     dense = tget("llama3.2-3b").reduced()
     assert engine_family(dense) and not engine_family(tget("zamba2-7b"))
     srv = Server(dense, tT.init_params(dense, torch.Generator().manual_seed(0)),
@@ -167,10 +168,14 @@ def test_server_routes_families_by_the_jax_rule():
     reqs = [Request(rid=0, prompt=np.arange(1, 6, dtype=np.int32), max_new_tokens=3)]
     srv.serve(reqs)
     assert srv.engine is not None and len(reqs[0].out_tokens) == 3
-    for fam, first_dense in (("vlm", 0), ("audio", 0)):
-        cfg = dataclasses.replace(dense, family=fam, first_dense=first_dense)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Server(cfg, {}, device="cpu")
+    for fam in ("vlm", "audio"):
+        cfg = dataclasses.replace(dense, family=fam, prefix_len=4)
+        fsrv = Server(cfg, tT.init_params(cfg, torch.Generator().manual_seed(0)),
+                      batch_size=2, max_len=32, device="cpu")
+        freqs = [Request(rid=0, prompt=np.arange(1, 6, dtype=np.int32), max_new_tokens=3)]
+        fsrv.serve(freqs)
+        assert engine_family(cfg) and fsrv.engine is not None
+        assert len(freqs[0].out_tokens) == 3
     with pytest.raises(NotImplementedError, match="greedy"):
         srv.serve(reqs, greedy=False)
 
