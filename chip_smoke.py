@@ -126,7 +126,26 @@ Phases, each printing one JSON line that names the card:
                core.interpreter.run_program on the CPU, bit-equal to the same
                layer through the int-mode matmul on the card (its patches as
                ops.mpconv forms them), FF and CF, at each precision.
-9. kernels line -- each kernel's launches on its path (all > 0): the serving
+9. train    -- the training path (no TPU kernel lies on it; its launches
+               of the five must all be 0, "train" in ``launches_by_path``):
+               (c) llama3.2-3b cut to 2 layers at full width, batch 1 x 64,
+               one train step's gradients on the card (bf16), on the CPU in
+               bf16 and in float32, then adamw, adamw8bit and adafactor
+               applied to each; each token's NLL, every gradient leaf and
+               every updated leaf within twice the CPU's bf16 noise
+               (phase 3's rule), the adamw8bit codes likewise by the share
+               that differs; (a) full llama3.2-3b (28 layers, adamw, remat
+               "full"), 5 steps of make_train_step at the JAX launcher's
+               defaults (batch 8 x 512, lr 3e-4): loss, grad norm and
+               seconds a step, tokens/s, MFU, peak memory, the bound, and
+               one more step profiled (the card's busy share, its top
+               kernels and ops); (b) full mamba2-130m through Trainer with
+               checkpoints, driven by run_with_restarts as launch/train.py
+               drives it: 12 steps, a checkpoint every 4, one run
+               uninterrupted and one failing at step 6 and resuming from
+               step 4: the final params and state bit-equal, every loss of
+               the seed equal; the checkpoint's bytes and seconds.
+10. kernels line -- each kernel's launches on its path (all > 0): the serving
                kernels in phase 5's first run, the FF and int matmuls in
                phase 4, contiguous-cache decode in phase 6's first zamba2
                run; the counts are set to 0 just before each path runs, and
@@ -273,6 +292,11 @@ PALI_VERIFY_CTX = [768, 800, 790, 769, 777, 783, 795, 0]
 # the ISA program checked against the int-mode matmul: a 16 -> 16 channel
 # 3x3 conv over 8 x 8, padding 1
 ISA_LAYER = dict(cin=16, cout=16, k=3, h=8, w=8, stride=1, padding=1)
+# phase 9, training: full llama3.2-3b at the JAX launcher's defaults (batch
+# 8 x seq 512), TRAIN_STEPS steps; full mamba2-130m through Trainer, a run
+# failing at MAMBA_FAIL_AT resumed from its checkpoint every MAMBA_CKPT_EVERY
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 5
+MAMBA_STEPS, MAMBA_CKPT_EVERY, MAMBA_FAIL_AT = 12, 4, 6
 # the numbers of a phase-2 case that the kernels line carries
 LINE_KEYS = ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
 
@@ -1264,13 +1288,15 @@ def ff_kernel(name: str) -> bool:
         "sum_stages<float>" in name
 
 
-def device_profile(torch, run_once, wall_s: float, sums=None) -> dict:
+def device_profile(torch, run_once, wall_s: float, sums=None, top_ops: int = 0) -> dict:
     """One network run under torch.profiler: device time by kernel (the
     events that ran on the card; a host op's device time would count its
     kernels twice), and the share of the unprofiled wall time ``wall_s`` the
     card was busy (the profiler slows the host, so its own wall time is not
     used for the share).  ``sums`` maps a label to a test of a kernel's full
-    name: the device ms and launches of the kernels it picks."""
+    name: the device ms and launches of the kernels it picks.  ``top_ops``:
+    that many host ops with the most device time of their own (aten::mul,
+    aten::copy_, ...), where the kernel names say little."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1290,9 +1316,15 @@ def device_profile(torch, run_once, wall_s: float, sums=None) -> dict:
                     picked[label]["launches"] += e.count
     busy_ms = sum(by_kernel.values()) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    return {"device_busy_ms": busy_ms, "wall_ms": wall_s * 1e3,
-            "device_busy_share": busy_ms / (wall_s * 1e3), "graph_launches": graph_launches,
-            "top_kernels_us": {k: v for k, v in top}, **picked}
+    out = {"device_busy_ms": busy_ms, "wall_ms": wall_s * 1e3,
+           "device_busy_share": busy_ms / (wall_s * 1e3), "graph_launches": graph_launches,
+           "top_kernels_us": {k: v for k, v in top}, **picked}
+    if top_ops:
+        ops = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+        out["top_ops"] = [{"op": k, "device_ms": ms, "calls": n}
+                          for k, ms, n in sorted(ops, key=lambda r: -r[1])[:top_ops]]
+    return out
 
 
 def capturing(capture: bool):
@@ -2119,6 +2151,306 @@ def prefix_paths(torch, gpu, count, eager_twin) -> dict:
             "musicgen": music_launches}
 
 
+# --------------------------------------------------------------- phase 9
+def train_step_profile(torch, step_fn, params, opt_state, batch, step: int, wall_s: float):
+    """One more train step under torch.profiler: the card's busy share of
+    the step and where its device time goes (matmuls, the plain attention's
+    einsums, elementwise and reduce kernels, the optimizer's)."""
+    sums = {"gemm": lambda k: any(w in k.lower() for w in ("gemm", "nvjet", "cutlass")),
+            "elementwise": lambda k: "elementwise" in k.lower(),
+            "reduce": lambda k: "reduce" in k.lower()}
+    out = {}
+
+    def run_once():
+        out["metrics"] = step_fn(params, opt_state, batch, step)[2]
+        torch.cuda.synchronize()
+
+    prof = device_profile(torch, run_once, wall_s, sums, top_ops=12)
+    check(math.isfinite(float(out["metrics"]["loss"])), "non-finite loss in the profiled step")
+    return prof
+
+
+def train_llama(torch, gpu) -> None:
+    """(a) Full llama3.2-3b (28 layers, adamw, remat "full") through
+    make_train_step at the JAX launcher's defaults: batch 8 x seq 512, lr
+    3e-4, warm-up max(steps // 10, 1); step 0 is the warm-up."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.optim import tree
+    from repro_torch.train import TrainConfig, make_train_step
+
+    arch = get_config("llama3.2-3b")
+    tc = TrainConfig(lr=3e-4, warmup=max(TRAIN_STEPS // 10, 1), total_steps=TRAIN_STEPS)
+    data = DataConfig(vocab=arch.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model_lib.init_params(arch, torch.Generator(device="cuda").manual_seed(0))
+    step_fn, opt_init = make_train_step(arch, tc)
+    opt_state = opt_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gb = sum(t.numel() * t.element_size() for t in tree.leaves((params, opt_state))) / 1e9
+    steps = []
+    for step in range(TRAIN_STEPS):
+        batch = make_batch(data, step, arch, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch, step)
+        torch.cuda.synchronize()
+        rec = {"step": step, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "s": time.perf_counter() - t0}
+        check(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
+              f"llama3.2-3b train step {step}: loss {rec['loss']}, grad norm "
+              f"{rec['grad_norm']}")
+        steps.append(rec)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sorted(r["s"] for r in steps[1:])[(TRAIN_STEPS - 1) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # the bound: forward, its recompute and the backward (8 FLOP per matmul
+    # parameter per token, plus the plain attention's full S x S blocks,
+    # QK and PV, four passes) over the bf16 peak, then AdamW's bytes (bf16
+    # params read and written, bf16 grads written and read, f32 m and v
+    # read and written: 22 bytes a parameter) over the HBM rate
+    d, h, kv, hd, f = arch.d_model, arch.n_heads, arch.n_kv_heads, arch.hd, arch.d_ff
+    mm_params = arch.n_layers * (d * (h + 2 * kv) * hd + h * hd * d + 3 * d * f) \
+        + d * arch.padded_vocab
+    attn_flops = 4 * 4 * TRAIN_BATCH * TRAIN_SEQ ** 2 * h * hd * arch.n_layers
+    flops = 8 * mm_params * tokens + attn_flops
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    bound_s = flops / PEAK_FLOPS + 22 * n_params / HBM_BYTES_PER_S
+    batch = make_batch(data, TRAIN_STEPS, arch, device="cuda")
+    prof = train_step_profile(torch, step_fn, params, opt_state, batch, TRAIN_STEPS, step_s)
+    emit({"phase": "train_llama", "model": "llama3.2-3b (28 layers, full width)",
+          "optimizer": arch.optimizer, "remat": arch.remat, "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "steps": steps, "init_s": init_s, "state_gb": state_gb,
+          "step_s_median_after_warmup": step_s, "tokens_per_s": tokens / step_s,
+          "mfu": 6 * mm_params * tokens / step_s / PEAK_FLOPS, "mfu_params": mm_params,
+          "peak_mem_gb": peak / 1e9, "bound_s": bound_s,
+          "bound_matmul_s": flops / PEAK_FLOPS,
+          "bound_optimizer_s": 22 * n_params / HBM_BYTES_PER_S,
+          "profile": {k: v for k, v in prof.items() if k != "graph_launches"}, "gpu": gpu})
+    del params, opt_state, step_fn
+    torch.cuda.empty_cache()
+
+
+def train_mamba_resume(torch, gpu) -> None:
+    """(b) Full mamba2-130m through Trainer with checkpoints, driven as
+    launch/train.py drives it (run_with_restarts): one run uninterrupted,
+    one failing at step MAMBA_FAIL_AT and resuming from its last checkpoint;
+    the final params and optimizer state bit-equal, and every loss of one
+    seed equal between the runs.  Then one save of the final state, timed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.distributed import run_with_restarts
+    from repro_torch.optim import tree
+    from repro_torch.train import TrainConfig, Trainer
+
+    arch = get_config("mamba2-130m")
+    data = DataConfig(vocab=arch.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        def trainer(name):
+            tc = TrainConfig(lr=3e-4, warmup=max(MAMBA_STEPS // 10, 1),
+                             total_steps=MAMBA_STEPS, ckpt_every=MAMBA_CKPT_EVERY,
+                             ckpt_dir=str(Path(root) / name))
+            return Trainer(arch=arch, tc=tc, data=data, device="cuda")
+
+        t0 = time.perf_counter()
+        ref = trainer("uninterrupted")
+        out_ref = run_with_restarts(lambda start: ref.run(MAMBA_STEPS, start_step=start))
+        ref_s = time.perf_counter() - t0
+        crash = trainer("crash")
+        restarts = []
+        out = run_with_restarts(
+            lambda start: crash.run(MAMBA_STEPS, start_step=start,
+                                    fail_at=MAMBA_FAIL_AT if start != -1 else None),
+            on_restart=lambda n, e: restarts.append(repr(e)))
+        steps = [h["step"] for h in out["history"]]
+        resumed_at = MAMBA_FAIL_AT // MAMBA_CKPT_EVERY * MAMBA_CKPT_EVERY
+        check(len(restarts) == 1 and steps == list(range(MAMBA_FAIL_AT))
+              + list(range(resumed_at, MAMBA_STEPS)),
+              f"mamba2-130m: restarts {restarts}, steps {steps}")
+        ref_losses = {h["step"]: h["loss"] for h in out_ref["history"]}
+        for h in out["history"]:
+            check(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
+                  f"mamba2-130m step {h['step']}: loss {h['loss']}")
+            check(h["loss"] == ref_losses[h["step"]],
+                  f"mamba2-130m step {h['step']}: loss {h['loss']} != {ref_losses[h['step']]} "
+                  "in the uninterrupted run of the same seed")
+        leaves = tree.leaves((out["params"], out["opt_state"]))
+        ref_leaves = tree.leaves((out_ref["params"], out_ref["opt_state"]))
+        check(len(leaves) == len(ref_leaves) and all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(leaves, ref_leaves)),
+            "mamba2-130m: the resumed run's params / state differ from the uninterrupted run's")
+        t0 = time.perf_counter()
+        crash.ckpt.save(10_000, (out["params"], out["opt_state"]), blocking=False)
+        snapshot_s = time.perf_counter() - t0
+        crash.ckpt.wait()
+        save_s = time.perf_counter() - t0
+        saved = Path(crash.ckpt.dir) / f"step_{10_000:09d}"
+        nbytes = sum(f.stat().st_size for f in saved.iterdir())
+        t0 = time.perf_counter()
+        crash.ckpt.restore(10_000, target=(out["params"], out["opt_state"]))
+        restore_s = time.perf_counter() - t0
+        hist = out_ref["history"]
+        step_s = sorted(h["sec"] for h in hist[1:])[(len(hist) - 1) // 2]
+        emit({"phase": "train_mamba", "model": "mamba2-130m (24 layers, full width)",
+              "optimizer": arch.optimizer, "remat": arch.remat, "batch": TRAIN_BATCH,
+              "seq": TRAIN_SEQ, "steps": MAMBA_STEPS, "ckpt_every": MAMBA_CKPT_EVERY,
+              "fail_at": MAMBA_FAIL_AT, "resumed_from": resumed_at,
+              "losses": [h["loss"] for h in hist],
+              "grad_norms": [h["grad_norm"] for h in hist],
+              "resume_bit_equal": True, "identical_losses": True,
+              "s_per_step_median": step_s, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+              "uninterrupted_run_s": ref_s, "ckpt_bytes": nbytes,
+              "ckpt_snapshot_s": snapshot_s, "ckpt_save_s": save_s,
+              "ckpt_restore_s": restore_s, "gpu": gpu})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def hold_to_noise(torch, tag, a, e, f, worst) -> None:
+    """Phase 3's rule on one tensor: the card's ``a`` against the CPU's bf16
+    ``e`` within twice the CPU's own bf16-vs-float32 distance ``|f - e|``, in
+    the largest and in the mean difference (reckoned on ``a``'s device);
+    ``worst`` keeps the largest ratios."""
+    a = a.detach().float()
+    e, f = (x.detach().to(a.device).float() for x in (e, f))
+    diff, noise = (a - e).abs(), (f - e).abs()
+    check(bool(torch.isfinite(a).all()), f"{tag}: non-finite values")
+    check(diff.max() <= 2 * noise.max() and diff.mean() <= 2 * noise.mean(),
+          f"{tag} {tuple(a.shape)}: card vs CPU max {diff.max().item():.4g} / mean "
+          f"{diff.mean().item():.4g}, over twice the bf16 noise {noise.max().item():.4g} / "
+          f"{noise.mean().item():.4g}")
+    if noise.max() > 0:
+        worst["max_ratio"] = max(worst["max_ratio"], (diff.max() / noise.max()).item())
+    if noise.mean() > 0:
+        worst["mean_ratio"] = max(worst["mean_ratio"], (diff.mean() / noise.mean()).item())
+
+
+def token_nll(torch, params, batch, cfg):
+    """Each token's f32 NLL under the model (the terms train_loss averages)."""
+    from repro_torch.models import transformer as model_lib
+
+    with torch.no_grad():
+        h, _, _, _ = model_lib.forward(params, batch, cfg)
+        logits = torch.matmul(h, params["unembed"].to(h.dtype)).float()[..., :cfg.vocab]
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, batch["labels"][..., None].long(), dim=-1)[..., 0]
+        return (logz - gold).reshape(-1)
+
+
+def train_card_vs_cpu(torch, gpu, layers: int = 2, seq: int = 64) -> None:
+    """(c) One train step of llama3.2-3b cut to ``layers`` layers at full
+    width, batch 1 x ``seq``: the gradients taken once on the card (bf16),
+    once on the CPU in bf16 and once in float32 (bf16 weights widened
+    exactly), then each of adamw, adamw8bit and adafactor applied to each.
+    Phase 3's rule (``hold_to_noise``) on each token's NLL (whose mean is
+    the loss), every gradient leaf and every updated leaf; the losses then
+    lie within twice the mean NLL noise of each other, and the grad norms
+    within twice the norm of the gradients' bf16 noise (|mean(x)| <=
+    mean|x|, | |a| - |b| | <= |a - b|).  adamw8bit's int8 codes differ card
+    vs CPU in at most twice the share that differs between the CPU's bf16
+    and float32 runs.  The float32 run's optimizer step runs on the card
+    from the CPU's float32 params and gradients: its f32 arithmetic lands
+    within f32 rounding of the CPU's, far below the bf16 noise it measures,
+    and the CPU's time goes to the bf16 step that is held."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.optim import make_optimizer, tree
+    from repro_torch.train.trainer import _clip_by_global_norm, value_and_grad
+
+    full = get_config("llama3.2-3b")
+    base = dataclasses.replace(full, n_layers=layers)
+    params16 = model_lib.init_params(base, torch.Generator(device="cuda").manual_seed(2))
+    batch = make_batch(DataConfig(vocab=base.vocab, seq_len=seq, global_batch=1, seed=3), 0,
+                       base, device="cpu")
+    runs, times = {}, {}
+    for name, device, wide in (("card", "cuda", False), ("cpu", "cpu", False),
+                               ("cpu32", "cpu", True)):
+        t0 = time.perf_counter()
+        params = _tree_map(params16, lambda t: t.to(device).float() if wide and
+                           t.dtype == torch.bfloat16 else t.to(device))
+        cfg = dataclasses.replace(base, dtype="float32") if wide else base
+        b = {k: v.to(device) for k, v in batch.items()}
+        loss, _, grads = value_and_grad(params, b, cfg)
+        raw = [g.clone() for g in grads]
+        grads, gnorm = _clip_by_global_norm(grads, 1.0)
+        runs[name] = {"params": params, "grads": grads, "raw": raw, "loss": float(loss),
+                      "grad_norm": float(gnorm), "nll": token_nll(torch, params, b, cfg)}
+        times[name] = {"grads_s": time.perf_counter() - t0}
+    card, cpu, cpu32 = runs["card"], runs["cpu"], runs["cpu32"]
+    rec = {"phase": "train_step", "model": f"llama3.2-3b ({layers} of {full.n_layers} "
+           "layers, full width)", "batch": 1, "seq": seq, "gpu": gpu}
+    worst = {"max_ratio": 0.0, "mean_ratio": 0.0}
+    hold_to_noise(torch, "train step token NLL", card["nll"], cpu["nll"], cpu32["nll"], worst)
+    rec["token_nll"] = dict(worst)
+    nll_noise = (cpu32["nll"] - cpu["nll"]).abs().mean().item()
+    worst = {"max_ratio": 0.0, "mean_ratio": 0.0}
+    for i, (a, e, f) in enumerate(zip(card["raw"], cpu["raw"], cpu32["raw"])):
+        hold_to_noise(torch, f"gradient leaf {i}", a, e, f, worst)
+    rec["gradients"] = worst
+    grad_noise = math.sqrt(sum(float(((f.float() - e.float()) ** 2).sum())
+                               for e, f in zip(cpu["raw"], cpu32["raw"])))
+    for key, noise in (("loss", nll_noise), ("grad_norm", grad_noise)):
+        diff = abs(card[key] - cpu[key])
+        rec[key] = {"card": card[key], "cpu_bf16": cpu[key], "cpu_f32": cpu32[key],
+                    "bound": 2 * noise}
+        check(diff <= 2 * noise, f"train step {key}: card vs CPU {diff:.4g}, over twice "
+              f"the bf16 noise {noise:.4g}")
+    for run in runs.values():
+        del run["raw"]
+    cpu32["params"] = _tree_map(cpu32["params"], lambda t: t.to("cuda"))
+    cpu32["grads"] = [g.to("cuda") for g in cpu32["grads"]]
+    lr = torch.tensor(3e-4)
+    for opt_name in ("adamw", "adamw8bit", "adafactor"):
+        opt = make_optimizer(opt_name)
+        new = {}
+        for name, run in runs.items():
+            t0 = time.perf_counter()
+            params = _tree_map(run["params"], lambda t: t.clone())
+            state = opt.init(params)
+            state = opt.apply(tree.unflatten(params, run["grads"]), state, params, lr)
+            new[name] = (tree.leaves(params), tree.leaves(state.inner))
+            torch.cuda.synchronize()
+            times[name][f"{opt_name}_s"] = time.perf_counter() - t0
+        worst = {"max_ratio": 0.0, "mean_ratio": 0.0}
+        for i, (a, e, f) in enumerate(zip(*(new[n][0] for n in ("card", "cpu", "cpu32")))):
+            hold_to_noise(torch, f"{opt_name} updated leaf {i}", a, e, f, worst)
+        if opt_name == "adamw8bit":
+            codes = [[t for t in new[n][1] if t.dtype == torch.int8] for n in new]
+            total = sum(t.numel() for t in codes[0])
+            card_off = sum(int((a != e.to(a.device)).sum()) for a, e in zip(codes[0], codes[1]))
+            noise_off = sum(int((f != e.to(f.device)).sum()) for f, e in zip(codes[2], codes[1]))
+            worst["codes"] = {"n": total, "card_vs_cpu_differ": card_off,
+                              "cpu_bf16_vs_f32_differ": noise_off}
+            check(card_off <= 2 * noise_off, f"adamw8bit codes: {card_off} of {total} differ "
+                  f"card vs CPU, over twice the {noise_off} between bf16 and float32")
+        rec[opt_name] = worst
+        del new
+    rec["times_s"] = times
+    emit(rec)
+    del runs, params16
+    torch.cuda.empty_cache()
+
+
+def train_paths(torch, gpu) -> None:
+    """Phase 9: the training path on the card (no TPU kernel lies on it)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_card_vs_cpu(torch, gpu)
+    train_llama(torch, gpu)
+    train_mamba_resume(torch, gpu)
+
+
 def main() -> int:
     import torch
 
@@ -2510,6 +2842,12 @@ def main() -> int:
     prefix_launches = prefix_paths(torch, gpu, count, eager_twin)
     isa_on_card(torch, gpu)
 
+    # ---- phase 9: training; it launches none of the five kernels
+    _, train_launches = count(lambda: train_paths(torch, gpu))
+    emit({"phase": "train_launches", "launches": train_launches, "gpu": gpu})
+    check(not any(train_launches.values()),
+          f"the training path launched a serving kernel: {train_launches}")
+
     # ---- captured against eager on this card, step by step and end to end
     table = {}
     for step in ("chunk", "decode", "spec", "wave"):
@@ -2540,7 +2878,7 @@ def main() -> int:
                "waves": wave_launches, "waves_ssm": mamba_launches, "gemma": gemma_launches,
                "gemma_spec": gemma_spec_launches, "mixtral": mixtral_launches,
                "minitron": minitron_launches, "kimi_waves": kimi_launches,
-               **prefix_launches}
+               **prefix_launches, "train": train_launches}
     for path in ("sampled", "spec", "spec_sampled", "gemma", "gemma_spec", "mixtral",
                  "minitron", "paligemma_spec"):
         for name in ("mpmm_dequant", "paged_decode", "paged_prefill"):

@@ -1,1 +1,1 @@
-"""Model pieces of the serving path (port of the dense subset of ``repro.models``)."""
+"""Model pieces of the serving and training paths (port of ``repro.models``)."""

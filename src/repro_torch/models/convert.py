@@ -17,6 +17,10 @@ f32 or quantized expert by expert (``data`` [L, E, K (/2), N], ``scale``
 ``k_scale``, ``v_scale``, ``ssm``, ``ssm_tail``); ``pos`` becomes a 0-d
 int32 tensor on ``device``, as the port's cache keeps it.
 
+``params_to_numpy`` / ``opt_state_to_numpy`` go the other way, for the
+training path's parity tests (parameters, gradients and optimizer states
+against the JAX package's trees).
+
 ``cnn_params_from_numpy`` does the same for ``repro.models.cnn.init_network``'s
 list of ``(w_data, w_scale)`` pairs.
 """
@@ -61,3 +65,28 @@ def cnn_params_from_numpy(params, device) -> list[tuple[torch.Tensor, torch.Tens
     same pairs as tensors on ``device``, bytes unchanged."""
     return [(tensor_from_numpy(wd, device), tensor_from_numpy(ws, device))
             for wd, ws in params]
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor's host copy (a copy even of a CPU tensor); bf16 goes out as
+    its 16-bit pattern (``uint16``, as the checkpoints store it), so no
+    ml_dtypes import is needed."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def params_to_numpy(tree: dict[str, Any]) -> dict[str, Any]:
+    """The reverse of :func:`params_from_numpy` for float trees (parameters
+    or gradients): every leaf through :func:`tensor_to_numpy`."""
+    return {name: params_to_numpy(leaf) if isinstance(leaf, dict) else tensor_to_numpy(leaf)
+            for name, leaf in tree.items()}
+
+
+def opt_state_to_numpy(state) -> tuple[np.ndarray, Any]:
+    """An ``optim.OptState`` -> (step, inner) in numpy, the inner dicts of
+    the JAX optimizers' layout (adafactor's per-leaf ``{"r", "c"}`` or
+    ``{"v"}``, adamw's ``{"m", "v"}`` trees, adamw8bit's ``{"q", "s"}``
+    codes and scales)."""
+    return tensor_to_numpy(state.step), params_to_numpy(state.inner)

@@ -5,7 +5,8 @@ a quantized weight is a dict ``{"data", "scale", "bits"}`` (int4 payloads
 packed along K, per-output-channel f32 scales) consumed by
 ``kernels.ops.mpmm``: the hand-written dequant kernel on the card, its
 plain version on the CPU.  Unquantized weights stay ``torch.matmul``, as the
-JAX package leaves that product to XLA.
+JAX package leaves that product to XLA; so do the logits of the training
+path's ``chunked_cross_entropy``.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as ref_mod
@@ -115,3 +117,49 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ------------------------------------------------- chunked cross-entropy ----
+def _chunk_nll_sum(hc: torch.Tensor, unembed: torch.Tensor, lc: torch.Tensor,
+                   mc: torch.Tensor, vocab) -> torch.Tensor:
+    """One chunk's masked NLL sum, its logits in f32 with the pad vocab at
+    -1e30."""
+    logits = torch.matmul(hc, unembed.to(hc.dtype)).float()
+    v = logits.shape[-1]
+    if vocab is not None and vocab < v:  # mask embedding-table padding
+        pad = torch.arange(v, device=logits.device) >= vocab
+        logits = logits.masked_fill(pad, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, lc[..., None].long(), dim=-1)[..., 0]
+    return torch.sum((logz - gold) * mc)
+
+
+def chunked_cross_entropy(
+    h: torch.Tensor,  # [B, S, D] final hidden states
+    unembed: torch.Tensor,  # [D, Vpad]
+    labels: torch.Tensor,  # [B, S] int
+    mask: torch.Tensor | None = None,  # [B, S]
+    vocab: int | None = None,  # real vocab (pad logits masked out)
+    max_chunk_elems: int = 1 << 28,
+) -> torch.Tensor:
+    """Cross-entropy over sequence chunks, so the [tokens, V] logits never
+    exist at full length: the JAX function's chunk rule (one device), the
+    masked NLL summed chunk by chunk in f32 and divided by max(sum(mask),
+    1).  Each chunk runs under ``torch.utils.checkpoint``, so its logits are
+    recomputed in the backward instead of saved: no [tokens, V] tensor is
+    kept for the backward either."""
+    b, s, d = h.shape
+    v = unembed.shape[-1]
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
+    n_chunk = max(1, -(-(b * s * v) // max_chunk_elems))
+    while n_chunk < s and s % n_chunk:
+        n_chunk += 1
+    n_chunk = min(n_chunk, s)
+    chunk = s // n_chunk
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n_chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + checkpoint(_chunk_nll_sum, h[:, sl], unembed, labels[:, sl],
+                                   mask[:, sl], vocab, use_reentrant=False)
+    return total / torch.clamp_min(torch.sum(mask), 1.0)

@@ -13,6 +13,16 @@ the recurrence once per token (``ssm_decode_step``).  The in/out projections
 go through ``layers.dense`` (the multi-precision matmul when quantized); the
 recurrence stays in float32, as in the JAX package.  Padded steps of the last
 chunk are identities of the state: their ``dt`` is 0 (decay 1, update 0).
+
+The intra-chunk decay matrix masks its upper triangle before the
+exponential, ``exp(where(tri, li, -inf))``, where the JAX function takes
+``where(tri, exp(li), 0)``: the same values (exact zeros above the
+diagonal), but above it ``li = cum_i - cum_j`` is positive and its ``exp``
+overflows to inf once a chunk's decay is large, and the zero cotangent
+``where`` gives those entries makes 0 * inf = NaN in the backward.  So the
+port's gradient stays finite where the reference's is NaN (training the
+reduced mamba2-130m or zamba2-7b at S >= 64 in float32); this is the one
+place where the port leaves the reference's result on purpose.
 """
 from __future__ import annotations
 
@@ -91,16 +101,16 @@ def ssd_chunked(
     cc = c.reshape(bs, nc, q, n)
     tri = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
 
-    state = torch.zeros(bs, h, p, n, dtype=torch.float32, device=x.device)
+    state = torch.zeros(bs, h, p, n, dtype=x.dtype, device=x.device)
     ys = []
     for ci in range(nc):
         xq, dtq, laq, bq, cq = xc[:, ci], dtc[:, ci], lac[:, ci], bc[:, ci], cc[:, ci]
         cum = torch.cumsum(laq, dim=1)  # [B, q, H] inclusive log-decay
         total = cum[:, -1]  # [B, H]
         # intra-chunk (attention-like, lower-triangular):
-        # L[i, j] = exp(cum_i - cum_j) for i >= j
+        # L[i, j] = exp(cum_i - cum_j) for i >= j; masked before the exp
         li = cum[:, :, None, :] - cum[:, None, :, :]  # [B, q, q, H]
-        lmat = torch.where(tri[None, :, :, None], torch.exp(li), 0.0)
+        lmat = torch.exp(torch.where(tri[None, :, :, None], li, -math.inf))
         cb = torch.einsum("bin,bjn->bij", cq, bq)  # [B, q, q]
         gates = cb[..., None] * lmat * dtq[:, None, :, :]  # [B, i, j, H]
         y_intra = torch.einsum("bijh,bjhp->bihp", gates, xq)

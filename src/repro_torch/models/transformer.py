@@ -1,4 +1,4 @@
-"""The serving subset of ``repro/models/transformer.py``: parameters and
+"""Port of ``repro/models/transformer.py``: parameters and
 quantization for every family (dense, moe, ssm, hybrid, and vlm / audio,
 whose backbone is the dense stack), the blocks the paged engine uses (dense,
 vlm, audio and moe: :func:`ffn_block`), and the contiguous-cache ``prefill``
@@ -25,13 +25,24 @@ is given, in place, and returns that same dict with ``pos`` advanced in
 place: at full width a copy of the cache per step would double its memory
 and traffic.  ``decode_step`` never reads ``pos`` back to the host, so the
 static-wave server can capture it as a CUDA graph (``serve/graphs.py``).
+
+Training: ``forward`` / ``train_loss`` over all four branches (dense, vlm
+and audio with per-layer windows; moe with its ``first_dense`` prefix and
+the routing aux summed; ssm; hybrid, the shared block once per group, then
+the tail), the loss through ``layers.chunked_cross_entropy``.  Each stacked
+leaf is split into its layers with one ``unbind`` per forward (a ``leaf[li]``
+per layer would make each select's backward write a zero tensor the size of
+the whole stack).  ``cfg.remat`` maps JAX's ``jax.checkpoint`` per layer
+onto ``torch.utils.checkpoint`` (``_maybe_remat``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
@@ -39,6 +50,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_rope,
+    chunked_cross_entropy,
     dense,
     dense_init,
     embed_init,
@@ -46,6 +58,7 @@ from repro_torch.models.layers import (
     rms_norm,
     torch_dtype,
 )
+from repro_torch.optim import tree
 from repro_torch.quant.pack import pack_int4
 
 Params = dict[str, Any]
@@ -238,16 +251,20 @@ def _attn_block(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ArchCo
     return dense(o.reshape(b, s, h * hd), p["wo"]), k, v
 
 
-def _embed(params: Params, batch: dict, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x [B,S,D], positions [B,S]); with a frontend, the [B, P, D]
-    ``batch["prefix_emb"]`` comes first and positions run over P + S."""
+def _embed(params: Params, batch: dict, cfg: ArchConfig):
+    """Returns (x [B,S,D], positions [B,S], loss mask [B,S] f32); with a
+    frontend, the [B, P, D] ``batch["prefix_emb"]`` comes first, positions
+    run over P + S and the mask is 0 over the prefix, 1 over the tokens."""
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=x.device)
     if cfg.prefix_len:
-        x = torch.cat([batch["prefix_emb"].to(x.dtype), x], dim=1)
+        pre = batch["prefix_emb"].to(x.dtype)
+        x = torch.cat([pre, x], dim=1)
+        mask = torch.cat([mask.new_zeros(pre.shape[:2]), mask], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    return x, positions
+    return x, positions, mask
 
 
 def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, device=None) -> Params:
@@ -329,7 +346,7 @@ def prefill(params: Params, batch: dict, cfg: ArchConfig, max_len: int,
     (last-token logits [B, V] f32, cache).  ``cache``, an ``init_cache(cfg,
     B, max_len)`` dict, is zeroed and filled in place instead of a new one:
     a captured decode step reads its buffers by address."""
-    x, positions = _embed(params, batch, cfg)
+    x, positions, _ = _embed(params, batch, cfg)
     b, s, _ = x.shape
     quant = cfg.serve_kv_bits < 16
     if cache is None:
@@ -444,3 +461,113 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params, cfg: ArchCo
                                                   dims, cache["ssm_tail"][li])
     pos.add_(1)
     return _logits(params, x, cfg), cache
+
+
+# ============================================================== training ====
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """JAX's ``checkpoint_dots``: keep matmul outputs, recompute the rest."""
+    if op in _DOT_OPS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ArchConfig):
+    """``fn`` as ``cfg.remat`` asks: "none" as is; "full" recomputed in the
+    backward (non-reentrant ``torch.utils.checkpoint``); "dots" the same,
+    but the matmul outputs saved (a selective-checkpoint policy)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        context = functools.partial(ckpt.create_selective_checkpoint_contexts, _save_dots)
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, context_fn=context)
+    if cfg.remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
+def _unstack(blocks: Params) -> list[Params]:
+    """Each layer's parameters of a stacked block tree, every leaf split by
+    one ``unbind`` (see the module note)."""
+    parts = [leaf.unbind(0) for leaf in tree.leaves(blocks)]
+    return [tree.unflatten(blocks, [p[li] for p in parts]) for li in range(len(parts[0]))]
+
+
+def forward(params: Params, batch: dict, cfg: ArchConfig):
+    """Full forward pass -> (hidden [B,S,D], aux loss 0-d f32, positions,
+    loss mask)."""
+    x, positions, mask = _embed(params, batch, cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def dense_layer(x, p, window):
+        a, _, _ = _attn_block(p, x, positions, cfg, window)
+        x = x + a
+        return x + _mlp_block(p, x, cfg)
+
+    if cfg.family in _DENSE_STACK:
+        windows = _per_layer_window(cfg, cfg.n_layers)
+        layer = _maybe_remat(dense_layer, cfg)
+        for li, p in enumerate(_unstack(params["blocks"])):
+            x = layer(x, p, layer_window(cfg, windows, li))
+
+    elif cfg.family == "moe":
+        def moe_layer(x, p):
+            a, _, _ = _attn_block(p, x, positions, cfg, cfg.window)
+            x = x + a
+            m, aux_l = _moe_block(p, x, cfg)
+            return x + m, aux_l
+
+        if cfg.first_dense:
+            layer = _maybe_remat(dense_layer, cfg)
+            for p in _unstack(params["dense_blocks"]):
+                x = layer(x, p, cfg.window)
+        layer = _maybe_remat(moe_layer, cfg)
+        for p in _unstack(params["blocks"]):
+            x, aux_l = layer(x, p)
+            aux_total = aux_total + aux_l
+
+    elif cfg.family in ("ssm", "hybrid"):
+        dims = ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_state, cfg.ssm_head_p)
+
+        def ssm_layer(x, p):
+            xn = rms_norm(x, p["norm1"].to(x.dtype), cfg.norm_eps)
+            return x + ssm_mod.ssm_block(p, xn, dims)
+
+        layers = _unstack(params["blocks"])
+        if cfg.family == "ssm":
+            layer = _maybe_remat(ssm_layer, cfg)
+            for p in layers:
+                x = layer(x, p)
+        else:
+            every, shared = cfg.attn_every, params["shared"]
+
+            def group(x, ps):
+                for p in ps:
+                    x = ssm_layer(x, p)
+                return dense_layer(x, shared, cfg.window)
+
+            layer = _maybe_remat(group, cfg)
+            for g0 in range(0, len(layers), every):
+                x = layer(x, layers[g0:g0 + every])
+            for p in _unstack(params["tail"]) if "tail" in params else []:
+                x = ssm_layer(x, p)
+    else:
+        raise ValueError(f"unknown family {cfg.family!r}")
+
+    x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+    return x, aux_total, positions, mask
+
+
+def train_loss(params: Params, batch: dict, cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    """(loss, {"ce", "aux"}): the masked next-token cross-entropy plus 0.01
+    x the MoE routing aux; prefix positions carry no labels."""
+    h, aux, _, mask = forward(params, batch, cfg)
+    labels = batch["labels"]
+    if cfg.prefix_len:
+        labels = torch.cat([labels.new_zeros(labels.shape[0], cfg.prefix_len), labels], dim=1)
+    ce = chunked_cross_entropy(h, params["unembed"], labels, mask, vocab=cfg.vocab)
+    loss = ce + 0.01 * aux
+    return loss, {"ce": ce, "aux": aux}

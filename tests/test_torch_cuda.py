@@ -19,7 +19,11 @@ three times with new inputs, bit-equal to the eager step (outputs and
 pools), a replay adding its capture's launch counts, and a step that reads
 the card back inside a capture raising; the one-shot prefix prefill's
 ``PagedKVCache.write_prompt`` keeping every card pool's storage, and a decode
-step captured before such a prefill reading its pages on replay.
+step captured before such a prefill reading its pages on replay; and the
+training path (it holds none of the kernels): a train step of a reduced
+llama3.2-3b on the card against the CPU, a Trainer run resumed from its
+checkpoint bit-equal to an uninterrupted one on the card, and a finite
+full-width mamba2-130m train step.
 
 Marked ``cuda``: on a machine without a card every test skips with a
 reason.  On the card:
@@ -1426,3 +1430,104 @@ def test_captured_decode_reads_a_later_one_shot_prefill(dev):
         e2 = submit(eager, p2)
         eager.run()
     assert r2.out_tokens == e2.out_tokens and len(r2.out_tokens) == 6
+
+
+# ------------------------------------------------------------ training path
+def _train_step_on(device, cfg, params16, batch, optimizer):
+    """One make_train_step step on ``device``: (loss, grad norm, grads
+    before the clip, params after the step), all on the CPU."""
+    import dataclasses
+
+    from repro_torch.optim import tree
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.trainer import value_and_grad
+
+    params = _to(params16, device)
+    b = {k: v.to(device) for k, v in batch.items()}
+    _, _, grads = value_and_grad(params, b, cfg)
+    step_fn, opt_init = make_train_step(dataclasses.replace(cfg, optimizer=optimizer),
+                                        TrainConfig(lr=3e-3, warmup=0, total_steps=10))
+    params, _, m = step_fn(params, opt_init(params), b, 0)
+    return (float(m["loss"]), float(m["grad_norm"]), [g.cpu() for g in grads],
+            [p.cpu() for p in tree.leaves(params)])
+
+
+def _to(tree_, device):
+    if isinstance(tree_, dict):
+        return {k: _to(v, device) for k, v in tree_.items()}
+    return tree_.to(device, copy=True)
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
+def test_train_step_on_card_matches_cpu(dev, optimizer):
+    """Reduced llama3.2-3b in float32 (TF32 off): the loss, the grad norm and
+    every gradient leaf within ``rtol = atol = 1e-4`` card vs CPU, the
+    updated params within ``1e-5`` (under adamw, elements whose gradient is
+    below 1e-6, where the step is g / (|g| + eps), within 2 lr)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(), dtype="float32")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = make_batch(DataConfig(cfg.vocab, 64, 4, seed=1), 0, cfg, device="cpu")
+    card = _train_step_on(dev, cfg, params, batch, optimizer)
+    cpu = _train_step_on("cpu", cfg, params, batch, optimizer)
+    np.testing.assert_allclose(card[:2], cpu[:2], rtol=1e-4, atol=1e-4)
+    for a, e in zip(card[2], cpu[2]):
+        np.testing.assert_allclose(a.numpy(), e.numpy(), rtol=1e-4, atol=1e-4)
+    for a, e, g in zip(card[3], cpu[3], cpu[2]):
+        tiny = (g.abs() < 1e-6) if optimizer == "adamw" else torch.zeros_like(g, dtype=bool)
+        np.testing.assert_allclose(a[~tiny].numpy(), e[~tiny].numpy(), rtol=1e-5, atol=1e-5)
+        assert np.abs((a[tiny] - e[tiny]).numpy()).max(initial=0) <= 2 * 3e-3
+
+
+def test_trainer_resume_on_card_is_bit_equal(dev, tmp_path):
+    """Reduced llama3.2-3b (bf16) through Trainer on the card: a run that
+    fails at step 7 and resumes from its step-5 checkpoint ends with the
+    uninterrupted run's params, state and losses, bit for bit (the trainer
+    runs its steps with deterministic kernels)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.distributed import run_with_restarts
+    from repro_torch.optim import tree
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = get_config("llama3.2-3b").reduced()
+
+    def trainer(name):
+        tc = TrainConfig(lr=3e-3, warmup=2, total_steps=10, ckpt_every=5,
+                         ckpt_dir=str(tmp_path / name))
+        return Trainer(cfg, tc, DataConfig(cfg.vocab, 64, 4), device=dev)
+
+    ref = trainer("ref").run(10)
+    crash = trainer("crash")
+    out = run_with_restarts(lambda s: crash.run(10, start_step=s,
+                                                fail_at=7 if s != -1 else None))
+    assert [h["step"] for h in out["history"]] == list(range(7)) + list(range(5, 10))
+    for a, b in zip(tree.leaves((ref["params"], ref["opt_state"])),
+                    tree.leaves((out["params"], out["opt_state"]))):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    losses = {h["step"]: h["loss"] for h in ref["history"]}
+    assert all(h["loss"] == losses[h["step"]] for h in out["history"])
+    assert not torch.are_deterministic_algorithms_enabled()  # scoped to the run
+
+
+def test_full_width_mamba_train_step_is_finite(dev):
+    """Full mamba2-130m (24 layers, d_model 768, remat "full"), one step of
+    make_train_step at batch 2 x 512: finite loss, grad norm and params."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import tree
+    from repro_torch.train import TrainConfig, make_train_step
+
+    cfg = get_config("mamba2-130m")
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    step_fn, opt_init = make_train_step(cfg, TrainConfig(warmup=0, total_steps=10))
+    batch = make_batch(DataConfig(cfg.vocab, 512, 2), 0, cfg, device=dev)
+    params, _, m = step_fn(params, opt_init(params), batch, 0)
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
+    assert all(bool(torch.isfinite(p).all()) for p in tree.leaves(params))

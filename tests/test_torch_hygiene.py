@@ -42,7 +42,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                  "kernels.mqa_decode", "train.server", "configs.zamba2_7b",
                  "configs.mamba2_130m", "serve.graphs", "core.sau", "core.assembler",
                  "core.interpreter", "quant.quantize", "models.frontends",
-                 "configs.paligemma_3b", "configs.musicgen_medium"):
+                 "configs.paligemma_3b", "configs.musicgen_medium", "optim.optimizers",
+                 "optim.schedules", "optim.tree", "data.pipeline", "checkpoint.manager",
+                 "distributed.fault", "train.trainer", "launch.train"):
         assert f"repro_torch.{name}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -87,6 +89,29 @@ def test_static_wave_entry_points_raise_without_a_card(monkeypatch):
             Server(get_config(arch).reduced(), {})
         with pytest.raises(RuntimeError, match="no CUDA card"):
             tserve.main(["--arch", arch, "--reduced"])
+
+
+def test_train_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """The training launcher, ``Trainer`` and ``make_batch`` default to the
+    card and raise without one; ``--device cpu`` / ``device="cpu"`` is the
+    only way onto the CPU."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import train as ttrain
+    from repro_torch.train import TrainConfig, Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("llama3.2-3b").reduced()
+    data = DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=2)
+    tc = TrainConfig(ckpt_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ttrain.main(["--arch", "llama3.2-3b", "--reduced", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        Trainer(arch=cfg, tc=tc, data=data)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        make_batch(data, 0)
+    assert Trainer(arch=cfg, tc=tc, data=data, device="cpu").device == torch.device("cpu")
+    assert ttrain.build_parser().parse_args(["--arch", "x"]).device == "cuda"
+    assert not os.listdir(tmp_path)  # nothing was written
 
 
 def test_cnn_entry_points_raise_without_a_card(monkeypatch):
