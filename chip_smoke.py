@@ -145,7 +145,26 @@ Phases, each printing one JSON line that names the card:
                uninterrupted and one failing at step 6 and resuming from
                step 4: the final params and state bit-equal, every loss of
                the seed equal; the checkpoint's bytes and seconds.
-10. kernels line -- each kernel's launches on its path (all > 0): the serving
+10. mesh    -- the multi-device modules over a real NCCL process group of
+               world size 1 (one card; NCCL refuses two ranks on one GPU;
+               no TPU kernel on the path: "mesh" in ``launches_by_path``,
+               all 0): (a) full llama3.2-3b, MESH_TRAIN_STEPS steps at 8 x 512
+               through launch/train.py --mesh-data 1 --mesh-model 1 (adamw,
+               no checkpoints), each step's loss and grad norm within
+               MESH_TRAIN_RTOL of the unsharded Trainer's on the card (same
+               seed, data and deterministic kernels), s a step, peak memory;
+               (b) compressed_grad_reduce over llama3.2-3b's largest leaf
+               shapes (embed, unembed, blocks/wo; f32, 1.05e9 elements) and
+               two small leaves, card (NCCL) vs CPU (gloo): int8 payloads and
+               scales bit for bit, mean and error state within MESH_COLL_RTOL;
+               (c) moe_ffn alltoall at mixtral-8x22b's widths (D 6144, F
+               16384, 8 experts, top-2, bf16, 1024 tokens) on a 1 x 1 mesh,
+               bit-equal to the replicated dispatch; (d) a one-stage
+               pipeline_apply at width 3072, bit-equal to the stage applied;
+               (e) llama3.2-3b cut to 2 layers at full width: its params
+               placed on the 1 x 1 mesh (every block and every gather the
+               tensor itself), saved, restored with shardings=, bit-equal.
+11. kernels line -- each kernel's launches on its path (all > 0): the serving
                kernels in phase 5's first run, the FF and int matmuls in
                phase 4, contiguous-cache decode in phase 6's first zamba2
                run; the counts are set to 0 just before each path runs, and
@@ -296,6 +315,11 @@ ISA_LAYER = dict(cin=16, cout=16, k=3, h=8, w=8, stride=1, padding=1)
 # 8 x seq 512), TRAIN_STEPS steps; full mamba2-130m through Trainer, a run
 # failing at MAMBA_FAIL_AT resumed from its checkpoint every MAMBA_CKPT_EVERY
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 5
+# phase 10, the multi-device modules at world size 1 over NCCL: the mesh
+# launcher's steps (held to the unsharded Trainer's loss and grad norm
+# within MESH_TRAIN_RTOL), and compressed_grad_reduce card vs CPU within
+# MESH_COLL_RTOL of the mean's largest magnitude
+MESH_TRAIN_STEPS, MESH_TRAIN_RTOL, MESH_COLL_RTOL = 3, 1e-5, 1e-6
 MAMBA_STEPS, MAMBA_CKPT_EVERY, MAMBA_FAIL_AT = 12, 4, 6
 # the numbers of a phase-2 case that the kernels line carries
 LINE_KEYS = ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
@@ -2451,6 +2475,262 @@ def train_paths(torch, gpu) -> None:
     train_mamba_resume(torch, gpu)
 
 
+# --------------------------------------------------------------- phase 10
+def event_ms(torch, fn, iters: int = 3) -> float:
+    """Median device ms of ``fn`` by CUDA events (no L2 flush: the calls
+    move gigabytes)."""
+    fn()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def mesh_train(torch, gpu) -> None:
+    """(a) Full llama3.2-3b through the launcher on a 1 x 1 mesh over NCCL
+    (``--mesh-data 1 --mesh-model 1``, adamw, MESH_TRAIN_STEPS steps at
+    the launcher's batch 8 x 512, no checkpoints), each step's loss and
+    grad norm held against the unsharded Trainer's on this card (same
+    config, seed, data and deterministic kernels)."""
+    import gc
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.train import TrainConfig, Trainer
+
+    steps = MESH_TRAIN_STEPS
+    arch = get_config("llama3.2-3b")
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as root:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tc = TrainConfig(lr=3e-4, warmup=max(steps // 10, 1), total_steps=steps,
+                         ckpt_every=0, ckpt_dir=str(Path(root) / "plain"))
+        data = DataConfig(vocab=arch.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+        plain = Trainer(arch=arch, tc=tc, data=data, device="cuda")
+        plain.run(steps)
+        runs["unsharded"] = (plain.history, time.perf_counter() - t0,
+                             torch.cuda.max_memory_allocated())
+        del plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        report, trainer = tlaunch.run([
+            "--arch", "llama3.2-3b", "--steps", str(steps), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--mesh-data", "1", "--mesh-model", "1",
+            "--ckpt-every", "0", "--ckpt-dir", str(Path(root) / "mesh")])
+        runs["mesh"] = (trainer.history, time.perf_counter() - t0,
+                        torch.cuda.max_memory_allocated())
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    (ph, p_wall, p_peak), (mh, m_wall, m_peak) = runs["unsharded"], runs["mesh"]
+    rows = []
+    for a, b in zip(ph, mh):
+        rows.append({"step": a["step"], "loss": [a["loss"], b["loss"]],
+                     "grad_norm": [a["grad_norm"], b["grad_norm"]], "s": [a["sec"], b["sec"]]})
+        for k in ("loss", "grad_norm"):
+            check(math.isfinite(b[k]) and abs(b[k] - a[k]) <= MESH_TRAIN_RTOL * abs(a[k]),
+                  f"mesh train step {a['step']}: {k} {b[k]} against the unsharded {a[k]}")
+    check(len(mh) == steps and report["steps"] == steps, f"mesh run took {len(mh)} steps")
+    emit({"phase": "mesh_train", "model": "llama3.2-3b (28 layers, full width)",
+          "mesh": "1 x 1 (data, model), NCCL", "entry": "repro_torch.launch.train",
+          "optimizer": arch.optimizer, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": rows,
+          "order": "[unsharded Trainer, mesh launcher]",
+          "bit_equal": all(r["loss"][0] == r["loss"][1] and
+                           r["grad_norm"][0] == r["grad_norm"][1] for r in rows),
+          "step_s_after_first": [sorted(h["sec"] for h in ph[1:]),
+                                 sorted(h["sec"] for h in mh[1:])],
+          "wall_s": [p_wall, m_wall], "peak_mem_gb": [p_peak / 1e9, m_peak / 1e9],
+          "rtol": MESH_TRAIN_RTOL, "gpu": gpu})
+
+
+class _CpuAxis:
+    """A ("data",) mesh of one rank over a gloo group: the same collectives
+    on the CPU beside the card's NCCL ones."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def get_group(self, axis):
+        return self.group
+
+
+def mesh_collectives(torch, gpu, mesh) -> None:
+    """(b) compressed_grad_reduce over llama3.2-3b's largest gradient leaves
+    (f32) on the 1 x 1 mesh over NCCL, against the same function on the CPU
+    over gloo: the int8 payloads and scales bit for bit, the mean and the
+    error state within MESH_COLL_RTOL of the mean's largest magnitude."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as col
+
+    shapes = {"embed": (128256, 3072), "unembed": (3072, 128256), "blocks/wo": (28, 3072, 3072),
+              "final_norm": (3072,), "tiny": (7, 9)}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    grads = {k: torch.randn(s, generator=gen, device="cuda") * 1e-3 for k, s in shapes.items()}
+    err = col.init_error_state(grads)
+    t0 = time.perf_counter()
+    red, new = col.compressed_grad_reduce(grads, err, mesh)
+    torch.cuda.synchronize()
+    card_wall = time.perf_counter() - t0
+    card_ms = event_ms(torch, lambda: col.compressed_grad_reduce(grads, err, mesh))
+    cpu_grads = {k: g.cpu() for k, g in grads.items()}
+    cpu_err = col.init_error_state(cpu_grads)
+    cpu = _CpuAxis(dist.new_group([0], backend="gloo"))
+    t0 = time.perf_counter()
+    cred, cnew = col.compressed_grad_reduce(cpu_grads, cpu_err, cpu)
+    cpu_s = time.perf_counter() - t0
+    worst = 0.0
+    payload_bytes = 0
+    for k, g in grads.items():
+        if g.numel() >= col._CHUNK:
+            q, sc = col._quantize_chunks(g.reshape(-1), 1)
+            cq, csc = col._quantize_chunks(cpu_grads[k].reshape(-1), 1)
+            check(torch.equal(q.cpu(), cq) and torch.equal(sc.cpu(), csc),
+                  f"compressed_grad_reduce {k}: card and CPU int8 payloads differ")
+            payload_bytes += q.numel() + 4 * sc.numel()
+        scale = float(cred[k].abs().max())
+        for got, exp in ((red[k], cred[k]), (new[k]["e1"], cnew[k]["e1"]),
+                         (new[k]["e2"], cnew[k]["e2"])):
+            d = float((got.cpu() - exp).abs().max())
+            worst = max(worst, d / max(scale, 1e-30))
+            check(d <= MESH_COLL_RTOL * scale, f"compressed_grad_reduce {k}: card vs CPU {d}")
+    n = sum(g.numel() for g in grads.values())
+    emit({"phase": "mesh_collectives", "leaves": {k: list(s) for k, s in shapes.items()},
+          "elements": n, "mesh": "1 x 1 over NCCL; the CPU over gloo",
+          "payloads_bit_equal": True, "max_rel_diff": worst, "rtol": MESH_COLL_RTOL,
+          "card_ms": card_ms, "card_first_call_s": card_wall, "cpu_s": cpu_s,
+          "wire_bytes_int8": payload_bytes, "wire_bytes_f32": 4 * n, "gpu": gpu})
+
+
+def mesh_moe(torch, gpu, mesh) -> None:
+    """(c) moe_ffn's all-to-all dispatch at mixtral-8x22b's widths (D 6144,
+    F 16384, 8 experts, top-2, bf16) on the 1 x 1 mesh, bit-equal to the
+    replicated dispatch."""
+    from repro_torch.models import moe
+
+    d, f, e = 6144, 16384, 8
+    params = moe.init_moe_params(torch.Generator(device="cuda").manual_seed(0), d, f, e,
+                                 torch.bfloat16)
+    x = torch.randn(8, 128, d, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda").to(torch.bfloat16)
+    a = moe.moe_ffn(x, params, top_k=2)
+    b = moe.moe_ffn(x, params, top_k=2, dispatch="alltoall", mesh=mesh)
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+          "moe_ffn alltoall differs from replicated on a 1 x 1 mesh")
+    ms = [event_ms(torch, lambda: moe.moe_ffn(x, params, top_k=2)),
+          event_ms(torch, lambda: moe.moe_ffn(x, params, top_k=2, dispatch="alltoall",
+                                              mesh=mesh))]
+    cap = int(max(1, (x.shape[0] * x.shape[1] * 2 * 1.25) // e))
+    emit({"phase": "mesh_moe", "widths": {"d_model": d, "d_ff": f, "experts": e, "top_k": 2},
+          "tokens": x.shape[0] * x.shape[1], "capacity": cap, "dtype": "bfloat16",
+          "bit_equal": True, "ms": ms, "order": "[replicated, alltoall]",
+          "all_to_all_bytes": 2 * e * cap * d * 2, "gpu": gpu})
+    del params
+
+
+def mesh_pipeline(torch, gpu) -> None:
+    """(d) A one-stage pipeline_apply at width 3072 over a ("pod",) mesh of
+    one rank, bit-equal to applying the stage to each microbatch."""
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1,), ("pod",), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    w = (torch.randn(1, 3072, 3072, generator=gen, device="cuda") / 3072 ** 0.5).to(
+        torch.bfloat16)
+    x = torch.randn(4, 8, 3072, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def stage(p, mb):
+        return torch.tanh(mb @ p)
+
+    got = pipeline_apply(stage, w, x, mesh, axis="pod")
+    exp = torch.stack([stage(w[0], mb) for mb in x])
+    check(torch.equal(got, exp), "one-stage pipeline_apply differs from the stage applied")
+    emit({"phase": "mesh_pipeline", "stages": 1, "microbatches": 4, "width": 3072,
+          "bit_equal": True, "ms": event_ms(torch, lambda: pipeline_apply(stage, w, x, mesh)),
+          "gpu": gpu})
+
+
+def mesh_restore(torch, gpu, mesh) -> None:
+    """(e) llama3.2-3b cut to 2 layers at full width: its params placed on
+    the 1 x 1 mesh (every block the tensor itself, every gather too), saved
+    host-gathered, restored with ``shardings=``: bit-equal, on the card."""
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.optim import tree
+
+    arch = dataclasses.replace(get_config("llama3.2-3b"), n_layers=2)
+    params = model_lib.init_params(arch, torch.Generator(device="cuda").manual_seed(0))
+    local = reshard_state(params, mesh)
+    leaves = tree.leaves(local)
+    aliased = sum(a is b for a, b in zip(leaves, tree.leaves(params)))
+    gathered = sum(sh.gather(t, t._mesh_sharding) is t for t in leaves)
+    check(aliased == gathered == len(leaves),
+          f"world size 1: {aliased} blocks and {gathered} gathers of {len(leaves)} alias")
+    shardings = sh.tree_shardings(params, mesh)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_restore_") as root:
+        mgr = CheckpointManager(root)
+        t0 = time.perf_counter()
+        mgr.save(1, local)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, _ = mgr.restore(1, target=local, shardings=shardings)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    for a, b in zip(tree.leaves(restored), leaves):
+        check(a.device == b.device and a.dtype == b.dtype and torch.equal(a, b),
+              "restore(shardings=) on the 1 x 1 mesh differs from the saved params")
+    emit({"phase": "mesh_restore", "model": "llama3.2-3b (2 of 28 layers, full width)",
+          "leaves": len(leaves), "bytes": sum(t.numel() * t.element_size() for t in leaves),
+          "blocks_aliased": aliased, "gathers_aliased": gathered, "bit_equal": True,
+          "save_s": save_s, "restore_s": restore_s, "gpu": gpu})
+
+
+def mesh_paths(torch, gpu) -> None:
+    """Phase 10: the multi-device modules over a real NCCL process group of
+    world size 1 (one card; NCCL refuses two ranks on one GPU)."""
+    import datetime
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_test_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    joined = init_distributed("cuda", timeout=datetime.timedelta(minutes=5))
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"phase 10 needs an NCCL group of one rank, got {dist.get_backend()}")
+        mesh_train(torch, gpu)
+        mesh = make_test_mesh(1, 1, device="cuda")
+        mesh_collectives(torch, gpu, mesh)
+        mesh_moe(torch, gpu, mesh)
+        mesh_pipeline(torch, gpu)
+        mesh_restore(torch, gpu, mesh)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+    emit({"phase": "mesh_total", "s": time.perf_counter() - t0, "gpu": gpu})
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2848,6 +3128,12 @@ def main() -> int:
     check(not any(train_launches.values()),
           f"the training path launched a serving kernel: {train_launches}")
 
+    # ---- phase 10: the multi-device modules over NCCL; none of the five kernels
+    _, mesh_launches = count(lambda: mesh_paths(torch, gpu))
+    emit({"phase": "mesh_launches", "launches": mesh_launches, "gpu": gpu})
+    check(not any(mesh_launches.values()),
+          f"the mesh paths launched a serving kernel: {mesh_launches}")
+
     # ---- captured against eager on this card, step by step and end to end
     table = {}
     for step in ("chunk", "decode", "spec", "wave"):
@@ -2878,7 +3164,7 @@ def main() -> int:
                "waves": wave_launches, "waves_ssm": mamba_launches, "gemma": gemma_launches,
                "gemma_spec": gemma_spec_launches, "mixtral": mixtral_launches,
                "minitron": minitron_launches, "kimi_waves": kimi_launches,
-               **prefix_launches, "train": train_launches}
+               **prefix_launches, "train": train_launches, "mesh": mesh_launches}
     for path in ("sampled", "spec", "spec_sampled", "gemma", "gemma_spec", "mixtral",
                  "minitron", "paligemma_spec"):
         for name in ("mpmm_dequant", "paged_decode", "paged_prefill"):

@@ -22,7 +22,10 @@ the same tree is the same string.
     loop loses only the device->host copy.
   * **keep-N**: bounded disk usage.
   * ``restore(target=...)`` puts each leaf on its target leaf's device and
-    dtype.
+    dtype; with ``shardings=`` (a matching tree of
+    ``distributed.sharding.NamedSharding``) each rank takes only its block
+    of each leaf, so a job restarts on a different mesh shape
+    (``distributed/elastic.py``).  Leaves are saved host-gathered.
 """
 from __future__ import annotations
 
@@ -133,11 +136,13 @@ class CheckpointManager:
                 shutil.rmtree(os.path.join(self.dir, name), ignore_errors=True)
 
     # ----------------------------------------------------------- restore --
-    def restore(self, step: Optional[int] = None, target: Any = None):
+    def restore(self, step: Optional[int] = None, target: Any = None, shardings: Any = None):
         """Loads ``step`` (default latest) -> (tree, manifest).  ``target``:
         a tree prototype whose structure the leaves fill, each moved to its
         target leaf's device and dtype; without one, the flat list of CPU
-        tensors."""
+        tensors.  ``shardings``: a tree of ``NamedSharding`` matching
+        ``target``: each leaf becomes this rank's block under its sharding
+        (``sharding.shard_local``), on the target leaf's device."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -151,5 +156,11 @@ class CheckpointManager:
         protos = tree_lib.leaves(target)
         if len(protos) != len(leaves):
             raise ValueError(f"checkpoint has {len(leaves)} leaves, the target {len(protos)}")
-        placed = [a.to(device=p.device, dtype=p.dtype) for a, p in zip(leaves, protos)]
+        if shardings is None:
+            placed = [a.to(device=p.device, dtype=p.dtype) for a, p in zip(leaves, protos)]
+        else:
+            from repro_torch.distributed.sharding import shard_local
+
+            placed = [shard_local(a.to(dtype=p.dtype), s, device=p.device)
+                      for a, p, s in zip(leaves, protos, tree_lib.leaves(shardings))]
         return tree_lib.unflatten(target, placed), manifest

@@ -14,18 +14,32 @@ It drives ``Trainer`` through ``run_with_restarts`` and prints the JAX
 launcher's report (``arch``, ``steps``, ``first_loss``, ``final_loss``,
 ``mean_step_s``, ``stragglers``) plus ``device``.  ``--reduced`` also turns
 remat off, as there.  A checkpoint already in ``--ckpt-dir`` is resumed
-from.  ``--mesh-data > 0`` (a data x model device mesh) raises
-``NotImplementedError``: the multi-device modules are not ported yet.
-There are no XLA flags to set.
+from; ``--ckpt-every 0`` writes none.  There are no XLA flags to set.
+
+``--mesh-data D --mesh-model M`` trains on a D x M device mesh, one process
+per device, under the JAX package's FSDP/ZeRO-3 mapping
+(``train/trainer.py``): start D*M processes with ``torchrun``, e.g. on the
+CPU (gloo)::
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch llama3.2-3b --reduced --device cpu --mesh-data 2 --mesh-model 2
+
+and on cards (NCCL, one card per process) without ``--device cpu``.  One
+process with D*M = 1 needs no ``torchrun``.  The global batch must divide
+by D*M.  MoE archs raise ``NotImplementedError`` on a mesh.  Rank 0 prints
+the report and writes the checkpoints.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
 import tempfile
 from typing import Optional
+
+import torch
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -39,7 +53,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--reduced", action="store_true", help="CPU-sized config")
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
                                                        "repro_torch_train"))
-    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--ckpt-every", type=int, default=50, help="0 = no checkpoints")
     ap.add_argument("--mesh-data", type=int, default=0, help="0 = no mesh (single device)")
     ap.add_argument("--mesh-model", type=int, default=1)
     ap.add_argument("--resume", action="store_true")
@@ -47,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv: Optional[list[str]] = None) -> dict:
+def run(argv: Optional[list[str]] = None):
+    """Parses ``argv``, trains -> (report, trainer)."""
     args = build_parser().parse_args(argv)
 
     from repro_torch.configs import get_config
@@ -56,10 +71,6 @@ def main(argv: Optional[list[str]] = None) -> dict:
     from repro_torch.distributed.fault import run_with_restarts
     from repro_torch.train import TrainConfig, Trainer
 
-    if args.mesh_data:
-        raise NotImplementedError(
-            "--mesh-data shards the step over a device mesh; the multi-device modules "
-            "are not ported yet (ROADMAP: distributed and launch tooling)")
     device = resolve_device(args.device)
     arch = get_config(args.arch)
     if args.reduced:
@@ -75,16 +86,20 @@ def main(argv: Optional[list[str]] = None) -> dict:
         ckpt_dir=args.ckpt_dir,
     )
     data = DataConfig(vocab=arch.vocab, seq_len=args.seq, global_batch=args.batch)
-    trainer = Trainer(arch=arch, tc=tc, data=data, device=device)
+    with _mesh(args, device) as mesh:
+        if mesh is not None and device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        trainer = Trainer(arch=arch, tc=tc, data=data, device=device, mesh=mesh)
 
-    def attempt(start_step: int) -> dict:
-        return trainer.run(args.steps, start_step=start_step)
+        def attempt(start_step: int) -> dict:
+            return trainer.run(args.steps, start_step=start_step)
 
-    out = run_with_restarts(
-        attempt,
-        max_restarts=3,
-        on_restart=lambda n, e: print(f"[train] restart {n} after {e!r}"),
-    )
+        out = run_with_restarts(
+            attempt,
+            max_restarts=3,
+            on_restart=lambda n, e: print(f"[train] restart {n} after {e!r}"),
+        )
+        rank = torch.distributed.get_rank() if mesh is not None else 0
     hist = out["history"]
     report = {
         "arch": arch.name,
@@ -95,8 +110,39 @@ def main(argv: Optional[list[str]] = None) -> dict:
         "stragglers": trainer.monitor.stragglers,
         "device": str(device),
     }
-    print(json.dumps(report, indent=1))
-    return report
+    if rank == 0:
+        print(json.dumps(report, indent=1))
+    return report, trainer
+
+
+@contextlib.contextmanager
+def _mesh(args, device):
+    """The (data, model) DeviceMesh of ``--mesh-data`` / ``--mesh-model``
+    (None without ``--mesh-data``), over a process group joined here unless
+    the caller joined one; a group joined here is left on the way out."""
+    if not args.mesh_data:
+        yield None
+        return
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+
+    n = args.mesh_data * args.mesh_model
+    joined = init_distributed(device)
+    try:
+        if dist.get_world_size() != n:
+            raise ValueError(
+                f"--mesh-data {args.mesh_data} --mesh-model {args.mesh_model} needs {n} "
+                f"processes, one per device (torchrun --nproc-per-node {n}); this group "
+                f"has {dist.get_world_size()}")
+        yield make_mesh((args.mesh_data, args.mesh_model), ("data", "model"), device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def main(argv: Optional[list[str]] = None) -> dict:
+    return run(argv)[0]
 
 
 if __name__ == "__main__":

@@ -16,6 +16,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as ref_mod
 
@@ -66,7 +67,11 @@ def dense(x: torch.Tensor, w) -> torch.Tensor:
     scale, cast to x.dtype.  That is the int mode's plain version, which
     takes any integer x; the card's int kernel takes int8 / int16 x only,
     and a truncated float activation may not fit int16, so on the card a
-    16-bit dict raises."""
+    16-bit dict raises.
+
+    Under the FSDP/ZeRO-3 mapping the weight passes through
+    ``sharding.gather_weight`` first, as in the JAX function."""
+    w = sharding.gather_weight(w)
     if isinstance(w, dict):
         bits = int(w["bits"])
         if bits < 16:
@@ -143,16 +148,25 @@ def chunked_cross_entropy(
     max_chunk_elems: int = 1 << 28,
 ) -> torch.Tensor:
     """Cross-entropy over sequence chunks, so the [tokens, V] logits never
-    exist at full length: the JAX function's chunk rule (one device), the
-    masked NLL summed chunk by chunk in f32 and divided by max(sum(mask),
-    1).  Each chunk runs under ``torch.utils.checkpoint``, so its logits are
+    exist at full length: the JAX function's chunk rule, the masked NLL
+    summed chunk by chunk in f32 and divided by max(sum(mask), 1).  Each
+    chunk runs under ``torch.utils.checkpoint``, so its logits are
     recomputed in the backward instead of saved: no [tokens, V] tensor is
-    kept for the backward either."""
+    kept for the backward either.
+
+    Under the FSDP/ZeRO-3 mapping (``sharding.set_mesh(mesh,
+    data_only=True)``) ``h`` holds this rank's rows of a batch sharded over
+    every device: the chunk count is the JAX function's for the global
+    batch (its budget is per device), the denominator the global count of
+    unmasked tokens (an all-reduce), so the loss is this rank's share of
+    the global token mean and the ranks' shares sum to it."""
     b, s, d = h.shape
     v = unembed.shape[-1]
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
-    n_chunk = max(1, -(-(b * s * v) // max_chunk_elems))
+    n_dev = sharding.mesh_size(sharding.get_mesh()) if sharding.data_only() else 1
+    # budget is per DEVICE: the logits chunk is sharded over the mesh
+    n_chunk = max(1, -(-(b * n_dev * s * v) // (max_chunk_elems * n_dev)))
     while n_chunk < s and s % n_chunk:
         n_chunk += 1
     n_chunk = min(n_chunk, s)
@@ -162,4 +176,7 @@ def chunked_cross_entropy(
         sl = slice(i * chunk, (i + 1) * chunk)
         total = total + checkpoint(_chunk_nll_sum, h[:, sl], unembed, labels[:, sl],
                                    mask[:, sl], vocab, use_reentrant=False)
-    return total / torch.clamp_min(torch.sum(mask), 1.0)
+    count = torch.sum(mask)
+    if sharding.data_only():
+        count = sharding.mesh_all_reduce(count.detach().clone())
+    return total / torch.clamp_min(count, 1.0)

@@ -1,5 +1,5 @@
-"""Mixture-of-Experts FFN (port of ``repro/models/moe.py``, replicated
-dispatch).
+"""Mixture-of-Experts FFN (port of ``repro/models/moe.py``): the replicated
+dispatch and the all-to-all one.
 
 Routing: an f32 softmax gate, top-k, weights renormalised over the k picks,
 and the Switch load-balancing auxiliary loss.  Dispatch: every expert gets a
@@ -24,8 +24,15 @@ one expert at a time on its ``[cap, D]`` buffer, so through ``ops.mpmm``:
 the CF dequant kernel on the card and its plain version on the CPU, as for
 a dense projection; no dequantized copy of the experts is made.  Unquantized
 experts are one batched ``torch.matmul``, as the JAX package leaves that
-einsum to XLA.  ``dispatch="alltoall"`` (multi-device token routing) is not
-ported.
+einsum to XLA.
+
+``dispatch="alltoall"``: GShard/Switch token routing over the mesh's
+``model`` axis (``_moe_ffn_alltoall``).  Each rank holds its data shard's
+tokens (the same on every rank of a model group), routes them with the
+capacity of its own token count, sends ``[n_shards, E_loc * cap, D]`` to
+the experts' owners with ``all_to_all_single``, runs its ``E / n_shards``
+experts on what it received, and a second all-to-all brings the outputs
+back.  The aux loss is the mean over the data shards.
 """
 from __future__ import annotations
 
@@ -96,28 +103,103 @@ def moe_ffn(
     top_k: int,
     capacity_factor: float = 1.25,
     dispatch: str = "replicated",
+    mesh=None,
+    mesh_model_axis: str = "model",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (out [B, S, D] in x.dtype, aux_loss 0-d f32)."""
+    """Returns (out [B, S, D] in x.dtype, aux_loss 0-d f32).  Under
+    ``dispatch="alltoall"`` ``x`` is this rank's data shard and ``mesh``
+    (default: ``sharding.get_mesh()``) the DeviceMesh whose
+    ``mesh_model_axis`` holds the experts."""
     if dispatch == "alltoall":
-        raise NotImplementedError(
-            "moe_dispatch='alltoall' routes tokens across devices and is not ported yet "
-            "(ROADMAP: alltoall MoE dispatch)")
+        return _moe_ffn_alltoall(x, params, top_k=top_k, capacity_factor=capacity_factor,
+                                 axis=mesh_model_axis, mesh=mesh)
     b, s, d = x.shape
     e = params["router"].shape[-1]
     x2 = x.reshape(-1, d)
     t = x2.shape[0]
-    weights, eids, aux, _ = _route(x2, params["router"], top_k)
+    buf, flat_slot, keep, weights, aux, cap = _dispatch(x2, params["router"], top_k,
+                                                        capacity_factor)
+    out_buf = _expert_ffn(buf.reshape(e, cap, d), params["wg"], params["wu"], params["wd"])
+    gathered = out_buf.reshape(e * cap, d)[flat_slot].reshape(t, top_k, d)
+    gathered = torch.where(keep[..., None], gathered, 0)
+    out = torch.sum(gathered * weights[..., None].to(x.dtype), dim=1)
+    return out.reshape(b, s, d), aux.float()
+
+
+def _dispatch(x2: torch.Tensor, router: torch.Tensor, top_k: int, capacity_factor: float):
+    """Route the tokens x2 [T, D] and fill the per-expert buffers ->
+    (buf [E * cap, D], flat_slot [T * k], keep [T, k], weights, aux, cap)."""
+    t, d = x2.shape
+    e = router.shape[-1]
+    weights, eids, aux, _ = _route(x2, router, top_k)
     cap = int(max(1, (t * top_k * capacity_factor) // e))
     pos = _positions_in_expert(eids.reshape(-1), e).reshape(t, top_k)
     keep = pos < cap
     flat_slot = torch.where(keep, eids * cap + pos, 0).reshape(-1).long()
     contrib = torch.where(keep[..., None], x2[:, None, :], 0).reshape(-1, d)
     buf = x2.new_zeros(e * cap, d).index_add_(0, flat_slot, contrib)
-    out_buf = _expert_ffn(buf.reshape(e, cap, d), params["wg"], params["wu"], params["wd"])
-    gathered = out_buf.reshape(e * cap, d)[flat_slot].reshape(t, top_k, d)
-    gathered = torch.where(keep[..., None], gathered, 0)
-    out = torch.sum(gathered * weights[..., None].to(x.dtype), dim=1)
-    return out.reshape(b, s, d), aux.float()
+    return buf, flat_slot, keep, weights, aux, cap
+
+
+def _local_experts(w, e: int, lo: int, hi: int):
+    """Experts [lo, hi) of a stacked expert leaf (a plain tensor or a
+    quantized dict); a leaf that holds E / n_shards experts already is this
+    rank's own."""
+    if isinstance(w, dict):
+        if w["data"].shape[0] != e:
+            return w
+        return {**w, "data": w["data"][lo:hi], "scale": w["scale"][lo:hi]}
+    return w[lo:hi] if w.shape[0] == e else w
+
+
+def _moe_ffn_alltoall(x: torch.Tensor, params: dict, *, top_k: int, capacity_factor: float,
+                      axis: str, mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """GShard-style token routing over ``axis`` (see the module note)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding
+
+    mesh = mesh if mesh is not None else sharding.get_mesh()
+    if mesh is None:
+        raise ValueError("moe_dispatch='alltoall' needs a device mesh")
+    sizes = sharding.mesh_shape(mesh)
+    b, s, d = x.shape
+    e = params["router"].shape[-1]
+    n_shards = sizes[axis]
+    if e % n_shards:
+        raise ValueError(f"{e} experts do not divide over {n_shards} {axis!r} shards")
+    e_loc = e // n_shards
+    me = mesh.get_local_rank(axis)
+    group = mesh.get_group(axis)
+    x2 = x.reshape(-1, d)
+    t = x2.shape[0]
+    buf, flat_slot, keep, weights, aux, cap = _dispatch(x2, params["router"], top_k,
+                                                        capacity_factor)
+    # [n_shards, e_loc * cap, d] -> all-to-all: shard i keeps its experts'
+    # buffers from every peer
+    buf = buf.reshape(n_shards, e_loc * cap, d)
+    recv = torch.empty_like(buf)
+    dist.all_to_all_single(recv, buf, group=group)
+    # [peers, e_loc * cap, d] -> merge the token sets per expert
+    recv = recv.reshape(n_shards, e_loc, cap, d).transpose(0, 1).reshape(e_loc, n_shards * cap, d)
+    lo, hi = me * e_loc, (me + 1) * e_loc
+    out_buf = _expert_ffn(recv, *(_local_experts(params[k], e, lo, hi)
+                                  for k in ("wg", "wu", "wd")))
+    out_buf = out_buf.reshape(e_loc, n_shards, cap, d).transpose(0, 1)
+    back = torch.empty_like(buf)
+    dist.all_to_all_single(back, out_buf.reshape(n_shards, e_loc * cap, d).contiguous(),
+                           group=group)
+    out_flat = back.reshape(e * cap, d)[flat_slot].reshape(t, top_k, d)
+    out_flat = torch.where(keep[..., None], out_flat, 0)
+    out = torch.sum(out_flat * weights[..., None].to(x.dtype), dim=1)
+    # aux differs per data shard: its mean over them
+    aux = aux.float().clone()
+    n_data = 1
+    for a, size in sizes.items():
+        if a != axis:
+            dist.all_reduce(aux, group=mesh.get_group(a))
+            n_data *= size
+    return out.reshape(b, s, d), aux / n_data
 
 
 def init_moe_params(gen: torch.Generator, d: int, d_ff: int, n_experts: int, dtype,

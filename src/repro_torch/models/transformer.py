@@ -32,8 +32,12 @@ the routing aux summed; ssm; hybrid, the shared block once per group, then
 the tail), the loss through ``layers.chunked_cross_entropy``.  Each stacked
 leaf is split into its layers with one ``unbind`` per forward (a ``leaf[li]``
 per layer would make each select's backward write a zero tensor the size of
-the whole stack).  ``cfg.remat`` maps JAX's ``jax.checkpoint`` per layer
-onto ``torch.utils.checkpoint`` (``_maybe_remat``).
+the whole stack).  Under the FSDP/ZeRO-3 mapping of a mesh step
+(``train/trainer.py``) each weight is gathered from this rank's block where
+it is used (``sharding.gather_weight`` in ``dense``, the embedding lookup
+and the loss), a stacked leaf layer by layer (``sharding.unbind``).
+``cfg.remat`` maps JAX's ``jax.checkpoint`` per layer onto
+``torch.utils.checkpoint`` (``_maybe_remat``).
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -256,7 +261,7 @@ def _embed(params: Params, batch: dict, cfg: ArchConfig):
     frontend, the [B, P, D] ``batch["prefix_emb"]`` comes first, positions
     run over P + S and the mask is 0 over the prefix, 1 over the tokens."""
     tokens = batch["tokens"]
-    x = params["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
+    x = sharding.gather_weight(params["embed"])[tokens.long()].to(torch_dtype(cfg.dtype))
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=x.device)
     if cfg.prefix_len:
         pre = batch["prefix_emb"].to(x.dtype)
@@ -492,7 +497,7 @@ def _maybe_remat(fn, cfg: ArchConfig):
 def _unstack(blocks: Params) -> list[Params]:
     """Each layer's parameters of a stacked block tree, every leaf split by
     one ``unbind`` (see the module note)."""
-    parts = [leaf.unbind(0) for leaf in tree.leaves(blocks)]
+    parts = [sharding.unbind(leaf) for leaf in tree.leaves(blocks)]
     return [tree.unflatten(blocks, [p[li] for p in parts]) for li in range(len(parts[0]))]
 
 
@@ -568,6 +573,7 @@ def train_loss(params: Params, batch: dict, cfg: ArchConfig) -> tuple[torch.Tens
     labels = batch["labels"]
     if cfg.prefix_len:
         labels = torch.cat([labels.new_zeros(labels.shape[0], cfg.prefix_len), labels], dim=1)
-    ce = chunked_cross_entropy(h, params["unembed"], labels, mask, vocab=cfg.vocab)
+    ce = chunked_cross_entropy(h, sharding.gather_weight(params["unembed"]), labels, mask,
+                               vocab=cfg.vocab)
     loss = ce + 0.01 * aux
     return loss, {"ce": ce, "aux": aux}

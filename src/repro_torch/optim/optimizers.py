@@ -22,7 +22,7 @@ by the LR (a 0-d f32 tensor from ``schedules``); weight decay is decoupled.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -38,10 +38,18 @@ class Optimizer(NamedTuple):
     init: Callable
     update: Callable
     apply: Callable
+    # the per-parameter function both run, ``leaf(st, g, p, lr, t) -> (u,
+    # st)``, and ``per_param(inner, params)``, the states it takes in
+    # flattening order; ``elementwise``: each element of u and st depends
+    # on the same element of g, p and st alone, so a block of them updates
+    # on its own (``train/trainer.py``'s mesh step)
+    leaf: Optional[Callable] = None
+    per_param: Optional[Callable] = None
+    elementwise: bool = False
 
 
 def _optimizer(init: Callable, leaf: Callable, per_param: Callable,
-               regroup: Callable) -> Optimizer:
+               regroup: Callable, elementwise: bool = False) -> Optimizer:
     """The pure ``update`` and the in-place ``apply`` around ``leaf(st, g,
     p, lr, t) -> (u, st)``, which may write the per-parameter state ``st``
     in place: ``per_param(inner, params)`` lists those states in
@@ -68,7 +76,7 @@ def _optimizer(init: Callable, leaf: Callable, per_param: Callable,
             del u, new
         return OptState(t, state.inner)
 
-    return Optimizer(init, update, apply)
+    return Optimizer(init, update, apply, leaf, per_param, elementwise)
 
 
 def _moments(inner, params) -> list:
@@ -107,7 +115,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8, wd: float = 0.01
         u.add_(p.float().mul_(wd) if p.dtype != torch.float32 else p * wd)
         return u.mul_(-lr).to(p.dtype), st
 
-    return _optimizer(init, leaf, _moments, _unmoments)
+    return _optimizer(init, leaf, _moments, _unmoments, elementwise=True)
 
 
 # ------------------------------------------------------------ 8-bit AdamW ----

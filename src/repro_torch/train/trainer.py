@@ -11,6 +11,28 @@ So at llama3.2-3b's width no tree-wide f32 copy of the gradients (14.4 GB)
 or update tree (7.2 GB) joins the 43.3 GB of bf16 params and grads and f32
 m and v.
 
+On a device mesh (``Trainer(mesh=...)``, ``make_train_step(..., mesh=)``)
+the step is the JAX package's FSDP/ZeRO-3 mapping
+(``sharding.set_mesh(mesh, data_only=True)``), run by hand on every rank:
+params and optimizer state are stored as each rank's blocks under
+``tree_shardings``; the forward and backward run on the rank's rows of the
+global batch (the batch splits over every mesh axis), each weight gathered
+from its blocks (in its own dtype) where it is used, a stacked leaf layer
+by layer (``sharding.gather_weight`` / ``unbind``), and the loss is the
+rank's share of the global token mean (``chunked_cross_entropy``).  The
+gather's backward sums the ranks' gradients into each rank's block; a
+replicated leaf's gradient is summed after the backward.  The clip takes
+the global norm of the full gradients (each block's sum of squares
+weighted by its share of the leaf, summed over the mesh), and the
+optimizer updates each rank's blocks: block by block where its arithmetic
+is elementwise (adamw), on the gathered leaf, gradient and state where it
+is not (adafactor's row and column statistics, adamw8bit's 256-element
+blocks), keeping the rank's block.  So the step equals the unsharded one
+up to the order of the sums over ranks.  At world size 1 every gather and
+every block is the tensor itself, and the step is the unsharded one.  MoE archs are
+not trained on a mesh (their routing and capacity are global under SPMD;
+the JAX package's FSDP mapping excludes them).
+
 On the card ``Trainer.run`` runs its steps with deterministic kernels
 (``torch.use_deterministic_algorithms``; e.g. the embedding's backward
 scatter-add uses atomics otherwise), so a resumed run ends bit-equal to an
@@ -31,6 +53,8 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.elastic import reshard_state
 from repro_torch.distributed.fault import StepMonitor
 from repro_torch.models import transformer as model_lib
 from repro_torch.optim import make_optimizer, tree
@@ -44,7 +68,7 @@ class TrainConfig:
     total_steps: int = 1000
     grad_clip: float = 1.0
     microbatches: int = 1  # gradient accumulation factor
-    ckpt_every: int = 50
+    ckpt_every: int = 50  # 0: no checkpoints
     ckpt_dir: str = field(
         default_factory=lambda: os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
     ckpt_keep: int = 3
@@ -56,10 +80,11 @@ def _global_norm(grads) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _clip_by_global_norm(grads, max_norm: float):
+def _clip_by_global_norm(grads, max_norm: float, norm: Optional[torch.Tensor] = None):
     """Scales every gradient leaf in place by min(1, max_norm / norm), in
-    f32 and back to its dtype -> (grads, norm)."""
-    norm = _global_norm(grads)
+    f32 and back to its dtype -> (grads, norm); ``norm`` defaults to the
+    leaves' global norm."""
+    norm = _global_norm(grads) if norm is None else norm
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
     for g in tree.leaves(grads):
         g.copy_((g.float() * scale).to(g.dtype))
@@ -81,38 +106,154 @@ def value_and_grad(params, batch, arch: ArchConfig):
     return loss.detach(), metrics["ce"].detach(), list(grads)
 
 
-def make_train_step(arch: ArchConfig, tc: TrainConfig) -> tuple[Callable, Callable]:
+def _loss_and_grads(params, batch, arch: ArchConfig, microbatches: int):
+    """(loss, ce, grads): one pass, or ``microbatches`` equal microbatches
+    run in order, each one's grads (in the params' dtypes) cast to f32,
+    divided by the count and summed, as the JAX scan does."""
+    if microbatches > 1:
+        n = microbatches
+        grads = [torch.zeros_like(p, dtype=torch.float32) for p in tree.leaves(params)]
+        losses, ces = [], []
+        for i in range(n):
+            mb = {k: v.reshape(n, -1, *v.shape[1:])[i] for k, v in batch.items()}
+            loss, ce, g = value_and_grad(params, mb, arch)
+            for acc, gi in zip(grads, g):
+                acc.add_(gi.float().div_(n))
+            losses.append(loss)
+            ces.append(ce)
+        return torch.stack(losses).mean(), torch.stack(ces).mean(), grads
+    return value_and_grad(params, batch, arch)
+
+
+def make_train_step(arch: ArchConfig, tc: TrainConfig, mesh=None) -> tuple[Callable, Callable]:
     """-> (step_fn, opt_init); ``step_fn(params, opt_state, batch, step) ->
     (params, opt_state, metrics)`` updates ``params`` and ``opt_state`` in
     place and returns them.
 
     Gradient accumulation: the global batch splits into ``tc.microbatches``
-    equal microbatches run in order; each one's grads (in the params'
-    dtypes) are cast to f32, divided by the count and summed, as the JAX
-    scan does."""
+    equal microbatches run in order (``_loss_and_grads``).  With ``mesh``,
+    the FSDP/ZeRO-3 step of the module note: ``params`` and ``opt_state``
+    are this rank's blocks (``elastic.reshard_state``), ``batch`` its rows
+    (``Trainer`` draws them), ``opt_init`` takes the full params."""
     opt = make_optimizer(arch.optimizer)
     lr_fn = cosine_schedule(tc.lr, tc.warmup, tc.total_steps)
+    if mesh is not None:
+        return _mesh_step(arch, tc, mesh, opt, lr_fn), opt.init
 
     def step_fn(params, opt_state, batch, step):
-        if tc.microbatches > 1:
-            n = tc.microbatches
-            grads = [torch.zeros_like(p, dtype=torch.float32) for p in tree.leaves(params)]
-            losses, ces = [], []
-            for i in range(n):
-                mb = {k: v.reshape(n, -1, *v.shape[1:])[i] for k, v in batch.items()}
-                loss, ce, g = value_and_grad(params, mb, arch)
-                for acc, gi in zip(grads, g):
-                    acc.add_(gi.float().div_(n))
-                losses.append(loss)
-                ces.append(ce)
-            loss, ce = torch.stack(losses).mean(), torch.stack(ces).mean()
-        else:
-            loss, ce, grads = value_and_grad(params, batch, arch)
+        loss, ce, grads = _loss_and_grads(params, batch, arch, tc.microbatches)
         grads, gnorm = _clip_by_global_norm(grads, tc.grad_clip)
         opt_state = opt.apply(tree.unflatten(params, grads), opt_state, params, lr_fn(step))
         return params, opt_state, {"loss": loss, "ce": ce, "grad_norm": gnorm}
 
     return step_fn, opt.init
+
+
+def _sharding(t) -> Optional[sh.NamedSharding]:
+    """The sharding a block was cut with (``sharding.shard_local``); None
+    for a full tensor."""
+    return getattr(t, "_mesh_sharding", None)
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    s = _sharding(t)
+    return t if s is None else sh.gather(t, s)
+
+
+def _block(full: torch.Tensor, s: Optional[sh.NamedSharding]) -> torch.Tensor:
+    return full if s is None else full[s.index(tuple(full.shape))]
+
+
+def _same_layout(a, b) -> bool:
+    if a is None or b is None:
+        return a is b
+    return a.mesh is b.mesh and tuple(a.spec) == tuple(b.spec)
+
+
+def _check_mesh_arch(arch: ArchConfig) -> None:
+    if arch.n_experts:
+        raise NotImplementedError(
+            f"{arch.name} is an MoE arch: training it on a device mesh is not ported "
+            "(ROADMAP: MoE training on a mesh); its routing and capacity are global "
+            "under SPMD, and the JAX package's FSDP mapping excludes MoE archs")
+
+
+@torch.no_grad()
+def _mesh_global_norm(grads: list, params, mesh) -> torch.Tensor:
+    """The global norm of the full gradients from this rank's blocks of
+    them: each block's f32 sum of squares times its leaf's shard factor
+    over the mesh size (a block held by several ranks counts once), summed
+    over the mesh."""
+    n = sh.mesh_size(mesh)
+    total = sum(torch.sum(torch.square(g.float())) *
+                ((sh.shard_factor(_sharding(p)) if _sharding(p) else 1) / n)
+                for g, p in zip(grads, tree.leaves(params)))
+    return torch.sqrt(sh.mesh_all_reduce(total, mesh))
+
+
+@torch.no_grad()
+def _apply_blocks(opt, grads: list, state, params, lr):
+    """``Optimizer.apply`` on this rank's blocks: ``grads``, ``params`` and
+    ``state`` are blocks, the last two written in place (see the module
+    note)."""
+    t = state.step + 1
+    for st, g, p in zip(opt.per_param(state.inner, params), grads, tree.leaves(params)):
+        layout = _sharding(p)
+        olds = tree.leaves(st)
+        if opt.elementwise and all(_same_layout(_sharding(x), layout) for x in olds):
+            u, new = opt.leaf(st, g, p, lr, t)
+            for old, x in zip(olds, tree.leaves(new)):
+                if x is not old:
+                    old.copy_(x)
+        else:
+            g_full = g if layout is None else sh.gather(g, layout)
+            u, new = opt.leaf(tree.map(_full, st), g_full, _full(p), lr, t)
+            for old, x in zip(olds, tree.leaves(new)):
+                if x is not old:
+                    old.copy_(_block(x, _sharding(old)))
+            u = _block(u, layout)
+        p.add_(u)
+        del u, new
+    state.step.copy_(t)
+    return state
+
+
+def _mesh_step(arch: ArchConfig, tc: TrainConfig, mesh, opt, lr_fn) -> Callable:
+    _check_mesh_arch(arch)
+
+    def step_fn(params, opt_state, batch, step):
+        with sh.use_mesh(mesh, data_only=True):
+            loss, ce, grads = _loss_and_grads(params, batch, arch, tc.microbatches)
+        # a weight gathered where it was used had the ranks' shares of its
+        # gradient summed by the gather's backward; sum the others' here
+        for p, g in zip(tree.leaves(params), grads):
+            if _sharding(p) is None or not sh.moves(_sharding(p)):
+                sh.mesh_all_reduce(g, mesh)
+        loss, ce = sh.mesh_all_reduce(loss.clone(), mesh), sh.mesh_all_reduce(ce.clone(), mesh)
+        grads, gnorm = _clip_by_global_norm(grads, tc.grad_clip,
+                                            _mesh_global_norm(grads, params, mesh))
+        opt_state = _apply_blocks(opt, grads, opt_state, params, lr_fn(step))
+        return params, opt_state, {"loss": loss, "ce": ce, "grad_norm": gnorm}
+
+    return step_fn
+
+
+def mesh_rows(mesh, global_batch: int, microbatches: int = 1) -> list[tuple[int, int]]:
+    """The rows of the global batch this rank of ``mesh`` holds under the
+    FSDP mapping (the batch dim sharded over every axis, major to minor):
+    one slice of each microbatch, so that the step's reshape into
+    microbatches gives each rank its rows of every global microbatch."""
+    n_dev = sh.mesh_size(mesh)
+    if global_batch % (n_dev * microbatches):
+        raise ValueError(f"global batch {global_batch} does not split over {n_dev} devices "
+                         f"x {microbatches} microbatches")
+    sizes = sh.mesh_shape(mesh)
+    r = 0
+    for size, c in zip(sizes.values(), mesh.get_coordinate()):
+        r = r * size + c
+    per_mb = global_batch // microbatches
+    rows = per_mb // n_dev
+    return [(i * per_mb + r * rows, i * per_mb + (r + 1) * rows) for i in range(microbatches)]
 
 
 @contextlib.contextmanager
@@ -149,17 +290,62 @@ class Trainer:
     seed: int = 0
     monitor: StepMonitor = field(default_factory=StepMonitor)
     device: Any = None  # the card unless named
+    mesh: Any = None  # a DeviceMesh: the FSDP/ZeRO-3 step over it (module note)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.ckpt = CheckpointManager(self.tc.ckpt_dir, keep=self.tc.ckpt_keep)
-        self.step_fn, self.opt_init = make_train_step(self.arch, self.tc)
+        self.step_fn, self.opt_init = make_train_step(self.arch, self.tc, self.mesh)
         self.history: list[dict] = []
+        if self.mesh is not None:
+            mesh_rows(self.mesh, self.data.global_batch, self.tc.microbatches)  # divisible
 
     def init_state(self):
+        """Params and optimizer state: full, or on a mesh this rank's blocks
+        of them (drawn full, then cut: at world size 1 the blocks are the
+        full tensors)."""
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         params = model_lib.init_params(self.arch, gen)
-        return params, self.opt_init(params)
+        opt_state = self.opt_init(params)
+        if self.mesh is None:
+            return params, opt_state
+        return reshard_state(params, self.mesh), reshard_state(opt_state, self.mesh)
+
+    def batch(self, step: int) -> dict:
+        """The step's batch: all of it, or on a mesh this rank's rows of it
+        (``mesh_rows``), the prefix embeddings of a vlm / audio arch drawn
+        for the global batch and sliced (``make_batch`` draws them per
+        slice)."""
+        if self.mesh is None:
+            return make_batch(self.data, step, self.arch, device=self.device)
+        rows = mesh_rows(self.mesh, self.data.global_batch, self.tc.microbatches)
+        parts = [make_batch(self.data, step, None, host_slice=r, device=self.device)
+                 for r in rows]
+        batch = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+        if self.arch.prefix_len:
+            from repro_torch.models.frontends import prefix_embeddings
+
+            pre = prefix_embeddings(self.arch, self.data.global_batch,
+                                    seed=self.data.seed + step, device=self.device)
+            batch["prefix_emb"] = torch.cat([pre[lo:hi] for lo, hi in rows])
+        return batch
+
+    def _is_writer(self) -> bool:
+        """Whether this process writes the checkpoints: rank 0 of a mesh."""
+        return self.mesh is None or torch.distributed.get_rank() == 0
+
+    def _sync(self) -> None:
+        if self.mesh is not None:
+            torch.distributed.barrier()
+
+    def _save(self, step: int, params, opt_state) -> None:
+        """A host-gathered checkpoint: on a mesh every rank gathers, rank 0
+        writes."""
+        state = (params, opt_state)
+        if self.mesh is not None:
+            state = tree.map(lambda t: _full(t) if torch.is_tensor(t) else t, state)
+        if self._is_writer():
+            self.ckpt.save(step, state, blocking=False)
 
     def run(
         self,
@@ -172,6 +358,7 @@ class Trainer:
         disk, resumes from the latest checkpoint.  A checkpoint is written
         every ``tc.ckpt_every`` steps and after the last."""
         self.ckpt.wait()  # a save a failed attempt left running lands first
+        self._sync()
         if start_step == -1 or (start_step == 0 and self.ckpt.latest_step() is not None):
             latest = self.ckpt.latest_step()
             if latest is not None:
@@ -187,7 +374,7 @@ class Trainer:
             for step in range(start_step, num_steps):
                 if fail_at is not None and step == fail_at:
                     raise RuntimeError(f"injected failure at step {step}")
-                batch = make_batch(self.data, step, self.arch, device=self.device)
+                batch = self.batch(step)
                 t0 = time.perf_counter()
                 params, opt_state, metrics = self.step_fn(params, opt_state, batch, step)
                 if self.device.type == "cuda":
@@ -201,11 +388,18 @@ class Trainer:
                     "sec": dt,
                     "straggler": straggler,
                 })
-                if (step + 1) % self.tc.ckpt_every == 0 or step + 1 == num_steps:
-                    self.ckpt.save(step + 1, (params, opt_state), blocking=False)
+                if self.tc.ckpt_every and ((step + 1) % self.tc.ckpt_every == 0
+                                           or step + 1 == num_steps):
+                    self._save(step + 1, params, opt_state)
         self.ckpt.wait()
+        self._sync()
         return {"params": params, "opt_state": opt_state, "history": self.history}
 
     def _restore(self, step: int):
-        state, _ = self.ckpt.restore(step, target=self.init_state())
+        proto = self.init_state()
+        shardings = None
+        if self.mesh is not None:
+            shardings = tree.map(
+                lambda t: _sharding(t) or sh.NamedSharding(self.mesh, sh.P()), proto)
+        state, _ = self.ckpt.restore(step, target=proto, shardings=shardings)
         return state

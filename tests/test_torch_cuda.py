@@ -23,7 +23,11 @@ step captured before such a prefill reading its pages on replay; and the
 training path (it holds none of the kernels): a train step of a reduced
 llama3.2-3b on the card against the CPU, a Trainer run resumed from its
 checkpoint bit-equal to an uninterrupted one on the card, and a finite
-full-width mamba2-130m train step.
+full-width mamba2-130m train step; and the multi-device modules over a
+real NCCL process group of world size 1: ``compressed_grad_reduce`` on
+the card against the CPU (gloo; int8 payloads and scales bit for bit), the
+all-to-all MoE dispatch bit-equal to the replicated one, and a one-stage
+``pipeline_apply``.
 
 Marked ``cuda``: on a machine without a card every test skips with a
 reason.  On the card:
@@ -1531,3 +1535,78 @@ def test_full_width_mamba_train_step_is_finite(dev):
     params, _, m = step_fn(params, opt_init(params), batch, 0)
     assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
     assert all(bool(torch.isfinite(p).all()) for p in tree.leaves(params))
+
+
+# ---- the multi-device modules over NCCL at world size 1 (one card; NCCL
+# refuses two ranks on one GPU): compressed_grad_reduce card vs CPU (gloo),
+# the all-to-all MoE dispatch against the replicated one, a one-stage
+# pipeline_apply
+@pytest.fixture
+def nccl_mesh(dev):
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_test_mesh
+
+    joined = init_distributed("cuda", timeout=datetime.timedelta(minutes=2))
+    try:
+        yield make_test_mesh(1, 1, device="cuda")
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def test_compressed_grad_reduce_over_nccl_matches_cpu(nccl_mesh):
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as col
+
+    class CpuAxis:
+        group = dist.new_group([0], backend="gloo")
+
+        def get_group(self, axis):
+            return self.group
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    grads = {"embed": torch.randn(4096, 3072, generator=gen, device="cuda") * 1e-3,
+             "norm": torch.randn(3072, generator=gen, device="cuda"),
+             "tiny": torch.randn(7, 9, generator=gen, device="cuda")}
+    red, new = col.compressed_grad_reduce(grads, col.init_error_state(grads), nccl_mesh)
+    cpu = {k: g.cpu() for k, g in grads.items()}
+    cred, cnew = col.compressed_grad_reduce(cpu, col.init_error_state(cpu), CpuAxis())
+    for k, g in grads.items():
+        q, s = col._quantize_chunks(g.reshape(-1), 1)
+        cq, cs = col._quantize_chunks(cpu[k].reshape(-1), 1)
+        assert torch.equal(q.cpu(), cq) and torch.equal(s.cpu(), cs), k
+        scale = float(cred[k].abs().max())
+        for a, b in ((red[k], cred[k]), (new[k]["e1"], cnew[k]["e1"]),
+                     (new[k]["e2"], cnew[k]["e2"])):
+            assert float((a.cpu() - b).abs().max()) <= 1e-6 * scale, k
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_alltoall_over_nccl_equals_replicated(nccl_mesh, dtype):
+    from repro_torch.models import moe
+
+    params = moe.init_moe_params(torch.Generator(device="cuda").manual_seed(0), 1024, 2048, 8,
+                                 dtype)
+    x = torch.randn(4, 64, 1024, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda").to(dtype)
+    for cf in (1.25, 0.5):
+        a = moe.moe_ffn(x, params, top_k=2, capacity_factor=cf)
+        b = moe.moe_ffn(x, params, top_k=2, capacity_factor=cf, dispatch="alltoall",
+                        mesh=nccl_mesh)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), cf
+
+
+def test_one_stage_pipeline_over_nccl(nccl_mesh):
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1,), ("pod",), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    w = torch.randn(1, 3072, 3072, generator=gen, device="cuda") / 3072 ** 0.5
+    x = torch.randn(4, 8, 3072, generator=gen, device="cuda")
+    got = pipeline_apply(lambda p, mb: torch.tanh(mb @ p), w, x, mesh, axis="pod")
+    assert torch.equal(got, torch.stack([torch.tanh(mb @ w[0]) for mb in x]))

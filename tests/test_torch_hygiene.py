@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 import repro_torch  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.launch import train as tlaunch_train  # noqa: E402
 from repro_torch.serve import engine as engine_mod  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -44,7 +45,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                  "core.interpreter", "quant.quantize", "models.frontends",
                  "configs.paligemma_3b", "configs.musicgen_medium", "optim.optimizers",
                  "optim.schedules", "optim.tree", "data.pipeline", "checkpoint.manager",
-                 "distributed.fault", "train.trainer", "launch.train"):
+                 "distributed.fault", "train.trainer", "launch.train",
+                 "distributed.sharding", "distributed.collectives", "distributed.pipeline",
+                 "distributed.elastic", "launch.mesh"):
         assert f"repro_torch.{name}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -55,6 +58,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                      or m == "repro" or m.startswith("repro."))
         print(bad)
         assert not bad, bad
+        import torch.distributed as dist
+        assert not dist.is_initialized()  # importing launch/mesh.py joins no group
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -77,6 +82,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         engine_mod.ServeEngine(cfg, {})
     with pytest.raises(RuntimeError, match="no CUDA card"):
         tserve.main(["--arch", "llama3.2-3b", "--reduced"])
+    for mesh in ([], ["--mesh-data", "1"]):  # before any process group is joined
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            tlaunch_train.main(["--arch", "llama3.2-3b", "--reduced", "--steps", "1", *mesh])
+    assert not torch.distributed.is_initialized()
     assert engine_mod.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -179,3 +188,14 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                               text=True, timeout=300, cwd=script.parent, env=env)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+def test_a_card_mesh_without_nccl_raises(monkeypatch):
+    """No gloo fallback on the card: a process group for ``cuda`` is NCCL or
+    nothing."""
+    from repro_torch.launch.mesh import init_distributed
+
+    monkeypatch.setattr(torch.distributed, "is_nccl_available", lambda: False)
+    with pytest.raises(RuntimeError, match="NCCL"):
+        init_distributed("cuda")
+    assert not torch.distributed.is_initialized()

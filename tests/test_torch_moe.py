@@ -175,12 +175,6 @@ def test_quantized_experts_run_through_mpmm_one_expert_at_a_time(monkeypatch):
     assert calls == []
 
 
-def test_moe_ffn_alltoall_is_not_ported():
-    params = _carry(_moe_params("float32", 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmoe.moe_ffn(torch.zeros(1, 2, 128), params, top_k=2, dispatch="alltoall")
-
-
 def _shapes(tree):
     """{name: (shape, dtype name)} of a parameter tree, quantized leaves'
     ``bits`` left out."""

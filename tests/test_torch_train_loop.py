@@ -6,8 +6,9 @@ the first 5's), 2 microbatches track 1 within ``rtol = 2e-2``, a run that
 crashes at step 13 and resumes from its step-10 checkpoint ends bit-equal
 (params, optimizer state and losses) to an uninterrupted one, the straggler
 monitor, bounded restarts; and the launcher prints the JAX launcher's keys
-plus ``device`` and refuses a device mesh.  The step's parity with JAX is in
-``tests/test_torch_train.py``.
+plus ``device``.  The step's parity with JAX is in
+``tests/test_torch_train.py``; the launcher on a device mesh in
+``tests/test_torch_train_mesh.py``.
 """
 import numpy as np
 import pytest
@@ -88,6 +89,3 @@ def test_launcher_prints_the_jax_keys(tmp_path, capsys):
     assert report["device"] == "cpu" and report["steps"] == 6
     assert np.isfinite(report["first_loss"]) and np.isfinite(report["final_loss"])
     assert '"final_loss"' in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tlaunch.main(["--arch", "llama3.2-3b", "--reduced", "--device", "cpu",
-                      "--mesh-data", "2"])
