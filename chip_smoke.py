@@ -149,10 +149,11 @@ Phases, each printing one JSON line that names the card:
                world size 1 (one card; NCCL refuses two ranks on one GPU;
                no TPU kernel on the path: "mesh" in ``launches_by_path``,
                all 0): (a) full llama3.2-3b, MESH_TRAIN_STEPS steps at 8 x 512
-               through launch/train.py --mesh-data 1 --mesh-model 1 (adamw,
-               no checkpoints), each step's loss and grad norm within
-               MESH_TRAIN_RTOL of the unsharded Trainer's on the card (same
-               seed, data and deterministic kernels), s a step, peak memory;
+               through a Trainer on a 1 x 1 mesh under the FSDP mapping
+               (set_mesh(mesh, data_only=True); adamw, no checkpoints), each
+               step's loss and grad norm within MESH_TRAIN_RTOL of the
+               unsharded Trainer's on the card (same seed, data and
+               deterministic kernels), s a step, peak memory;
                (b) compressed_grad_reduce over llama3.2-3b's largest leaf
                shapes (embed, unembed, blocks/wo; f32, 1.05e9 elements) and
                two small leaves, card (NCCL) vs CPU (gloo): int8 payloads and
@@ -164,7 +165,31 @@ Phases, each printing one JSON line that names the card:
                (e) llama3.2-3b cut to 2 layers at full width: its params
                placed on the 1 x 1 mesh (every block and every gather the
                tensor itself), saved, restored with shardings=, bit-equal.
-11. kernels line -- each kernel's launches on its path (all > 0): the serving
+11. tp      -- the tensor-parallel mapping (JAX's set_mesh(mesh)) over an
+               NCCL group of world size 1, where every collective spans one
+               rank: (a) full llama3.2-3b, MESH_TRAIN_STEPS steps at 8 x 512
+               through launch/train.py --mesh-data 1 --mesh-model 1, which
+               installs it, held to phase 10's unsharded Trainer within
+               MESH_TRAIN_RTOL; (b) mixtral-8x22b cut to TP_MOE_LAYERS layer
+               at full width, TP_MOE_STEPS steps at TP_MOE_BATCH x 512
+               through a Trainer on the 1 x 1 mesh under it, held to the
+               unsharded Trainer the same way, with its peak memory and the
+               share of assignments dropped at capacity; (c) zamba2-7b cut
+               to TP_WAVE_LAYERS layers at full width (w8, kv8) through
+               Server(mesh=), 8 greedy requests of 512 tokens and 32 new:
+               streams equal to the no-mesh Server's (run just before the
+               counts are set to 0), tokens/s of both.  The CF matmul and
+               mqa_decode must launch on these paths ("tp").  Phase 2 also
+               holds the CF matmul at one rank's blocks of llama3.2-3b's W8
+               projections on a 4-wide model axis (TP_BLOCK_SHAPES at M 8
+               and 256), the row blocks (wo, wd) also through the f32 entry
+               a row-split partial takes (held to mpmm_ref's f32 sum, and
+               cast to bf16 equal to the bf16 entry's bits), and mqa_decode
+               at zamba2-7b's 8 of 32 kv heads: the kernels line carries
+               them as "tp_blocks", "tp_partials" and "tp_heads".  In
+               Server(mesh=) every W8 row-split projection runs through the
+               f32 entry (one rank: the same bits as the unsplit product).
+12. kernels line -- each kernel's launches on its path (all > 0): the serving
                kernels in phase 5's first run, the FF and int matmuls in
                phase 4, contiguous-cache decode in phase 6's first zamba2
                run; the counts are set to 0 just before each path runs, and
@@ -234,6 +259,13 @@ MIXTRAL_EXPERT_SHAPES = [(6144, 16384), (16384, 6144)]
 MIXTRAL_EXPERT_M = (1, 2, 160)
 # the expert call sites' cases of the kernels line: (w_bits, M, K, N)
 EXPERT_MPMM_CASES = {"decode": (4, 2, 6144, 16384), "prefill": (4, 160, 6144, 16384)}
+# one rank's blocks of llama3.2-3b's W8 projections on a 4-wide model axis
+# under the tensor-parallel mapping, as (K, N): wq's columns (3072 x 768),
+# wo's rows (768 x 3072), wg's columns (3072 x 2048), wd's rows (2048 x
+# 3072), at a decode M (8) and a prefill M (256)
+TP_BLOCK_SHAPES = {"wq columns": (3072, 768), "wo rows": (768, 3072),
+                   "wg columns": (3072, 2048), "wd rows": (2048, 3072)}
+TP_BLOCK_M = (8, 256)
 # speculative decoding in phase 5: draft tokens per round, and the rows of a
 # round's verify matmul at 8 rows (8 x (SPEC_K + 1) = 40)
 SPEC_K = 4
@@ -275,6 +307,8 @@ MQA_CASES = [
     ("zamba2 serving", 8, 552, 32, 1, 112, list(range(545, 553)), 4),
     ("zamba2 long context", 1, 32768, 32, 1, 112, [32768], 8),
     ("llama3.2-3b GQA", 8, 1024, 8, 3, 128, [1024 - (i % 3) for i in range(8)], 8),
+    # one rank's 8 of zamba2-7b's 32 kv heads on a 4-wide model axis (TP)
+    ("zamba2 TP 8 of 32 heads", 8, 552, 8, 1, 112, list(range(545, 553)), 8),
 ]
 WAVE_REQUESTS, WAVE_PROMPT, WAVE_NEW = 8, 512, 32
 # the ResNet18 convs phase 2 times the FF matmul at (batch 8): M = 8*Ho*Wo
@@ -320,6 +354,12 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 5
 # within MESH_TRAIN_RTOL), and compressed_grad_reduce card vs CPU within
 # MESH_COLL_RTOL of the mean's largest magnitude
 MESH_TRAIN_STEPS, MESH_TRAIN_RTOL, MESH_COLL_RTOL = 3, 1e-5, 1e-6
+# phase 11, the tensor-parallel mapping at world size 1 over NCCL:
+# mixtral-8x22b cut to TP_MOE_LAYERS layer(s) at full width, TP_MOE_STEPS
+# steps at TP_MOE_BATCH x TRAIN_SEQ; zamba2-7b cut to TP_WAVE_LAYERS layers
+# through Server(mesh=)
+TP_MOE_LAYERS, TP_MOE_STEPS, TP_MOE_BATCH = 1, 2, 4
+TP_WAVE_LAYERS = 7
 MAMBA_STEPS, MAMBA_CKPT_EVERY, MAMBA_FAIL_AT = 12, 4, 6
 # the numbers of a phase-2 case that the kernels line carries
 LINE_KEYS = ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
@@ -449,6 +489,40 @@ def kernel_cases(torch, timer, gpu) -> dict:
             if (w_bits, m, k, n) == case:
                 summary["mpmm_dequant"].setdefault("expert", {})[label] = {
                     key: rec[key] for key in LINE_KEYS}
+        for label, (bk, bn) in TP_BLOCK_SHAPES.items():
+            if (w_bits, k, n) == (8, bk, bn) and m in TP_BLOCK_M:
+                summary["mpmm_dequant"].setdefault("tp_blocks", {})[f"{label} M={m}"] = {
+                    key: rec[key] for key in LINE_KEYS}
+
+    # a row-split partial under the TP mapping: the f32 entry, the scaled f32
+    # sum uncast, held to mpmm_ref's within f32 summation-order error (the
+    # products are exact in f32) and, cast to bf16, to the bf16 entry's bits
+    def mpmm_f32_case(x, wd, ws, w_deq, label):
+        m, k = x.shape
+        n = wd.shape[-1]
+        f32 = torch.float32
+        got = mpmm_cuda(x, wd, ws, w_bits=8, out_dtype=f32)
+        exp = ref.mpmm_ref(x, wd, ws, w_bits=8, out_dtype=f32)
+        tol = dict(atol=k * 2.0**-22 * x.float().abs().max().item() * 127 * ws.max().item(),
+                   rtol=1e-5)
+        err = max_err(torch, got, exp, tol)
+        del exp
+        check(torch.equal(got.to(torch.bfloat16), mpmm_cuda(x, wd, ws, w_bits=8)),
+              f"mpmm f32 entry M={m} K={k} N={n}: cast to bf16, not the bf16 entry's bits")
+        check(torch.equal(got, mpmm_cuda(x, wd, ws, w_bits=8, out_dtype=f32)),
+              f"mpmm f32 entry M={m} K={k} N={n}: two runs gave other bits")
+        b_ms, b_by = bound(m * k * 2 + wd.numel() + n * 4 + m * n * 4, 2.0 * m * n * k)
+        rec = {
+            "case": f"w8 f32 out M={m} K={k} N={n}", "max_abs_err": err, "tol": tol,
+            "ms": timer(lambda: mpmm_cuda(x, wd, ws, w_bits=8, out_dtype=f32)),
+            "plain_ms": timer(lambda: ref.mpmm_ref(x, wd, ws, w_bits=8, out_dtype=f32),
+                              iters=3),
+            "library_ms": timer(lambda: torch.mm(x, w_deq, out_dtype=f32)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        note("mpmm_dequant", rec, False)
+        summary["mpmm_dequant"].setdefault("tp_partials", {})[f"{label} M={m}"] = {
+            key: rec[key] for key in LINE_KEYS}
 
     def deq(wd, ws, w_bits):
         return ((unpack_int4(wd, 0) if w_bits == 4 else wd).float() * ws).to(torch.bfloat16)
@@ -466,6 +540,19 @@ def kernel_cases(torch, timer, gpu) -> dict:
                     mpmm_case(x, wd, ws, w_bits, w_deq)
                 del wd, ws, w_deq
         torch.cuda.empty_cache()
+    # one rank's blocks under the TP mapping (4-wide model axis), w8; the
+    # row blocks also as row-split partials (the f32 entry)
+    for label, (k, n) in TP_BLOCK_SHAPES.items():
+        w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+        wd, ws = ops.pack_weights(w, 8)
+        w_deq = deq(wd, ws, 8)
+        del w
+        for m in TP_BLOCK_M:
+            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            mpmm_case(x, wd, ws, 8, w_deq)
+            if label.endswith("rows"):
+                mpmm_f32_case(x, wd, ws, w_deq, label)
+        del wd, ws, w_deq
     for k, n in ZAMBA_PREFILL_SHAPES:
         w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
         wd, ws = ops.pack_weights(w, 8)
@@ -1191,6 +1278,8 @@ def mqa_kernel_cases(torch, timer, gpu, summary) -> None:
         }
         note_case(summary, gpu, "mqa_decode", rec,
                   (label, kv_bits) == ("zamba2 serving", 8))
+        if label.startswith("zamba2 TP"):
+            summary["mqa_decode"]["tp_heads"] = {key: rec[key] for key in LINE_KEYS}
         del kd, vd, ks, vs, kg, vg
     torch.cuda.empty_cache()
 
@@ -1238,12 +1327,12 @@ def hybrid_step_card_vs_cpu(torch, gpu, base) -> None:
 
 # --------------------------------------------------------------- waves
 def waves_run(torch, seed: int, cfg, requests: int, prompt: int, new: int,
-              capture: bool = True):
+              capture: bool = True, mesh=None):
     """Serve ``requests`` greedy requests of ``prompt`` random tokens and
     ``new`` new tokens through the static-wave Server (batch 8, the arch's
-    w/kv bits), with weights drawn from ``seed``, its decode step captured
-    (or eager: ``capture=False``); returns (streams, stats, peak bytes, wall
-    s, server)."""
+    w/kv bits; ``Server(mesh=)`` with a mesh), with weights drawn from
+    ``seed``, its decode step captured (or eager: ``capture=False``);
+    returns (streams, stats, peak bytes, wall s, server)."""
     import numpy as np
 
     from repro_torch.models import transformer as model_lib
@@ -1252,7 +1341,7 @@ def waves_run(torch, seed: int, cfg, requests: int, prompt: int, new: int,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     params = model_lib.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
-    srv = Server(cfg, params, batch_size=8, max_len=prompt + new + 8, device="cuda")
+    srv = Server(cfg, params, batch_size=8, max_len=prompt + new + 8, device="cuda", mesh=mesh)
     del params
     torch.cuda.empty_cache()
     rng = np.random.default_rng(seed)
@@ -2491,66 +2580,80 @@ def event_ms(torch, fn, iters: int = 3) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def mesh_train(torch, gpu) -> None:
-    """(a) Full llama3.2-3b through the launcher on a 1 x 1 mesh over NCCL
-    (``--mesh-data 1 --mesh-model 1``, adamw, MESH_TRAIN_STEPS steps at
-    the launcher's batch 8 x 512, no checkpoints), each step's loss and
-    grad norm held against the unsharded Trainer's on this card (same
-    config, seed, data and deterministic kernels)."""
+def train_history(torch, arch, tag: str, root, steps: int, batch: int, mesh=None,
+                  data_only: bool = False):
+    """A Trainer run of ``steps`` steps (adamw at lr 3e-4, no checkpoints)
+    at ``batch`` x TRAIN_SEQ on the card: unsharded, or on ``mesh`` under the
+    FSDP mapping (``data_only``, ``set_mesh(mesh, data_only=True)``) or the
+    TP one (``set_mesh(mesh)``) -> (history, wall s, peak bytes)."""
     import gc
-    import tempfile
 
-    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig
-    from repro_torch.launch import train as tlaunch
+    from repro_torch.distributed import sharding as sh
     from repro_torch.train import TrainConfig, Trainer
 
-    steps = MESH_TRAIN_STEPS
-    arch = get_config("llama3.2-3b")
-    runs = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as root:
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        tc = TrainConfig(lr=3e-4, warmup=max(steps // 10, 1), total_steps=steps,
-                         ckpt_every=0, ckpt_dir=str(Path(root) / "plain"))
-        data = DataConfig(vocab=arch.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
-        plain = Trainer(arch=arch, tc=tc, data=data, device="cuda")
-        plain.run(steps)
-        runs["unsharded"] = (plain.history, time.perf_counter() - t0,
-                             torch.cuda.max_memory_allocated())
-        del plain
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        report, trainer = tlaunch.run([
-            "--arch", "llama3.2-3b", "--steps", str(steps), "--batch", str(TRAIN_BATCH),
-            "--seq", str(TRAIN_SEQ), "--mesh-data", "1", "--mesh-model", "1",
-            "--ckpt-every", "0", "--ckpt-dir", str(Path(root) / "mesh")])
-        runs["mesh"] = (trainer.history, time.perf_counter() - t0,
-                        torch.cuda.max_memory_allocated())
-        del trainer
-        gc.collect()
-        torch.cuda.empty_cache()
-    (ph, p_wall, p_peak), (mh, m_wall, m_peak) = runs["unsharded"], runs["mesh"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tc = TrainConfig(lr=3e-4, warmup=max(steps // 10, 1), total_steps=steps,
+                     ckpt_every=0, ckpt_dir=str(Path(root) / tag))
+    data = DataConfig(vocab=arch.vocab, seq_len=TRAIN_SEQ, global_batch=batch)
+    with sh.use_mesh(mesh, data_only) if mesh is not None else contextlib.nullcontext():
+        trainer = Trainer(arch=arch, tc=tc, data=data, device="cuda", mesh=mesh)
+        trainer.run(steps)
+    out = (trainer.history, time.perf_counter() - t0, torch.cuda.max_memory_allocated())
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_steps(ref, got, what: str) -> list:
+    """Each step's loss and grad norm of ``got`` within MESH_TRAIN_RTOL of
+    ``ref``'s -> the rows of the report."""
     rows = []
-    for a, b in zip(ph, mh):
+    for a, b in zip(ref, got):
         rows.append({"step": a["step"], "loss": [a["loss"], b["loss"]],
                      "grad_norm": [a["grad_norm"], b["grad_norm"]], "s": [a["sec"], b["sec"]]})
         for k in ("loss", "grad_norm"):
             check(math.isfinite(b[k]) and abs(b[k] - a[k]) <= MESH_TRAIN_RTOL * abs(a[k]),
-                  f"mesh train step {a['step']}: {k} {b[k]} against the unsharded {a[k]}")
-    check(len(mh) == steps and report["steps"] == steps, f"mesh run took {len(mh)} steps")
+                  f"{what} step {a['step']}: {k} {b[k]} against the unsharded {a[k]}")
+    check(len(got) == len(ref), f"{what} took {len(got)} steps, expected {len(ref)}")
+    return rows
+
+
+def steps_report(rows, ref, got) -> dict:
+    (ph, p_wall, p_peak), (mh, m_wall, m_peak) = ref, got
+    return {"steps": rows,
+            "bit_equal": all(r["loss"][0] == r["loss"][1] and
+                             r["grad_norm"][0] == r["grad_norm"][1] for r in rows),
+            "step_s_after_first": [sorted(h["sec"] for h in ph[1:]),
+                                   sorted(h["sec"] for h in mh[1:])],
+            "wall_s": [p_wall, m_wall], "peak_mem_gb": [p_peak / 1e9, m_peak / 1e9],
+            "rtol": MESH_TRAIN_RTOL}
+
+
+def mesh_train(torch, gpu, mesh, root):
+    """(a) Full llama3.2-3b, MESH_TRAIN_STEPS steps at the launcher's batch
+    8 x 512 (adamw, no checkpoints), through a Trainer on a 1 x 1 mesh over
+    NCCL under the FSDP mapping (``set_mesh(mesh, data_only=True)``), each
+    step's loss and grad norm held against the unsharded Trainer's on this
+    card (same config, seed, data and deterministic kernels).  Returns the
+    unsharded run (phase 11 holds the TP launcher to it)."""
+    from repro_torch.configs import get_config
+
+    arch = get_config("llama3.2-3b")
+    plain = train_history(torch, arch, "plain", root, MESH_TRAIN_STEPS, TRAIN_BATCH)
+    fsdp = train_history(torch, arch, "fsdp", root, MESH_TRAIN_STEPS, TRAIN_BATCH, mesh,
+                         data_only=True)
+    rows = hold_steps(plain[0], fsdp[0], "FSDP mesh train")
     emit({"phase": "mesh_train", "model": "llama3.2-3b (28 layers, full width)",
-          "mesh": "1 x 1 (data, model), NCCL", "entry": "repro_torch.launch.train",
-          "optimizer": arch.optimizer, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": rows,
-          "order": "[unsharded Trainer, mesh launcher]",
-          "bit_equal": all(r["loss"][0] == r["loss"][1] and
-                           r["grad_norm"][0] == r["grad_norm"][1] for r in rows),
-          "step_s_after_first": [sorted(h["sec"] for h in ph[1:]),
-                                 sorted(h["sec"] for h in mh[1:])],
-          "wall_s": [p_wall, m_wall], "peak_mem_gb": [p_peak / 1e9, m_peak / 1e9],
-          "rtol": MESH_TRAIN_RTOL, "gpu": gpu})
+          "mesh": "1 x 1 (data, model), NCCL", "mapping": "FSDP (set_mesh(mesh, "
+          "data_only=True))", "entry": "train.Trainer(mesh=)", "optimizer": arch.optimizer,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "order": "[unsharded Trainer, FSDP Trainer]",
+          **steps_report(rows, plain, fsdp), "gpu": gpu})
+    return plain
 
 
 class _CpuAxis:
@@ -2711,6 +2814,8 @@ def mesh_paths(torch, gpu) -> None:
 
     from repro_torch.launch.mesh import init_distributed, make_test_mesh
 
+    import tempfile
+
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2718,8 +2823,9 @@ def mesh_paths(torch, gpu) -> None:
     try:
         check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
               f"phase 10 needs an NCCL group of one rank, got {dist.get_backend()}")
-        mesh_train(torch, gpu)
         mesh = make_test_mesh(1, 1, device="cuda")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as root:
+            plain = mesh_train(torch, gpu, mesh, root)
         mesh_collectives(torch, gpu, mesh)
         mesh_moe(torch, gpu, mesh)
         mesh_pipeline(torch, gpu)
@@ -2728,6 +2834,137 @@ def mesh_paths(torch, gpu) -> None:
         if joined:
             dist.destroy_process_group()
     emit({"phase": "mesh_total", "s": time.perf_counter() - t0, "gpu": gpu})
+    torch.cuda.empty_cache()
+    return plain
+
+
+def tp_train_llama(torch, gpu, plain, root) -> None:
+    """(a) Full llama3.2-3b through the launcher on a 1 x 1 mesh over NCCL
+    (``--mesh-data 1 --mesh-model 1``, which installs the TP mapping,
+    ``set_mesh(mesh)``), MESH_TRAIN_STEPS steps at 8 x 512, each step's loss
+    and grad norm held against phase 10's unsharded Trainer."""
+    import gc
+
+    from repro_torch.launch import train as tlaunch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    report, trainer = tlaunch.run([
+        "--arch", "llama3.2-3b", "--steps", str(MESH_TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+        "--seq", str(TRAIN_SEQ), "--mesh-data", "1", "--mesh-model", "1",
+        "--ckpt-every", "0", "--ckpt-dir", str(Path(root) / "tp")])
+    tp = (trainer.history, time.perf_counter() - t0, torch.cuda.max_memory_allocated())
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = hold_steps(plain[0], tp[0], "TP launcher train")
+    check(report["steps"] == MESH_TRAIN_STEPS, f"the launcher took {report['steps']} steps")
+    emit({"phase": "tp_train", "model": "llama3.2-3b (28 layers, full width)",
+          "mesh": "1 x 1 (data, model), NCCL", "mapping": "TP (set_mesh(mesh), installed by "
+          "the launcher)", "entry": "repro_torch.launch.train --mesh-data 1 --mesh-model 1",
+          "optimizer": "adamw", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "order": "[unsharded Trainer (phase 10), TP launcher]",
+          **steps_report(rows, plain, tp), "gpu": gpu})
+
+
+def tp_train_moe(torch, gpu, mesh, root) -> None:
+    """(b) mixtral-8x22b cut to TP_MOE_LAYERS layer(s) at full width (d_model
+    6144, 48 heads, 8 experts of d_ff 16384, top-2, adamw, remat "full"),
+    TP_MOE_STEPS steps at TP_MOE_BATCH x TRAIN_SEQ: through a Trainer on the
+    1 x 1 mesh under the TP mapping (the first MoE training on a mesh),
+    held against the unsharded Trainer's steps; the mesh run's peak memory
+    and the share of top-k assignments dropped at capacity (counted on the
+    card around ``_positions_in_expert``, recomputed forwards included)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+
+    arch = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=TP_MOE_LAYERS)
+    plain = train_history(torch, arch, "moe_plain", root, TP_MOE_STEPS, TP_MOE_BATCH)
+    real = moe_mod._positions_in_expert
+    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+
+    def counted(eids, n_experts):
+        pos = real(eids, n_experts)
+        cap = int(max(1, (pos.numel() * arch.capacity_factor) // n_experts))
+        counts[0].add_((pos >= cap).sum())
+        counts[1].add_(pos.numel())
+        return pos
+
+    moe_mod._positions_in_expert = counted
+    try:
+        tp = train_history(torch, arch, "moe_tp", root, TP_MOE_STEPS, TP_MOE_BATCH, mesh)
+    finally:
+        moe_mod._positions_in_expert = real
+    rows = hold_steps(plain[0], tp[0], "mixtral TP train")
+    dropped, assigned = counts.tolist()
+    check(assigned > 0, "the TP MoE run routed no token")
+    emit({"phase": "tp_train_moe", "model": f"mixtral-8x22b ({TP_MOE_LAYERS} of 56 layers, "
+          "full width: d_model 6144, 48 heads of 128, 8 experts of d_ff 16384, top-2)",
+          "mesh": "1 x 1 (data, model), NCCL", "mapping": "TP (set_mesh(mesh))",
+          "entry": "train.Trainer(mesh=)", "optimizer": arch.optimizer, "remat": arch.remat,
+          "batch": TP_MOE_BATCH, "seq": TRAIN_SEQ, "order": "[unsharded Trainer, TP Trainer]",
+          **steps_report(rows, plain, tp), "dropped_assignments": dropped,
+          "assignments": assigned, "dropped_share": dropped / assigned, "gpu": gpu})
+
+
+def tp_waves(torch, gpu, mesh, plain_run) -> None:
+    """(c) zamba2-7b cut to TP_WAVE_LAYERS layers at full width (w8, kv8:
+    mqa_decode on the path) through ``Server(mesh=)`` on the 1 x 1 mesh
+    under the TP mapping, 8 greedy requests of WAVE_PROMPT tokens and
+    WAVE_NEW new ones: streams equal to the no-mesh Server's
+    (``plain_run``, the same seed), bit for bit; tokens/s of both."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("zamba2-7b"), n_layers=TP_WAVE_LAYERS)
+    streams, stats, peak, wall, srv = waves_run(torch, 0, cfg, WAVE_REQUESTS, WAVE_PROMPT,
+                                                WAVE_NEW, mesh=mesh)
+    del srv
+    torch.cuda.empty_cache()
+    p_streams, p_stats, p_peak, p_wall = plain_run
+    check(streams == p_streams, "Server(mesh=) on a 1 x 1 mesh: streams differ from the "
+          "no-mesh Server's")
+    emit({"phase": "tp_waves", "model": f"zamba2-7b ({TP_WAVE_LAYERS} of 81 layers, full "
+          "width)", "mesh": "1 x 1 (data, model), NCCL", "mapping": "TP (Server(mesh=))",
+          "requests": WAVE_REQUESTS, "prompt": WAVE_PROMPT, "new_tokens": WAVE_NEW,
+          "w_bits": cfg.serve_w_bits, "kv_bits": cfg.serve_kv_bits, "identical_streams": True,
+          "order": "[no mesh, mesh]",
+          "decode_tok_per_s": [p_stats.tokens_out / p_stats.decode_s,
+                               stats.tokens_out / stats.decode_s],
+          "decode_step_ms": [p_stats.decode_s / p_stats.decode_steps * 1e3,
+                             stats.decode_s / stats.decode_steps * 1e3],
+          "prefill_s": [p_stats.prefill_s, stats.prefill_s], "wall_s": [p_wall, wall],
+          "peak_mem_gb": [p_peak / 1e9, peak / 1e9], "gpu": gpu})
+
+
+def tp_paths(torch, gpu, plain_train, plain_waves) -> None:
+    """Phase 11: the tensor-parallel mapping over a real NCCL process group
+    of world size 1: (a) the launcher, (b) MoE training, (c) Server(mesh=)."""
+    import datetime
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_test_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    joined = init_distributed("cuda", timeout=datetime.timedelta(minutes=5))
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"phase 11 needs an NCCL group of one rank, got {dist.get_backend()}")
+        mesh = make_test_mesh(1, 1, device="cuda")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as root:
+            tp_train_llama(torch, gpu, plain_train, root)
+            tp_train_moe(torch, gpu, mesh, root)
+        tp_waves(torch, gpu, mesh, plain_waves)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+    emit({"phase": "tp_total", "s": time.perf_counter() - t0, "gpu": gpu})
     torch.cuda.empty_cache()
 
 
@@ -3129,10 +3366,22 @@ def main() -> int:
           f"the training path launched a serving kernel: {train_launches}")
 
     # ---- phase 10: the multi-device modules over NCCL; none of the five kernels
-    _, mesh_launches = count(lambda: mesh_paths(torch, gpu))
+    plain_train, mesh_launches = count(lambda: mesh_paths(torch, gpu))
     emit({"phase": "mesh_launches", "launches": mesh_launches, "gpu": gpu})
     check(not any(mesh_launches.values()),
           f"the mesh paths launched a serving kernel: {mesh_launches}")
+
+    # ---- phase 11: the tensor-parallel mapping over NCCL; its reference
+    # (the no-mesh Server) runs before the counts are set to 0
+    zamba_tp = dataclasses.replace(zamba, n_layers=TP_WAVE_LAYERS)
+    *plain_waves, srv = waves_run(torch, 0, zamba_tp, WAVE_REQUESTS, WAVE_PROMPT, WAVE_NEW)
+    del srv
+    torch.cuda.empty_cache()
+    _, tp_launches = count(lambda: tp_paths(torch, gpu, plain_train, plain_waves))
+    emit({"phase": "tp_launches", "launches": tp_launches, "gpu": gpu})
+    check(tp_launches["mpmm_dequant"] > 0 and tp_launches["mqa_decode"] > 0,
+          f"the TP paths launched {tp_launches}: expected the CF matmul and mqa_decode "
+          "(Server(mesh=))")
 
     # ---- captured against eager on this card, step by step and end to end
     table = {}
@@ -3164,7 +3413,8 @@ def main() -> int:
                "waves": wave_launches, "waves_ssm": mamba_launches, "gemma": gemma_launches,
                "gemma_spec": gemma_spec_launches, "mixtral": mixtral_launches,
                "minitron": minitron_launches, "kimi_waves": kimi_launches,
-               **prefix_launches, "train": train_launches, "mesh": mesh_launches}
+               **prefix_launches, "train": train_launches, "mesh": mesh_launches,
+               "tp": tp_launches}
     for path in ("sampled", "spec", "spec_sampled", "gemma", "gemma_spec", "mixtral",
                  "minitron", "paligemma_spec"):
         for name in ("mpmm_dequant", "paged_decode", "paged_prefill"):
@@ -3217,6 +3467,14 @@ def main() -> int:
             **({"paligemma_verify": {**s["paligemma_verify"],
                                      "launches_spec_path": by_path["paligemma_spec"][name]}}
                if "paligemma_verify" in s else {}),
+            # one rank's blocks and heads under the TP mapping (4-wide model
+            # axis), and the launches on phase 11's paths
+            **({"tp_blocks": {**s["tp_blocks"], "launches_tp_path": by_path["tp"][name]}}
+               if "tp_blocks" in s else {}),
+            **({"tp_partials": {**s["tp_partials"], "launches_tp_path": by_path["tp"][name]}}
+               if "tp_partials" in s else {}),
+            **({"tp_heads": {**s["tp_heads"], "launches_tp_path": by_path["tp"][name]}}
+               if "tp_heads" in s else {}),
         })
     print(json.dumps({"kernels": kernels, "total_s": time.perf_counter() - t_start}))
     print(gpu)

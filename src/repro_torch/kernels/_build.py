@@ -29,6 +29,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (see the csrc/*.cu signatures)
 _SIGNATURES = {
     "mpmm_dequant_bf16": [_P] * 5 + [_I] * 7 + [_P],
+    "mpmm_dequant_f32": [_P] * 5 + [_I] * 7 + [_P],
     "mpmm_ff_dequant_f32": [_P] * 4 + [_I] * 6 + [_P],
     "mpmm_ff_block_m": [_I] * 3,
     "mpmm_int_i32": [_P] * 4 + [_I] * 7 + [_P],

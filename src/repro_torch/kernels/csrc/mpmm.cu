@@ -3,7 +3,9 @@
 //
 // CF order (entry mpmm_dequant_bf16; Pallas body _mpmm_cf_kernel): k
 // innermost, f32 accumulation, the per-column f32 scale applied to the f32
-// sum in the epilogue, one cast to bf16.  FF order (entry
+// sum in the epilogue, one cast to bf16.  Its twin entry mpmm_dequant_f32
+// returns the scaled f32 sum uncast (a row-split partial product, summed
+// over the model ranks before its one cast).  FF order (entry
 // mpmm_ff_dequant_f32; body _mpmm_ff_kernel, grid (k, m, n) with the 512-row
 // K stages outermost): each stage's product is summed from zero and the
 // stages are added into an unscaled f32 output in stage order,
@@ -40,21 +42,27 @@
 // types and 16-byte alignment before they launch; the CF wrapper also
 // N % 8 == 0, while the FF order takes any N (weight rows of any length
 // are staged by plain byte loads).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-// Sums the K-split partials in split order, applies the scale, casts.
-__global__ void mpmm_splitk_reduce(const float* __restrict__ partial,
-                                   const float* __restrict__ scale,
-                                   __nv_bfloat16* __restrict__ out, int M,
+__device__ inline void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ inline void store_out(float* p, float v) { *p = v; }
+
+// Sums the K-split partials in split order, applies the scale, stores as T.
+// For T = float, out may be partial itself (one split): each thread reads
+// its element before it writes it, so the pointers are not __restrict__.
+template <typename T>
+__global__ void mpmm_splitk_reduce(const float* partial, const float* scale, T* out, int M,
                                    int N, int splits) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t total = (int64_t)M * N;
   if (i >= total) return;
   float s = 0.f;
   for (int sp = 0; sp < splits; ++sp) s += partial[sp * total + i];
-  out[i] = __float2bfloat16(s * scale[i % N]);
+  store_out(out + i, s * scale[i % N]);
 }
 
 // ---- the warpgroup tensor-core kernel on an asynchronous-copy ring ---------
@@ -220,7 +228,8 @@ __device__ __forceinline__ uint64_t desc_k128(const void* p) {
 // 1: plain masked byte loads (FF order only; weight rows of any length).
 // FF: the FF order's epilogue, every split (K stage) written unscaled to its
 // slice of `partial` (which is out itself for one stage); otherwise CF: one
-// split writes scale * sum as bf16 to out, more write their partials.
+// split writes scale * sum as bf16 to out, more (or a null out: the f32
+// entry) write their partials.
 template <int BM, int W_BITS, bool X_VEC, int W_VEC, bool FF>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 mpmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
@@ -364,7 +373,7 @@ mpmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w
   // wcol or wcol + 1; x row 8j + 2q (e = 0, 2) or 8j + 2q + 1 (e = 1, 3)
   const int gn = n0 + wcol;
   if (gn >= N) return;  // with N even the column pair is all in or all out
-  const bool direct = !FF && gridDim.z == 1;
+  const bool direct = !FF && gridDim.z == 1 && out != nullptr;
   float2 sc = make_float2(0.f, 0.f);
   if (direct) sc = *reinterpret_cast<const float2*>(scale + gn);
 #pragma unroll
@@ -462,6 +471,37 @@ int ff_block_m(int M, int N, int K) {
   return f128 >= 0.9 * fmax(f128, f64) ? 128 : 64;
 }
 
+// The CF entries' body.  T = bf16: one split scales and casts in the
+// kernel's epilogue, more go through the reduce pass.  T = float: the kernel
+// writes every split's partial (its out is null) and the reduce pass sums,
+// scales and stores f32.
+template <typename T>
+int mpmm_dequant(const void* x, const void* w, const void* scale, T* out, void* partial,
+                 int M, int N, int K, int w_bits, int splits, int k_per_split, int block_m,
+                 void* stream) {
+  constexpr bool f32 = std::is_same<T, float>::value;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* sp = static_cast<const float*>(scale);
+  float* pp = static_cast<float*>(partial);
+  const int step = block_m == 8 ? tc_bk<8>() : TC_BK;
+  if (splits < 1 || k_per_split < 1 || k_per_split % step || (block_m == 8 && M > 8) ||
+      (int64_t)splits * k_per_split < K || (int64_t)(splits - 1) * k_per_split >= K) {
+    return (int)cudaErrorInvalidValue;
+  }
+  __nv_bfloat16* direct_out = nullptr;
+  if constexpr (!f32) direct_out = out;
+  const cudaError_t err = dispatch_tc<false>(static_cast<const __nv_bfloat16*>(x),
+                                             static_cast<const int8_t*>(w), sp, direct_out, pp,
+                                             M, N, K, w_bits, splits, k_per_split, block_m, s);
+  if (err != cudaSuccess) return (int)err;
+  if (f32 || splits > 1) {
+    const int64_t total = (int64_t)M * N;
+    mpmm_splitk_reduce<T><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(pp, sp, out, M, N,
+                                                                          splits);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x [M, K] bf16, w [K or K/2, N] int8, scale [N] f32, out [M, N] bf16.
@@ -476,25 +516,19 @@ extern "C" int mpmm_dequant_bf16(const void* x, const void* w, const void* scale
                                  void* out, void* partial, int M, int N, int K,
                                  int w_bits, int splits, int k_per_split, int block_m,
                                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* sp = static_cast<const float*>(scale);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  float* pp = static_cast<float*>(partial);
-  const int step = block_m == 8 ? tc_bk<8>() : TC_BK;
-  if (splits < 1 || k_per_split < 1 || k_per_split % step || (block_m == 8 && M > 8) ||
-      (int64_t)splits * k_per_split < K || (int64_t)(splits - 1) * k_per_split >= K) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const cudaError_t err = dispatch_tc<false>(static_cast<const __nv_bfloat16*>(x),
-                                             static_cast<const int8_t*>(w), sp, op, pp, M, N,
-                                             K, w_bits, splits, k_per_split, block_m, s);
-  if (err != cudaSuccess) return (int)err;
-  if (splits > 1) {
-    const int64_t total = (int64_t)M * N;
-    mpmm_splitk_reduce<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(pp, sp, op, M, N,
-                                                                       splits);
-  }
-  return (int)cudaGetLastError();
+  return mpmm_dequant(x, w, scale, static_cast<__nv_bfloat16*>(out), partial, M, N, K,
+                      w_bits, splits, k_per_split, block_m, stream);
+}
+
+// As mpmm_dequant_bf16, with out [M, N] f32: the scaled f32 sum, uncast.
+// partial: [splits, M, N] f32 scratch, which may be out itself for one split
+// (every split writes its unscaled partial; a second pass sums and scales).
+extern "C" int mpmm_dequant_f32(const void* x, const void* w, const void* scale,
+                                void* out, void* partial, int M, int N, int K,
+                                int w_bits, int splits, int k_per_split, int block_m,
+                                void* stream) {
+  return mpmm_dequant(x, w, scale, static_cast<float*>(out), partial, M, N, K, w_bits,
+                      splits, k_per_split, block_m, stream);
 }
 
 // The FF order.  x [M, K] bf16, w [K or K/2, N] int8 (int4 packed along K),

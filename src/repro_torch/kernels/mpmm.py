@@ -4,7 +4,9 @@ Three kernels replace ``repro/kernels/mpmm.py::mpmm_pallas``:
 
 - ``mpmm_cuda`` (``csrc/mpmm.cu``): dequant mode, CF order.  ``x [M, K]``
   bf16 times int8 ``[K, N]`` or K-packed int4 ``[K/2, N]`` weights, f32
-  accumulation, the per-column f32 scale on the f32 sum, one cast to bf16.
+  accumulation, the per-column f32 scale on the f32 sum, one cast to bf16
+  (or, with ``out_dtype=torch.float32``, the scaled f32 sum uncast: a
+  row-split partial product, summed over ``model`` before its one cast).
   :func:`launch_plan` picks its kernel, tiles and K split from the shape.
   Plain version :func:`repro_torch.kernels.ref.mpmm_ref`.
 - ``mpmm_ff_cuda`` (``csrc/mpmm.cu`` too): dequant mode, FF order.  The same
@@ -136,9 +138,13 @@ def launch_plan(m: int, n: int, k: int, stage_k: int | None = None,
 
 
 def mpmm_cuda(
-    x: torch.Tensor, w_data: torch.Tensor, w_scale: torch.Tensor, *, w_bits: int
+    x: torch.Tensor, w_data: torch.Tensor, w_scale: torch.Tensor, *, w_bits: int,
+    out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """Launch the dequant matmul on ``x``'s card: [M, K] bf16 -> [M, N] bf16."""
+    """Launch the dequant matmul on ``x``'s card: [M, K] bf16 -> [M, N]
+    ``out_dtype``, bf16 (the scaled sum cast once) or f32 (uncast)."""
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"mpmm kernel writes bf16 or f32, got {out_dtype}")
     if w_bits not in (4, 8):
         raise ValueError(f"mpmm kernel takes w_bits 4 or 8, got {w_bits}")
     m, k = x.shape
@@ -155,22 +161,23 @@ def mpmm_cuda(
     expect(x, "x", torch.bfloat16, (m, k), dev, align=16)
     expect(w_data, "w_data", torch.int8, (k // 2 if w_bits == 4 else k, n), dev, align=16)
     expect(w_scale.reshape(-1), "w_scale", torch.float32, (n,), dev, align=16)
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0:
         return out  # nothing to compute
     plan = launch_plan(m, n, k, w_bits=w_bits)
     splits = plan["splits"]
+    # one split writes out directly (bf16), or its partial into out (f32)
     partial = (
         torch.empty((splits, m, n), dtype=torch.float32, device=dev)
         if splits > 1 else out
     )
-    lib = _build.lib()
-    err = lib.mpmm_dequant_bf16(
+    entry = "mpmm_dequant_bf16" if out_dtype == torch.bfloat16 else "mpmm_dequant_f32"
+    err = getattr(_build.lib(), entry)(
         x.data_ptr(), w_data.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
         partial.data_ptr(), m, n, k, w_bits, splits, plan["k_per_split"], plan["block_m"],
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(err, "mpmm_dequant_bf16")
+    _build.check(err, entry)
     mpmm_cuda.launches += 1
     mpmm_cuda.prefill_m_launches += m > DECODE_M
     return out

@@ -108,10 +108,12 @@ def mpmm(
     x_bits: int = 16,
     mode: str = "dequant",
     dataflow: str = "cf",
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Multi-precision matmul: x [..., K] @ dequant(w) -> [..., N].
 
-    dequant mode returns x.dtype: CF fuses the scale on the f32 sum; FF sums
+    dequant mode returns x.dtype: CF fuses the scale on the f32 sum
+    (``out_dtype=torch.float32``: that scaled sum uncast, CF only); FF sums
     512-row K stages into an f32 accumulator, then the scale is applied in
     f32 and the result cast once.  On the card the activations must be bf16.
     int mode (x int8/int16) returns f32 = int32 product (exact mod 2^32) *
@@ -148,11 +150,15 @@ def mpmm(
     if card and x2.dtype != torch.bfloat16:
         raise ValueError(f"the dequant kernels take bf16 activations on the card, "
                          f"got {x2.dtype}")
+    if out_dtype not in (None, x.dtype) and (dataflow != "cf" or out_dtype != torch.float32):
+        raise ValueError(f"dequant mode writes x.dtype, or f32 in the CF order; got "
+                         f"out_dtype={out_dtype} with dataflow={dataflow!r}")
     if dataflow == "cf":
         if card:
-            out = mpmm_mod.mpmm_cuda(x2.contiguous(), w_data, w_scale, w_bits=w_bits)
+            out = mpmm_mod.mpmm_cuda(x2.contiguous(), w_data, w_scale, w_bits=w_bits,
+                                     out_dtype=out_dtype or x2.dtype)
         else:
-            out = ref_mod.mpmm_ref(x2, w_data, w_scale, w_bits=w_bits)
+            out = ref_mod.mpmm_ref(x2, w_data, w_scale, w_bits=w_bits, out_dtype=out_dtype)
     else:
         if card:
             acc = mpmm_mod.mpmm_ff_cuda(x2.contiguous(), w_data, w_bits=w_bits)

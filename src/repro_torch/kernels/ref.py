@@ -55,6 +55,7 @@ def mpmm_ref(
     *,
     w_bits: int,
     mode: str = "dequant",
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Multi-precision matmul ``x [M, K]`` times int8/int16 or K-packed int4
     weights.
@@ -64,7 +65,8 @@ def mpmm_ref(
     on the CPU; CUDA has none, so this mode runs on CPU tensors.
 
     dequant mode: f32 accumulation, per-column f32 scale applied to the f32
-    sum, one cast to ``x.dtype``.  int -> float conversion of the weights is
+    sum, one cast to ``out_dtype`` (default ``x.dtype``; f32 leaves the
+    scaled sum uncast).  int -> float conversion of the weights is
     exact (|w| <= 127), so accumulating ``x.float() @ w.float()`` is the JAX
     oracle's ``dot_general(x, w.astype(x.dtype), preferred_element_type=f32)``.
     """
@@ -72,7 +74,7 @@ def mpmm_ref(
     if mode == "int":
         return x.to(torch.int32) @ w.to(torch.int32)
     acc = x.float() @ w.float()
-    return (acc * w_scale.float()).to(x.dtype)
+    return (acc * w_scale.float()).to(out_dtype or x.dtype)
 
 
 def mpmm_ff_ref(

@@ -17,17 +17,18 @@ remat off, as there.  A checkpoint already in ``--ckpt-dir`` is resumed
 from; ``--ckpt-every 0`` writes none.  There are no XLA flags to set.
 
 ``--mesh-data D --mesh-model M`` trains on a D x M device mesh, one process
-per device, under the JAX package's FSDP/ZeRO-3 mapping
-(``train/trainer.py``): start D*M processes with ``torchrun``, e.g. on the
-CPU (gloo)::
+per device, under the mapping the JAX launcher installs,
+``sharding.set_mesh(mesh)``: the tensor-parallel mapping
+(``train/trainer.py``; the batch split over ``data``, each layer split over
+``model`` where the model axis divides it), MoE archs included.  Start D*M
+processes with ``torchrun``, e.g. on the CPU (gloo)::
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch llama3.2-3b --reduced --device cpu --mesh-data 2 --mesh-model 2
 
 and on cards (NCCL, one card per process) without ``--device cpu``.  One
 process with D*M = 1 needs no ``torchrun``.  The global batch must divide
-by D*M.  MoE archs raise ``NotImplementedError`` on a mesh.  Rank 0 prints
-the report and writes the checkpoints.
+by D.  Rank 0 prints the report and writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -119,12 +120,15 @@ def run(argv: Optional[list[str]] = None):
 def _mesh(args, device):
     """The (data, model) DeviceMesh of ``--mesh-data`` / ``--mesh-model``
     (None without ``--mesh-data``), over a process group joined here unless
-    the caller joined one; a group joined here is left on the way out."""
+    the caller joined one, installed as the JAX launcher installs it
+    (``sharding.set_mesh(mesh)``) for the block; a group joined here is left
+    on the way out."""
     if not args.mesh_data:
         yield None
         return
     import torch.distributed as dist
 
+    from repro_torch.distributed import sharding as sh
     from repro_torch.launch.mesh import init_distributed, make_mesh
 
     n = args.mesh_data * args.mesh_model
@@ -135,7 +139,9 @@ def _mesh(args, device):
                 f"--mesh-data {args.mesh_data} --mesh-model {args.mesh_model} needs {n} "
                 f"processes, one per device (torchrun --nproc-per-node {n}); this group "
                 f"has {dist.get_world_size()}")
-        yield make_mesh((args.mesh_data, args.mesh_model), ("data", "model"), device)
+        mesh = make_mesh((args.mesh_data, args.mesh_model), ("data", "model"), device)
+        with sh.use_mesh(mesh):
+            yield mesh
     finally:
         if joined:
             dist.destroy_process_group()

@@ -57,7 +57,7 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
     return (w * 0.02).to(dtype)
 
 
-def dense(x: torch.Tensor, w) -> torch.Tensor:
+def dense(x: torch.Tensor, w, split: str | None = None) -> torch.Tensor:
     """Dense matmul dispatching on plain vs quantized weights: quantized
     dicts go through the multi-precision mpmm (f32 accumulate, per-column
     scale in f32, one cast to x.dtype).
@@ -70,11 +70,67 @@ def dense(x: torch.Tensor, w) -> torch.Tensor:
     16-bit dict raises.
 
     Under the FSDP/ZeRO-3 mapping the weight passes through
-    ``sharding.gather_weight`` first, as in the JAX function."""
-    w = sharding.gather_weight(w)
+    ``sharding.gather_weight`` first, as in the JAX function.  Under the TP
+    mapping ``split`` says how the product splits over ``model``:
+    ``"cols"``, this rank's block of N (the input passes
+    ``sharding.model_enter``; the output keeps this rank's columns);
+    ``"rows"``, this rank's block of K (``x`` is this rank's K block; each
+    rank's partial product is kept in f32, a quantized one as the kernel's
+    scaled f32 sum, and the partials are summed over ``model`` and cast
+    once); None, the whole weight on every model rank."""
+    if split is not None and sharding.tp_active():
+        if split == "cols":
+            return _product(sharding.model_enter(x), sharding.model_block(w, -1))
+        if split != "rows":
+            raise ValueError(f"split must be 'cols', 'rows' or None, got {split!r}")
+        w = sharding.model_block(w, -2)
+        if sharding.model_size() == 1 and not isinstance(w, dict):
+            return _product(x, w)  # one rank: nothing to sum, the plain product
+        # a quantized partial at one rank casts the same f32 sum once: the
+        # same bits as the unsplit product
+        return sharding.model_reduce(_product(x, w, partial=True)).to(x.dtype)
+    return _product(x, sharding.gather_whole(w))
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``x @ w`` ([..., K] x [K, N], one dtype) with an f32 output: a
+    row-split partial product.  On the card one GEMM in the operands' dtype
+    writing f32 (``torch.mm(..., out_dtype=)``, which has no backward of
+    its own), on the CPU the f32 product of the upcast operands (the same
+    sum: bf16 and f16 values are exact in f32).  The backward's incoming
+    gradient holds x.dtype values (it comes through the cast of the summed
+    partials), so its products run in x.dtype, as the unsplit layer's do."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.dtype == torch.float32:
+            out = x2 @ w
+        elif x.is_cuda:
+            out = torch.mm(x2, w, out_dtype=torch.float32)
+        else:
+            out = x2.float() @ w.float()
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(x.dtype)
+        gx = (g2 @ w.t()).reshape(x.shape) if ctx.needs_input_grad[0] else None
+        gw = x.reshape(-1, x.shape[-1]).t() @ g2 if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
+def _product(x: torch.Tensor, w, partial: bool = False) -> torch.Tensor:
+    """``x @ w`` for a gathered weight; ``partial``: the f32 product (a
+    row-split partial sum, summed over ``model`` before the cast)."""
     if isinstance(w, dict):
         bits = int(w["bits"])
         if bits < 16:
+            if partial:
+                return ops.mpmm(x, w["data"], w["scale"], w_bits=bits,
+                                out_dtype=torch.float32)
             return ops.mpmm(x, w["data"], w["scale"], w_bits=bits).to(x.dtype)
         if ops.on_card(x):
             raise ValueError(
@@ -83,8 +139,29 @@ def dense(x: torch.Tensor, w) -> torch.Tensor:
         k, n = x.shape[-1], w["data"].shape[-1]
         acc = ref_mod.mpmm_ref(x.reshape(-1, k).to(torch.int32), w["data"], w["scale"],
                                w_bits=bits, mode="int")
-        return (acc.float() * w["scale"].float()).reshape(*x.shape[:-1], n).to(x.dtype)
+        out = (acc.float() * w["scale"].float()).reshape(*x.shape[:-1], n)
+        return out if partial else out.to(x.dtype)
+    if partial:
+        return _MatmulF32.apply(x, w.to(x.dtype))
     return torch.matmul(x, w.to(x.dtype))
+
+
+def embed_lookup(embed, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """``embed[tokens]`` in ``dtype``.  Under the TP mapping, where the
+    model axis divides the (padded) vocab, each rank looks its tokens up in
+    its own block of vocab rows, zeroes the tokens it does not own, and the
+    rows are summed over ``model`` (one rank holds each token)."""
+    v = sharding.full_shape(embed)[0]
+    split = sharding.model_splits(v) and sharding.model_size() > 1
+    sharding.log_branch("embed", split, v)
+    if not split:
+        return sharding.gather_whole(embed)[tokens.long()].to(dtype)
+    w = sharding.model_block(embed, 0)
+    n = w.shape[0]
+    local = tokens.long() - sharding.model_rank() * n
+    inside = (local >= 0) & (local < n)
+    x = w[local.clamp(0, n - 1)].to(dtype)
+    return sharding.model_reduce(torch.where(inside[..., None], x, 0))
 
 
 def quantize_dense_weight(w: torch.Tensor, bits: int) -> dict:
@@ -139,9 +216,31 @@ def _chunk_nll_sum(hc: torch.Tensor, unembed: torch.Tensor, lc: torch.Tensor,
     return torch.sum((logz - gold) * mc)
 
 
+def _chunk_nll_sum_split(hc: torch.Tensor, unembed: torch.Tensor, lc: torch.Tensor,
+                         mc: torch.Tensor, vocab, lo: int) -> torch.Tensor:
+    """:func:`_chunk_nll_sum` over this rank's vocab block ``[lo, lo +
+    V/M)``: the max and the sum of exps reduced over ``model`` (the max
+    without a gradient, the sum by ``model_reduce``), the label's logit
+    from the rank that owns it."""
+    logits = torch.matmul(hc, unembed.to(hc.dtype)).float()
+    v = logits.shape[-1]
+    if vocab is not None and vocab < lo + v:
+        pad = torch.arange(lo, lo + v, device=logits.device) >= vocab
+        logits = logits.masked_fill(pad, -1e30)
+    mx = sharding.model_all_reduce(logits.detach().amax(dim=-1),
+                                   torch.distributed.ReduceOp.MAX)
+    sumexp = sharding.model_reduce(torch.exp(logits - mx[..., None]).sum(dim=-1))
+    logz = mx + torch.log(sumexp)
+    local = lc.long() - lo
+    inside = (local >= 0) & (local < v)
+    gold = torch.take_along_dim(logits, local.clamp(0, v - 1)[..., None], dim=-1)[..., 0]
+    gold = sharding.model_reduce(torch.where(inside, gold, 0.0))
+    return torch.sum((logz - gold) * mc)
+
+
 def chunked_cross_entropy(
     h: torch.Tensor,  # [B, S, D] final hidden states
-    unembed: torch.Tensor,  # [D, Vpad]
+    unembed: torch.Tensor,  # [D, Vpad] (or this rank's stored block of it)
     labels: torch.Tensor,  # [B, S] int
     mask: torch.Tensor | None = None,  # [B, S]
     vocab: int | None = None,  # real vocab (pad logits masked out)
@@ -154,29 +253,42 @@ def chunked_cross_entropy(
     recomputed in the backward instead of saved: no [tokens, V] tensor is
     kept for the backward either.
 
-    Under the FSDP/ZeRO-3 mapping (``sharding.set_mesh(mesh,
-    data_only=True)``) ``h`` holds this rank's rows of a batch sharded over
-    every device: the chunk count is the JAX function's for the global
-    batch (its budget is per device), the denominator the global count of
-    unmasked tokens (an all-reduce), so the loss is this rank's share of
-    the global token mean and the ranks' shares sum to it."""
+    On a mesh ``h`` holds this rank's rows of a batch split over the batch
+    axes (every axis under the FSDP/ZeRO-3 mapping, ``("pod", "data")``
+    under the TP mapping): the chunk count is the JAX function's for the
+    global batch and vocab (its budget is per device), the denominator the
+    global count of unmasked tokens (an all-reduce over the batch axes), so
+    the loss is this rank's share of the global token mean and the batch
+    ranks' shares sum to it.  The unembedding is gathered here: whole, or
+    under the TP mapping, where the model axis divides the padded vocab,
+    this rank's block of vocab columns (``_chunk_nll_sum_split``)."""
     b, s, d = h.shape
-    v = unembed.shape[-1]
+    v = sharding.full_shape(unembed)[-1]
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
-    n_dev = sharding.mesh_size(sharding.get_mesh()) if sharding.data_only() else 1
+    mesh = sharding.get_mesh()
+    n_dev = sharding.mesh_size(mesh) if mesh is not None else 1
+    b_all = b * sharding.batch_ranks()
     # budget is per DEVICE: the logits chunk is sharded over the mesh
-    n_chunk = max(1, -(-(b * n_dev * s * v) // (max_chunk_elems * n_dev)))
+    n_chunk = max(1, -(-(b_all * s * v) // (max_chunk_elems * n_dev)))
     while n_chunk < s and s % n_chunk:
         n_chunk += 1
     n_chunk = min(n_chunk, s)
     chunk = s // n_chunk
+    split = sharding.model_splits(v) and sharding.model_size() > 1
+    sharding.log_branch("unembed", split, v)
+    if split:
+        w = sharding.model_block(unembed, -1)
+        h = sharding.model_enter(h)
+        fn, extra = _chunk_nll_sum_split, (sharding.model_rank() * w.shape[-1],)
+    else:
+        w, fn, extra = sharding.gather_whole(unembed), _chunk_nll_sum, ()
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(n_chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
-        total = total + checkpoint(_chunk_nll_sum, h[:, sl], unembed, labels[:, sl],
-                                   mask[:, sl], vocab, use_reentrant=False)
+        total = total + checkpoint(fn, h[:, sl], w, labels[:, sl], mask[:, sl], vocab,
+                                   *extra, use_reentrant=False)
     count = torch.sum(mask)
-    if sharding.data_only():
-        count = sharding.mesh_all_reduce(count.detach().clone())
+    if mesh is not None:
+        count = sharding.batch_all_reduce(count.detach().clone())
     return total / torch.clamp_min(count, 1.0)

@@ -33,6 +33,20 @@ capacity of its own token count, sends ``[n_shards, E_loc * cap, D]`` to
 the experts' owners with ``all_to_all_single``, runs its ``E / n_shards``
 experts on what it received, and a second all-to-all brings the outputs
 back.  The aux loss is the mean over the data shards.
+
+Under the TP mapping (``sharding.set_mesh(mesh)``) the replicated dispatch
+runs on this rank's rows of the batch (``_moe_ffn_replicated``).  Routing and
+capacity are global, as under SPMD: the top-k ids of every batch rank are
+gathered (T x k int32), the capacity and every assignment's slot come from
+the global order, and each rank keeps its own tokens' slots, so the same
+assignments drop as in the unsharded function; the aux is the global
+batch's (counts over the gathered ids, the gate's mean summed over the
+batch ranks), the same on every rank.  Where the model axis divides the
+experts, each model rank runs its E / M experts on its tokens' slots in
+them, and the combine sums every rank's own experts' contributions over
+``model``; else, where it divides F, every rank runs every expert on its
+block of F (``wg`` / ``wu`` columns, ``wd`` rows) and the expert outputs
+are summed over ``model``; else the experts run whole on every model rank.
 """
 from __future__ import annotations
 
@@ -41,6 +55,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.models.layers import dense, dense_init
 
 
@@ -111,34 +126,98 @@ def moe_ffn(
     (default: ``sharding.get_mesh()``) the DeviceMesh whose
     ``mesh_model_axis`` holds the experts."""
     if dispatch == "alltoall":
+        if sharding.tp_active():
+            raise NotImplementedError(
+                "moe_dispatch='alltoall' under the tensor-parallel mapping is not wired: its "
+                "expert leaves would be TP blocks (ROADMAP: the paged engine on a mesh); "
+                "the mesh step runs the replicated dispatch")
         return _moe_ffn_alltoall(x, params, top_k=top_k, capacity_factor=capacity_factor,
                                  axis=mesh_model_axis, mesh=mesh)
+    return _moe_ffn_replicated(x, params, top_k, capacity_factor)
+
+
+def _capacity(n_tokens: int, top_k: int, capacity_factor: float, e: int) -> int:
+    """Slots per expert for ``n_tokens`` tokens routed ``top_k`` ways."""
+    return int(max(1, (n_tokens * top_k * capacity_factor) // e))
+
+
+def _dispatch(x2: torch.Tensor, eids: torch.Tensor, pos: torch.Tensor, cap: int,
+              lo: int, n_exp: int):
+    """Fill the buffers of experts ``[lo, lo + n_exp)`` with the tokens x2
+    [T, D] routed there: ``eids`` [T, k] their experts, ``pos`` [T, k] their
+    slots in them, an assignment at ``pos >= cap`` dropped -> (buf [n_exp *
+    cap, D], slot [T * k], own [T, k]: the assignments kept in these
+    experts)."""
+    d = x2.shape[-1]
+    own = (pos < cap) & (eids >= lo) & (eids < lo + n_exp)
+    slot = torch.where(own, (eids - lo) * cap + pos, 0).reshape(-1).long()
+    contrib = torch.where(own[..., None], x2[:, None, :], 0).reshape(-1, d)
+    buf = x2.new_zeros(n_exp * cap, d).index_add_(0, slot, contrib)
+    return buf, slot, own
+
+
+def _combine(out_buf: torch.Tensor, slot: torch.Tensor, own: torch.Tensor,
+             weights: torch.Tensor, dtype) -> torch.Tensor:
+    """The experts' outputs [n_exp * cap, D] back to the tokens: each kept
+    assignment's slot, weighted by its gate -> [T, D] in ``dtype``."""
+    t, k = own.shape
+    got = out_buf[slot].reshape(t, k, out_buf.shape[-1])
+    got = torch.where(own[..., None], got, 0)
+    return torch.sum(got * weights[..., None].to(dtype), dim=1)
+
+
+def _moe_ffn_replicated(x: torch.Tensor, params: dict, top_k: int,
+                        capacity_factor: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The replicated dispatch, unsharded or under the TP mapping (see the
+    module note).  With no mesh it takes the last branch, every expert whole
+    on the batch's tokens; on a 1 x 1 mesh the expert-split branch, which
+    there is the same computation op for op."""
     b, s, d = x.shape
     e = params["router"].shape[-1]
+    f = sharding.full_shape(params["wg"]["data"] if isinstance(params["wg"], dict)
+                            else params["wg"])[-1]
     x2 = x.reshape(-1, d)
     t = x2.shape[0]
-    buf, flat_slot, keep, weights, aux, cap = _dispatch(x2, params["router"], top_k,
-                                                        capacity_factor)
-    out_buf = _expert_ffn(buf.reshape(e, cap, d), params["wg"], params["wu"], params["wd"])
-    gathered = out_buf.reshape(e * cap, d)[flat_slot].reshape(t, top_k, d)
-    gathered = torch.where(keep[..., None], gathered, 0)
-    out = torch.sum(gathered * weights[..., None].to(x.dtype), dim=1)
+    weights, eids, aux, probs = _route(x2, params["router"], top_k)
+    n_b = sharding.batch_ranks()
+    eids_all = eids
+    if n_b > 1:  # global routing order: every batch rank's ids, in batch order
+        eids_all = sharding.batch_all_gather(eids)
+        flat = eids_all.reshape(-1)
+        counts = torch.zeros(e, dtype=torch.float32, device=x2.device).index_add_(
+            0, flat, torch.ones(flat.shape[0], dtype=torch.float32, device=x2.device))
+        frac = counts / torch.clamp_min(counts.sum(), 1.0)
+        mean_p = sharding.batch_sum(probs.sum(dim=0)) / eids_all.shape[0]
+        aux = e * torch.sum(frac * mean_p)
+    n_all = eids_all.shape[0]
+    cap = _capacity(n_all, top_k, capacity_factor, e)
+    lo_t = sharding.batch_rank() * t if n_b > 1 else 0
+    pos = _positions_in_expert(eids_all.reshape(-1), e).reshape(n_all, top_k)[lo_t:lo_t + t]
+    ep = sharding.model_splits(e)
+    fsplit = not ep and sharding.model_splits(f)
+    sharding.log_branch("moe experts", ep, e)
+    if not ep:
+        sharding.log_branch("moe expert F", fsplit, f)
+    lo, n_exp = 0, e
+    if ep:  # this rank's E / M experts
+        n_exp = e // sharding.model_size()
+        lo = sharding.model_rank() * n_exp
+        ws = [sharding.model_block(params[k], 0) for k in ("wg", "wu", "wd")]
+    elif fsplit:  # every expert on this rank's block of F
+        ws = [sharding.model_block(params["wg"], -1), sharding.model_block(params["wu"], -1),
+              sharding.model_block(params["wd"], -2)]
+    else:
+        ws = [sharding.gather_whole(params[k]) for k in ("wg", "wu", "wd")]
+    xe = sharding.model_enter(x2) if ep or fsplit else x2
+    buf, slot, own = _dispatch(xe, eids, pos, cap, lo, n_exp)
+    out_buf = _expert_ffn(buf.reshape(n_exp, cap, d), *ws).reshape(n_exp * cap, d)
+    if fsplit:  # each rank's F block's share of every expert's output
+        out_buf = sharding.model_reduce(out_buf)
+    out = _combine(out_buf, slot, own, sharding.model_enter(weights) if ep else weights,
+                   x.dtype)
+    if ep:  # each rank's own experts' contributions
+        out = sharding.model_reduce(out)
     return out.reshape(b, s, d), aux.float()
-
-
-def _dispatch(x2: torch.Tensor, router: torch.Tensor, top_k: int, capacity_factor: float):
-    """Route the tokens x2 [T, D] and fill the per-expert buffers ->
-    (buf [E * cap, D], flat_slot [T * k], keep [T, k], weights, aux, cap)."""
-    t, d = x2.shape
-    e = router.shape[-1]
-    weights, eids, aux, _ = _route(x2, router, top_k)
-    cap = int(max(1, (t * top_k * capacity_factor) // e))
-    pos = _positions_in_expert(eids.reshape(-1), e).reshape(t, top_k)
-    keep = pos < cap
-    flat_slot = torch.where(keep, eids * cap + pos, 0).reshape(-1).long()
-    contrib = torch.where(keep[..., None], x2[:, None, :], 0).reshape(-1, d)
-    buf = x2.new_zeros(e * cap, d).index_add_(0, flat_slot, contrib)
-    return buf, flat_slot, keep, weights, aux, cap
 
 
 def _local_experts(w, e: int, lo: int, hi: int):
@@ -173,8 +252,10 @@ def _moe_ffn_alltoall(x: torch.Tensor, params: dict, *, top_k: int, capacity_fac
     group = mesh.get_group(axis)
     x2 = x.reshape(-1, d)
     t = x2.shape[0]
-    buf, flat_slot, keep, weights, aux, cap = _dispatch(x2, params["router"], top_k,
-                                                        capacity_factor)
+    weights, eids, aux, _ = _route(x2, params["router"], top_k)
+    cap = _capacity(t, top_k, capacity_factor, e)
+    pos = _positions_in_expert(eids.reshape(-1), e).reshape(t, top_k)
+    buf, flat_slot, keep = _dispatch(x2, eids, pos, cap, 0, e)
     # [n_shards, e_loc * cap, d] -> all-to-all: shard i keeps its experts'
     # buffers from every peer
     buf = buf.reshape(n_shards, e_loc * cap, d)
@@ -189,9 +270,7 @@ def _moe_ffn_alltoall(x: torch.Tensor, params: dict, *, top_k: int, capacity_fac
     back = torch.empty_like(buf)
     dist.all_to_all_single(back, out_buf.reshape(n_shards, e_loc * cap, d).contiguous(),
                            group=group)
-    out_flat = back.reshape(e * cap, d)[flat_slot].reshape(t, top_k, d)
-    out_flat = torch.where(keep[..., None], out_flat, 0)
-    out = torch.sum(out_flat * weights[..., None].to(x.dtype), dim=1)
+    out = _combine(back.reshape(e * cap, d), flat_slot, keep, weights, x.dtype)
     # aux differs per data shard: its mean over them
     aux = aux.float().clone()
     n_data = 1

@@ -38,6 +38,19 @@ it is used (``sharding.gather_weight`` in ``dense``, the embedding lookup
 and the loss), a stacked leaf layer by layer (``sharding.unbind``).
 ``cfg.remat`` maps JAX's ``jax.checkpoint`` per layer onto
 ``torch.utils.checkpoint`` (``_maybe_remat``).
+
+Under the TP mapping (``sharding.set_mesh(mesh)``; the mesh train step and
+``Server(mesh=)``) each rank runs its rows of the batch, and a layer splits
+over ``model`` by the rule of ``sharding.model_splits``: attention over its
+kv heads (with their G query heads each; ``wq`` / ``wk`` / ``wv``
+column-split, ``wo`` row-split), the MLP over F (``wg`` / ``wu`` columns,
+``wd`` rows), the MoE FFN over its experts or else their F
+(``models/moe.py``), the embedding and the unembedding over the vocab.  A
+layer the model axis does not divide, and every SSM layer (the fused
+``in_proj`` columns ``[z, x, B, C, dt]`` have model blocks that do not fall
+on head boundaries), gathers its weights whole and runs on every model rank.
+The contiguous cache holds this rank's rows and kv heads, and the logits are
+gathered over ``model`` before the caller's argmax.
 """
 from __future__ import annotations
 
@@ -59,6 +72,7 @@ from repro_torch.models.layers import (
     dense,
     dense_init,
     embed_init,
+    embed_lookup,
     quantize_dense_weight,
     rms_norm,
     torch_dtype,
@@ -169,25 +183,35 @@ def quantize_params(params: Params, bits: int) -> Params:
 
 
 def layer_params(blocks: Params, li: int) -> Params:
-    """Layer ``li``'s slice of the stacked block parameters (views)."""
+    """Layer ``li``'s slice of the stacked block parameters (views; a
+    block of a mesh keeps its sharding, ``sharding.take``)."""
     out = {}
     for name, leaf in blocks.items():
         if isinstance(leaf, dict) and "bits" in leaf:  # quantized weight
-            out[name] = {"data": leaf["data"][li], "scale": leaf["scale"][li],
-                         "bits": leaf["bits"]}
+            out[name] = {"data": sharding.take(leaf["data"], li),
+                         "scale": sharding.take(leaf["scale"], li), "bits": leaf["bits"]}
         elif isinstance(leaf, dict):
             out[name] = layer_params(leaf, li)
         else:
-            out[name] = leaf[li]
+            out[name] = sharding.take(leaf, li)
     return out
+
+
+def _split(kind: str, n: int) -> tuple[Optional[str], Optional[str]]:
+    """(column, row) ``dense`` splits of a layer whose model-parallel dim
+    has size ``n`` (``sharding.model_splits``), logged once per kind."""
+    split = sharding.model_splits(n)
+    sharding.log_branch(kind, split, n)
+    return ("cols", "rows") if split else (None, None)
 
 
 def _mlp_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     xn = rms_norm(x, p["norm2"].to(x.dtype), cfg.norm_eps)
-    g = dense(xn, p["mlp"]["wg"])
-    u = dense(xn, p["mlp"]["wu"])
+    cols, rows = _split("mlp", cfg.d_ff)
+    g = dense(xn, p["mlp"]["wg"], cols)
+    u = dense(xn, p["mlp"]["wu"], cols)
     act = F.silu(g.float()).to(x.dtype) * u
-    return dense(act, p["mlp"]["wd"])
+    return dense(act, p["mlp"]["wd"], rows)
 
 
 def _moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
@@ -241,19 +265,30 @@ def _quantize_token_kv(kv: torch.Tensor, bits: int):
 # batch; and the engine's one-shot prefill of the vlm and audio archs.
 
 
+def _heads(cfg: ArchConfig) -> tuple[int, int, Optional[str], Optional[str]]:
+    """(query heads, kv heads) this rank computes and the (column, row)
+    splits of its attention: under the TP mapping, where the model axis
+    divides the kv heads, its block of them and their G query heads each
+    (query head h uses kv head h // G), else all of them."""
+    cols, rows = _split("attention", cfg.n_kv_heads)
+    m = sharding.model_size() if cols else 1
+    return cfg.n_heads // m, cfg.n_kv_heads // m, cols, rows
+
+
 def _attn_block(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
                 window) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (attn_out [B,S,D], k, v); k/v exposed for cache building."""
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h, kv, cols, rows = _heads(cfg)
+    hd = cfg.hd
     xn = rms_norm(x, p["norm1"].to(x.dtype), cfg.norm_eps)
-    q = dense(xn, p["wq"]).reshape(b, s, h, hd)
-    k = dense(xn, p["wk"]).reshape(b, s, kv, hd)
-    v = dense(xn, p["wv"]).reshape(b, s, kv, hd)
+    q = dense(xn, p["wq"], cols).reshape(b, s, h, hd)
+    k = dense(xn, p["wk"], cols).reshape(b, s, kv, hd)
+    v = dense(xn, p["wv"], cols).reshape(b, s, kv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     o = attn_mod.flash_attention(q, k, v, causal=True, window=window)
-    return dense(o.reshape(b, s, h * hd), p["wo"]), k, v
+    return dense(o.reshape(b, s, h * hd), p["wo"], rows), k, v
 
 
 def _embed(params: Params, batch: dict, cfg: ArchConfig):
@@ -261,7 +296,7 @@ def _embed(params: Params, batch: dict, cfg: ArchConfig):
     frontend, the [B, P, D] ``batch["prefix_emb"]`` comes first, positions
     run over P + S and the mask is 0 over the prefix, 1 over the tokens."""
     tokens = batch["tokens"]
-    x = sharding.gather_weight(params["embed"])[tokens.long()].to(torch_dtype(cfg.dtype))
+    x = embed_lookup(params["embed"], tokens, torch_dtype(cfg.dtype))
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=x.device)
     if cfg.prefix_len:
         pre = batch["prefix_emb"].to(x.dtype)
@@ -275,8 +310,10 @@ def _embed(params: Params, batch: dict, cfg: ArchConfig):
 def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, device=None) -> Params:
     """Pre-allocated decode cache.  KV payloads are int8 when
     cfg.serve_kv_bits < 16 (nibble-packed along the head dim at 4 bits),
-    in the model dtype otherwise; SSM states are f32."""
-    kv, hd = cfg.n_kv_heads, cfg.hd
+    in the model dtype otherwise; SSM states are f32.  Under the TP mapping
+    ``batch_size`` is this rank's rows, and the kv heads are its own where
+    the attention splits (``_heads``)."""
+    kv, hd = _heads(cfg)[1], cfg.hd
     quant = cfg.serve_kv_bits < 16
     if cfg.serve_kv_bits == 4:
         hd = hd // 2
@@ -325,9 +362,15 @@ def _attn_stack(params: Params) -> list[Params]:
     return [layer_params(st, li) for st in stacks for li in range(st["norm1"].shape[0])]
 
 
+def _log_ssm(dims) -> None:
+    sharding.log_branch("ssm", False, dims.n_heads,
+                        "the fused in_proj's model blocks do not fall on head boundaries")
+
+
 def _ssm_layer(p: Params, x: torch.Tensor, cfg: ArchConfig, dims, state=None):
     """Pre-norm residual SSM layer: prefill (state None) returns (x, final
     state); decode steps ``state`` once and returns (x, new state)."""
+    _log_ssm(dims)
     xn = rms_norm(x, p["norm1"].to(x.dtype), cfg.norm_eps)
     if state is None:
         y, st = ssm_mod.ssm_block_with_state(p, xn, dims)
@@ -337,9 +380,12 @@ def _ssm_layer(p: Params, x: torch.Tensor, cfg: ArchConfig, dims, state=None):
 
 
 def _logits(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Last position's f32 logits, the padded vocab masked to -1e30."""
+    """Last position's f32 logits, the padded vocab masked to -1e30; under
+    the TP mapping, where the model axis divides the padded vocab, each
+    rank's vocab columns gathered over ``model``."""
     x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
-    logits = dense(x[:, -1], params["unembed"]).float()
+    cols, _ = _split("unembed", cfg.padded_vocab)
+    logits = sharding.model_all_gather(dense(x[:, -1], params["unembed"], cols).float())
     pad = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab
     return logits.masked_fill(pad, -1e30)
 
@@ -406,11 +452,12 @@ def _decode_attn(p: Params, x: torch.Tensor, cache_slice: dict, pos: torch.Tenso
             "(serve/decode.py) unpacks them — use ServeEngine, not decode_step"
         )
     b = x.shape[0]
-    kv, hd, h = cfg.n_kv_heads, cfg.hd, cfg.n_heads
+    h, kv, cols, rows = _heads(cfg)
+    hd = cfg.hd
     xn = rms_norm(x, p["norm1"].to(x.dtype), cfg.norm_eps)
-    q = dense(xn, p["wq"]).reshape(b, 1, h, hd)
-    k = dense(xn, p["wk"]).reshape(b, 1, kv, hd)
-    v = dense(xn, p["wv"]).reshape(b, 1, kv, hd)
+    q = dense(xn, p["wq"], cols).reshape(b, 1, h, hd)
+    k = dense(xn, p["wk"], cols).reshape(b, 1, kv, hd)
+    v = dense(xn, p["wv"], cols).reshape(b, 1, kv, hd)
     posv = pos.long().reshape(1, 1).expand(b, 1)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
@@ -429,7 +476,7 @@ def _decode_attn(p: Params, x: torch.Tensor, cache_slice: dict, pos: torch.Tenso
         _write_cache_slab(ck, k, pos)
         _write_cache_slab(cv, v, pos)
         o = attn_mod.decode_attention(q, ck, cv, pos + 1, window=window)
-    return dense(o.reshape(b, 1, h * hd), p["wo"]), cache_slice
+    return dense(o.reshape(b, 1, h * hd), p["wo"], rows), cache_slice
 
 
 def _cache_slice(cache: Params, i: int) -> dict:
@@ -440,7 +487,7 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params, cfg: ArchCo
     """One decode step: tokens [B, 1] -> (logits [B, V] f32, cache), the
     cache updated in place (see the module note)."""
     pos = cache["pos"]
-    x = params["embed"][tokens.long()].to(torch_dtype(cfg.dtype))  # [B, 1, D]
+    x = embed_lookup(params["embed"], tokens, torch_dtype(cfg.dtype))  # [B, 1, D]
 
     if cfg.family in _ATTN_STACK:
         windows = _per_layer_window(cfg, cfg.n_layers)
@@ -538,6 +585,7 @@ def forward(params: Params, batch: dict, cfg: ArchConfig):
         dims = ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_state, cfg.ssm_head_p)
 
         def ssm_layer(x, p):
+            _log_ssm(dims)
             xn = rms_norm(x, p["norm1"].to(x.dtype), cfg.norm_eps)
             return x + ssm_mod.ssm_block(p, xn, dims)
 
@@ -568,12 +616,15 @@ def forward(params: Params, batch: dict, cfg: ArchConfig):
 
 def train_loss(params: Params, batch: dict, cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
     """(loss, {"ce", "aux"}): the masked next-token cross-entropy plus 0.01
-    x the MoE routing aux; prefix positions carry no labels."""
+    x the MoE routing aux; prefix positions carry no labels.  On a mesh the
+    ce is this rank's share of the global token mean and the aux the global
+    batch's (the same on every rank), so the loss is the share ce + 0.01 x
+    aux / (batch ranks): the batch ranks' losses sum to the global loss."""
     h, aux, _, mask = forward(params, batch, cfg)
     labels = batch["labels"]
     if cfg.prefix_len:
         labels = torch.cat([labels.new_zeros(labels.shape[0], cfg.prefix_len), labels], dim=1)
-    ce = chunked_cross_entropy(h, sharding.gather_weight(params["unembed"]), labels, mask,
-                               vocab=cfg.vocab)
-    loss = ce + 0.01 * aux
+    ce = chunked_cross_entropy(h, params["unembed"], labels, mask, vocab=cfg.vocab)
+    n_b = sharding.batch_ranks()
+    loss = ce + 0.01 * (aux if n_b == 1 else aux / n_b)
     return loss, {"ce": ce, "aux": aux}

@@ -29,9 +29,25 @@ is elementwise (adamw), on the gathered leaf, gradient and state where it
 is not (adafactor's row and column statistics, adamw8bit's 256-element
 blocks), keeping the rank's block.  So the step equals the unsharded one
 up to the order of the sums over ranks.  At world size 1 every gather and
-every block is the tensor itself, and the step is the unsharded one.  MoE archs are
-not trained on a mesh (their routing and capacity are global under SPMD;
-the JAX package's FSDP mapping excludes them).
+every block is the tensor itself, and the step is the unsharded one.  MoE
+archs are not trained under the FSDP mapping (the JAX package's
+``use_fsdp_mapping`` never puts them there).
+
+Which mapping a mesh step runs is the one installed when it is made
+(``sharding.mapping_of``), as JAX's ``make_train_step(arch, tc, mesh)``
+traces under whatever ``set_mesh`` installed: ``set_mesh(mesh)`` (as
+``launch/train.py --mesh-data`` does) selects the tensor-parallel (TP)
+mapping; ``set_mesh(mesh, data_only=True)``, or no mapping at all, the FSDP
+one.  Under the TP mapping the batch splits over the batch axes (``("pod",
+"data")``; the ranks of a model group hold the same rows) and the model
+code splits its layers over ``model`` by hand (``models/transformer.py``,
+``models/moe.py``), MoE archs included.  The gathers' backward sums each
+weight's gradient into this rank's block; a leaf that every model rank
+holds whole and uses as it is (norms, the router, ``A_log`` / ``D`` /
+``dt_bias``: the leaves whose rule replicates them) has the same gradient
+on every model rank and is summed over the batch axes only.  The loss and
+ce are the batch ranks' shares, summed over the batch axes.  The global
+norm and the optimizer treat the stored blocks as under FSDP.
 
 On the card ``Trainer.run`` runs its steps with deterministic kernels
 (``torch.use_deterministic_algorithms``; e.g. the embedding's backward
@@ -170,12 +186,21 @@ def _same_layout(a, b) -> bool:
     return a.mesh is b.mesh and tuple(a.spec) == tuple(b.spec)
 
 
-def _check_mesh_arch(arch: ArchConfig) -> None:
-    if arch.n_experts:
+def _check_mesh_arch(arch: ArchConfig, mapping: str) -> None:
+    if arch.n_experts and mapping == "fsdp":
         raise NotImplementedError(
-            f"{arch.name} is an MoE arch: training it on a device mesh is not ported "
-            "(ROADMAP: MoE training on a mesh); its routing and capacity are global "
-            "under SPMD, and the JAX package's FSDP mapping excludes MoE archs")
+            f"{arch.name} is an MoE arch: it trains on a mesh under the tensor-parallel "
+            "mapping (sharding.set_mesh(mesh), as launch/train.py --mesh-data installs "
+            "it), not under the FSDP mapping, from which the JAX package's "
+            "use_fsdp_mapping excludes MoE archs")
+
+
+def _replicated_leaves(params) -> list[bool]:
+    """Per leaf (in flattening order), whether its rule replicates it: the
+    leaves the model code uses as they are, never through a gather."""
+    paths = tree.leaves(sh._map_with_path(lambda path, leaf: path, params))
+    return [all(a is None for a in sh.param_spec(path, leaf.ndim))
+            for path, leaf in zip(paths, tree.leaves(params))]
 
 
 @torch.no_grad()
@@ -219,7 +244,10 @@ def _apply_blocks(opt, grads: list, state, params, lr):
 
 
 def _mesh_step(arch: ArchConfig, tc: TrainConfig, mesh, opt, lr_fn) -> Callable:
-    _check_mesh_arch(arch)
+    mapping = sh.mapping_of(mesh)
+    _check_mesh_arch(arch, mapping)
+    if mapping == "tp":
+        return _tp_step(arch, tc, mesh, opt, lr_fn)
 
     def step_fn(params, opt_state, batch, step):
         with sh.use_mesh(mesh, data_only=True):
@@ -238,19 +266,48 @@ def _mesh_step(arch: ArchConfig, tc: TrainConfig, mesh, opt, lr_fn) -> Callable:
     return step_fn
 
 
-def mesh_rows(mesh, global_batch: int, microbatches: int = 1) -> list[tuple[int, int]]:
-    """The rows of the global batch this rank of ``mesh`` holds under the
-    FSDP mapping (the batch dim sharded over every axis, major to minor):
-    one slice of each microbatch, so that the step's reshape into
-    microbatches gives each rank its rows of every global microbatch."""
-    n_dev = sh.mesh_size(mesh)
+def mesh_value_and_grad(params, batch, arch: ArchConfig, mesh, microbatches: int = 1):
+    """The TP mapping's (loss, ce, grads) on ``mesh`` from this rank's
+    blocks and rows: loss and ce summed over the batch ranks, each gradient
+    this rank's block of the full gradient (see the module note)."""
+    with sh.use_mesh(mesh):
+        loss, ce, grads = _loss_and_grads(params, batch, arch, microbatches)
+        for g, rep in zip(grads, _replicated_leaves(params)):
+            if rep:
+                sh.batch_all_reduce(g)
+        loss, ce = sh.batch_all_reduce(loss.clone()), sh.batch_all_reduce(ce.clone())
+    return loss, ce, grads
+
+
+def _tp_step(arch: ArchConfig, tc: TrainConfig, mesh, opt, lr_fn) -> Callable:
+    def step_fn(params, opt_state, batch, step):
+        loss, ce, grads = mesh_value_and_grad(params, batch, arch, mesh, tc.microbatches)
+        grads, gnorm = _clip_by_global_norm(grads, tc.grad_clip,
+                                            _mesh_global_norm(grads, params, mesh))
+        opt_state = _apply_blocks(opt, grads, opt_state, params, lr_fn(step))
+        return params, opt_state, {"loss": loss, "ce": ce, "grad_norm": gnorm}
+
+    return step_fn
+
+
+def mesh_rows(mesh, global_batch: int, microbatches: int = 1,
+              axes: Optional[tuple[str, ...]] = None) -> list[tuple[int, int]]:
+    """The rows of the global batch this rank of ``mesh`` holds, the batch
+    dim sharded over ``axes`` major to minor (default every axis: the FSDP
+    mapping; the TP mapping's are the batch axes, ``("pod", "data")``): one
+    slice of each microbatch, so that the step's reshape into microbatches
+    gives each rank its rows of every global microbatch."""
+    sizes = sh.mesh_shape(mesh)
+    coord = dict(zip(sizes, mesh.get_coordinate()))
+    axes = tuple(sizes) if axes is None else tuple(a for a in axes if a in sizes)
+    n_dev = 1
+    r = 0
+    for a in axes:
+        n_dev *= sizes[a]
+        r = r * sizes[a] + coord[a]
     if global_batch % (n_dev * microbatches):
         raise ValueError(f"global batch {global_batch} does not split over {n_dev} devices "
                          f"x {microbatches} microbatches")
-    sizes = sh.mesh_shape(mesh)
-    r = 0
-    for size, c in zip(sizes.values(), mesh.get_coordinate()):
-        r = r * size + c
     per_mb = global_batch // microbatches
     rows = per_mb // n_dev
     return [(i * per_mb + r * rows, i * per_mb + (r + 1) * rows) for i in range(microbatches)]
@@ -290,15 +347,20 @@ class Trainer:
     seed: int = 0
     monitor: StepMonitor = field(default_factory=StepMonitor)
     device: Any = None  # the card unless named
-    mesh: Any = None  # a DeviceMesh: the FSDP/ZeRO-3 step over it (module note)
+    mesh: Any = None  # a DeviceMesh: the step over it under the installed mapping
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.ckpt = CheckpointManager(self.tc.ckpt_dir, keep=self.tc.ckpt_keep)
         self.step_fn, self.opt_init = make_train_step(self.arch, self.tc, self.mesh)
         self.history: list[dict] = []
+        self._row_axes = None  # the mapping's batch axes (sharding.batch_axes)
         if self.mesh is not None:
-            mesh_rows(self.mesh, self.data.global_batch, self.tc.microbatches)  # divisible
+            fsdp = sh.mapping_of(self.mesh) == "fsdp"
+            with sh.use_mesh(self.mesh, data_only=fsdp):
+                self._row_axes = sh.batch_axes()
+            mesh_rows(self.mesh, self.data.global_batch, self.tc.microbatches,
+                      self._row_axes)  # divisible
 
     def init_state(self):
         """Params and optimizer state: full, or on a mesh this rank's blocks
@@ -313,12 +375,13 @@ class Trainer:
 
     def batch(self, step: int) -> dict:
         """The step's batch: all of it, or on a mesh this rank's rows of it
-        (``mesh_rows``), the prefix embeddings of a vlm / audio arch drawn
-        for the global batch and sliced (``make_batch`` draws them per
-        slice)."""
+        (``mesh_rows``, over the mapping's batch axes), the prefix
+        embeddings of a vlm / audio arch drawn for the global batch and
+        sliced (``make_batch`` draws them per slice)."""
         if self.mesh is None:
             return make_batch(self.data, step, self.arch, device=self.device)
-        rows = mesh_rows(self.mesh, self.data.global_batch, self.tc.microbatches)
+        rows = mesh_rows(self.mesh, self.data.global_batch, self.tc.microbatches,
+                         self._row_axes)
         parts = [make_batch(self.data, step, None, host_slice=r, device=self.device)
                  for r in rows]
         batch = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}

@@ -1,7 +1,9 @@
 """Each hand-written CUDA kernel of repro_torch against its plain PyTorch
 version, on the card: the W4/W8 dequant matmul in the CF order (the
 tensor-core kernel's 8-row tile at M <= 8, its 64- and 128-row tiles above,
-at ragged edges and at the serving paths' prefill shapes) and the FF order,
+at ragged edges and at the serving paths' prefill shapes; its f32 entry, a
+row-split partial under the TP mapping, and the plain row-split partial
+GEMM) and the FF order,
 the int-mode matmul (bit-exact against the CPU), paged decode and paged
 prefill (also at a speculative verify window, at gemma3-1b's head dim 256
 and at 160 / 192, which pad to 256, at one query head per kv head as
@@ -151,6 +153,55 @@ def test_mpmm_decode_m_matches_plain_and_repeats_bits(dev, w_bits, m, k, n):
     assert mpmm_cuda.launches == before + 1
     _close(got, ref.mpmm_ref(x, w_data, w_scale, w_bits=w_bits))
     assert torch.equal(got, mpmm_cuda(x, w_data, w_scale, w_bits=w_bits))
+
+
+# the f32 entry (a row-split partial product under the TP mapping): the
+# scaled f32 sum uncast, at one rank's W8 / W4 row blocks of llama3.2-3b's
+# wo and wd and at ragged shapes (8-row tile, K split, ragged N); within
+# f32 summation-order error of the plain version, and cast to bf16 the
+# bf16 entry's bits
+@pytest.mark.parametrize("w_bits", [4, 8])
+@pytest.mark.parametrize("m,k,n", [(3, 768, 3072), (8, 2048, 3072), (256, 768, 3072),
+                                   (300, 1100, 200), (5, 1100, 200)])
+def test_mpmm_f32_out_matches_plain_and_the_bf16_entry(dev, w_bits, m, k, n):
+    gen = torch.Generator(device=dev).manual_seed(m * 3 + k + n)
+    w_data, w_scale = ops.pack_weights(
+        torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k), w_bits)
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    before = mpmm_cuda.launches
+    got = ops.mpmm(x, w_data, w_scale, w_bits=w_bits, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert mpmm_cuda.launches == before + 1 and got.dtype == torch.float32
+    exp = ref.mpmm_ref(x, w_data, w_scale, w_bits=w_bits, out_dtype=torch.float32)
+    atol = k * 2.0**-22 * x.float().abs().max().item() * 127 * w_scale.max().item()
+    torch.testing.assert_close(got, exp, atol=atol, rtol=1e-5)
+    assert torch.equal(got.to(torch.bfloat16), mpmm_cuda(x, w_data, w_scale, w_bits=w_bits))
+    assert torch.equal(got, mpmm_cuda(x, w_data, w_scale, w_bits=w_bits,
+                                      out_dtype=torch.float32))
+
+
+def test_row_split_partial_gemm_on_the_card(dev):
+    """A plain row-split partial (``layers._MatmulF32``): one bf16 GEMM
+    writing f32, within f32 summation-order error of the upcast product;
+    its gradients those of the unsplit bf16 product."""
+    from repro_torch.models.layers import _MatmulF32
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(2, 5, 768, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn(768, 3072, generator=gen, device=dev) / 768 ** 0.5).to(torch.bfloat16)
+    r = torch.randn(2, 5, 3072, generator=gen, device=dev).to(torch.bfloat16)
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    got = _MatmulF32.apply(xs, ws)
+    assert got.dtype == torch.float32 and got.shape == (2, 5, 3072)
+    exp = x.float() @ w.float()
+    atol = 768 * 2.0**-22 * x.float().abs().max().item() * w.float().abs().max().item()
+    torch.testing.assert_close(got, exp, atol=atol, rtol=1e-5)
+    (got.to(torch.bfloat16) * r).sum().backward()
+    xu, wu = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    (torch.matmul(xu, wu) * r).sum().backward()
+    assert xs.grad.dtype == ws.grad.dtype == torch.bfloat16
+    _close(xs.grad, xu.grad)
+    _close(ws.grad, wu.grad)
 
 
 def test_dense_w16_raises_on_the_card(dev):
@@ -1610,3 +1661,47 @@ def test_one_stage_pipeline_over_nccl(nccl_mesh):
     x = torch.randn(4, 8, 3072, generator=gen, device="cuda")
     got = pipeline_apply(lambda p, mb: torch.tanh(mb @ p), w, x, mesh, axis="pod")
     assert torch.equal(got, torch.stack([torch.tanh(mb @ w[0]) for mb in x]))
+
+
+# ---- the tensor-parallel mapping (set_mesh(mesh)) over NCCL at world size 1:
+# every collective spans one rank, so each path equals the unsharded one
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tp_moe_ffn_over_nccl_equals_unsharded(nccl_mesh, dtype):
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import moe
+
+    params = moe.init_moe_params(torch.Generator(device="cuda").manual_seed(0), 1024, 2048, 8,
+                                 dtype)
+    x = torch.randn(4, 64, 1024, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda").to(dtype)
+    for cf in (1.25, 0.5):
+        a = moe.moe_ffn(x, params, top_k=2, capacity_factor=cf)
+        with sh.use_mesh(nccl_mesh):
+            b = moe.moe_ffn(x, params, top_k=2, capacity_factor=cf)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), cf
+
+
+def test_tp_server_waves_over_nccl_equal_unsharded(nccl_mesh):
+    """Reduced kimi-k2 (w4, kv8: the CF matmul and mqa_decode) through
+    Server(mesh=) on the 1 x 1 mesh, captured: the no-mesh Server's streams."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mqa_decode import mqa_decode_cuda
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.train.server import Request, Server
+
+    cfg = get_config("kimi-k2-1t-a32b").reduced()
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (9, 4, 7)]
+
+    def streams(mesh):
+        params = model_lib.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        srv = Server(cfg, params, batch_size=2, max_len=24, device="cuda", mesh=mesh)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=4) for i, p in enumerate(prompts)]
+        srv.serve(reqs)
+        return [list(r.out_tokens) for r in reqs]
+
+    before = mqa_decode_cuda.launches
+    assert streams(nccl_mesh) == streams(None)
+    assert mqa_decode_cuda.launches > before

@@ -8,8 +8,10 @@ the JAX test's ``atol = 1e-4, rtol = 1e-3`` of JAX's (and of the replicated
 dispatch at capacity factor 8, where nothing drops), the aux loss (the mean
 over data shards) likewise; at capacity factor 1 each data shard drops by
 its own token count, as in JAX.  On a 1 x 1 mesh the all-to-all dispatch is
-bit-equal to the replicated one, f32, bf16 and W8 experts.  An MoE arch on a
-training mesh raises, naming ROADMAP.
+bit-equal to the replicated one, f32, bf16 and W8 experts.  An MoE arch
+trains on the launcher's mesh, which installs the tensor-parallel mapping;
+what still raises there, naming ROADMAP, is the all-to-all dispatch, which
+that mapping does not wire.
 """
 import numpy as np
 import pytest
@@ -102,6 +104,22 @@ def test_alltoall_on_1x1_is_bit_equal_to_replicated(tmp_path):
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "kimi-k2-1t-a32b"])
 def test_moe_arch_on_a_mesh_raises_naming_roadmap(arch, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlaunch.main(["--arch", arch, "--reduced", "--device", "cpu", "--mesh-data", "1",
-                      "--steps", "1", "--ckpt-dir", str(tmp_path)])
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import moe
+
+    report = tlaunch.main(["--arch", arch, "--reduced", "--device", "cpu", "--mesh-data", "1",
+                           "--steps", "1", "--ckpt-dir", str(tmp_path)])
+    assert report["steps"] == 1 and math.isfinite(report["final_loss"])
+    cfg = get_config(arch).reduced()
+    params = moe.init_moe_params(torch.Generator().manual_seed(0), cfg.d_model, cfg.d_ff,
+                                 cfg.n_experts, torch.float32)
+
+    class Mesh:
+        mesh_dim_names, shape = ("data", "model"), (1, 1)
+
+    with sh.use_mesh(Mesh()), pytest.raises(NotImplementedError, match="ROADMAP"):
+        moe.moe_ffn(torch.zeros(1, 4, cfg.d_model), params, top_k=cfg.top_k,
+                    dispatch="alltoall")

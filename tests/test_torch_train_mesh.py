@@ -22,8 +22,11 @@ crashing at step 3 and resumed, ends bit-equal to an uninterrupted one.
 
 The launcher: ``--mesh-data 1 --device cpu`` runs in one process and prints
 the JAX launcher's keys; ``--mesh-data 2 --mesh-model 2`` under ``torchrun``
-(4 processes) trains reduced llama3.2-3b (bf16) to the unsharded run's
-losses within bf16's sums; the rows of the global batch a rank draws.
+(4 processes) trains reduced llama3.2-3b (bf16), under the tensor-parallel
+mapping the launcher installs (``sharding.set_mesh(mesh)``, as the JAX
+launcher does), to the unsharded run's losses within bf16's sums; the rows
+of the global batch a rank draws.  The mesh steps above install no mapping
+and so run the FSDP one.
 """
 import dataclasses
 import json
@@ -272,7 +275,12 @@ def test_launcher_under_torchrun_on_2x2(tmp_path):
     plain = tlaunch.main(["--arch", "llama3.2-3b", "--reduced", "--device", "cpu", "--steps",
                           "3", "--ckpt-dir", str(tmp_path / "plain")])
     assert report["steps"] == 3
-    # bf16 gradients summed over 4 ranks in another order than one pass
-    np.testing.assert_allclose(report["first_loss"], plain["first_loss"], rtol=1e-6)
+    # the TP mapping in bf16: the row-split products (wo, wd) sum their f32
+    # partials over the model ranks in another order than one bf16 matmul,
+    # which flips ~4e-5 of the bf16 roundings (the first loss moved by 2.1e-5
+    # relative); the float32 TP steps are held tightly against JAX's in
+    # tests/test_torch_train_tp.py.  Then bf16 gradients summed over the
+    # ranks in another order than one pass.
+    np.testing.assert_allclose(report["first_loss"], plain["first_loss"], rtol=1e-4)
     np.testing.assert_allclose(report["final_loss"], plain["final_loss"], rtol=1e-3)
     assert sorted(os.listdir(tmp_path / "mesh")) == ["step_000000003"]
