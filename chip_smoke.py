@@ -189,7 +189,22 @@ Phases, each printing one JSON line that names the card:
                them as "tp_blocks", "tp_partials" and "tp_heads".  In
                Server(mesh=) every W8 row-split projection runs through the
                f32 entry (one rank: the same bits as the unsplit product).
-12. kernels line -- each kernel's launches on its path (all > 0): the serving
+12. dryrun  -- the dry run (src/repro_torch/launch/dryrun.py) against the
+               card: (a) each phase-2 case of the CF matmul and of
+               mqa_decode through its meta contract, which must return the
+               kernel's output shape and dtype and launch nothing; (b) the
+               dry run of full llama3.2-3b's phase-9 train step (8 x 512,
+               FSDP mapping) and of its W4 / kv8 static-wave decode_step
+               (DRYRUN_DECODE_ROWS rows, a full cache of DRYRUN_DECODE_CTX,
+               TP mapping) over a fake group of one rank, each held against
+               the same program on the card over NCCL at world size 1:
+               FLOPs equal to the cost count of the card's run, argument
+               bytes within DRYRUN_ARG_RTOL of the placement's, the peak
+               within DRYRUN_PEAK_RTOL of max_memory_allocated, the
+               outputs' bytes equal and the card's finite; the roofline's
+               bound printed beside the measured time.  The CF
+               matmul and mqa_decode must launch on it ("dryrun").
+13. kernels line -- each kernel's launches on its path (all > 0): the serving
                kernels in phase 5's first run, the FF and int matmuls in
                phase 4, contiguous-cache decode in phase 6's first zamba2
                run; the counts are set to 0 just before each path runs, and
@@ -301,7 +316,9 @@ VERIFY_PROF = {"mpmm_dequant": "mpmm_verify_m", "paged_prefill": "paged_prefill_
 KERNEL_PATH = {"mpmm_dequant": "serve", "paged_decode": "serve", "paged_prefill": "serve",
                "mpmm_ff_dequant": "cnn", "mpmm_int": "cnn", "mqa_decode": "waves"}
 # phase 2 mqa_decode cases: (label, B, S, Hkv, G, D, lengths, kv_bits); zamba2-7b
-# serving (S = 512 prompt + 32 new + 8), a long context, llama3.2-3b's GQA
+# serving (S = 512 prompt + 32 new + 8), a long context, llama3.2-3b's GQA, and
+# the shape and plan of phase 12's llama3.2-3b decode step (one rank's 8 rows
+# of decode_32k)
 MQA_CASES = [
     ("zamba2 serving", 8, 552, 32, 1, 112, list(range(545, 553)), 8),
     ("zamba2 serving", 8, 552, 32, 1, 112, list(range(545, 553)), 4),
@@ -309,6 +326,8 @@ MQA_CASES = [
     ("llama3.2-3b GQA", 8, 1024, 8, 3, 128, [1024 - (i % 3) for i in range(8)], 8),
     # one rank's 8 of zamba2-7b's 32 kv heads on a 4-wide model axis (TP)
     ("zamba2 TP 8 of 32 heads", 8, 552, 8, 1, 112, list(range(545, 553)), 8),
+    ("llama3.2-3b decode_32k, one rank", 8, 32768, 8, 3, 128,
+     [32768 - (i % 3) for i in range(8)], 8),
 ]
 WAVE_REQUESTS, WAVE_PROMPT, WAVE_NEW = 8, 512, 32
 # the ResNet18 convs phase 2 times the FF matmul at (batch 8): M = 8*Ho*Wo
@@ -361,6 +380,13 @@ MESH_TRAIN_STEPS, MESH_TRAIN_RTOL, MESH_COLL_RTOL = 3, 1e-5, 1e-6
 TP_MOE_LAYERS, TP_MOE_STEPS, TP_MOE_BATCH = 1, 2, 4
 TP_WAVE_LAYERS = 7
 MAMBA_STEPS, MAMBA_CKPT_EVERY, MAMBA_FAIL_AT = 12, 4, 6
+# phase 12, the dry run against the card at world size 1: phase 9's train
+# step, and full llama3.2-3b's W4 / kv8 static-wave decode_step at
+# DRYRUN_DECODE_ROWS rows (one rank's rows of decode_32k on the 16 x 16
+# mesh) against a full cache of DRYRUN_DECODE_CTX; the argument bytes held
+# within DRYRUN_ARG_RTOL of the card's, the peak within DRYRUN_PEAK_RTOL
+DRYRUN_DECODE_ROWS, DRYRUN_DECODE_CTX = 8, 32768
+DRYRUN_ARG_RTOL, DRYRUN_PEAK_RTOL = 0.01, 0.10
 # the numbers of a phase-2 case that the kernels line carries
 LINE_KEYS = ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
 
@@ -441,7 +467,7 @@ def kernel_cases(torch, timer, gpu) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.mpmm import launch_plan, mpmm_cuda
+    from repro_torch.kernels.mpmm import launch_plan, mpmm_cost, mpmm_cuda
     from repro_torch.kernels.paged_decode import paged_mqa_decode_cuda
     from repro_torch.kernels.paged_prefill import launch_grid, paged_mqa_prefill_cuda
     from repro_torch.quant.pack import unpack_int4
@@ -458,17 +484,22 @@ def kernel_cases(torch, timer, gpu) -> dict:
     # then zamba2-7b's in_proj / out_proj at its prefill M (8 x 512
     # tokens), w8.  Every case's K split is summed in a fixed order, so two
     # runs must give the same bits
+    def contract_case(args, kwargs, got):
+        """Keep a case's shapes for phase 12's meta contract."""
+        summary["mpmm_dequant"].setdefault("contract_cases", []).append(
+            ([(tuple(t.shape), t.dtype) for t in args], kwargs, tuple(got.shape), got.dtype))
+
     def mpmm_case(x, wd, ws, w_bits, w_deq):
         m, k = x.shape
         n = wd.shape[-1]
         got = mpmm_cuda(x, wd, ws, w_bits=w_bits)
+        contract_case((x, wd, ws), dict(w_bits=w_bits, out_dtype=torch.bfloat16), got)
         exp = ref.mpmm_ref(x, wd, ws, w_bits=w_bits)
         err = max_err(torch, got, exp, MPMM_TOL)
         del exp
         check(torch.equal(got, mpmm_cuda(x, wd, ws, w_bits=w_bits)),
               f"mpmm w{w_bits} M={m} K={k} N={n}: two runs gave other bits")
-        nbytes = m * k * 2 + wd.numel() + n * 4 + m * n * 2
-        flops = 2.0 * m * n * k
+        flops, nbytes = mpmm_cost(m, k, n, wd.numel())
         b_ms, b_by = bound(nbytes, flops)
         plan = launch_plan(m, n, k, w_bits=w_bits)
         rec = {
@@ -502,6 +533,7 @@ def kernel_cases(torch, timer, gpu) -> dict:
         n = wd.shape[-1]
         f32 = torch.float32
         got = mpmm_cuda(x, wd, ws, w_bits=8, out_dtype=f32)
+        contract_case((x, wd, ws), dict(w_bits=8, out_dtype=f32), got)
         exp = ref.mpmm_ref(x, wd, ws, w_bits=8, out_dtype=f32)
         tol = dict(atol=k * 2.0**-22 * x.float().abs().max().item() * 127 * ws.max().item(),
                    rtol=1e-5)
@@ -511,7 +543,8 @@ def kernel_cases(torch, timer, gpu) -> dict:
               f"mpmm f32 entry M={m} K={k} N={n}: cast to bf16, not the bf16 entry's bits")
         check(torch.equal(got, mpmm_cuda(x, wd, ws, w_bits=8, out_dtype=f32)),
               f"mpmm f32 entry M={m} K={k} N={n}: two runs gave other bits")
-        b_ms, b_by = bound(m * k * 2 + wd.numel() + n * 4 + m * n * 4, 2.0 * m * n * k)
+        flops, nbytes = mpmm_cost(m, k, n, wd.numel(), out_bytes=4)
+        b_ms, b_by = bound(nbytes, flops)
         rec = {
             "case": f"w8 f32 out M={m} K={k} N={n}", "max_abs_err": err, "tol": tol,
             "ms": timer(lambda: mpmm_cuda(x, wd, ws, w_bits=8, out_dtype=f32)),
@@ -859,8 +892,8 @@ def cnn_kernel_cases(torch, timer, gpu, summary) -> None:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.mpmm import (int_launch_plan, launch_plan, mpmm_cuda, mpmm_ff_cuda,
-                                          mpmm_int_cuda)
+    from repro_torch.kernels.mpmm import (int_launch_plan, launch_plan, mpmm_cost, mpmm_cuda,
+                                          mpmm_ff_cuda, mpmm_int_cuda)
     from repro_torch.models.cnn_zoo import resnet18_layers
     from repro_torch.quant.pack import pack_int4, unpack_int4
 
@@ -890,7 +923,8 @@ def cnn_kernel_cases(torch, timer, gpu, summary) -> None:
         out = ops.mpmm(x, wd, ws, w_bits=w_bits, dataflow="ff")
         out_err = max_err(torch, out, ref.mpmm_ref(x, wd, ws, w_bits=w_bits), MPMM_TOL)
         w_deq = dequantized(wd, ws, w_bits)
-        b_ms, b_by = bound(m * k * 2 + wd.numel() + m * n * 4, 2.0 * m * n * k)
+        flops, nbytes = mpmm_cost(m, k, n, wd.numel(), out_bytes=4, scale=False)
+        b_ms, b_by = bound(nbytes, flops)
         plan = launch_plan(m, n, k, stage_k=ref.FF_STAGE_K)
         rec = {
             "case": f"{label} w{w_bits} M={m} K={k} N={n}", "max_abs_err": err, "tol": tol,
@@ -911,9 +945,13 @@ def cnn_kernel_cases(torch, timer, gpu, summary) -> None:
         m, k = x.shape
         n = wd.shape[-1]
         got = mpmm_cuda(x, wd, ws, w_bits=8)
+        summary["mpmm_dequant"]["contract_cases"].append(
+            ([(tuple(t.shape), t.dtype) for t in (x, wd, ws)],
+             dict(w_bits=8, out_dtype=torch.bfloat16), tuple(got.shape), got.dtype))
         err = max_err(torch, got, ref.mpmm_ref(x, wd, ws, w_bits=8), MPMM_TOL)
         w_deq = dequantized(wd, ws, 8)
-        b_ms, b_by = bound(m * k * 2 + wd.numel() + n * 4 + m * n * 2, 2.0 * m * n * k)
+        flops, nbytes = mpmm_cost(m, k, n, wd.numel())
+        b_ms, b_by = bound(nbytes, flops)
         rec = {
             "case": f"{label} w8 M={m} K={k} N={n}", "max_abs_err": err, "tol": MPMM_TOL,
             "ms": timer(lambda: mpmm_cuda(x, wd, ws, w_bits=8)),
@@ -1229,7 +1267,7 @@ def mqa_kernel_cases(torch, timer, gpu, summary) -> None:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.mqa_decode import decode_plan, mqa_decode_cuda
+    from repro_torch.kernels.mqa_decode import decode_cost, decode_plan, mqa_decode_cuda
     from repro_torch.quant.pack import unpack_int4
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1251,6 +1289,9 @@ def mqa_kernel_cases(torch, timer, gpu, summary) -> None:
             return ref.mqa_decode_ref(q, unpacked(kd), unpacked(vd), ks, vs, lens, sm_scale=sm)
 
         got = mqa_decode_cuda(qg, kd, vd, ks, vs, lens, kv_bits=kv_bits, sm_scale=sm)
+        summary["mqa_decode"].setdefault("contract_cases", []).append(
+            ([(tuple(t.shape), t.dtype) for t in (qg, kd, vd, ks, vs, lens)],
+             dict(kv_bits=kv_bits, sm_scale=sm), tuple(got.shape), got.dtype))
         err = max_err(torch, got.reshape(b, h, d), plain(), ATTN_TOL)
         check(torch.equal(got, mqa_decode_cuda(qg, kd, vd, ks, vs, lens, kv_bits=kv_bits,
                                                sm_scale=sm)),
@@ -1262,9 +1303,8 @@ def mqa_kernel_cases(torch, timer, gpu, summary) -> None:
         mask = (torch.arange(s, device="cuda")[None] < lens[:, None])[:, None, None, :]
         q4 = q[:, :, None, :]
         live = sum(lengths)
-        per_tok = hkv * (d // 2 if kv_bits == 4 else d) + hkv * 4  # payload + scale
-        nbytes = 2 * live * per_tok + 2 * q.numel() * 2 + 4 * b
-        b_ms, b_by = bound(nbytes, 4.0 * h * d * live)
+        flops, nbytes = decode_cost(b, hkv, g, d, live, kv_bits)
+        b_ms, b_by = bound(nbytes, flops)
         rec = {
             "case": f"{label} kv{kv_bits} B={b} S={s} Hkv={hkv} G={g} D={d} "
                     f"lengths={min(lengths)}-{max(lengths)}",
@@ -2968,6 +3008,151 @@ def tp_paths(torch, gpu, plain_train, plain_waves) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 12
+def contract_cases(torch, gpu, summary) -> None:
+    """(a) Each phase-2 case of the CF matmul and of mqa_decode once more
+    through its meta contract: the kernel's operator
+    (``torch.ops.repro_torch``, ``kernels/ops.py``) on meta tensors of the
+    case's shapes and dtypes returns the kernel's output shape and dtype
+    (those of the launch in phase 2) and launches nothing."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mpmm import mpmm_cuda
+    from repro_torch.kernels.mqa_decode import mqa_decode_cuda
+
+    kernel_ops = getattr(torch.ops, ops.NAMESPACE)
+    counts = {}
+    for name, op, fn in (("mpmm_dequant", kernel_ops.mpmm, mpmm_cuda),
+                         ("mqa_decode", kernel_ops.mqa_decode, mqa_decode_cuda)):
+        before = fn.launches
+        cases = summary[name]["contract_cases"]
+        for specs, kwargs, shape, dtype in cases:
+            out = op(*(torch.empty(sh, dtype=dt, device="meta") for sh, dt in specs), **kwargs)
+            check(out.is_meta and tuple(out.shape) == shape and out.dtype == dtype,
+                  f"{name} contract on {specs}: {tuple(out.shape)} {out.dtype}, the kernel "
+                  f"gave {shape} {dtype}")
+        check(fn.launches == before, f"{name}'s meta contract launched the kernel")
+        counts[name] = len(cases)
+    emit({"phase": "dryrun_contracts", "what": "each phase-2 case through its kernel's "
+          "meta contract: the kernel's output shape and dtype, no launch",
+          "cases": counts, "gpu": gpu})
+
+
+def card_cell(torch, arch, shape, mesh) -> dict:
+    """A dry-run cell's program on the card: ``dryrun.build_cell`` on
+    ``mesh`` (world size 1) with real tensors (params drawn from seed 0,
+    placed by ``reshard_state``), once under the cost count and once more
+    timed.  Memory is the card's above what was allocated before the
+    placement; ``finite``: every float of the timed run's output is
+    finite."""
+    import gc
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import dryrun
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    try:
+        cell = dryrun.build_cell(arch, shape, mesh, device="cuda")
+        torch.cuda.synchronize()
+        placed = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        rec = dryrun.trace_cell(cell, mesh)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        t0 = time.perf_counter()
+        out = cell.run()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        finite = all(bool(torch.isfinite(t).all()) for t in
+                     torch.utils._pytree.tree_leaves(out)
+                     if torch.is_tensor(t) and t.is_floating_point())
+    finally:
+        sh.set_mesh(None)
+    return {**rec, "placed": placed, "peak": peak, "step_s": step_s, "mapping": cell.mapping,
+            "finite": finite}
+
+
+def dryrun_paths(torch, gpu, summary) -> None:
+    """Phase 12: the dry run (``launch/dryrun.py``) against the card.  (a)
+    The meta contracts of phase 2's cases.  (b) The dry run of two
+    full-width llama3.2-3b programs over a fake group of one rank, then the
+    same programs on the card over an NCCL group of one rank: phase 9's
+    train step (8 x 512, adamw, remat "full"; the FSDP mapping, as
+    ``use_fsdp_mapping`` gives it) and the W4 / kv8 static-wave
+    ``decode_step`` at DRYRUN_DECODE_ROWS rows against a full cache of
+    DRYRUN_DECODE_CTX (the TP mapping; the CF matmul and mqa_decode
+    launch).  Held: the dry run's FLOPs equal the cost count of the card's
+    run exactly; its argument bytes are within DRYRUN_ARG_RTOL of what the
+    placement allocated on the card; its peak is within DRYRUN_PEAK_RTOL of
+    the card's ``max_memory_allocated`` over the run; its outputs hold the
+    bytes of the card's, whose every float is finite.  (The decode step's
+    cache is all zeros; phase 2 holds mqa_decode against its plain version
+    at this step's shape and plan.)  Reported: the roofline's bound at the
+    H100 constants beside the measured time."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import init_distributed, make_mesh, make_test_mesh
+
+    contract_cases(torch, gpu, summary)
+    llama = get_config("llama3.2-3b")
+    cases = {
+        "train": (llama, ShapeSpec("phase 9's step", TRAIN_SEQ, TRAIN_BATCH, "train")),
+        "decode": (dataclasses.replace(llama, serve_w_bits=4),
+                   ShapeSpec("wave decode", DRYRUN_DECODE_CTX, DRYRUN_DECODE_ROWS, "decode")),
+    }
+    with dryrun.fake_world(1):
+        fake = make_mesh((1, 1), ("data", "model"), device="cpu")
+        preds = {name: dryrun.dry_run(arch, shape, fake) for name, (arch, shape) in
+                 cases.items()}
+    joined = init_distributed("cuda", timeout=datetime.timedelta(minutes=5))
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"phase 12 needs an NCCL group of one rank, got {dist.get_backend()}")
+        mesh = make_test_mesh(1, 1, device="cuda")
+        for name, (arch, shape) in cases.items():
+            pred, card = preds[name], card_cell(torch, arch, shape, mesh)
+            terms = roofline.time_terms(pred)
+            rec = {"phase": "dryrun", "program": name,
+                   "model": f"llama3.2-3b (28 layers, full width), {shape.global_batch} x "
+                            f"{shape.seq_len}" + (", W4 / kv8" if name == "decode" else ""),
+                   "mapping": [pred["mapping"], card["mapping"]],
+                   "order": "[dry run (meta, fake group of 1), card (NCCL, world size 1)]",
+                   "flops": [pred["flops_per_device"], card["flops_per_device"]],
+                   "argument_gb": [pred["argument_size_in_bytes"] / 1e9, card["placed"] / 1e9],
+                   "peak_gb": [pred["peak_bytes"] / 1e9, card["peak"] / 1e9],
+                   "hbm_bytes": [pred["bytes_per_device"], card["bytes_per_device"]],
+                   "kernel_calls": [pred["kernel_calls"], card["kernel_calls"]],
+                   "trace_s": pred["trace_s"], "bound_s": terms["t_bound_s"],
+                   "dominant": terms["dominant"], "t_compute_s": terms["t_compute_s"],
+                   "t_memory_s": terms["t_memory_s"], "step_s": card["step_s"],
+                   "bound_over_step": terms["t_bound_s"] / card["step_s"], "gpu": gpu}
+            emit(rec)
+            check(pred["mapping"] == card["mapping"], f"{name}: mappings differ")
+            check(card["finite"], f"{name}: the card's run gave a value that is not finite")
+            check(pred["output_size_in_bytes"] == card["output_size_in_bytes"],
+                  f"{name}: the dry run's outputs hold {pred['output_size_in_bytes']} bytes, "
+                  f"the card's {card['output_size_in_bytes']}")
+            check(pred["flops_per_device"] == card["flops_per_device"],
+                  f"{name}: the dry run counts {pred['flops_per_device']} FLOPs, the card's "
+                  f"run {card['flops_per_device']}")
+            check(abs(pred["argument_size_in_bytes"] - card["placed"])
+                  <= DRYRUN_ARG_RTOL * card["placed"],
+                  f"{name}: argument bytes {pred['argument_size_in_bytes']} against "
+                  f"{card['placed']} placed on the card")
+            check(abs(pred["peak_bytes"] - card["peak"]) <= DRYRUN_PEAK_RTOL * card["peak"],
+                  f"{name}: predicted peak {pred['peak_bytes']} against the card's "
+                  f"{card['peak']}")
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
 def main() -> int:
     import torch
 
@@ -3383,6 +3568,14 @@ def main() -> int:
           f"the TP paths launched {tp_launches}: expected the CF matmul and mqa_decode "
           "(Server(mesh=))")
 
+    # ---- phase 12: the dry run against the card
+    torch.cuda.empty_cache()
+    _, dry_launches = count(lambda: dryrun_paths(torch, gpu, summary))
+    emit({"phase": "dryrun_launches", "launches": dry_launches, "gpu": gpu})
+    check(dry_launches["mpmm_dequant"] > 0 and dry_launches["mqa_decode"] > 0,
+          f"the dry-run paths launched {dry_launches}: expected the CF matmul and mqa_decode "
+          "(the card's decode step)")
+
     # ---- captured against eager on this card, step by step and end to end
     table = {}
     for step in ("chunk", "decode", "spec", "wave"):
@@ -3414,7 +3607,7 @@ def main() -> int:
                "gemma_spec": gemma_spec_launches, "mixtral": mixtral_launches,
                "minitron": minitron_launches, "kimi_waves": kimi_launches,
                **prefix_launches, "train": train_launches, "mesh": mesh_launches,
-               "tp": tp_launches}
+               "tp": tp_launches, "dryrun": dry_launches}
     for path in ("sampled", "spec", "spec_sampled", "gemma", "gemma_spec", "mixtral",
                  "minitron", "paligemma_spec"):
         for name in ("mpmm_dequant", "paged_decode", "paged_prefill"):

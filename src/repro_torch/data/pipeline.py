@@ -14,7 +14,8 @@ to its batches: a mixture of Zipfian unigrams and an injected bigram rule
 (every third token repeats its predecessor + 1), so the LM loss has
 learnable structure.  The prefix embeddings of a vlm / audio arch come from
 ``models/frontends.py::prefix_embeddings`` with the reference's seed.
-``batch_specs`` (the dry-run's stand-ins) waits for the dry-run's port.
+``batch_specs`` gives the dry run (``launch/dryrun.py``) meta stand-ins of
+a batch.
 """
 from __future__ import annotations
 
@@ -74,6 +75,21 @@ def make_batch(
         batch["prefix_emb"] = prefix_embeddings(arch, hi - lo, seed=cfg.seed + step,
                                                 device=dev)
     return batch
+
+
+def batch_specs(cfg: DataConfig, arch: Optional[ArchConfig] = None) -> dict:
+    """Meta stand-ins of :func:`make_batch`'s global batch for the dry run
+    (no draw, no allocation): ``tokens`` and ``labels`` int32 [global_batch,
+    seq_len], the dtype ``make_batch`` gives them, plus ``prefix_emb``
+    (``models/frontends.py::prefix_spec``) where ``arch`` has a frontend."""
+    shape = (cfg.global_batch, cfg.seq_len)
+    specs = {"tokens": torch.empty(shape, dtype=torch.int32, device="meta"),
+             "labels": torch.empty(shape, dtype=torch.int32, device="meta")}
+    if arch is not None and arch.prefix_len:
+        from repro_torch.models.frontends import prefix_spec
+
+        specs["prefix_emb"] = prefix_spec(arch, cfg.global_batch)
+    return specs
 
 
 def iterate(

@@ -45,8 +45,14 @@ def mesh_device(mesh) -> torch.device:
 def reshard_state(state, mesh):
     """A state tree of full tensors -> this rank's blocks of it under the
     standard rules, on the mesh's device (the counterpart of
-    ``jax.device_put`` onto the shardings: a rank holds only its shards)."""
+    ``jax.device_put`` onto the shardings: a rank holds only its shards).
+    A meta tensor's block stays on meta: the dry run's shape-only state."""
     sh = tree_shardings(state, mesh)
     dev = mesh_device(mesh)
-    return tree.map(lambda a, s: shard_local(a, s, device=dev) if torch.is_tensor(a) else a,
-                    state, sh)
+
+    def place(a, s):
+        if not torch.is_tensor(a):
+            return a
+        return shard_local(a, s, device=None if a.is_meta else dev)
+
+    return tree.map(place, state, sh)

@@ -25,6 +25,9 @@ Three kernels replace ``repro/kernels/mpmm.py::mpmm_pallas``:
 The dispatch wrapper ``ops.mpmm`` runs the plain versions for CPU tensors;
 ``chip_smoke.py`` holds each kernel against its plain version.  Each
 wrapper's ``launches`` counts the calls that launched its kernel.
+:func:`mpmm_contract` is the CF kernel's contract on meta tensors (the dry
+run): ``mpmm_cuda``'s checks and allocations (:func:`launch_buffers`),
+nothing launched.  :func:`mpmm_cost` is the work of one call.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import expect
 from repro_torch.kernels.ref import FF_STAGE_K, mpmm_ref
 
-__all__ = ["mpmm_cuda", "mpmm_ff_cuda", "mpmm_int_cuda", "mpmm_ref"]
+__all__ = ["mpmm_contract", "mpmm_cuda", "mpmm_ff_cuda", "mpmm_int_cuda", "mpmm_ref"]
 
 SMS = 132  # the H100's SMs
 DECODE_M = 8  # the most rows the 8-row tile takes: the decode batch buckets
@@ -137,12 +140,23 @@ def launch_plan(m: int, n: int, k: int, stage_k: int | None = None,
             "k_per_split": per, "grid": (col_tiles, -(-m // block_m), splits)}
 
 
-def mpmm_cuda(
-    x: torch.Tensor, w_data: torch.Tensor, w_scale: torch.Tensor, *, w_bits: int,
-    out_dtype: torch.dtype = torch.bfloat16,
-) -> torch.Tensor:
-    """Launch the dequant matmul on ``x``'s card: [M, K] bf16 -> [M, N]
-    ``out_dtype``, bf16 (the scaled sum cast once) or f32 (uncast)."""
+def mpmm_cost(m: int, k: int, n: int, w_bytes: int, x_bytes: int = 2, out_bytes: int = 2,
+              scale: bool = True) -> tuple[int, int]:
+    """(FLOPs, HBM bytes) of one [M, K] x [K, N] launch: 2·M·N·K, and x
+    (``x_bytes`` an element), the ``w_bytes`` of packed weights, the f32
+    column scale (where the kernel reads one) and the output (``out_bytes``
+    an element) each moved once."""
+    return 2 * m * n * k, m * k * x_bytes + w_bytes + 4 * n * scale + m * n * out_bytes
+
+
+def launch_buffers(
+    x: torch.Tensor, w_data: torch.Tensor, w_scale: torch.Tensor, w_bits: int,
+    out_dtype: torch.dtype,
+) -> tuple[torch.Tensor, torch.Tensor, dict | None]:
+    """The CF kernel's checks on CUDA or meta tensors, then what a launch
+    allocates: (out [M, N] ``out_dtype``, the f32 partials of its K split
+    (``out`` itself when it has one split), its :func:`launch_plan`, or
+    None at M = 0, where nothing is launched)."""
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"mpmm kernel writes bf16 or f32, got {out_dtype}")
     if w_bits not in (4, 8):
@@ -155,27 +169,49 @@ def mpmm_cuda(
         raise ValueError(f"mpmm kernel reads 8 columns per load; N={n} % 8 != 0")
     if k == 0:
         raise ValueError("mpmm kernel needs K >= 1")
-    if not x.is_cuda:
-        raise ValueError("mpmm_cuda takes CUDA tensors")
     dev = x.device
     expect(x, "x", torch.bfloat16, (m, k), dev, align=16)
     expect(w_data, "w_data", torch.int8, (k // 2 if w_bits == 4 else k, n), dev, align=16)
     expect(w_scale.reshape(-1), "w_scale", torch.float32, (n,), dev, align=16)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0:
-        return out  # nothing to compute
+        return out, out, None  # nothing to compute
     plan = launch_plan(m, n, k, w_bits=w_bits)
-    splits = plan["splits"]
     # one split writes out directly (bf16), or its partial into out (f32)
-    partial = (
-        torch.empty((splits, m, n), dtype=torch.float32, device=dev)
-        if splits > 1 else out
-    )
+    partial = (torch.empty((plan["splits"], m, n), dtype=torch.float32, device=dev)
+               if plan["splits"] > 1 else out)
+    return out, partial, plan
+
+
+def mpmm_contract(
+    x: torch.Tensor, w_data: torch.Tensor, w_scale: torch.Tensor, *, w_bits: int,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The CF kernel on meta tensors: :func:`mpmm_cuda`'s checks and
+    allocations, its output returned, nothing launched."""
+    if not x.is_meta:
+        raise ValueError("mpmm_contract takes meta tensors")
+    return launch_buffers(x, w_data, w_scale, w_bits, out_dtype)[0]
+
+
+def mpmm_cuda(
+    x: torch.Tensor, w_data: torch.Tensor, w_scale: torch.Tensor, *, w_bits: int,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Launch the dequant matmul on ``x``'s card: [M, K] bf16 -> [M, N]
+    ``out_dtype``, bf16 (the scaled sum cast once) or f32 (uncast)."""
+    if not x.is_cuda:
+        raise ValueError("mpmm_cuda takes CUDA tensors")
+    out, partial, plan = launch_buffers(x, w_data, w_scale, w_bits, out_dtype)
+    if plan is None:
+        return out
+    m, k = x.shape
+    n = w_data.shape[-1]
     entry = "mpmm_dequant_bf16" if out_dtype == torch.bfloat16 else "mpmm_dequant_f32"
     err = getattr(_build.lib(), entry)(
         x.data_ptr(), w_data.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-        partial.data_ptr(), m, n, k, w_bits, splits, plan["k_per_split"], plan["block_m"],
-        torch.cuda.current_stream(dev).cuda_stream,
+        partial.data_ptr(), m, n, k, w_bits, plan["splits"], plan["k_per_split"],
+        plan["block_m"], torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, entry)
     mpmm_cuda.launches += 1

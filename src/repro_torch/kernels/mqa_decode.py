@@ -16,6 +16,10 @@ one; see the source note for its design.  The plain version is
 (``ops.mqa_decode``) runs for CPU tensors.
 
 ``mqa_decode_cuda.launches`` counts the calls that launched the kernel.
+:func:`mqa_decode_contract` is the kernel's contract on meta tensors (the
+dry run): ``mqa_decode_cuda``'s checks and allocations
+(:func:`launch_buffers`), nothing launched.  :func:`decode_cost` is the work
+of one call.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from repro_torch.kernels._checks import expect
 from repro_torch.kernels.mpmm import SMS
 from repro_torch.kernels.ref import mqa_decode_ref
 
-__all__ = ["decode_plan", "mqa_decode_cuda", "mqa_decode_ref"]
+__all__ = ["decode_plan", "mqa_decode_contract", "mqa_decode_cuda", "mqa_decode_ref"]
 
 MAX_HEAD_DIM = 128  # head dims the kernel takes (csrc: MQA_DMAX)
 GROUP_QUERIES = 4  # queries a block takes at most; larger groups split (csrc: MQA_GMAX)
@@ -55,23 +59,27 @@ def decode_plan(b: int, hkv: int, g: int, s: int) -> dict:
             "grid": (b, -(-hkv // BLOCK_HEADS) * groups, splits)}
 
 
-def mqa_decode_cuda(
-    q: torch.Tensor,  # [B, Hkv, G, D] bf16 or f32
-    k_data: torch.Tensor,  # [B, S, Hkv, D (/2 if kv_bits==4)] int8
-    v_data: torch.Tensor,
-    k_scale: torch.Tensor,  # [B, S, Hkv, 1] f32
-    v_scale: torch.Tensor,
-    lengths: torch.Tensor,  # [B] int32
-    *,
-    kv_bits: int,
-    sm_scale: float,
-) -> torch.Tensor:
-    """Launch the decode kernel; returns [B, Hkv, G, D] in q's dtype."""
+def decode_cost(b: int, hkv: int, g: int, d: int, positions: int, kv_bits: int,
+                q_bytes: int = 2) -> tuple[int, int]:
+    """(FLOPs, HBM bytes) of one call over ``positions`` cached tokens in all
+    (the rows' lengths summed): QK and PV, 4·Hkv·G·D a position; each
+    position's K and V payload (D / 2 bytes a head at kv4) and f32 scales, q
+    and the output (``q_bytes`` an element) and the lengths moved once.
+    Shapes alone give no lengths: the dry run counts every position of the
+    cache (``positions = B·S``), the full cache a decode cell attends to."""
+    dk = d // 2 if kv_bits == 4 else d
+    return (4 * hkv * g * d * positions,
+            2 * positions * hkv * (dk + 4) + 2 * b * hkv * g * d * q_bytes + 4 * b)
+
+
+def launch_buffers(q, k_data, v_data, k_scale, v_scale, lengths, kv_bits: int):
+    """The kernel's checks on CUDA or meta tensors (q [B, Hkv, G, D], the
+    layout of :func:`mqa_decode_cuda`), then what a launch allocates: (out
+    in q's dtype, the f32 buffer of its position splits (``out`` itself
+    when it has one split), its :func:`decode_plan`)."""
     b, hkv, g, d = q.shape
     s = k_data.shape[1]
     dev = q.device
-    if not q.is_cuda:
-        raise ValueError("mqa_decode_cuda takes CUDA tensors")
     if kv_bits not in (4, 8):
         raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -89,14 +97,43 @@ def mqa_decode_cuda(
     expect(lengths, "lengths", torch.int32, (b,), dev)
     out = torch.empty_like(q)
     plan = decode_plan(b, hkv, g, s)
-    splits = plan["splits"]
-    part = (torch.empty((b, hkv, splits, g * (d + 2)), dtype=torch.float32, device=dev)
-            if splits > 1 else out)
+    part = (torch.empty((b, hkv, plan["splits"], g * (d + 2)), dtype=torch.float32,
+                        device=dev)
+            if plan["splits"] > 1 else out)
+    return out, part, plan
+
+
+def mqa_decode_contract(q, k_data, v_data, k_scale, v_scale, lengths, *, kv_bits: int,
+                        sm_scale: float) -> torch.Tensor:
+    """The kernel on meta tensors: :func:`mqa_decode_cuda`'s checks and
+    allocations, its output returned, nothing launched."""
+    if not q.is_meta:
+        raise ValueError("mqa_decode_contract takes meta tensors")
+    return launch_buffers(q, k_data, v_data, k_scale, v_scale, lengths, kv_bits)[0]
+
+
+def mqa_decode_cuda(
+    q: torch.Tensor,  # [B, Hkv, G, D] bf16 or f32
+    k_data: torch.Tensor,  # [B, S, Hkv, D (/2 if kv_bits==4)] int8
+    v_data: torch.Tensor,
+    k_scale: torch.Tensor,  # [B, S, Hkv, 1] f32
+    v_scale: torch.Tensor,
+    lengths: torch.Tensor,  # [B] int32
+    *,
+    kv_bits: int,
+    sm_scale: float,
+) -> torch.Tensor:
+    """Launch the decode kernel; returns [B, Hkv, G, D] in q's dtype."""
+    if not q.is_cuda:
+        raise ValueError("mqa_decode_cuda takes CUDA tensors")
+    out, part, plan = launch_buffers(q, k_data, v_data, k_scale, v_scale, lengths, kv_bits)
+    b, hkv, g, d = q.shape
     err = _build.lib().mqa_decode(
         q.data_ptr(), k_data.data_ptr(), v_data.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
-        b, s, hkv, g, d, kv_bits, int(q.dtype == torch.float32), splits, plan["per_split"],
-        float(sm_scale), torch.cuda.current_stream(dev).cuda_stream,
+        b, k_data.shape[1], hkv, g, d, kv_bits, int(q.dtype == torch.float32),
+        plan["splits"], plan["per_split"], float(sm_scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "mqa_decode")
     mqa_decode_cuda.launches += 1

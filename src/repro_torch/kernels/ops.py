@@ -7,14 +7,23 @@ selector, as in the JAX package), patch extraction for convolutions, and
 device dispatch.  Dispatch rule: a tensor
 on the CPU goes to the kernel's plain version (``kernels/ref.py``); a CUDA
 tensor launches the hand-written kernel, or raises.  There is no fallback
-from one to the other.  The sampling ops at the end are plain torch ops on
-either device, as the JAX package's are XLA code.
+from one to the other.  The two kernels of the dry run's path, the CF
+dequant matmul and ``mqa_decode``, are torch operators of their own
+(``torch.ops.repro_torch.mpmm`` and ``.mqa_decode``) with a third rule: a
+meta tensor (the dry run, ``launch/dryrun.py``) gets the kernel's contract,
+the CUDA wrapper's checks and allocations with nothing computed or
+launched.  Each of the two has a FLOP formula in
+``torch.utils.flop_counter``'s registry, so a dispatch mode (a FLOP count,
+``launch/cost_analysis.py``) sees one call as one op, with the kernel's
+FLOPs and its inputs and outputs, on every device.  The sampling ops at the
+end are plain torch ops on either device, as the JAX package's are XLA code.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core.dataflow import ConvLayer
 from repro_torch.core.isa import Dataflow
@@ -57,6 +66,56 @@ def on_card(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+# The operators of the dry run's kernels: one implementation per device.
+NAMESPACE = "repro_torch"
+_LIB = torch.library.Library(NAMESPACE, "DEF")
+_LIB.define("mpmm(Tensor x, Tensor w_data, Tensor w_scale, int w_bits, "
+            "ScalarType out_dtype) -> Tensor")
+_LIB.define("mqa_decode(Tensor q, Tensor k_data, Tensor v_data, Tensor k_scale, "
+            "Tensor v_scale, Tensor lengths, int kv_bits, float sm_scale) -> Tensor")
+
+
+def _mpmm_on(fn):
+    return lambda x, w_data, w_scale, w_bits, out_dtype: fn(
+        x, w_data, w_scale, w_bits=w_bits, out_dtype=out_dtype)
+
+
+def _mqa_on(fn):
+    return lambda q, k_data, v_data, k_scale, v_scale, lengths, kv_bits, sm_scale: fn(
+        q, k_data, v_data, k_scale, v_scale, lengths, kv_bits=kv_bits, sm_scale=sm_scale)
+
+
+def _mqa_decode_plain(q, k_data, v_data, k_scale, v_scale, lengths, *, kv_bits, sm_scale):
+    """The plain version on the kernel's layout (q [B, Hkv, G, D])."""
+    b, hkv, g, d = q.shape
+    if kv_bits == 4:
+        k_data, v_data = unpack_int4(k_data, dim=-1), unpack_int4(v_data, dim=-1)
+    out = ref_mod.mqa_decode_ref(q.reshape(b, hkv * g, d), k_data, v_data, k_scale, v_scale,
+                                 lengths, sm_scale=sm_scale)
+    return out.reshape(b, hkv, g, d)
+
+
+for _key, _mpmm_fn, _mqa_fn in (
+    ("CPU", ref_mod.mpmm_ref, _mqa_decode_plain),
+    ("CUDA", mpmm_mod.mpmm_cuda, mqa_mod.mqa_decode_cuda),
+    ("Meta", mpmm_mod.mpmm_contract, mqa_mod.mqa_decode_contract),
+):
+    _LIB.impl("mpmm", _mpmm_on(_mpmm_fn), _key)
+    _LIB.impl("mqa_decode", _mqa_on(_mqa_fn), _key)
+
+
+@register_flop_formula(torch.ops.repro_torch.mpmm)
+def _mpmm_flops(x_shape, w_shape, s_shape, w_bits, out_dtype, out_shape=None, **kwargs):
+    return mpmm_mod.mpmm_cost(x_shape[0], x_shape[1], w_shape[-1], 0)[0]
+
+
+@register_flop_formula(torch.ops.repro_torch.mqa_decode)
+def _mqa_decode_flops(q_shape, k_shape, *args, out_shape=None, **kwargs):
+    b, hkv, g, d = q_shape
+    kv_bits = args[4]
+    return mqa_mod.decode_cost(b, hkv, g, d, b * k_shape[1], kv_bits)[0]
 
 
 def pack_weights(w: torch.Tensor, bits: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -130,8 +189,8 @@ def mpmm(
     if dataflow == "auto":
         ff = select_matmul_dataflow(x2.shape[0], n, k) is Dataflow.FF
         dataflow = "ff" if ff else "cf"
-    card = on_card(x2)
     if mode == "int":
+        card = on_card(x2)
         if x2.dtype not in (torch.int8, torch.int16):
             raise TypeError(f"int mode takes int8 or int16 activations, got {x2.dtype}")
         if x_bits <= 8 and x2.dtype == torch.int16:
@@ -147,20 +206,17 @@ def mpmm(
         return (acc.float() * w_scale.float()).reshape(*lead, n)
     if x_bits != 16:
         raise ValueError(f"dequant mode takes 16-bit activations, got x_bits={x_bits}")
-    if card and x2.dtype != torch.bfloat16:
-        raise ValueError(f"the dequant kernels take bf16 activations on the card, "
-                         f"got {x2.dtype}")
+    if x2.device.type != "cpu" and x2.dtype != torch.bfloat16:
+        raise ValueError(f"the dequant kernels take bf16 activations on the card (and in "
+                         f"their contract), got {x2.dtype}")
     if out_dtype not in (None, x.dtype) and (dataflow != "cf" or out_dtype != torch.float32):
         raise ValueError(f"dequant mode writes x.dtype, or f32 in the CF order; got "
                          f"out_dtype={out_dtype} with dataflow={dataflow!r}")
     if dataflow == "cf":
-        if card:
-            out = mpmm_mod.mpmm_cuda(x2.contiguous(), w_data, w_scale, w_bits=w_bits,
-                                     out_dtype=out_dtype or x2.dtype)
-        else:
-            out = ref_mod.mpmm_ref(x2, w_data, w_scale, w_bits=w_bits, out_dtype=out_dtype)
+        out = torch.ops.repro_torch.mpmm(x2.contiguous(), w_data, w_scale, w_bits,
+                                         out_dtype or x.dtype)
     else:
-        if card:
+        if on_card(x2):
             acc = mpmm_mod.mpmm_ff_cuda(x2.contiguous(), w_data, w_bits=w_bits)
         else:
             acc = ref_mod.mpmm_ff_ref(x2, w_data, w_bits=w_bits)
@@ -225,18 +281,10 @@ def mqa_decode(
         raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
     b, h, d = q.shape
     hkv = k_data.shape[2]
-    sm_scale = 1.0 / math.sqrt(d)
-    if not on_card(q):
-        if kv_bits == 4:
-            k_data, v_data = unpack_int4(k_data, dim=-1), unpack_int4(v_data, dim=-1)
-        return ref_mod.mqa_decode_ref(q, k_data, v_data, k_scale, v_scale, lengths,
-                                      sm_scale=sm_scale)
-    qg = q.reshape(b, hkv, h // hkv, d).contiguous()
-    out = mqa_mod.mqa_decode_cuda(
-        qg, k_data.contiguous(), v_data.contiguous(), k_scale.contiguous(),
-        v_scale.contiguous(), lengths.to(torch.int32).contiguous(),
-        kv_bits=kv_bits, sm_scale=sm_scale,
-    )
+    out = torch.ops.repro_torch.mqa_decode(
+        q.reshape(b, hkv, h // hkv, d).contiguous(), k_data.contiguous(),
+        v_data.contiguous(), k_scale.contiguous(), v_scale.contiguous(),
+        lengths.to(torch.int32).contiguous(), kv_bits, 1.0 / math.sqrt(d))
     return out.reshape(b, h, d)
 
 

@@ -7,8 +7,8 @@ musicgen-medium) is a stub that supplies ``prefix_len`` precomputed patch or
 frame embeddings of the right shape and dtype, prepended to the token
 embeddings.  They are drawn with the port's threefry (``kernels/prng.py``)
 exactly as the JAX stub draws them with ``jax.random.normal``, so both
-packages feed the same prefix from the same seed.  The dry-run's
-``prefix_spec`` is not ported (it belongs with ``launch/dryrun``).
+packages feed the same prefix from the same seed.  ``prefix_spec`` is the
+dry run's meta stand-in.
 """
 from __future__ import annotations
 
@@ -31,3 +31,10 @@ def prefix_embeddings(cfg: ArchConfig, batch_size: int, seed: int = 0,
     x = prng.normal(key, (batch_size, cfg.prefix_len, cfg.d_model))
     scale = torch.sqrt(torch.tensor(cfg.d_model, dtype=torch.float32, device=x.device))
     return (x / scale).to(torch_dtype(cfg.dtype))
+
+
+def prefix_spec(cfg: ArchConfig, batch_size: int) -> torch.Tensor:
+    """Meta stand-in of :func:`prefix_embeddings` for the dry run (no draw,
+    no allocation): ``[B, prefix_len, d_model]`` in the model dtype."""
+    return torch.empty((batch_size, cfg.prefix_len, cfg.d_model),
+                       dtype=torch_dtype(cfg.dtype), device="meta")

@@ -44,8 +44,11 @@ def dense_init(
 ) -> torch.Tensor:
     """N(0, 1/d_in) weights [*lead, d_in, d_out] on gen's device, each
     [d_in, d_out] matrix drawn in f32 on its own, so a stack of full-width
-    layers never needs an f32 copy of the whole stack."""
+    layers never needs an f32 copy of the whole stack.  On the meta device
+    (the dry run's shape-only parameters) nothing is drawn."""
     out = torch.empty((*lead, d_in, d_out), dtype=dtype, device=gen.device)
+    if out.is_meta:
+        return out
     for w in out.view(-1, d_in, d_out):
         w.copy_(torch.randn((d_in, d_out), generator=gen, device=gen.device)
                 * (1.0 / math.sqrt(d_in)))
@@ -94,7 +97,8 @@ def dense(x: torch.Tensor, w, split: str | None = None) -> torch.Tensor:
 
 class _MatmulF32(torch.autograd.Function):
     """``x @ w`` ([..., K] x [K, N], one dtype) with an f32 output: a
-    row-split partial product.  On the card one GEMM in the operands' dtype
+    row-split partial product.  On the card (and on the dry run's meta
+    tensors, whose trace is the card's) one GEMM in the operands' dtype
     writing f32 (``torch.mm(..., out_dtype=)``, which has no backward of
     its own), on the CPU the f32 product of the upcast operands (the same
     sum: bf16 and f16 values are exact in f32).  The backward's incoming
@@ -107,7 +111,7 @@ class _MatmulF32(torch.autograd.Function):
         x2 = x.reshape(-1, x.shape[-1])
         if x.dtype == torch.float32:
             out = x2 @ w
-        elif x.is_cuda:
+        elif x.is_cuda or x.is_meta:
             out = torch.mm(x2, w, out_dtype=torch.float32)
         else:
             out = x2.float() @ w.float()
@@ -167,8 +171,9 @@ def embed_lookup(embed, tokens: torch.Tensor, dtype) -> torch.Tensor:
 def quantize_dense_weight(w: torch.Tensor, bits: int) -> dict:
     """Per-output-channel quantization of a [K, N] weight, or of a stack
     [L, ..., K, N] one matrix at a time (the matrices quantize independently,
-    so the bytes are those of one call on the stack, without its f32 copy)."""
-    if w.ndim == 2:
+    so the bytes are those of one call on the stack, without its f32 copy).  A
+    meta stack (the dry run's shapes) takes the one call: it holds no bytes."""
+    if w.ndim == 2 or w.is_meta:
         data, scale = ops.pack_weights(w.float(), bits)
         return {"data": data, "scale": scale, "bits": int(bits)}
     mats = w.reshape(-1, *w.shape[-2:])

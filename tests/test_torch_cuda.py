@@ -29,7 +29,9 @@ full-width mamba2-130m train step; and the multi-device modules over a
 real NCCL process group of world size 1: ``compressed_grad_reduce`` on
 the card against the CPU (gloo; int8 payloads and scales bit for bit), the
 all-to-all MoE dispatch bit-equal to the replicated one, and a one-stage
-``pipeline_apply``.
+``pipeline_apply``; and the dispatch's three routes (a CUDA tensor
+launches, a CPU tensor runs the plain version, a meta tensor gets the
+kernel's contract).
 
 Marked ``cuda``: on a machine without a card every test skips with a
 reason.  On the card:
@@ -90,6 +92,40 @@ def test_mpmm_kernel_matches_plain(dev, w_bits, m, k, n):
     torch.cuda.synchronize()
     assert mpmm_cuda.launches == before + 1
     _close(got, ref.mpmm_ref(x, w_data, w_scale, w_bits=w_bits))
+
+
+@pytest.mark.parametrize("m", [8, 256])
+def test_dispatch_card_cpu_meta(dev, m):
+    """The three routes of ``ops.mpmm`` and ``ops.mqa_decode``: a CUDA
+    tensor launches the kernel, a CPU tensor runs the plain version, a meta
+    tensor gets the kernel's contract (the CUDA wrapper's checks and
+    outputs, no launch), whose shape and dtype are the launch's."""
+    g = torch.Generator().manual_seed(m)
+    x = torch.randn(m, 3072, generator=g).to(torch.bfloat16)
+    wd, ws = ops.pack_weights(torch.randn(3072, 1024, generator=g) / 55.4, 4)
+    meta = [torch.empty(t.shape, dtype=t.dtype, device="meta") for t in (x, wd, ws)]
+    before = mpmm_cuda.launches
+    got = ops.mpmm(x.to(dev), wd.to(dev), ws.to(dev), w_bits=4)
+    assert mpmm_cuda.launches == before + 1
+    plain = ops.mpmm(x, wd, ws, w_bits=4)
+    contract = ops.mpmm(*meta, w_bits=4)
+    assert mpmm_cuda.launches == before + 1
+    assert contract.is_meta and contract.shape == got.shape == plain.shape
+    assert contract.dtype == got.dtype == plain.dtype
+    _close(got.cpu(), plain)
+    q = torch.randn(2, 6, 128, generator=g).to(torch.bfloat16)
+    kd, ks = ops.quantize_kv(torch.randn(2, 40, 2, 128, generator=g), 8)
+    vd, vs = ops.quantize_kv(torch.randn(2, 40, 2, 128, generator=g), 8)
+    lens = torch.tensor([40, 17], dtype=torch.int32)
+    args = (q, kd, vd, ks, vs, lens)
+    before = mqa_decode_cuda.launches
+    got = ops.mqa_decode(*(t.to(dev) for t in args), kv_bits=8)
+    assert mqa_decode_cuda.launches == before + 1
+    contract = ops.mqa_decode(*(torch.empty(t.shape, dtype=t.dtype, device="meta")
+                                for t in args), kv_bits=8)
+    assert mqa_decode_cuda.launches == before + 1
+    assert contract.is_meta and contract.shape == got.shape and contract.dtype == got.dtype
+    _close(got.cpu(), ops.mqa_decode(*args, kv_bits=8))
 
 
 # the tensor-core kernel (M > 8): ragged M, N % 16 != 0 (200), K with no
@@ -1188,9 +1224,11 @@ def test_hybrid_prefill_and_decode_on_card_match_cpu(dev):
 
 
 def _to(tree, device):
+    """A copy of a param tree on ``device`` (ints, such as a quantized
+    weight's bits, kept as they are)."""
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+    return tree.to(device, copy=True) if isinstance(tree, torch.Tensor) else tree
 
 
 # ------------------------------------------------------- captured steps
@@ -1505,12 +1543,6 @@ def _train_step_on(device, cfg, params16, batch, optimizer):
     params, _, m = step_fn(params, opt_init(params), b, 0)
     return (float(m["loss"]), float(m["grad_norm"]), [g.cpu() for g in grads],
             [p.cpu() for p in tree.leaves(params)])
-
-
-def _to(tree_, device):
-    if isinstance(tree_, dict):
-        return {k: _to(v, device) for k, v in tree_.items()}
-    return tree_.to(device, copy=True)
 
 
 @pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
