@@ -7,7 +7,8 @@ Phases, each printing one JSON line that names the card:
 
 1. build    -- nvcc builds the kernels under src/repro_torch/kernels/csrc;
                ptxas -v's registers and spill bytes of paged prefill at
-               DP = 256 (one line, "phase": "ptxas").
+               DP = 256 and of mqa_decode's wide instantiation (DMAX = 256,
+               head dims 129-256) (lines "phase": "ptxas").
 2. kernels  -- each hand-written kernel against its plain PyTorch version on
                the same inputs, in bf16 at llama3.2-3b's serving shapes (the
                CF dequant matmul at decode M 1-8, at a speculative round's
@@ -127,7 +128,10 @@ Phases, each printing one JSON line that names the card:
                layer through the int-mode matmul on the card (its patches as
                ops.mpconv forms them), FF and CF, at each precision.
 9. train    -- the training path (no TPU kernel lies on it; its launches
-               of the five must all be 0, "train" in ``launches_by_path``):
+               of the five must all be 0, "train" in ``launches_by_path``;
+               Trainer captures its step as one CUDA graph, and (a) and (b)
+               run each Trainer twice, captured and under
+               graphs.disable_capture(), which must give the same bits):
                (c) llama3.2-3b cut to 2 layers at full width, batch 1 x 64,
                one train step's gradients on the card (bf16), on the CPU in
                bf16 and in float32, then adamw, adamw8bit and adafactor
@@ -135,16 +139,22 @@ Phases, each printing one JSON line that names the card:
                every updated leaf within twice the CPU's bf16 noise
                (phase 3's rule), the adamw8bit codes likewise by the share
                that differs; (a) full llama3.2-3b (28 layers, adamw, remat
-               "full"), 5 steps of make_train_step at the JAX launcher's
-               defaults (batch 8 x 512, lr 3e-4): loss, grad norm and
-               seconds a step, tokens/s, MFU, peak memory, the bound, and
-               one more step profiled (the card's busy share, its top
-               kernels and ops); (b) full mamba2-130m through Trainer with
+               "full"), TRAIN_STEPS steps of Trainer at the JAX launcher's
+               defaults (batch 8 x 512, lr 3e-4), captured (step 0 eager,
+               then one capture and replays) and eager: losses, grad norms
+               and final params bit-equal; for each, seconds a step (median
+               after step 0, which holds the warm-up and the capture),
+               tokens/s, MFU, peak memory, the bound, the capture seconds,
+               and one more step profiled (the card's busy share, its top
+               kernels); (b) full mamba2-130m through Trainer with
                checkpoints, driven by run_with_restarts as launch/train.py
                drives it: 12 steps, a checkpoint every 4, one run
-               uninterrupted and one failing at step 6 and resuming from
-               step 4: the final params and state bit-equal, every loss of
-               the seed equal; the checkpoint's bytes and seconds.
+               uninterrupted captured, one eager (bit-equal to it), and one
+               captured failing at step 6 and resuming from step 4 (the
+               restore written into the tensors the graph holds): the final
+               params and state bit-equal, every loss of the seed equal; s a
+               step, busy share, capture seconds and peak of both modes; the
+               checkpoint's bytes and seconds.
 10. mesh    -- the multi-device modules over a real NCCL process group of
                world size 1 (one card; NCCL refuses two ranks on one GPU;
                no TPU kernel on the path: "mesh" in ``launches_by_path``,
@@ -196,15 +206,29 @@ Phases, each printing one JSON line that names the card:
                dry run of full llama3.2-3b's phase-9 train step (8 x 512,
                FSDP mapping) and of its W4 / kv8 static-wave decode_step
                (DRYRUN_DECODE_ROWS rows, a full cache of DRYRUN_DECODE_CTX,
-               TP mapping) over a fake group of one rank, each held against
-               the same program on the card over NCCL at world size 1:
+               TP mapping), and of full paligemma-3b's W8 / kv8 decode_step
+               at the same rows and cache (mqa_decode at head dim 256), over
+               a fake group of one rank, each held against the same program
+               on the card over NCCL at world size 1, run eagerly
+               (graphs.disable_capture(): the cost count is a dispatch mode,
+               which a graph replay would bypass):
                FLOPs equal to the cost count of the card's run, argument
                bytes within DRYRUN_ARG_RTOL of the placement's, the peak
                within DRYRUN_PEAK_RTOL of max_memory_allocated, the
                outputs' bytes equal and the card's finite; the roofline's
                bound printed beside the measured time.  The CF
                matmul and mqa_decode must launch on it ("dryrun").
-13. kernels line -- each kernel's launches on its path (all > 0): the serving
+13. examples -- the port's three examples on the card, as a user runs them
+               (src/repro_torch/examples): quickstart (the 16-bit product
+               bit-exact, the ISA programs, the selector, the W4 matmul
+               through the CF kernel), serve_quantized (W4 + W8 + bf16
+               requests in one ServeEngine, streamed, its own assertions)
+               and train_lm (the JAX example's 8-layer llama through
+               run_with_restarts and the captured Trainer,
+               EXAMPLE_TRAIN_STEPS steps, the loss falling); the CF
+               matmul and both paged kernels must launch on them
+               ("examples"), each one's wall seconds printed.
+14. kernels line -- each kernel's launches on its path (all > 0): the serving
                kernels in phase 5's first run, the FF and int matmuls in
                phase 4, contiguous-cache decode in phase 6's first zamba2
                run; the counts are set to 0 just before each path runs, and
@@ -226,8 +250,10 @@ kv8 and kv4), gemma3-1b's (1 x 4 x 256, a window of 1024 at ctx 2048),
 musicgen-medium's (24 x 1 x 64, ctx 600, kv8 and kv4) and paligemma-3b's (1
 x 8 x 256, ctx 784); paged prefill also at paligemma-3b's verify window.
 It also holds contiguous-cache decode (mqa_decode) against its plain
-version at zamba2-7b's serving shape (kv8 and kv4), a 32k context and
-llama3.2-3b's GQA shape; phase 3 also runs zamba2-7b cut to 7 layers at full
+version at zamba2-7b's serving shape (kv8 and kv4), a 32k context,
+llama3.2-3b's GQA shape and paligemma-3b's heads (1 x 8 x 256, one rank's
+8 rows of decode_32k: the wide instantiation; "paligemma_heads" in the
+kernels line); phase 3 also runs zamba2-7b cut to 7 layers at full
 width (prefill and two decode steps) on the card and on the CPU.
 
 The last line is {"ok": true, "device": {...}}; any failed check raises and
@@ -328,6 +354,10 @@ MQA_CASES = [
     ("zamba2 TP 8 of 32 heads", 8, 552, 8, 1, 112, list(range(545, 553)), 8),
     ("llama3.2-3b decode_32k, one rank", 8, 32768, 8, 3, 128,
      [32768 - (i % 3) for i in range(8)], 8),
+    # paligemma-3b's heads at head dim 256 (the wide instantiation), the same
+    # rank's rows of decode_32k
+    ("paligemma-3b decode_32k, one rank", 8, 32768, 1, 8, 256,
+     [32768 - (i % 3) for i in range(8)], 8),
 ]
 WAVE_REQUESTS, WAVE_PROMPT, WAVE_NEW = 8, 512, 32
 # the ResNet18 convs phase 2 times the FF matmul at (batch 8): M = 8*Ho*Wo
@@ -386,6 +416,8 @@ MAMBA_STEPS, MAMBA_CKPT_EVERY, MAMBA_FAIL_AT = 12, 4, 6
 # mesh) against a full cache of DRYRUN_DECODE_CTX; the argument bytes held
 # within DRYRUN_ARG_RTOL of the card's, the peak within DRYRUN_PEAK_RTOL
 DRYRUN_DECODE_ROWS, DRYRUN_DECODE_CTX = 8, 32768
+# phase 13, the examples: train_lm's steps on the card (its default arch)
+EXAMPLE_TRAIN_STEPS = 40
 DRYRUN_ARG_RTOL, DRYRUN_PEAK_RTOL = 0.01, 0.10
 # the numbers of a phase-2 case that the kernels line carries
 LINE_KEYS = ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
@@ -1263,7 +1295,8 @@ def _tree_map(tree, fn):
 
 def mqa_kernel_cases(torch, timer, gpu, summary) -> None:
     """Phase 2 for contiguous-cache decode (csrc/mqa_decode.cu) against its
-    plain version, with SDPA on the dequantized bf16 K/V as the yardstick."""
+    plain version, with SDPA on the dequantized bf16 K/V as the yardstick;
+    paligemma-3b's head dim 256 runs the wide instantiation."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -1308,7 +1341,7 @@ def mqa_kernel_cases(torch, timer, gpu, summary) -> None:
         rec = {
             "case": f"{label} kv{kv_bits} B={b} S={s} Hkv={hkv} G={g} D={d} "
                     f"lengths={min(lengths)}-{max(lengths)}",
-            "max_abs_err": err, "tol": ATTN_TOL, "plan": decode_plan(b, hkv, g, s),
+            "max_abs_err": err, "tol": ATTN_TOL, "plan": decode_plan(b, hkv, g, s, d),
             "ms": timer(lambda: mqa_decode_cuda(qg, kd, vd, ks, vs, lens, kv_bits=kv_bits,
                                                 sm_scale=sm)),
             "plain_ms": timer(plain, iters=3),
@@ -1320,6 +1353,8 @@ def mqa_kernel_cases(torch, timer, gpu, summary) -> None:
                   (label, kv_bits) == ("zamba2 serving", 8))
         if label.startswith("zamba2 TP"):
             summary["mqa_decode"]["tp_heads"] = {key: rec[key] for key in LINE_KEYS}
+        if label.startswith("paligemma-3b"):
+            summary["mqa_decode"]["paligemma_heads"] = {key: rec[key] for key in LINE_KEYS}
         del kd, vd, ks, vs, kg, vg
     torch.cuda.empty_cache()
 
@@ -1514,13 +1549,13 @@ def replay_ms(torch, step_graphs, step: str, iters: int = 5) -> float:
 
 
 def step_profile(torch, run_once, wall_s: float, step_graphs, step: str, capture: bool,
-                 replays: int = 1, sums=None) -> dict:
+                 replays: int = 1, sums=None, top_ops: int = 0) -> dict:
     """:func:`device_profile` of a serving step, captured or eager.  A
     captured step also gets its replay's CUDA-event time
     (``replay_ms``, times ``replays`` replays a run); where the profiler
     shows the replays only as ``cudaGraphLaunch``, with no kernels in them,
     that time stands for the card's busy time (``busy_from``)."""
-    prof = device_profile(torch, run_once, wall_s, sums)
+    prof = device_profile(torch, run_once, wall_s, sums, top_ops)
     prof["captured"] = capture
     prof["busy_from"] = "profiler"
     if capture:
@@ -1905,18 +1940,22 @@ def spec_round_profile(torch, cfg, capture: bool = True) -> dict:
 
 
 # --------------------------------------------------------------- phase 7
-def ptxas_report(lib_path: Path, kernel: str = "paged_prefill_kernelILi256E") -> list:
+def ptxas_report(lib_path: Path, kernel: str = "paged_prefill_kernelILi256E",
+                 names: tuple = ("kv_bits",)) -> list:
     """Registers, stack and spill bytes that ``ptxas -v`` gave each kernel
     instantiation whose mangled name holds ``kernel`` (the build's log
-    beside the library): here paged prefill at DP = 256, one per kv_bits."""
+    beside the library), with the integer template arguments that follow
+    ``kernel`` in the name under ``names``: by default paged prefill at DP =
+    256, one per kv_bits."""
     out, cur = [], False
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            cur = kernel in m.group(1)
+            name = m.group(1)
+            cur = kernel in name
             if cur:
-                kv = re.search(kernel + r"Li(\d+)E", m.group(1))
-                out.append({"kv_bits": int(kv.group(1)) if kv else None})
+                args = re.findall(r"Li(\d+)E", name[name.index(kernel) + len(kernel):])
+                out.append({k: int(v) for k, v in zip(names, args)})
             continue
         if not cur:
             continue
@@ -2305,60 +2344,105 @@ def prefix_paths(torch, gpu, count, eager_twin) -> dict:
 
 
 # --------------------------------------------------------------- phase 9
-def train_step_profile(torch, step_fn, params, opt_state, batch, step: int, wall_s: float):
-    """One more train step under torch.profiler: the card's busy share of
-    the step and where its device time goes (matmuls, the plain attention's
-    einsums, elementwise and reduce kernels, the optimizer's)."""
+def trainer_run(torch, arch, tc, batch: int, capture: bool = True, attempts=None, mesh=None):
+    """A Trainer on the card at ``batch`` x TRAIN_SEQ (on ``mesh`` under the
+    mapping the caller installed), its steps captured (the default; a mesh
+    step is not captured) or under ``graphs.disable_capture()``: one run of
+    ``tc.total_steps`` steps, or with ``attempts`` driven by
+    ``run_with_restarts`` (``attempts(trainer)`` gives its ``train_fn``) ->
+    (trainer, run output, wall s, peak bytes, restarts)."""
+    import gc
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.distributed import run_with_restarts
+    from repro_torch.train import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    restarts = []
+    t0 = time.perf_counter()
+    with capturing(capture):
+        tr = Trainer(arch=arch, tc=tc, data=DataConfig(vocab=arch.vocab, seq_len=TRAIN_SEQ,
+                                                        global_batch=batch), device="cuda",
+                     mesh=mesh)
+        if attempts is None:
+            out = tr.run(tc.total_steps)
+        else:
+            out = run_with_restarts(attempts(tr), on_restart=lambda n, e: restarts.append(repr(e)))
+    torch.cuda.synchronize()
+    return tr, out, time.perf_counter() - t0, torch.cuda.max_memory_allocated(), restarts
+
+
+def trainer_profile(torch, tr, out, step: int, wall_s: float, top_ops: int = 0) -> dict:
+    """One more step of a Trainer under torch.profiler, as its run took it
+    (a replay of the captured step, or the eager step): the card's busy
+    share of ``wall_s`` and where its device time goes (matmuls,
+    elementwise and reduce kernels; the host ops with the most device time
+    for an eager step).  A captured step also gets its replay's CUDA-event
+    time, which stands for the busy time where the profiler sees only
+    ``cudaGraphLaunch`` (``step_profile``); those replays train on."""
+    from repro_torch.train.trainer import deterministic
+
     sums = {"gemm": lambda k: any(w in k.lower() for w in ("gemm", "nvjet", "cutlass")),
             "elementwise": lambda k: "elementwise" in k.lower(),
             "reduce": lambda k: "reduce" in k.lower()}
-    out = {}
+    inputs = tr.load(step)
+    capture = tr.graphs.captured > 0
+    got = {}
 
     def run_once():
-        out["metrics"] = step_fn(params, opt_state, batch, step)[2]
+        with capturing(capture), deterministic(tr.device):
+            got["metrics"] = tr.step(out["params"], out["opt_state"], inputs)
         torch.cuda.synchronize()
 
-    prof = device_profile(torch, run_once, wall_s, sums, top_ops=12)
-    check(math.isfinite(float(out["metrics"]["loss"])), "non-finite loss in the profiled step")
-    return prof
+    prof = step_profile(torch, run_once, wall_s, tr.graphs, "train", capture, sums=sums,
+                        top_ops=top_ops)
+    check(math.isfinite(float(got["metrics"]["loss"])), "non-finite loss in the profiled step")
+    return {k: v for k, v in prof.items() if k != "graph_launches"}
+
+
+def train_record(torch, hist, wall, peak, tr) -> dict:
+    """A Trainer run's numbers: seconds a step (median after step 0, which
+    holds the eager warm-up and, captured, the capture), tokens/s, peak
+    memory allocated and reserved (a graph's pool stays reserved between
+    replays), and the graphs' counts."""
+    after = sorted(h["sec"] for h in hist[1:])
+    step_s = after[(len(after) - 1) // 2]
+    return {"steps_s": [h["sec"] for h in hist], "step_s_median_after_first": step_s,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "wall_s": wall,
+            "peak_mem_gb": peak / 1e9,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+            "graphs": {"captured": tr.graphs.captured, "replays": tr.graphs.replays,
+                       "capture_s": tr.graphs.capture_s}}
+
+
+def same_history(a, b, what: str) -> None:
+    for x, y in zip(a, b):
+        check(x["step"] == y["step"] and x["loss"] == y["loss"]
+              and x["grad_norm"] == y["grad_norm"],
+              f"{what} step {x['step']}: captured loss {x['loss']} / grad norm "
+              f"{x['grad_norm']}, eager {y['loss']} / {y['grad_norm']}")
+    check(len(a) == len(b), f"{what}: {len(a)} captured steps, {len(b)} eager")
 
 
 def train_llama(torch, gpu) -> None:
-    """(a) Full llama3.2-3b (28 layers, adamw, remat "full") through
-    make_train_step at the JAX launcher's defaults: batch 8 x seq 512, lr
-    3e-4, warm-up max(steps // 10, 1); step 0 is the warm-up."""
+    """(a) Full llama3.2-3b (28 layers, adamw, remat "full") through Trainer
+    at the JAX launcher's defaults: batch 8 x seq 512, lr 3e-4, warm-up
+    max(steps // 10, 1), no checkpoints; captured, then eager.  The captured
+    run's losses, grad norms and final params must equal the eager run's
+    bit for bit (the captured params are held on the host meanwhile)."""
+    import shutil
+    import tempfile
+
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import DataConfig, make_batch
-    from repro_torch.models import transformer as model_lib
     from repro_torch.optim import tree
-    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train import TrainConfig
 
     arch = get_config("llama3.2-3b")
-    tc = TrainConfig(lr=3e-4, warmup=max(TRAIN_STEPS // 10, 1), total_steps=TRAIN_STEPS)
-    data = DataConfig(vocab=arch.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = model_lib.init_params(arch, torch.Generator(device="cuda").manual_seed(0))
-    step_fn, opt_init = make_train_step(arch, tc)
-    opt_state = opt_init(params)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    state_gb = sum(t.numel() * t.element_size() for t in tree.leaves((params, opt_state))) / 1e9
-    steps = []
-    for step in range(TRAIN_STEPS):
-        batch = make_batch(data, step, arch, device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt_state, m = step_fn(params, opt_state, batch, step)
-        torch.cuda.synchronize()
-        rec = {"step": step, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-               "s": time.perf_counter() - t0}
-        check(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
-              f"llama3.2-3b train step {step}: loss {rec['loss']}, grad norm "
-              f"{rec['grad_norm']}")
-        steps.append(rec)
-    peak = torch.cuda.max_memory_allocated()
-    step_s = sorted(r["s"] for r in steps[1:])[(TRAIN_STEPS - 1) // 2]
+    root = tempfile.mkdtemp(prefix="chip_smoke_llama_")
+    tc = TrainConfig(lr=3e-4, warmup=max(TRAIN_STEPS // 10, 1), total_steps=TRAIN_STEPS,
+                     ckpt_every=0, ckpt_dir=root)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     # the bound: forward, its recompute and the backward (8 FLOP per matmul
     # parameter per token, plus the plain attention's full S x S blocks,
@@ -2370,75 +2454,121 @@ def train_llama(torch, gpu) -> None:
         + d * arch.padded_vocab
     attn_flops = 4 * 4 * TRAIN_BATCH * TRAIN_SEQ ** 2 * h * hd * arch.n_layers
     flops = 8 * mm_params * tokens + attn_flops
-    n_params = sum(p.numel() for p in tree.leaves(params))
+    runs, host = {}, None
+    try:
+        for capture in (True, False):
+            tr, out, wall, peak, _ = trainer_run(torch, arch, tc, TRAIN_BATCH, capture)
+            hist = out["history"]
+            for rec in hist:
+                check(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
+                      f"llama3.2-3b train step {rec['step']}: loss {rec['loss']}, grad norm "
+                      f"{rec['grad_norm']}")
+            leaves = tree.leaves(out["params"])
+            if capture:
+                host = [p.cpu() for p in leaves]
+            else:
+                same_history(runs[True]["history"], hist, "llama3.2-3b")
+                check(all(a.dtype == b.dtype and torch.equal(a, b.cpu())
+                          for a, b in zip(host, leaves)),
+                      "llama3.2-3b: the captured run's final params differ from the eager "
+                      "run's")
+                host = None
+            n_params = sum(p.numel() for p in leaves)
+            rec = train_record(torch, hist, wall, peak, tr)
+            step_s = rec["step_s_median_after_first"]
+            rec.update(history=hist, mfu=6 * mm_params * tokens / step_s / PEAK_FLOPS,
+                       profile=trainer_profile(torch, tr, out, TRAIN_STEPS, step_s, top_ops=12))
+            if capture:
+                check(tr.graphs.captured == 1 and tr.graphs.replays >= TRAIN_STEPS - 1,
+                      f"llama3.2-3b: {tr.graphs.captured} graphs, {tr.graphs.replays} replays")
+            runs[capture] = rec
+            del tr, out, leaves
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     bound_s = flops / PEAK_FLOPS + 22 * n_params / HBM_BYTES_PER_S
-    batch = make_batch(data, TRAIN_STEPS, arch, device="cuda")
-    prof = train_step_profile(torch, step_fn, params, opt_state, batch, TRAIN_STEPS, step_s)
     emit({"phase": "train_llama", "model": "llama3.2-3b (28 layers, full width)",
-          "optimizer": arch.optimizer, "remat": arch.remat, "batch": TRAIN_BATCH,
-          "seq": TRAIN_SEQ, "steps": steps, "init_s": init_s, "state_gb": state_gb,
-          "step_s_median_after_warmup": step_s, "tokens_per_s": tokens / step_s,
-          "mfu": 6 * mm_params * tokens / step_s / PEAK_FLOPS, "mfu_params": mm_params,
-          "peak_mem_gb": peak / 1e9, "bound_s": bound_s,
-          "bound_matmul_s": flops / PEAK_FLOPS,
-          "bound_optimizer_s": 22 * n_params / HBM_BYTES_PER_S,
-          "profile": {k: v for k, v in prof.items() if k != "graph_launches"}, "gpu": gpu})
-    del params, opt_state, step_fn
+          "entry": "train.Trainer (mesh=None)", "optimizer": arch.optimizer,
+          "remat": arch.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+          "order": "[captured, eager]", "bit_equal": True,
+          "losses": [h["loss"] for h in runs[True]["history"]],
+          "grad_norms": [h["grad_norm"] for h in runs[True]["history"]],
+          "captured": {k: v for k, v in runs[True].items() if k != "history"},
+          "eager": {k: v for k, v in runs[False].items() if k != "history"},
+          "mfu_params": mm_params, "bound_s": bound_s, "bound_matmul_s": flops / PEAK_FLOPS,
+          "bound_optimizer_s": 22 * n_params / HBM_BYTES_PER_S, "gpu": gpu})
     torch.cuda.empty_cache()
 
 
 def train_mamba_resume(torch, gpu) -> None:
     """(b) Full mamba2-130m through Trainer with checkpoints, driven as
-    launch/train.py drives it (run_with_restarts): one run uninterrupted,
-    one failing at step MAMBA_FAIL_AT and resuming from its last checkpoint;
-    the final params and optimizer state bit-equal, and every loss of one
-    seed equal between the runs.  Then one save of the final state, timed."""
+    launch/train.py drives it (run_with_restarts): one run uninterrupted
+    (captured), the same run eager (bit-equal to it), and one captured run
+    failing at step MAMBA_FAIL_AT and resuming from its last checkpoint,
+    written into the tensors its graph holds: the final params and
+    optimizer state bit-equal, and every loss of one seed equal between the
+    runs.  Then one save of the final state, timed."""
     import shutil
     import tempfile
 
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import DataConfig
-    from repro_torch.distributed import run_with_restarts
     from repro_torch.optim import tree
-    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train import TrainConfig
 
     arch = get_config("mamba2-130m")
-    data = DataConfig(vocab=arch.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
-        def trainer(name):
-            tc = TrainConfig(lr=3e-4, warmup=max(MAMBA_STEPS // 10, 1),
-                             total_steps=MAMBA_STEPS, ckpt_every=MAMBA_CKPT_EVERY,
-                             ckpt_dir=str(Path(root) / name))
-            return Trainer(arch=arch, tc=tc, data=data, device="cuda")
+        def config(name):
+            return TrainConfig(lr=3e-4, warmup=max(MAMBA_STEPS // 10, 1),
+                               total_steps=MAMBA_STEPS, ckpt_every=MAMBA_CKPT_EVERY,
+                               ckpt_dir=str(Path(root) / name))
 
-        t0 = time.perf_counter()
-        ref = trainer("uninterrupted")
-        out_ref = run_with_restarts(lambda start: ref.run(MAMBA_STEPS, start_step=start))
-        ref_s = time.perf_counter() - t0
-        crash = trainer("crash")
-        restarts = []
-        out = run_with_restarts(
-            lambda start: crash.run(MAMBA_STEPS, start_step=start,
-                                    fail_at=MAMBA_FAIL_AT if start != -1 else None),
-            on_restart=lambda n, e: restarts.append(repr(e)))
+        def state(out):
+            return tree.leaves((out["params"], out["opt_state"]))
+
+        runs = {}
+        for capture, name in ((True, "uninterrupted"), (False, "eager")):
+            tr, out, wall, peak, _ = trainer_run(
+                torch, arch, config(name), TRAIN_BATCH, capture,
+                lambda t: lambda start: t.run(MAMBA_STEPS, start_step=start))
+            final = [t.cpu() for t in state(out)]  # before the profiled steps train on
+            rec = train_record(torch, out["history"], wall, peak, tr)
+            rec["profile"] = trainer_profile(torch, tr, out, MAMBA_STEPS,
+                                             rec["step_s_median_after_first"])
+            runs[capture] = (tr, out["history"], rec, final)
+            del tr, out
+        (ref, ref_hist, _, ref_final), (eager, eager_hist, _, eager_final) = \
+            runs[True], runs[False]
+        same_history(ref_hist, eager_hist, "mamba2-130m")
+        check(ref.graphs.captured == 1 and eager.graphs.captured == 0,
+              f"mamba2-130m: {ref.graphs.captured} / {eager.graphs.captured} graphs")
+        check(all(a.dtype == b.dtype and torch.equal(a, b)
+                  for a, b in zip(ref_final, eager_final)),
+              "mamba2-130m: the captured run's final params / state differ from the eager "
+              "run's")
+        del ref, eager
+        crash, out, _, _, restarts = trainer_run(
+            torch, arch, config("crash"), TRAIN_BATCH, True,
+            lambda t: lambda start: t.run(MAMBA_STEPS, start_step=start,
+                                          fail_at=MAMBA_FAIL_AT if start != -1 else None))
         steps = [h["step"] for h in out["history"]]
         resumed_at = MAMBA_FAIL_AT // MAMBA_CKPT_EVERY * MAMBA_CKPT_EVERY
         check(len(restarts) == 1 and steps == list(range(MAMBA_FAIL_AT))
               + list(range(resumed_at, MAMBA_STEPS)),
               f"mamba2-130m: restarts {restarts}, steps {steps}")
-        ref_losses = {h["step"]: h["loss"] for h in out_ref["history"]}
+        check(crash.graphs.captured == 1, f"mamba2-130m crash run: {crash.graphs.captured} "
+              "graphs (the restore must write into the captured tensors)")
+        ref_losses = {h["step"]: h["loss"] for h in ref_hist}
         for h in out["history"]:
             check(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
                   f"mamba2-130m step {h['step']}: loss {h['loss']}")
             check(h["loss"] == ref_losses[h["step"]],
                   f"mamba2-130m step {h['step']}: loss {h['loss']} != {ref_losses[h['step']]} "
                   "in the uninterrupted run of the same seed")
-        leaves = tree.leaves((out["params"], out["opt_state"]))
-        ref_leaves = tree.leaves((out_ref["params"], out_ref["opt_state"]))
-        check(len(leaves) == len(ref_leaves) and all(
-            a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(leaves, ref_leaves)),
-            "mamba2-130m: the resumed run's params / state differ from the uninterrupted run's")
+        leaves = [t.cpu() for t in state(out)]
+        check(len(leaves) == len(ref_final) and all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(leaves, ref_final)),
+            "mamba2-130m: the resumed run's params / state differ from the uninterrupted "
+            "run's")
         t0 = time.perf_counter()
         crash.ckpt.save(10_000, (out["params"], out["opt_state"]), blocking=False)
         snapshot_s = time.perf_counter() - t0
@@ -2449,18 +2579,20 @@ def train_mamba_resume(torch, gpu) -> None:
         t0 = time.perf_counter()
         crash.ckpt.restore(10_000, target=(out["params"], out["opt_state"]))
         restore_s = time.perf_counter() - t0
-        hist = out_ref["history"]
-        step_s = sorted(h["sec"] for h in hist[1:])[(len(hist) - 1) // 2]
+        hist = ref_hist
         emit({"phase": "train_mamba", "model": "mamba2-130m (24 layers, full width)",
+              "entry": "train.Trainer (mesh=None) through run_with_restarts",
               "optimizer": arch.optimizer, "remat": arch.remat, "batch": TRAIN_BATCH,
               "seq": TRAIN_SEQ, "steps": MAMBA_STEPS, "ckpt_every": MAMBA_CKPT_EVERY,
               "fail_at": MAMBA_FAIL_AT, "resumed_from": resumed_at,
               "losses": [h["loss"] for h in hist],
               "grad_norms": [h["grad_norm"] for h in hist],
+              "order": "[captured, eager]", "captured_equals_eager": True,
               "resume_bit_equal": True, "identical_losses": True,
-              "s_per_step_median": step_s, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
-              "uninterrupted_run_s": ref_s, "ckpt_bytes": nbytes,
-              "ckpt_snapshot_s": snapshot_s, "ckpt_save_s": save_s,
+              "captured": runs[True][2], "eager": runs[False][2],
+              "crash_run_graphs": {"captured": crash.graphs.captured,
+                                   "replays": crash.graphs.replays},
+              "ckpt_bytes": nbytes, "ckpt_snapshot_s": snapshot_s, "ckpt_save_s": save_s,
               "ckpt_restore_s": restore_s, "gpu": gpu})
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2628,21 +2760,14 @@ def train_history(torch, arch, tag: str, root, steps: int, batch: int, mesh=None
     TP one (``set_mesh(mesh)``) -> (history, wall s, peak bytes)."""
     import gc
 
-    from repro_torch.data.pipeline import DataConfig
     from repro_torch.distributed import sharding as sh
-    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train import TrainConfig
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     tc = TrainConfig(lr=3e-4, warmup=max(steps // 10, 1), total_steps=steps,
                      ckpt_every=0, ckpt_dir=str(Path(root) / tag))
-    data = DataConfig(vocab=arch.vocab, seq_len=TRAIN_SEQ, global_batch=batch)
     with sh.use_mesh(mesh, data_only) if mesh is not None else contextlib.nullcontext():
-        trainer = Trainer(arch=arch, tc=tc, data=data, device="cuda", mesh=mesh)
-        trainer.run(steps)
-    out = (trainer.history, time.perf_counter() - t0, torch.cuda.max_memory_allocated())
+        trainer, _, wall, peak, _ = trainer_run(torch, arch, tc, batch, mesh=mesh)
+    out = (trainer.history, wall, peak)
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -3041,13 +3166,16 @@ def card_cell(torch, arch, shape, mesh) -> dict:
     """A dry-run cell's program on the card: ``dryrun.build_cell`` on
     ``mesh`` (world size 1) with real tensors (params drawn from seed 0,
     placed by ``reshard_state``), once under the cost count and once more
-    timed.  Memory is the card's above what was allocated before the
-    placement; ``finite``: every float of the timed run's output is
-    finite."""
+    timed, eagerly: the cost count is a dispatch mode, which a replay of a
+    captured step would bypass (the mesh train step is not captured; the
+    static-wave decode step of a Server would be).  Memory is the card's
+    above what was allocated before the placement; ``finite``: every float
+    of the timed run's output is finite."""
     import gc
 
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch import dryrun
+    from repro_torch.serve import graphs
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3057,13 +3185,14 @@ def card_cell(torch, arch, shape, mesh) -> dict:
         torch.cuda.synchronize()
         placed = torch.cuda.memory_allocated() - base
         torch.cuda.reset_peak_memory_stats()
-        rec = dryrun.trace_cell(cell, mesh)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - base
-        t0 = time.perf_counter()
-        out = cell.run()
-        torch.cuda.synchronize()
-        step_s = time.perf_counter() - t0
+        with graphs.disable_capture():
+            rec = dryrun.trace_cell(cell, mesh)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            t0 = time.perf_counter()
+            out = cell.run()
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
         finite = all(bool(torch.isfinite(t).all()) for t in
                      torch.utils._pytree.tree_leaves(out)
                      if torch.is_tensor(t) and t.is_floating_point())
@@ -3073,23 +3202,26 @@ def card_cell(torch, arch, shape, mesh) -> dict:
             "finite": finite}
 
 
-def dryrun_paths(torch, gpu, summary) -> None:
+def dryrun_paths(torch, gpu, summary) -> dict:
     """Phase 12: the dry run (``launch/dryrun.py``) against the card.  (a)
-    The meta contracts of phase 2's cases.  (b) The dry run of two
-    full-width llama3.2-3b programs over a fake group of one rank, then the
-    same programs on the card over an NCCL group of one rank: phase 9's
-    train step (8 x 512, adamw, remat "full"; the FSDP mapping, as
-    ``use_fsdp_mapping`` gives it) and the W4 / kv8 static-wave
+    The meta contracts of phase 2's cases.  (b) The dry run of three
+    full-width programs over a fake group of one rank, then the same
+    programs on the card over an NCCL group of one rank, eagerly: llama3.2-3b's
+    phase-9 train step (8 x 512, adamw, remat "full"; the FSDP mapping, as
+    ``use_fsdp_mapping`` gives it) and its W4 / kv8 static-wave
     ``decode_step`` at DRYRUN_DECODE_ROWS rows against a full cache of
     DRYRUN_DECODE_CTX (the TP mapping; the CF matmul and mqa_decode
-    launch).  Held: the dry run's FLOPs equal the cost count of the card's
-    run exactly; its argument bytes are within DRYRUN_ARG_RTOL of what the
-    placement allocated on the card; its peak is within DRYRUN_PEAK_RTOL of
-    the card's ``max_memory_allocated`` over the run; its outputs hold the
-    bytes of the card's, whose every float is finite.  (The decode step's
-    cache is all zeros; phase 2 holds mqa_decode against its plain version
-    at this step's shape and plan.)  Reported: the roofline's bound at the
-    H100 constants beside the measured time."""
+    launch), and paligemma-3b's W8 / kv8 decode_step at the same rows and
+    cache (mqa_decode at head dim 256).  Held: the dry run's FLOPs equal
+    the cost count of the card's run exactly; its argument bytes are within
+    DRYRUN_ARG_RTOL of what the placement allocated on the card; its peak is
+    within DRYRUN_PEAK_RTOL of the card's ``max_memory_allocated`` over the
+    run; its outputs hold the bytes of the card's, whose every float is
+    finite.  (The decode steps' caches are all zeros; phase 2 holds
+    mqa_decode against its plain version at these steps' shapes and plans.)
+    Reported: the roofline's bound at the H100 constants beside the
+    measured time.  Returns each program's kernel calls on the card (the
+    cost count's)."""
     import datetime
 
     import torch.distributed as dist
@@ -3105,12 +3237,19 @@ def dryrun_paths(torch, gpu, summary) -> None:
         "train": (llama, ShapeSpec("phase 9's step", TRAIN_SEQ, TRAIN_BATCH, "train")),
         "decode": (dataclasses.replace(llama, serve_w_bits=4),
                    ShapeSpec("wave decode", DRYRUN_DECODE_CTX, DRYRUN_DECODE_ROWS, "decode")),
+        "decode_d256": (get_config("paligemma-3b"),
+                        ShapeSpec("wave decode", DRYRUN_DECODE_CTX, DRYRUN_DECODE_ROWS,
+                                  "decode")),
     }
+    models = {"train": "llama3.2-3b (28 layers, full width)",
+              "decode": "llama3.2-3b (28 layers, full width), W4 / kv8",
+              "decode_d256": "paligemma-3b (18 layers, full width, head dim 256), W8 / kv8"}
     with dryrun.fake_world(1):
         fake = make_mesh((1, 1), ("data", "model"), device="cpu")
         preds = {name: dryrun.dry_run(arch, shape, fake) for name, (arch, shape) in
                  cases.items()}
     joined = init_distributed("cuda", timeout=datetime.timedelta(minutes=5))
+    calls = {}
     try:
         check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
               f"phase 12 needs an NCCL group of one rank, got {dist.get_backend()}")
@@ -3119,8 +3258,7 @@ def dryrun_paths(torch, gpu, summary) -> None:
             pred, card = preds[name], card_cell(torch, arch, shape, mesh)
             terms = roofline.time_terms(pred)
             rec = {"phase": "dryrun", "program": name,
-                   "model": f"llama3.2-3b (28 layers, full width), {shape.global_batch} x "
-                            f"{shape.seq_len}" + (", W4 / kv8" if name == "decode" else ""),
+                   "model": f"{models[name]}, {shape.global_batch} x {shape.seq_len}",
                    "mapping": [pred["mapping"], card["mapping"]],
                    "order": "[dry run (meta, fake group of 1), card (NCCL, world size 1)]",
                    "flops": [pred["flops_per_device"], card["flops_per_device"]],
@@ -3148,9 +3286,62 @@ def dryrun_paths(torch, gpu, summary) -> None:
             check(abs(pred["peak_bytes"] - card["peak"]) <= DRYRUN_PEAK_RTOL * card["peak"],
                   f"{name}: predicted peak {pred['peak_bytes']} against the card's "
                   f"{card['peak']}")
+            calls[name] = card["kernel_calls"]
     finally:
         if joined:
             dist.destroy_process_group()
+    return calls
+
+
+# --------------------------------------------------------------- phase 13
+def example_paths(torch, gpu) -> None:
+    """Phase 13: the port's three examples on the card, as a user runs them
+    (``python -m repro_torch.examples.<name>``, here their ``main``), each
+    keeping its own assertions; their printed text goes into the record."""
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.examples import quickstart, serve_quantized, train_lm
+
+    def run(example, argv):
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            out = example.main(argv)
+        return out, time.perf_counter() - t0, text.getvalue().splitlines()
+
+    q, q_s, q_text = run(quickstart, ["--device", "cuda"])
+    check(q["product"] == -12345 * 23456 and q["mpmm"]["launches"] == 1
+          and q["mpmm"]["rel_err"] < 0.2, f"quickstart on the card: {q}")
+    emit({"phase": "example_quickstart", "wall_s": q_s, "product": q["product"],
+          "programs": q["programs"], "selector": q["selector"], "mpmm": q["mpmm"],
+          "stdout": q_text, "gpu": gpu})
+    torch.cuda.empty_cache()
+    sq, sq_s, sq_text = run(serve_quantized, ["--device", "cuda"])
+    check(sq["graphs"]["captured"] > 0 and sq["graphs"]["replays"] > 0,
+          f"serve_quantized captured no step: {sq['graphs']}")
+    emit({"phase": "example_serve_quantized", "wall_s": sq_s,
+          "tokens_out": sq["tokens_out"], "mixed_precision_steps": sq["mixed_precision_steps"],
+          "prefix_hit_tokens": sq["prefix_hit_tokens"], "graphs": sq["graphs"],
+          "sampled": sq["sampled"], "stdout_tail": sq_text[-8:], "gpu": gpu})
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    try:
+        t, t_s, t_text = run(train_lm, ["--device", "cuda", "--steps", str(EXAMPLE_TRAIN_STEPS),
+                                        "--ckpt-dir", root])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    hist = t["history"]
+    after = sorted(h["sec"] for h in hist[1:])
+    check(t["graphs"]["captured"] == 1 and t["graphs"]["replays"] == EXAMPLE_TRAIN_STEPS - 1,
+          f"train_lm: {t['graphs']}, expected one capture and {EXAMPLE_TRAIN_STEPS - 1} replays")
+    emit({"phase": "example_train_lm", "wall_s": t_s, "params": t["params"],
+          "steps": len(hist), "loss_first_last": [hist[0]["loss"], hist[-1]["loss"]],
+          "step_s_median_after_first": after[(len(after) - 1) // 2],
+          "first_step_s": hist[0]["sec"], "graphs": t["graphs"], "stdout_tail": t_text[-3:],
+          "gpu": gpu})
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3186,6 +3377,14 @@ def main() -> int:
     check(sorted(e["kv_bits"] for e in spills) == [4, 8, 16] and
           all("registers" in e and "spill_store_bytes" in e for e in spills),
           f"ptxas -v reports no DP = 256 paged prefill instantiations: {spills}")
+    mqa_all = ptxas_report(lib_path, "mqa_decode_split_kernelI", ("kv_bits", "gq", "dmax"))
+    wide = [e for e in mqa_all if e.get("dmax") == 256]
+    emit({"phase": "ptxas", "kernel": "mqa_decode_split_kernel<kv_bits, gq, DMAX = 256> "
+          "(head dims 129-256)", "instantiations": wide,
+          "narrow": [e for e in mqa_all if e.get("dmax") == 128], "gpu": gpu})
+    check(sorted((e["kv_bits"], e["gq"]) for e in wide) == [(4, 1), (4, 2), (8, 1), (8, 2)]
+          and all("registers" in e and "spill_store_bytes" in e for e in wide),
+          f"ptxas -v reports no DMAX = 256 mqa_decode instantiations: {wide}")
 
     from repro_torch.configs import get_config
 
@@ -3570,11 +3769,22 @@ def main() -> int:
 
     # ---- phase 12: the dry run against the card
     torch.cuda.empty_cache()
-    _, dry_launches = count(lambda: dryrun_paths(torch, gpu, summary))
+    dry_calls, dry_launches = count(lambda: dryrun_paths(torch, gpu, summary))
     emit({"phase": "dryrun_launches", "launches": dry_launches, "gpu": gpu})
     check(dry_launches["mpmm_dequant"] > 0 and dry_launches["mqa_decode"] > 0,
           f"the dry-run paths launched {dry_launches}: expected the CF matmul and mqa_decode "
           "(the card's decode step)")
+    check(dry_calls["decode_d256"].get("mqa_decode", 0) > 0,
+          f"paligemma-3b's decode step called no mqa_decode: {dry_calls['decode_d256']}")
+
+    # ---- phase 13: the examples on the card
+    torch.cuda.empty_cache()
+    _, example_launches = count(lambda: example_paths(torch, gpu))
+    emit({"phase": "examples_launches", "launches": example_launches, "gpu": gpu})
+    check(all(example_launches[k] > 0 for k in ("mpmm_dequant", "paged_decode",
+                                                 "paged_prefill")),
+          f"the examples launched {example_launches}: expected the CF matmul and both paged "
+          "kernels (quickstart, serve_quantized)")
 
     # ---- captured against eager on this card, step by step and end to end
     table = {}
@@ -3607,7 +3817,7 @@ def main() -> int:
                "gemma_spec": gemma_spec_launches, "mixtral": mixtral_launches,
                "minitron": minitron_launches, "kimi_waves": kimi_launches,
                **prefix_launches, "train": train_launches, "mesh": mesh_launches,
-               "tp": tp_launches, "dryrun": dry_launches}
+               "tp": tp_launches, "dryrun": dry_launches, "examples": example_launches}
     for path in ("sampled", "spec", "spec_sampled", "gemma", "gemma_spec", "mixtral",
                  "minitron", "paligemma_spec"):
         for name in ("mpmm_dequant", "paged_decode", "paged_prefill"):
@@ -3668,6 +3878,12 @@ def main() -> int:
                if "tp_partials" in s else {}),
             **({"tp_heads": {**s["tp_heads"], "launches_tp_path": by_path["tp"][name]}}
                if "tp_heads" in s else {}),
+            # paligemma-3b's head dim 256 (the wide instantiation): its calls
+            # in phase 12's paligemma decode step on the card (the cost
+            # count's, one run)
+            **({"paligemma_heads": {**s["paligemma_heads"], "calls_dryrun_d256_step":
+                                    dry_calls["decode_d256"].get("mqa_decode", 0)}}
+               if "paligemma_heads" in s else {}),
         })
     print(json.dumps({"kernels": kernels, "total_s": time.perf_counter() - t_start}))
     print(gpu)

@@ -26,6 +26,9 @@
 // stay in flight during the arithmetic:
 // - block (row, 4 adjacent kv heads, split): warp w takes kv head 4 (block) +
 //   w, so the block's copies of one token cover 4 adjacent rows of memory;
+//   with fewer than 4 kv heads a block runs one warp per head, so no idle
+//   warp holds a ring of shared memory (paligemma-3b's single kv head gets
+//   one-warp blocks, and decode_plan splits its positions finer);
 // - each warp walks its split in 8-token tiles through its own ring of 4
 //   tiles in shared memory, filled by cp.async 3 tiles ahead of the
 //   arithmetic (rows as stored, int8 or packed int4, in 16-, 8- or 4-byte
@@ -38,6 +41,14 @@
 // - the warp's online softmax keeps m per query and l and acc in registers,
 //   acc split over the lanes by 4-element units of D (at D = 112 lanes 0-27
 //   own one, the rest none: ragged, not padded); p * v_scale enters P V.
+// The head-dim bound DMAX is a template parameter: the q quarters (D / 4
+// floats a query a lane) and acc (D / 32) are sized for it.  D <= 128 takes
+// the DMAX = 128 instantiation, up to 4 queries a block.  D 129-256
+// (paligemma-3b, gemma3-1b) takes DMAX = 256 at most 2 queries a block, so
+// that its 2 x 64 q floats stay in registers without spilling; lane u then
+// owns units u and u + 32 of acc.  A group of G queries splits into
+// ceil(G / gmax) blocks, each reading the same K/V rows (from L2 when they
+// run together).
 // Rows sit in shared memory at a pitch of 16 x (odd) bytes, so the eight
 // quads' word reads fall in distinct banks.  Softmax runs in log2 units.
 #include "common.cuh"
@@ -49,8 +60,14 @@ constexpr int MQA_RING = 4;   // tiles per warp ring: 3 in flight while one is u
 constexpr int MQA_WARPS = 4;  // kv heads a block takes, one per warp
 constexpr int MQA_THREADS = 32 * MQA_WARPS;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int MQA_DMAX = 128;  // head dims taken (q quarters in registers)
-constexpr int MQA_GMAX = 4;    // queries per block; larger groups split over blocks
+constexpr int MQA_DMAX = 256;     // head dims taken
+constexpr int MQA_DMAX_NARROW = 128;  // D <= 128: the narrow instantiation
+constexpr int MQA_GMAX = 4;       // queries per block at D <= 128; larger groups split
+constexpr int MQA_GMAX_WIDE = 2;  // queries per block at D 129-256
+
+__host__ __device__ constexpr int group_max(int d) {
+  return d <= MQA_DMAX_NARROW ? MQA_GMAX : MQA_GMAX_WIDE;
+}
 
 __device__ __forceinline__ float load_q(const void* q, int64_t i, bool q_f32) {
   return q_f32 ? static_cast<const float*>(q)[i]
@@ -119,13 +136,15 @@ struct MqaArgs {
 
 // Block (b, kv-head block * groups + group, split); warp w takes kv head
 // 4 * (head block) + w over all of the split's positions.  GQ: queries of the
-// group handled here (compile-time, so q and acc stay in registers).
-template <int KV_BITS, int GQ>
+// group handled here, DMAX: the head-dim bound (compile-time, so q and acc
+// stay in registers).
+template <int KV_BITS, int GQ, int DMAX>
 __global__ void __launch_bounds__(MQA_THREADS) mqa_decode_split_kernel(const MqaArgs a) {
   const int s_len = a.s_len, hkv = a.hkv, g_size = a.g_size, d = a.d, pitch = a.pitch;
   const int copy_bytes = a.copy_bytes, copy_shift = a.copy_shift;
   constexpr int EPW = KV_BITS == 8 ? 4 : 8;  // values per stored 32-bit word
-  constexpr int WPL = MQA_DMAX / EPW / 4;    // row words per quad lane, at most
+  constexpr int WPL = DMAX / EPW / 4;        // row words per quad lane, at most
+  constexpr int UPL = DMAX / 128;            // 4-element units of acc per lane
   extern __shared__ __align__(16) uint8_t smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x, grp = blockIdx.y % a.n_groups, split = blockIdx.z;
@@ -197,13 +216,13 @@ __global__ void __launch_bounds__(MQA_THREADS) mqa_decode_split_kernel(const Mqa
             gi < g_size && w < dw ? load_q(a.q, qb + w * EPW + e, a.q_f32) : 0.f;
     }
   }
-  float m[GQ], l[GQ], acc[GQ][4];
+  float m[GQ], l[GQ], acc[GQ][4 * UPL];
 #pragma unroll
   for (int g = 0; g < GQ; ++g) {
     m[g] = SOFTMAX_M0;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < 4 * UPL; ++e) acc[g][e] = 0.f;
   }
 
   for (int i = 0; i < n_tiles; ++i) {
@@ -249,21 +268,29 @@ __global__ void __launch_bounds__(MQA_THREADS) mqa_decode_split_kernel(const Mqa
       const float pt = exp2f(sg - m_new);  // 0 for a masked token
       l[g] = l[g] * alpha + pt;  // this quad's token; the quads are summed at the end
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[g][e] *= alpha;
+      for (int e = 0; e < 4 * UPL; ++e) acc[g][e] *= alpha;
       m[g] = m_new;
       pv[g] = pt * v_sc;
     }
-    // P V: lane u owns elements 4u .. 4u + 3 (lanes past D / 4 own none)
+    // P V: lane l owns elements 4u .. 4u + 3 of units u = l, l + 32, ...
+    // (units past D / 4 are owned by none)
     const uint8_t* vrows = st + MQA_TT * pitch;
 #pragma unroll
     for (int t = 0; t < MQA_TT; ++t) {
-      float vf[4] = {0.f, 0.f, 0.f, 0.f};
-      if (lane < du) unpack_unit<KV_BITS>(vrows + t * pitch, lane, vf);
+      float vf[UPL][4];
+#pragma unroll
+      for (int j = 0; j < UPL; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) vf[j][e] = 0.f;
+        if (lane + 32 * j < du) unpack_unit<KV_BITS>(vrows + t * pitch, lane + 32 * j, vf[j]);
+      }
 #pragma unroll
       for (int g = 0; g < GQ; ++g) {
         const float pw = __shfl_sync(0xffffffffu, pv[g], 4 * t);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[g][e] = fmaf(pw, vf[e], acc[g][e]);
+        for (int j = 0; j < UPL; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[g][4 * j + e] = fmaf(pw, vf[j][e], acc[g][4 * j + e]);
       }
     }
   }
@@ -279,10 +306,15 @@ __global__ void __launch_bounds__(MQA_THREADS) mqa_decode_split_kernel(const Mqa
     l[g] += __shfl_xor_sync(0xffffffffu, l[g], 16);
     if (gridDim.z == 1) {
       const float inv = 1.f / fmaxf(l[g], 1e-20f);
-      if (lane < du) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          store_out(a.out, (bh * g_size + gi) * d + 4 * lane + e, acc[g][e] * inv, a.q_f32);
+      for (int j = 0; j < UPL; ++j) {
+        const int u = lane + 32 * j;
+        if (u < du) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            store_out(a.out, (bh * g_size + gi) * d + 4 * u + e, acc[g][4 * j + e] * inv,
+                      a.q_f32);
+        }
       }
     } else {
       float* pr = a.part + (bh * gridDim.z + split) * g_size * (d + 2);
@@ -290,9 +322,13 @@ __global__ void __launch_bounds__(MQA_THREADS) mqa_decode_split_kernel(const Mqa
         pr[gi] = m[g];
         pr[g_size + gi] = l[g];
       }
-      if (lane < du) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) pr[2 * g_size + gi * d + 4 * lane + e] = acc[g][e];
+      for (int j = 0; j < UPL; ++j) {
+        const int u = lane + 32 * j;
+        if (u < du) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pr[2 * g_size + gi * d + 4 * u + e] = acc[g][4 * j + e];
+        }
       }
     }
   }
@@ -330,21 +366,30 @@ mqa_decode_combine_kernel(const float* __restrict__ part,  // [B, Hkv, splits, G
   }
 }
 
-template <int KV_BITS, int GQ>
-cudaError_t launch_split(const MqaArgs& a, dim3 grid, size_t smem, cudaStream_t s) {
-  const cudaError_t err = allow_smem(mqa_decode_split_kernel<KV_BITS, GQ>, smem);
+template <int KV_BITS, int GQ, int DMAX>
+cudaError_t launch_split(const MqaArgs& a, dim3 grid, int threads, size_t smem,
+                         cudaStream_t s) {
+  const cudaError_t err = allow_smem(mqa_decode_split_kernel<KV_BITS, GQ, DMAX>, smem);
   if (err != cudaSuccess) return err;
-  mqa_decode_split_kernel<KV_BITS, GQ><<<grid, MQA_THREADS, smem, s>>>(a);
+  mqa_decode_split_kernel<KV_BITS, GQ, DMAX><<<grid, threads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
 template <int KV_BITS>
-cudaError_t dispatch_groups(int gq, const MqaArgs& a, dim3 grid, size_t smem, cudaStream_t s) {
+cudaError_t dispatch_groups(int gq, const MqaArgs& a, dim3 grid, int threads, size_t smem,
+                            cudaStream_t s) {
+  if (a.d > MQA_DMAX_NARROW) {
+    switch (gq) {
+      case 1: return launch_split<KV_BITS, 1, MQA_DMAX>(a, grid, threads, smem, s);
+      case 2: return launch_split<KV_BITS, 2, MQA_DMAX>(a, grid, threads, smem, s);
+    }
+    return cudaErrorInvalidValue;
+  }
   switch (gq) {
-    case 1: return launch_split<KV_BITS, 1>(a, grid, smem, s);
-    case 2: return launch_split<KV_BITS, 2>(a, grid, smem, s);
-    case 3: return launch_split<KV_BITS, 3>(a, grid, smem, s);
-    case 4: return launch_split<KV_BITS, 4>(a, grid, smem, s);
+    case 1: return launch_split<KV_BITS, 1, MQA_DMAX_NARROW>(a, grid, threads, smem, s);
+    case 2: return launch_split<KV_BITS, 2, MQA_DMAX_NARROW>(a, grid, threads, smem, s);
+    case 3: return launch_split<KV_BITS, 3, MQA_DMAX_NARROW>(a, grid, threads, smem, s);
+    case 4: return launch_split<KV_BITS, 4, MQA_DMAX_NARROW>(a, grid, threads, smem, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -352,7 +397,7 @@ cudaError_t dispatch_groups(int gq, const MqaArgs& a, dim3 grid, size_t smem, cu
 }  // namespace
 
 // Pointers are device pointers.  q and out are f32 when q_f32 != 0, else
-// bf16.  kv_bits is 8 or 4; head dims up to 128 with rows of whole 32-bit
+// bf16.  kv_bits is 8 or 4; head dims up to 256 with rows of whole 32-bit
 // words.  Split i covers positions [i * per_split, (i + 1) * per_split), a
 // whole number of 8-token tiles, and the n_split splits cover S
 // (kernels/mqa_decode.py::decode_plan); part is [B, Hkv, n_split, G * (D + 2)]
@@ -380,17 +425,18 @@ extern "C" int mqa_decode(const void* q, const void* k, const void* v, const voi
   while ((1 << copy_shift) < dk / copy_bytes) ++copy_shift;
   int pitch = (dk + 15) / 16 * 16;  // 16 x odd bytes: conflict-free quad reads
   if ((pitch / 16) % 2 == 0) pitch += 16;
-  const int n_groups = (g_size + MQA_GMAX - 1) / MQA_GMAX;
+  const int n_groups = (g_size + group_max(d) - 1) / group_max(d);
   const int gq = (g_size + n_groups - 1) / n_groups;
-  const size_t smem = (size_t)MQA_WARPS * MQA_RING * tile_bytes(pitch);
+  const int warps = hkv < MQA_WARPS ? hkv : MQA_WARPS;  // one a kv head of the block
+  const size_t smem = (size_t)warps * MQA_RING * tile_bytes(pitch);
   const dim3 grid(batch, (hkv + MQA_WARPS - 1) / MQA_WARPS * n_groups, n_split);
   const MqaArgs a{q, static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
                   static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
                   static_cast<const int32_t*>(lengths), out, static_cast<float*>(part),
                   s_len, hkv, g_size, n_groups, d, pitch, copy_bytes, copy_shift, per_split,
                   q_f32 != 0, sm_scale};
-  const cudaError_t err = kv_bits == 8 ? dispatch_groups<8>(gq, a, grid, smem, s)
-                                       : dispatch_groups<4>(gq, a, grid, smem, s);
+  const cudaError_t err = kv_bits == 8 ? dispatch_groups<8>(gq, a, grid, 32 * warps, smem, s)
+                                       : dispatch_groups<4>(gq, a, grid, 32 * warps, smem, s);
   if (err != cudaSuccess) return (int)err;
   if (n_split > 1) {
     const size_t smem2 = sizeof(float) * (n_split + 1) * g_size;

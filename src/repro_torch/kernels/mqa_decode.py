@@ -32,26 +32,44 @@ from repro_torch.kernels.ref import mqa_decode_ref
 
 __all__ = ["decode_plan", "mqa_decode_contract", "mqa_decode_cuda", "mqa_decode_ref"]
 
-MAX_HEAD_DIM = 128  # head dims the kernel takes (csrc: MQA_DMAX)
-GROUP_QUERIES = 4  # queries a block takes at most; larger groups split (csrc: MQA_GMAX)
+MAX_HEAD_DIM = 256  # head dims the kernel takes (csrc: MQA_DMAX)
+NARROW_HEAD_DIM = 128  # D up to this takes the narrow instantiation (csrc: MQA_DMAX_NARROW)
+GROUP_QUERIES = 4  # queries a block takes at most at D <= 128 (csrc: MQA_GMAX)
+GROUP_QUERIES_WIDE = 2  # ... and at D 129-256, q in registers (csrc: MQA_GMAX_WIDE)
 BLOCK_HEADS = 4  # adjacent kv heads a block takes, one per warp (csrc: MQA_WARPS)
 SPLIT_UNIT = 8  # positions per tile: splits cover whole tiles (csrc: MQA_TT)
 MIN_SPLIT = 64  # a split keeps at least this many positions
-TARGET_BLOCKS = 4 * SMS  # at most four blocks per SM: one wave, copies in flight on all
+TARGET_BLOCKS = 4 * SMS  # at most four 4-warp blocks per SM: one wave, copies in flight on all
 
 
-def decode_plan(b: int, hkv: int, g: int, s: int) -> dict:
-    """How ``mqa_decode_cuda`` launches rows of at most ``s`` positions: the
-    query groups per (row, kv head), the split of the positions (whole
+def group_queries(d: int) -> int:
+    """Queries a block takes at most at head dim ``d``."""
+    return GROUP_QUERIES if d <= NARROW_HEAD_DIM else GROUP_QUERIES_WIDE
+
+
+def decode_plan(b: int, hkv: int, g: int, s: int, d: int = NARROW_HEAD_DIM) -> dict:
+    """How ``mqa_decode_cuda`` launches rows of at most ``s`` positions at
+    head dim ``d``: the query groups per (row, kv head) (at most
+    :func:`group_queries` queries each), the split of the positions (whole
     tiles, the splits covering ``s``) and the grid (row, kv-head block x
-    query group, split).  Positions are split until the grid nears
-    ``TARGET_BLOCKS`` without passing it, but not below ``MIN_SPLIT``
-    positions a split: zamba2-7b's serving shape (8 rows x 8 blocks of 4 kv
-    heads, 552 positions) takes 8 splits, 512 blocks; its 32k context (8
-    blocks) 66 splits, 528 blocks."""
-    groups = -(-g // GROUP_QUERIES)
+    query group, split).  A block runs a warp a kv head, at most
+    ``BLOCK_HEADS``.  Positions are split until the grid's warps near
+    ``TARGET_BLOCKS`` blocks of ``BLOCK_HEADS`` warps (half that at D > 128,
+    whose warps hold ~220 registers: 9 fit an SM) without passing them, but
+    not below ``MIN_SPLIT`` positions a split: zamba2-7b's serving shape (8
+    rows x 8 blocks of 4 kv heads, 552 positions) takes 8 splits, 512
+    blocks; its 32k context (8 blocks) 66 splits, 528 blocks; paligemma-3b's
+    decode_32k rank (8 rows, one kv head, so one-warp blocks, 8 queries of D
+    256: 4 groups of 2) 33 splits, 1056 blocks, the fastest of 1-512 splits
+    in ``tools/sweep_mqa_decode.py`` on the H100 (0.35 ms at 33, 0.43 at 66,
+    0.55 at 16)."""
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"the decode kernel takes head dims up to {MAX_HEAD_DIM}, got {d}")
+    groups = -(-g // group_queries(d))
     units = b * -(-hkv // BLOCK_HEADS) * groups
-    want = max(1, min(TARGET_BLOCKS // units, s // MIN_SPLIT))
+    warps = min(hkv, BLOCK_HEADS)
+    target = TARGET_BLOCKS * BLOCK_HEADS // (2 if d > NARROW_HEAD_DIM else 1)
+    want = max(1, min(target // (units * warps), s // MIN_SPLIT))
     per = -(-s // want)
     per = -(-per // SPLIT_UNIT) * SPLIT_UNIT
     splits = -(-s // per)
@@ -87,8 +105,6 @@ def launch_buffers(q, k_data, v_data, k_scale, v_scale, lengths, kv_bits: int):
     dk = d // 2 if kv_bits == 4 else d
     if d % 2 or dk % 4:
         raise ValueError(f"K/V rows of {dk} bytes (head dim {d}) are not whole 32-bit words")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"the decode kernel takes head dims up to {MAX_HEAD_DIM}, got {d}")
     expect(q, "q", q.dtype, (b, hkv, g, d), dev)
     for name, t in (("k_data", k_data), ("v_data", v_data)):
         expect(t, name, torch.int8, (b, s, hkv, dk), dev, align=4)
@@ -96,7 +112,7 @@ def launch_buffers(q, k_data, v_data, k_scale, v_scale, lengths, kv_bits: int):
         expect(t, name, torch.float32, (b, s, hkv, 1), dev, align=4)
     expect(lengths, "lengths", torch.int32, (b,), dev)
     out = torch.empty_like(q)
-    plan = decode_plan(b, hkv, g, s)
+    plan = decode_plan(b, hkv, g, s, d)
     part = (torch.empty((b, hkv, plan["splits"], g * (d + 2)), dtype=torch.float32,
                         device=dev)
             if plan["splits"] > 1 else out)

@@ -217,7 +217,13 @@ def _chunk_nll_sum(hc: torch.Tensor, unembed: torch.Tensor, lc: torch.Tensor,
         pad = torch.arange(v, device=logits.device) >= vocab
         logits = logits.masked_fill(pad, -1e30)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, lc[..., None].long(), dim=-1)[..., 0]
+    # the label's logit by index: its gradient is an indexed accumulation,
+    # where take_along_dim's (a scatter) reads index bounds back to the host
+    # under deterministic algorithms, which a captured train step cannot hold
+    b, c = lc.shape
+    rows = torch.arange(b, device=logits.device)[:, None]
+    cols = torch.arange(c, device=logits.device)[None, :]
+    gold = logits[rows, cols, lc.long()]
     return torch.sum((logz - gold) * mc)
 
 
@@ -256,7 +262,9 @@ def chunked_cross_entropy(
     summed chunk by chunk in f32 and divided by max(sum(mask), 1).  Each
     chunk runs under ``torch.utils.checkpoint``, so its logits are
     recomputed in the backward instead of saved: no [tokens, V] tensor is
-    kept for the backward either.
+    kept for the backward either.  The chunk draws no random numbers, so the
+    checkpoint keeps no RNG state (reading the card's inside a CUDA graph
+    capture would fail).
 
     On a mesh ``h`` holds this rank's rows of a batch split over the batch
     axes (every axis under the FSDP/ZeRO-3 mapping, ``("pod", "data")``
@@ -292,7 +300,7 @@ def chunked_cross_entropy(
     for i in range(n_chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
         total = total + checkpoint(fn, h[:, sl], w, labels[:, sl], mask[:, sl], vocab,
-                                   *extra, use_reentrant=False)
+                                   *extra, use_reentrant=False, preserve_rng_state=False)
     count = torch.sum(mask)
     if mesh is not None:
         count = sharding.batch_all_reduce(count.detach().clone())

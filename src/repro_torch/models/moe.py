@@ -10,13 +10,18 @@ one-hot), and assignments ranked past ``cap`` are dropped.  The same
 capacity, the same dropped tokens and the same slot for every kept token as
 the JAX function, bit for bit.
 
-Where JAX scatters with ``mode="drop"``, the buffer here is an
-``index_add_`` onto a zeroed ``[E * cap, D]`` tensor: a dropped assignment
-adds a zero row to slot 0, as in JAX, and every slot receives at most one
-nonzero row, so the result does not depend on the order of the adds.  Every
-shape follows from the input's shape alone, and nothing is read back to the
-host, so a serving step that holds this stays capturable
-(``serve/graphs.py``).
+Where JAX scatters with ``mode="drop"`` into a zeroed ``[E * cap, D]``
+buffer, the buffer here is gathered: every slot holds at most one kept
+assignment, found by a search of the sorted slots, and a slot holding none
+is zero, as in JAX.  The routing's counts, its ranks and the gate weights
+are sorts, searches and gathers too.  So no op of the forward scatters:
+under ``torch.use_deterministic_algorithms`` (the train step's) PyTorch's
+deterministic scatters read index bounds back to the host, which a CUDA
+graph cannot hold, and the backward of a gather is an indexed accumulation
+that reads nothing back.  Every shape follows from the input's shape
+alone, and nothing is read back to the host, so a serving step or a train
+step that holds this stays capturable (``serve/graphs.py``,
+``train/trainer.py``).
 
 The expert products: W4/W8 experts (a quantized dict, payload packed along
 K as ``quantize_params`` packs a stacked leaf) go through ``layers.dense``
@@ -67,7 +72,17 @@ def _positions_in_expert(eids: torch.Tensor, n_experts: int) -> torch.Tensor:
     sorted_e = eids[order].contiguous()
     first = torch.searchsorted(sorted_e, sorted_e, side="left")
     ranks = torch.arange(tk, device=eids.device) - first
-    return torch.empty_like(ranks).scatter_(0, order, ranks).to(torch.int32)
+    # back to token order through the inverse permutation (a gather)
+    return ranks[torch.argsort(order)].to(torch.int32)
+
+
+def _expert_counts(flat: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Flat expert assignments [T*k] -> the assignments each expert got,
+    [E] f32 (exact integers), from the sorted ids."""
+    sorted_e = torch.sort(flat).values.contiguous()
+    edges = torch.arange(n_experts + 1, dtype=sorted_e.dtype, device=flat.device)
+    bounds = torch.searchsorted(sorted_e, edges, side="left")
+    return (bounds[1:] - bounds[:-1]).float()
 
 
 def _route(x2: torch.Tensor, w_router: torch.Tensor, top_k: int):
@@ -75,13 +90,15 @@ def _route(x2: torch.Tensor, w_router: torch.Tensor, top_k: int):
     [T, E])."""
     logits = x2.float() @ w_router.float()
     probs = torch.softmax(logits, dim=-1)
-    weights, eids = torch.topk(probs, top_k, dim=-1)
+    eids = torch.topk(probs.detach(), top_k, dim=-1).indices
+    # the top-k values gathered by index (their gradient an indexed
+    # accumulation, not topk's scatter; see the module note)
+    rows = torch.arange(probs.shape[0], device=probs.device)[:, None]
+    weights = probs[rows, eids]
     weights = weights / torch.clamp_min(weights.sum(dim=-1, keepdim=True), 1e-9)
     # Switch-style load-balance aux: E * sum_e (frac_tokens_e * mean_prob_e)
     e = probs.shape[-1]
-    flat = eids.reshape(-1)
-    counts = torch.zeros(e, dtype=torch.float32, device=x2.device).index_add_(
-        0, flat, torch.ones(flat.shape[0], dtype=torch.float32, device=x2.device))
+    counts = _expert_counts(eids.reshape(-1), e)
     frac = counts / torch.clamp_min(counts.sum(), 1.0)
     aux = e * torch.sum(frac * probs.mean(dim=0))
     return weights, eids.to(torch.int32), aux, probs
@@ -148,11 +165,22 @@ def _dispatch(x2: torch.Tensor, eids: torch.Tensor, pos: torch.Tensor, cap: int,
     slots in them, an assignment at ``pos >= cap`` dropped -> (buf [n_exp *
     cap, D], slot [T * k], own [T, k]: the assignments kept in these
     experts)."""
-    d = x2.shape[-1]
+    n_slots, k = n_exp * cap, eids.shape[1]
     own = (pos < cap) & (eids >= lo) & (eids < lo + n_exp)
     slot = torch.where(own, (eids - lo) * cap + pos, 0).reshape(-1).long()
-    contrib = torch.where(own[..., None], x2[:, None, :], 0).reshape(-1, d)
-    buf = x2.new_zeros(n_exp * cap, d).index_add_(0, slot, contrib)
+    # each slot's kept assignment: a search of the kept slots, sorted (the
+    # others sort past the end); a slot no assignment fills stays zero.  The
+    # rows come from the assignments' [T*k, D] copies of their tokens, so
+    # each kept row's gradient lands on its own row (no two sum there), and
+    # the k copies of a token sum as a reduction.
+    key = torch.where(own.reshape(-1), slot, n_slots)
+    order = torch.argsort(key, stable=True)
+    sorted_key = key[order].contiguous()
+    at = torch.searchsorted(sorted_key, torch.arange(n_slots, device=key.device))
+    at = at.clamp_max(key.shape[0] - 1)
+    filled = sorted_key[at] == torch.arange(n_slots, device=key.device)
+    rows = x2[:, None, :].expand(-1, k, -1).reshape(-1, x2.shape[-1])
+    buf = torch.where(filled[:, None], rows[order[at]], 0)
     return buf, slot, own
 
 
@@ -184,8 +212,7 @@ def _moe_ffn_replicated(x: torch.Tensor, params: dict, top_k: int,
     if n_b > 1:  # global routing order: every batch rank's ids, in batch order
         eids_all = sharding.batch_all_gather(eids)
         flat = eids_all.reshape(-1)
-        counts = torch.zeros(e, dtype=torch.float32, device=x2.device).index_add_(
-            0, flat, torch.ones(flat.shape[0], dtype=torch.float32, device=x2.device))
+        counts = _expert_counts(flat, e)
         frac = counts / torch.clamp_min(counts.sum(), 1.0)
         mean_p = sharding.batch_sum(probs.sum(dim=0)) / eids_all.shape[0]
         aux = e * torch.sum(frac * mean_p)

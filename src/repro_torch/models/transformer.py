@@ -530,14 +530,18 @@ def _save_dots(ctx, op, *args, **kwargs):
 def _maybe_remat(fn, cfg: ArchConfig):
     """``fn`` as ``cfg.remat`` asks: "none" as is; "full" recomputed in the
     backward (non-reentrant ``torch.utils.checkpoint``); "dots" the same,
-    but the matmul outputs saved (a selective-checkpoint policy)."""
+    but the matmul outputs saved (a selective-checkpoint policy).  The
+    training forward draws no random numbers, so no RNG state is kept for
+    the recompute (the card's cannot be read inside a captured train step)."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "dots":
         context = functools.partial(ckpt.create_selective_checkpoint_contexts, _save_dots)
-        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, context_fn=context)
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, context_fn=context,
+                                 preserve_rng_state=False)
     if cfg.remat == "full":
-        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                                 preserve_rng_state=False)
     raise ValueError(f"unknown remat {cfg.remat!r}")
 
 

@@ -14,11 +14,13 @@ and ``update(grads, state, params, lr) -> (updates, state)`` are the JAX
 package's pure pair (new tensors, nothing of the arguments written); the
 trainer uses ``apply(grads, state, params, lr) -> state``, the same
 arithmetic written in place, parameter by parameter: ``params`` gain their
-updates and ``state``'s tensors take their new values, so at full width no
-tree-wide copy of the state, the updates or the f32 gradients exists (at
-llama3.2-3b's width the f32 m and v alone are 28.9 GB).  Both run one
-per-parameter function, so they agree bit for bit.  Updates are pre-scaled
-by the LR (a 0-d f32 tensor from ``schedules``); weight decay is decoupled.
+updates and ``state``'s tensors (the step counter too) take their new
+values, so a captured train step replays on the same tensors, and at
+full width no tree-wide copy of the state, the updates or the f32
+gradients exists (at llama3.2-3b's width the f32 m and v alone are 28.9
+GB).  Both run one per-parameter function, so they agree bit for bit.
+Updates are pre-scaled by the LR (a 0-d f32 tensor from ``schedules``);
+weight decay is decoupled.
 """
 from __future__ import annotations
 
@@ -74,7 +76,8 @@ def _optimizer(init: Callable, leaf: Callable, per_param: Callable,
                     old.copy_(x)
             p.add_(u)
             del u, new
-        return OptState(t, state.inner)
+        state.step.copy_(t)
+        return state
 
     return Optimizer(init, update, apply, leaf, per_param, elementwise)
 

@@ -248,6 +248,12 @@ class ServeEngine:
                 self._prefix[kv_bits] = PrefixCache(self._caches[kv_bits])
         return self._caches[kv_bits]
 
+    def prefix_cache_for(self, kv_bits: int) -> Optional[PrefixCache]:
+        """The prefix cache of the ``kv_bits`` pool (None where the engine
+        keeps none)."""
+        self.cache_for(kv_bits)
+        return self._prefix.get(kv_bits)
+
     def _group_cfg(self, kv_bits: int) -> ArchConfig:
         return dataclasses.replace(self.cfg, serve_kv_bits=kv_bits)
 

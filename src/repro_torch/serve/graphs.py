@@ -1,9 +1,12 @@
-"""Captured serving steps: the port's counterpart of the JAX package's jits.
+"""Captured steps: the port's counterpart of the JAX package's jits.
 
 The JAX package runs every serving step as one compiled program: the
 engine's ``_make_jits`` / ``_shared_jits`` (``prefill``, ``decode``,
 ``chunk``, ``spec``) and the static-wave ``Server``'s ``_prefill`` /
-``_decode``.  Here a fixed-shape step is captured once as a
+``_decode``; and the train step, ``jax.jit(step_fn, donate_argnums=(0,
+1))`` in ``Trainer`` (``train/trainer.py`` captures it here too, over its
+own static input buffers, ``run(..., static=True)``).  Here a fixed-shape
+step is captured once as a
 ``torch.cuda.CUDAGraph`` and replayed: the same kernels, in the same order,
 on the same buffers, without the host launching each of them again.
 
@@ -138,27 +141,31 @@ class StepGraphs:
     def captured(self) -> int:
         return len(self._graphs)
 
-    def run(self, key: tuple, fn, inputs: tuple):
+    def run(self, key: tuple, fn, inputs: tuple, static: bool = False):
         """``fn(*inputs)``, captured per ``key`` on the card (module note).
-        ``fn`` returns a tensor or a tuple of tensors."""
+        ``fn`` returns a tensor or a tuple of tensors.  ``static``: the
+        inputs are the caller's own static buffers, which it refills before
+        every call; the graph is captured over them as they are, and a
+        replay copies nothing in."""
         self.calls[key] = self.calls.get(key, 0) + 1
         if self.device.type != "cuda" or not _capture:
             return fn(*inputs)
         g = self._graphs.get(key)
         if g is None:
             out = fn(*inputs)  # the warm-up: builds the kernels before any capture
-            self._graphs[key] = self._capture(fn, inputs)
+            self._graphs[key] = self._capture(fn, inputs, static)
             return out
         for dst, src in zip(_tensors(g.inputs), _tensors(inputs)):
-            dst.copy_(src)
+            if dst is not src:
+                dst.copy_(src)
         g.graph.replay()
         _add_counts(g.launches)
         self.replays += 1
         return g.outputs
 
-    def _capture(self, fn, inputs: tuple) -> _Captured:
+    def _capture(self, fn, inputs: tuple, own: bool = False) -> _Captured:
         t0 = time.perf_counter()
-        static = tuple(None if t is None else t.clone() for t in inputs)
+        static = inputs if own else tuple(None if t is None else t.clone() for t in inputs)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()

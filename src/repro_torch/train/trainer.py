@@ -2,14 +2,36 @@
 gradient accumulation, global-norm clipping and the LR schedule; async
 checkpointing, straggler monitoring and crash-resume.
 
-The step runs eagerly (the JAX package jits it with donated params and
-state; a captured train step is not ported yet).  Where JAX maps a function
-over the whole tree, the step works leaf by leaf and in place, with the
-same arithmetic: the clip scales each gradient in place, and
-``Optimizer.apply`` writes the new params and state into the old tensors.
-So at llama3.2-3b's width no tree-wide f32 copy of the gradients (14.4 GB)
-or update tree (7.2 GB) joins the 43.3 GB of bf16 params and grads and f32
-m and v.
+Where JAX maps a function over the whole tree, the step works leaf by leaf
+and in place, with the same arithmetic: the clip scales each gradient in
+place, and ``Optimizer.apply`` writes the new params and state (its step
+counter too) into the old tensors.  So at llama3.2-3b's width no tree-wide
+f32 copy of the gradients (14.4 GB) or update tree (7.2 GB) joins the 43.3
+GB of bf16 params and grads and f32 m and v.
+
+The captured step, the counterpart of JAX's ``jax.jit(step_fn,
+donate_argnums=(0, 1))``: without a mesh, ``Trainer`` runs every step
+through ``serve/graphs.py``'s ``StepGraphs`` (``Trainer.graphs``).  Its
+inputs are static buffers the Trainer owns, refilled before each step: the
+batch's tensors by ``copy_`` and the step, a 0-d int32 tensor on the
+device, by ``fill_``, from which the step computes its lr on the device
+(``optim/schedules.py``).  Its params and optimizer state are the graph's
+own storage, updated in place (the counterpart of donation): a Trainer
+keeps the tensors of its first run, and a later ``run()`` (a restore, as
+``run_with_restarts`` makes one, or a fresh start) writes its starting
+state into them, so the tensors a run returns are those the next run
+overwrites.  On the card the first step of a Trainer runs eagerly (the
+warm-up, a real step) and the step is then captured as one
+``torch.cuda.CUDAGraph``: forward and backward, microbatches included, the
+global-norm clip and the optimizer's in-place ``apply``; every later step is
+a copy-in and a replay.  On the CPU, and under ``graphs.disable_capture()``
+(the counterpart of ``jax.disable_jit()``), the same function runs eagerly
+on the same buffers.  Nothing in the step reads the card back: the remat
+and cross-entropy checkpoints keep no RNG state, the cross-entropy and the
+MoE routing gather instead of scattering (``models/layers.py``,
+``models/moe.py``).  The mesh steps (FSDP, TP) stay eager: their
+collectives would sit inside the graph, and no world above one rank can
+hold one here.
 
 On a device mesh (``Trainer(mesh=...)``, ``make_train_step(..., mesh=)``)
 the step is the JAX package's FSDP/ZeRO-3 mapping
@@ -75,6 +97,7 @@ from repro_torch.distributed.fault import StepMonitor
 from repro_torch.models import transformer as model_lib
 from repro_torch.optim import make_optimizer, tree
 from repro_torch.optim.schedules import cosine_schedule
+from repro_torch.serve.graphs import StepGraphs, step_key
 
 
 @dataclass(frozen=True)
@@ -144,7 +167,8 @@ def _loss_and_grads(params, batch, arch: ArchConfig, microbatches: int):
 def make_train_step(arch: ArchConfig, tc: TrainConfig, mesh=None) -> tuple[Callable, Callable]:
     """-> (step_fn, opt_init); ``step_fn(params, opt_state, batch, step) ->
     (params, opt_state, metrics)`` updates ``params`` and ``opt_state`` in
-    place and returns them.
+    place and returns them.  ``step`` is a Python int or a 0-d int32 tensor
+    (the captured step's: the lr is then computed on its device).
 
     Gradient accumulation: the global batch splits into ``tc.microbatches``
     equal microbatches run in order (``_loss_and_grads``).  With ``mesh``,
@@ -163,6 +187,21 @@ def make_train_step(arch: ArchConfig, tc: TrainConfig, mesh=None) -> tuple[Calla
         return params, opt_state, {"loss": loss, "ce": ce, "grad_norm": gnorm}
 
     return step_fn, opt.init
+
+
+def capturable_step(step_fn: Callable, params, opt_state, names: tuple) -> Callable:
+    """The function ``Trainer`` captures (and runs eagerly on the CPU and
+    under ``graphs.disable_capture()``): ``fn(*batch, step) -> (loss, ce,
+    grad_norm)``, the batch's tensors in ``names`` order and ``step`` a 0-d
+    int32 tensor, over ``params`` and ``opt_state``, which it updates in
+    place."""
+
+    def fn(*inputs):
+        *tensors, step = inputs
+        _, _, metrics = step_fn(params, opt_state, dict(zip(names, tensors)), step)
+        return metrics["loss"], metrics["ce"], metrics["grad_norm"]
+
+    return fn
 
 
 def _sharding(t) -> Optional[sh.NamedSharding]:
@@ -354,6 +393,10 @@ class Trainer:
         self.ckpt = CheckpointManager(self.tc.ckpt_dir, keep=self.tc.ckpt_keep)
         self.step_fn, self.opt_init = make_train_step(self.arch, self.tc, self.mesh)
         self.history: list[dict] = []
+        self.graphs = StepGraphs(self.device)  # the captured step (no mesh)
+        self._state = None  # (params, opt_state) the step updates in place
+        self._inputs = None  # the step's static input buffers (batch..., step)
+        self._names = ()  # the batch keys, in the buffers' order
         self._row_axes = None  # the mapping's batch axes (sharding.batch_axes)
         if self.mesh is not None:
             fsdp = sh.mapping_of(self.mesh) == "fsdp"
@@ -393,6 +436,51 @@ class Trainer:
             batch["prefix_emb"] = torch.cat([pre[lo:hi] for lo, hi in rows])
         return batch
 
+    def load(self, step: int) -> tuple:
+        """The step's inputs in the static buffers (made at the first call):
+        :meth:`batch` copied in, then the step."""
+        batch = self.batch(step)
+        if self._inputs is None:
+            self._names = tuple(sorted(batch))
+            self._inputs = tuple(torch.empty_like(batch[k]) for k in self._names) + (
+                torch.zeros((), dtype=torch.int32, device=self.device),)
+        for dst, k in zip(self._inputs, self._names):
+            dst.copy_(batch[k])
+        self._inputs[-1].fill_(step)
+        return self._inputs
+
+    def step(self, params, opt_state, inputs: tuple) -> dict:
+        """One step on :meth:`load`'s buffers, captured on the card (see the
+        module note) -> its metrics (the graph's outputs on a replay: read
+        them before the next step)."""
+        fn = capturable_step(self.step_fn, params, opt_state, self._names)
+        loss, ce, gnorm = self.graphs.run(step_key("train", None, (), inputs), fn, inputs,
+                                          static=True)
+        return {"loss": loss, "ce": ce, "grad_norm": gnorm}
+
+    def _start_state(self, latest: Optional[int]):
+        """The run's starting params and state: restored from checkpoint
+        ``latest``, or drawn.  Without a mesh, a Trainer's later runs write
+        them into its first run's tensors, over which the step was captured
+        (a restore goes from the host leaf by leaf: no second copy on the
+        device)."""
+        if self.mesh is not None or self._state is None:
+            state = self._restore(latest) if latest is not None else self.init_state()
+            if self.mesh is None:
+                self._state = state
+            return state
+        live = tree.leaves(self._state)
+        if latest is not None:
+            leaves, _ = self.ckpt.restore(latest)
+        else:
+            leaves = tree.leaves(self.init_state())
+        if len(leaves) != len(live):
+            raise ValueError(f"the start state has {len(leaves)} leaves, the step's {len(live)}")
+        for dst, src in zip(live, leaves):
+            dst.copy_(src)
+        del leaves
+        return self._state
+
     def _is_writer(self) -> bool:
         """Whether this process writes the checkpoints: rank 0 of a mesh."""
         return self.mesh is None or torch.distributed.get_rank() == 0
@@ -419,27 +507,29 @@ class Trainer:
         """Steps ``start_step`` .. ``num_steps - 1``; ``start_step == -1``
         (``run_with_restarts``' resume sentinel), or 0 with a checkpoint on
         disk, resumes from the latest checkpoint.  A checkpoint is written
-        every ``tc.ckpt_every`` steps and after the last."""
+        every ``tc.ckpt_every`` steps and after the last.  Without a mesh
+        the returned params and state are the Trainer's own tensors, which
+        its next run overwrites (see the module note)."""
         self.ckpt.wait()  # a save a failed attempt left running lands first
         self._sync()
+        latest = None
         if start_step == -1 or (start_step == 0 and self.ckpt.latest_step() is not None):
             latest = self.ckpt.latest_step()
-            if latest is not None:
-                params, opt_state = self._restore(latest)
-                start_step = latest
-            else:
-                params, opt_state = self.init_state()
-                start_step = 0
-        else:
-            params, opt_state = self.init_state()
+            start_step = latest if latest is not None else 0
+        params, opt_state = self._start_state(latest)
 
         with deterministic(self.device):
             for step in range(start_step, num_steps):
                 if fail_at is not None and step == fail_at:
                     raise RuntimeError(f"injected failure at step {step}")
-                batch = self.batch(step)
-                t0 = time.perf_counter()
-                params, opt_state, metrics = self.step_fn(params, opt_state, batch, step)
+                if self.mesh is None:
+                    inputs = self.load(step)
+                    t0 = time.perf_counter()
+                    metrics = self.step(params, opt_state, inputs)
+                else:
+                    batch = self.batch(step)
+                    t0 = time.perf_counter()
+                    params, opt_state, metrics = self.step_fn(params, opt_state, batch, step)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 dt = time.perf_counter() - t0

@@ -1177,13 +1177,48 @@ def test_mqa_decode_kernel_rejects_what_it_does_not_take(dev):
 
 
 def test_mqa_decode_kernel_rejects_wide_heads(dev):
-    """Head dims past 128 raise in the wrapper (q quarters live in registers)."""
-    q = torch.zeros(1, 2, 1, 160, dtype=torch.bfloat16, device=dev)
-    kd = torch.zeros(1, 8, 2, 160, dtype=torch.int8, device=dev)
+    """Head dims past 256 raise in the wrapper (q quarters live in
+    registers; the wide instantiation is sized for 256)."""
+    q = torch.zeros(1, 2, 1, 264, dtype=torch.bfloat16, device=dev)
+    kd = torch.zeros(1, 8, 2, 264, dtype=torch.int8, device=dev)
     sc = torch.ones(1, 8, 2, 1, device=dev)
     lens = torch.ones(1, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="head dims up to 128"):
+    with pytest.raises(ValueError, match="head dims up to 256"):
         mqa_decode_cuda(q, kd, kd, sc, sc, lens, kv_bits=8, sm_scale=1.0)
+
+
+# head dims past 128 (the wide instantiation, 2 queries a block):
+# paligemma-3b's 1 kv head x 8 queries at D 256 with a split row, one query
+# per kv head, and D 160 / 192, whose last units are owned by some lanes only
+@pytest.mark.parametrize("kv_bits", [4, 8])
+@pytest.mark.parametrize("b,s,hkv,g,d,lengths", [
+    (4, 2048, 1, 8, 256, [2048, 2047, 1000, 1]),
+    (2, 300, 4, 1, 256, [300, 33]),
+    (3, 77, 2, 3, 160, [77, 8, 0]),
+    (2, 520, 2, 5, 192, [520, 64]),
+])
+def test_mqa_decode_kernel_head_dim_256(dev, kv_bits, b, s, hkv, g, d, lengths):
+    from repro_torch.kernels.mqa_decode import GROUP_QUERIES_WIDE, decode_plan
+
+    rng = np.random.default_rng(d + g + kv_bits)
+    kd, vd, ks, vs = _contiguous_kv(rng, dev, kv_bits, b, s, hkv, d)
+    q = torch.from_numpy(rng.normal(size=(b, hkv * g, d)).astype(np.float32)).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    live = lens > 0
+    plan = decode_plan(b, hkv, g, s, d)
+    assert plan["groups"] == -(-g // GROUP_QUERIES_WIDE)
+    for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, dict(atol=1e-4, rtol=1e-4))):
+        qd = q.to(dtype)
+        before = mqa_decode_cuda.launches
+        got = ops.mqa_decode(qd, kd, vd, ks, vs, lens, kv_bits=kv_bits)
+        torch.cuda.synchronize()
+        assert mqa_decode_cuda.launches == before + 1
+        exp = ops.mqa_decode(qd.cpu(), kd.cpu(), vd.cpu(), ks.cpu(), vs.cpu(), lens.cpu(),
+                             kv_bits=kv_bits)
+        assert got.dtype == dtype and got.shape == (b, hkv * g, d)
+        torch.testing.assert_close(got[live].float().cpu(), exp[live.cpu()].float(), **tol)
+        assert (got[~live] == 0).all()
+        assert torch.equal(got, ops.mqa_decode(qd, kd, vd, ks, vs, lens, kv_bits=kv_bits))
 
 
 def test_hybrid_prefill_and_decode_on_card_match_cpu(dev):
@@ -1600,6 +1635,94 @@ def test_trainer_resume_on_card_is_bit_equal(dev, tmp_path):
     losses = {h["step"]: h["loss"] for h in ref["history"]}
     assert all(h["loss"] == losses[h["step"]] for h in out["history"])
     assert not torch.are_deterministic_algorithms_enabled()  # scoped to the run
+
+
+def _trainer(dev, name, root, steps=4, ckpt_every=0, **over):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = dataclasses.replace(get_config(name).reduced(), **over)
+    tc = TrainConfig(lr=3e-3, warmup=2, total_steps=steps, ckpt_every=ckpt_every,
+                     ckpt_dir=str(root))
+    return Trainer(cfg, tc, DataConfig(cfg.vocab, 64, 4), device=dev)
+
+
+@pytest.mark.parametrize("name,over", [
+    ("llama3.2-3b", {}), ("llama3.2-3b", dict(optimizer="adamw8bit", remat="full")),
+    ("mamba2-130m", dict(remat="full")), ("mixtral-8x22b", dict(optimizer="adafactor")),
+])
+def test_captured_trainer_replays_eager_bits(dev, tmp_path, name, over):
+    """A reduced arch through Trainer on the card, 4 steps captured (step 0
+    eager, then one capture and 3 replays) and 4 steps under
+    ``disable_capture()``: the same losses, grad norms, params and optimizer
+    state, bit for bit, under the trainer's deterministic kernels."""
+    from repro_torch.optim import tree
+    from repro_torch.serve import graphs
+
+    cap = _trainer(dev, name, tmp_path / "c", **over)
+    out_c = cap.run(4)
+    assert cap.graphs.captured == 1 and cap.graphs.replays == 3
+    eager = _trainer(dev, name, tmp_path / "e", **over)
+    with graphs.disable_capture():
+        out_e = eager.run(4)
+    assert eager.graphs.captured == 0
+    for key in ("loss", "grad_norm"):
+        assert [h[key] for h in out_c["history"]] == [h[key] for h in out_e["history"]]
+    for a, b in zip(tree.leaves((out_c["params"], out_c["opt_state"])),
+                    tree.leaves((out_e["params"], out_e["opt_state"]))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(out_c["opt_state"].step) == 4
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+def test_restore_into_a_captured_trainer(dev, tmp_path):
+    """A captured Trainer that fails at step 5 and resumes from its step-3
+    checkpoint writes the restored state into the tensors its graph was
+    captured over (no second capture, the same storage) and ends bit-equal
+    to an uninterrupted eager run."""
+    from repro_torch.distributed import run_with_restarts
+    from repro_torch.optim import tree
+    from repro_torch.serve import graphs
+
+    crash = _trainer(dev, "llama3.2-3b", tmp_path / "crash", steps=8, ckpt_every=3)
+    seen = []  # the Trainer's state tensors as each attempt starts
+
+    def attempt(start):
+        seen.append(None if crash._state is None else
+                    [t.data_ptr() for t in tree.leaves(crash._state)])
+        return crash.run(8, start_step=start, fail_at=5 if start != -1 else None)
+
+    out = run_with_restarts(attempt)
+    ptrs = [t.data_ptr() for t in tree.leaves((out["params"], out["opt_state"]))]
+    assert seen[0] is None and seen[1] == ptrs
+    assert [h["step"] for h in out["history"]] == list(range(5)) + list(range(3, 8))
+    assert crash.graphs.captured == 1 and crash.graphs.replays == 4 + 5
+    ref = _trainer(dev, "llama3.2-3b", tmp_path / "ref", steps=8)
+    with graphs.disable_capture():
+        out_ref = ref.run(8)
+    for a, b in zip(tree.leaves((out_ref["params"], out_ref["opt_state"])),
+                    tree.leaves((out["params"], out["opt_state"]))):
+        assert torch.equal(a, b)
+    losses = {h["step"]: h["loss"] for h in out_ref["history"]}
+    assert all(h["loss"] == losses[h["step"]] for h in out["history"])
+
+
+def test_lr_on_the_card_equals_the_cpu_schedule(dev):
+    """The cosine schedule fed a step tensor on the card (the captured
+    step's) gives the CPU schedule's bits at every step, across the warm-up
+    boundary and past the end."""
+    from repro_torch.optim.schedules import cosine_schedule
+
+    for base, warm, total in ((3e-4, 100, 1000), (6e-4, 30, 300), (3e-3, 5, 30),
+                              (0.1, 0, 10)):
+        lr = cosine_schedule(base, warm, total)
+        steps = torch.arange(total + 3, dtype=torch.int32, device=dev)
+        got = torch.stack([lr(s) for s in steps]).cpu()
+        exp = torch.stack([lr(int(s)) for s in range(total + 3)])
+        assert got.dtype == torch.float32 and torch.equal(got, exp)
 
 
 def test_full_width_mamba_train_step_is_finite(dev):

@@ -242,7 +242,7 @@ def _mqa_meta(b=2, s=16, hkv=2, g=2, d=64, kv_bits=8, q_dtype=torch.bfloat16, dk
 
 
 @pytest.mark.parametrize("bad,err", [
-    (dict(d=256), "head dims up to 128"),
+    (dict(d=260), "head dims up to 256"),
     (dict(kv_bits=16), "kv_bits must be 4 or 8"),
     (dict(q_dtype=torch.float16), "q must be bfloat16 or float32"),
     (dict(d=6, kv_bits=4), "whole 32-bit words"),
@@ -252,6 +252,40 @@ def _mqa_meta(b=2, s=16, hkv=2, g=2, d=64, kv_bits=8, q_dtype=torch.bfloat16, dk
 def test_mqa_decode_contract_raises_as_the_wrapper(bad, err):
     with pytest.raises((ValueError, TypeError), match=err):
         _mqa_meta(**bad)
+
+
+@pytest.mark.parametrize("d,kv_bits,err", [
+    (256, 8, None), (256, 4, None), (258, 8, "whole 32-bit words"),
+    (264, 4, "head dims up to 256"), (255, 8, "whole 32-bit words"),
+])
+def test_mqa_decode_contract_takes_head_dims_up_to_256(d, kv_bits, err):
+    """The contract takes paligemma-3b's head dim 256 (1 kv head x 8
+    queries, the wide instantiation: groups of 2 queries), and still
+    refuses D 258 (rows of 258 bytes), D 264 at kv4 (whole words, past the
+    bound) and an odd D."""
+    if err is not None:
+        with pytest.raises(ValueError, match=err):
+            _mqa_meta(b=8, s=64, hkv=1, g=8, d=d, kv_bits=kv_bits)
+        return
+    out = _mqa_meta(b=8, s=64, hkv=1, g=8, d=d, kv_bits=kv_bits)
+    assert out.is_meta and tuple(out.shape) == (8, 8, d) and out.dtype == torch.bfloat16
+    assert mqa_mod.decode_plan(8, 1, 8, 64, d)["groups"] == 4
+
+
+def test_paligemma_decode_32k_traces_on_both_meshes(tmp_path, monkeypatch):
+    """The dry run's paligemma-3b ``decode_32k`` cell (mqa_decode at head dim
+    256, one rank's rows of the full 32k cache) traces to its end on the
+    16 x 16 and the 2 x 16 x 16 mesh, with one mqa_decode call a layer."""
+    from repro_torch.launch.mesh import make_production_mesh
+
+    monkeypatch.setattr(dryrun, "OUT_DIR", tmp_path)
+    for multi_pod, size in ((False, 256), (True, 512)):
+        with dryrun.fake_world(size):
+            mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
+            rec = dryrun.run_cell("paligemma-3b", "decode_32k", multi_pod, mesh, force=True)
+        assert rec["ok"], rec.get("error")
+        assert rec["kernel_calls"]["mqa_decode"] == get_config("paligemma-3b").n_layers
+        assert rec["flops_per_device"] > 0 and rec["peak_bytes"] < 80e9
 
 
 def test_dispatch_cpu_plain_meta_contract():

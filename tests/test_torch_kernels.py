@@ -325,8 +325,9 @@ def test_mpmm_ff_launch_plan_splits_at_the_stages(m, k, n):
 def test_mqa_decode_plan_covers_the_positions(b, hkv, g, s):
     """The decode kernel's split: whole 8-token tiles, the splits covering S
     exactly once, at least MIN_SPLIT positions each (or one split), a grid
-    of blocks of 4 kv heads within TARGET_BLOCKS unless one split alone
-    passes it, and query groups of at most 4."""
+    of blocks of up to 4 kv heads (a warp each) within TARGET_BLOCKS blocks
+    of 4 warps unless one split alone passes it, and query groups of at
+    most 4."""
     from repro_torch.kernels import mqa_decode as md
 
     plan = md.decode_plan(b, hkv, g, s)
@@ -336,7 +337,29 @@ def test_mqa_decode_plan_covers_the_positions(b, hkv, g, s):
     assert per % md.SPLIT_UNIT == 0 and (splits - 1) * per < s <= splits * per
     assert splits == 1 or per >= md.MIN_SPLIT
     assert (groups - 1) * md.GROUP_QUERIES < g <= groups * md.GROUP_QUERIES
-    assert splits == 1 or b * head_blocks * groups * splits <= md.TARGET_BLOCKS
+    warps = b * head_blocks * groups * splits * min(hkv, md.BLOCK_HEADS)
+    assert splits == 1 or warps <= md.TARGET_BLOCKS * md.BLOCK_HEADS
+
+
+@pytest.mark.parametrize("b,hkv,g,s,d", [(8, 1, 8, 32768, 256), (4, 1, 8, 32768, 256),
+                                         (8, 1, 4, 2048, 256), (3, 2, 5, 300, 192),
+                                         (1, 1, 1, 5, 256), (8, 8, 3, 1024, 128)])
+def test_mqa_decode_plan_groups_by_head_dim(b, hkv, g, s, d):
+    """Head dims past 128 take the wide instantiation, at most 2 queries a
+    block (4 at D <= 128); the split still covers S in whole tiles, and a
+    head dim past 256 is refused."""
+    from repro_torch.kernels import mqa_decode as md
+
+    plan = md.decode_plan(b, hkv, g, s, d)
+    gq = md.GROUP_QUERIES_WIDE if d > md.NARROW_HEAD_DIM else md.GROUP_QUERIES
+    groups, splits, per = plan["groups"], plan["splits"], plan["per_split"]
+    assert md.group_queries(d) == gq and (groups - 1) * gq < g <= groups * gq
+    assert plan["grid"] == (b, -(-hkv // md.BLOCK_HEADS) * groups, splits)
+    assert per % md.SPLIT_UNIT == 0 and (splits - 1) * per < s <= splits * per
+    warps = b * plan["grid"][1] * splits * min(hkv, md.BLOCK_HEADS)
+    assert splits == 1 or warps <= md.TARGET_BLOCKS * md.BLOCK_HEADS
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        md.decode_plan(b, hkv, g, s, 264)
 
 
 def test_mqa_decode_plan_fills_the_card_at_zamba2():
