@@ -228,7 +228,24 @@ Phases, each printing one JSON line that names the card:
                EXAMPLE_TRAIN_STEPS steps, the loss falling); the CF
                matmul and both paged kernels must launch on them
                ("examples"), each one's wall seconds printed.
-14. kernels line -- each kernel's launches on its path (all > 0): the serving
+14. engine_tp -- the paged engine on a mesh: ServeEngine(mesh=) on a 1 x 1
+               (data, model) mesh over an NCCL group of one rank, under the
+               tensor-parallel mapping with every row on every rank, captured:
+               (a) full llama3.2-3b with phase 5's (w, kv) cycle, requests
+               4-7 speculative (spec_k 4, a w4 draft); (b) mixtral-8x22b cut
+               to TP_MOE_LAYERS layer(s) at full width.  Streams equal to the
+               unmeshed engine's on the same traffic (run just before the
+               counts are set to 0), the eager streams and launches equal to
+               the captured ones, every captured step's key naming the
+               split; meshed and unmeshed decode tokens/s, captures and
+               capture seconds.  The three serving kernels must launch on
+               both paths ("engine_tp", "engine_tp_moe").  Phase 2 also
+               holds paged decode (ctx 1024) and paged prefill (a 128-token
+               chunk and a verify window) at one rank's kv heads of
+               llama3.2-3b on a 2-wide model axis (4 x 3 x 128, kv8 / kv4 /
+               bf16): "tp_kv_heads" and "tp_kv_heads_verify" in the kernels
+               line.
+15. kernels line -- each kernel's launches on its path (all > 0): the serving
                kernels in phase 5's first run, the FF and int matmuls in
                phase 4, contiguous-cache decode in phase 6's first zamba2
                run; the counts are set to 0 just before each path runs, and
@@ -409,6 +426,10 @@ MESH_TRAIN_STEPS, MESH_TRAIN_RTOL, MESH_COLL_RTOL = 3, 1e-5, 1e-6
 # through Server(mesh=)
 TP_MOE_LAYERS, TP_MOE_STEPS, TP_MOE_BATCH = 1, 2, 4
 TP_WAVE_LAYERS = 7
+# one rank's attention of llama3.2-3b on a 2-wide model axis: 4 of its 8 kv
+# heads with their G = 3 query heads each, head dim 128 (phase 2's paged
+# decode and prefill cases; the pools of ServeEngine(mesh=) hold these)
+TP_KV_HEADS = (4, 3, 128)
 MAMBA_STEPS, MAMBA_CKPT_EVERY, MAMBA_FAIL_AT = 12, 4, 6
 # phase 12, the dry run against the card at world size 1: phase 9's train
 # step, and full llama3.2-3b's W4 / kv8 static-wave decode_step at
@@ -729,6 +750,9 @@ def kernel_cases(torch, timer, gpu) -> dict:
         decode_cases(kv_bits, (MUSIC_DECODE_CTX,), (None,), MUSIC_HEADS, "musicgen-medium heads",
                      "g1_d64")
     decode_cases(8, (PALI_DECODE_CTX,), (None,), PALI_HEADS, "paligemma-3b heads", "g8_d256")
+    for kv_bits in (8, 4, 16):
+        decode_cases(kv_bits, (1024,), (None,), TP_KV_HEADS, "llama3.2-3b one rank of 2 (TP)",
+                     "tp_kv_heads")
 
     # ---- paged prefill: C in {1, 32, 128}, ragged q_lens, ctx > 0; then a
     # speculative verify window (C = SPEC_K + 1 at B = 8, VERIFY_CTX); then
@@ -834,6 +858,15 @@ def kernel_cases(torch, timer, gpu) -> dict:
     for kv_bits in (8, 4, 16):
         prefill_cases(kv_bits, PALI_VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)],
                       "paligemma-3b verify ", PALI_HEADS, line=("paligemma_verify", SPEC_K + 1))
+    # one rank's kv heads under the TP mapping: a 128-token chunk and a
+    # verify window
+    for kv_bits in (8, 4, 16):
+        prefill_cases(kv_bits, [256, 200, 384, 128], [(128, [128, 127, 64, 1])],
+                      "llama3.2-3b one rank of 2 (TP) ", TP_KV_HEADS,
+                      line=("tp_kv_heads", 128))
+        prefill_cases(kv_bits, VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)],
+                      "llama3.2-3b one rank of 2 (TP) verify ", TP_KV_HEADS,
+                      line=("tp_kv_heads_verify", SPEC_K + 1))
     torch.cuda.empty_cache()
     return summary
 
@@ -1689,6 +1722,12 @@ def w8kv8(i: int) -> dict:
     return {"w_bits": 8, "kv_bits": 8}
 
 
+def mixed_spec(i: int) -> dict:
+    """Phase 5's (w, kv) cycle, the second four requests speculative
+    (spec_k SPEC_K, a w4 draft): each precision serves one of each."""
+    return {**mixed_precision(i), "spec_k": SPEC_K if i >= len(PRECISIONS) else 0}
+
+
 def gemma_precision(i: int) -> dict:
     w, kv = GEMMA_PRECISIONS[i % len(GEMMA_PRECISIONS)]
     return {"w_bits": w, "kv_bits": kv}
@@ -1715,24 +1754,28 @@ def temperature_only(i: int) -> dict:
 
 
 def engine_run(torch, seed: int, cfg, sampling=greedy, precision=mixed_precision,
-               spec_k: int = 0, draft_bits: int = 4, capture: bool = True):
+               spec_k: int = 0, draft_bits: int = 4, capture: bool = True, mesh=None):
     """Serve phase 5's traffic once: request i takes ``sampling(i)`` and
     ``precision(i)`` (keyword arguments of SamplingParams / PrecisionParams);
     ``spec_k`` and ``draft_bits`` are the engine's; the group calls are
-    captured (or eager: ``capture=False``).  Returns (streams, stats, peak
-    bytes, s, the engine's captured steps: {captured, replays,
-    capture_s})."""
+    captured (or eager: ``capture=False``); ``ServeEngine(mesh=)`` with a
+    mesh.  Returns (streams, stats, peak bytes, s, the engine's captured
+    steps: {captured, replays, capture_s})."""
+    import gc
+
     import numpy as np
 
     from repro_torch.models import transformer as model_lib
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.params import PrecisionParams, SamplingParams
 
+    gc.collect()  # an earlier engine's pools, in a cycle with its prefix cache
     params = model_lib.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     engine = ServeEngine(cfg, params, max_slots=8, page_size=16, prefill_chunk=128,
-                         num_pages=8 * 40, spec_k=spec_k, draft_bits=draft_bits, device="cuda")
+                         num_pages=8 * 40, spec_k=spec_k, draft_bits=draft_bits, device="cuda",
+                         mesh=mesh)
     rng = np.random.default_rng(seed)
     shared = rng.integers(0, cfg.vocab, 256).astype(np.int32)
     prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, 256).astype(np.int32)])
@@ -1761,8 +1804,7 @@ def engine_run(torch, seed: int, cfg, sampling=greedy, precision=mixed_precision
               f"request {r.rid}: token outside the vocabulary (padded logits leaked)")
     peak = torch.cuda.max_memory_allocated()
     stats = engine.stats
-    steps = {"captured": engine.graphs.captured, "replays": engine.graphs.replays,
-             "capture_s": engine.graphs.capture_s}
+    steps = captured_steps(engine)
     del engine, params
     torch.cuda.empty_cache()
     return [tuple(r.out_tokens) for r in reqs], stats, peak, wall, steps
@@ -2007,29 +2049,34 @@ def moe_counters(torch):
 
 
 def serve_run(torch, cfg, seed: int, requests: int, prompt: int, new: int, precision,
-              capture: bool = True, spec_k: int = 0, draft_bits: int = 4, per_step=None):
+              capture: bool = True, spec_k: int = 0, draft_bits: int = 4, per_step=None,
+              mesh=None):
     """Serve ``requests`` greedy requests of ``prompt`` random tokens (after
     the arch's prefix embeddings, if it has a frontend), ``new`` new tokens
     each, request i at ``precision(i)``, through
     ServeEngine (8 slots, 16-token pages, 128-token chunks; ``spec_k`` and
     ``draft_bits`` the engine's), weights drawn from ``seed``, the steps
-    captured (or eager).  ``per_step()`` returns a dict of counts, read
+    captured (or eager), ``ServeEngine(mesh=)`` with a mesh.  ``per_step()``
+    returns a dict of counts, read
     after every engine step (each step already reads its tokens back).
     Returns (streams, stats, peak bytes, wall s, captured steps, per-step
     differences of ``per_step``)."""
+    import gc
+
     import numpy as np
 
     from repro_torch.models import transformer as model_lib
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.params import PrecisionParams, SamplingParams
 
+    gc.collect()  # an earlier engine's pools, in a cycle with its prefix cache
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     params = model_lib.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
     pages = -(-(cfg.prefix_len + prompt + new + spec_k + 8) // 16)
     engine = ServeEngine(cfg, params, max_slots=8, page_size=16, prefill_chunk=128,
                          num_pages=requests * pages, spec_k=spec_k, draft_bits=draft_bits,
-                         device="cuda")
+                         device="cuda", mesh=mesh)
     del params
     rng = np.random.default_rng(seed)
     reqs = [engine.submit(rng.integers(0, cfg.vocab, prompt).astype(np.int32),
@@ -2051,13 +2098,22 @@ def serve_run(torch, cfg, seed: int, requests: int, prompt: int, new: int, preci
               f"tokens, expected {new}")
         check(all(0 <= t < cfg.vocab for t in r.out_tokens),
               f"{cfg.name} request {r.rid}: token outside the vocabulary")
-    steps = {"captured": engine.graphs.captured, "replays": engine.graphs.replays,
-             "capture_s": engine.graphs.capture_s}
+    steps = captured_steps(engine)
     peak = torch.cuda.max_memory_allocated()
     stats = engine.stats
     del engine
     torch.cuda.empty_cache()
     return [tuple(r.out_tokens) for r in reqs], stats, peak, wall, steps, deltas
+
+
+def captured_steps(engine) -> dict:
+    """An engine's captured steps: {captured, replays, capture_s} and, on a
+    mesh, the splits its step keys name (``ServeEngine.split``)."""
+    steps = {"captured": engine.graphs.captured, "replays": engine.graphs.replays,
+             "capture_s": engine.graphs.capture_s}
+    if engine.mesh is not None:
+        steps["splits"] = sorted({repr(key[2][-1]) for key in engine.graphs.calls})
+    return steps
 
 
 def serve_summary(stats, peak, wall, steps) -> dict:
@@ -3344,6 +3400,87 @@ def example_paths(torch, gpu) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 14
+def engine_tp_paths(torch, gpu, count, eager_twin, plain) -> dict:
+    """Phase 14, the paged engine on a mesh: ``ServeEngine(mesh=)`` on a 1 x
+    1 (data, model) mesh over an NCCL group of one rank, under the TP
+    mapping (every group call under ``use_mesh(mesh)`` inside
+    ``whole_batch()``; there every block, pool and collective is the whole
+    tensor, so the streams must be the unmeshed engine's bit for bit): (a)
+    full llama3.2-3b with phase 5's (w, kv) cycle, the second four requests
+    speculative (``mixed_spec``); (b) mixtral-8x22b cut to TP_MOE_LAYERS
+    layer(s) at full width with phase 7's precisions.  Each runs captured
+    (every captured step's key naming the split), then eager through
+    ``eager_twin`` (identical streams and launches).  ``plain`` holds the
+    unmeshed runs of the same traffic, made before the counts were set to
+    0.  Returns each path's launches."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_distributed, make_test_mesh
+
+    llama = get_config("llama3.2-3b")
+    mixtral = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=TP_MOE_LAYERS)
+    t0 = time.perf_counter()
+    launches = {}
+    joined = init_distributed("cuda", timeout=datetime.timedelta(minutes=5))
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"phase 14 needs an NCCL group of one rank, got {dist.get_backend()}")
+        mesh = make_test_mesh(1, 1, device="cuda")
+
+        def llama_run(capture=True):
+            return engine_run(torch, 0, llama, precision=mixed_spec, capture=capture, mesh=mesh)
+
+        def mixtral_run(capture=True):
+            return serve_run(torch, mixtral, 0, 8, MIXTRAL_PROMPT, 16, mixtral_precision,
+                             capture, mesh=mesh)
+
+        paths = [("engine_tp", "llama3.2-3b (28 layers, full width)", llama_run,
+                  plain["llama"], {"requests": 8, "prompt": 512, "shared_prefix": 256,
+                                   "new_tokens": 32, "precisions": PRECISIONS,
+                                   "spec": f"spec_k {SPEC_K}, w4 draft, requests 4-7"}),
+                 ("engine_tp_moe", f"mixtral-8x22b ({TP_MOE_LAYERS} of 56 layers, full width: "
+                  "d_model 6144, 48 heads of 128, 8 experts of d_ff 16384, top-2)",
+                  mixtral_run, plain["mixtral"], {"requests": 8, "prompt": MIXTRAL_PROMPT,
+                                                  "new_tokens": 16,
+                                                  "precisions": MIXTRAL_PRECISIONS})]
+        for path, model, run, ref, traffic in paths:
+            torch.cuda.empty_cache()
+            (streams, stats, peak, wall, steps, *_), n = count(run)
+            p_streams, p_stats, p_peak, p_wall, p_steps, *_ = ref
+            check(streams == p_streams, f"{path}: the meshed engine's streams differ from the "
+                  "unmeshed engine's")
+            check(steps["captured"] > 0 and steps["replays"] > 0,
+                  f"{path}: no step captured and replayed: {steps}")
+            check(len(steps["splits"]) == 1 and "'tp'" in steps["splits"][0],
+                  f"{path}: captured-step keys without the split: {steps['splits']}")
+            check(path != "engine_tp" or stats.spec_rounds > 0, f"{path}: no spec round ran")
+            emit({"phase": path, "model": model, "mesh": "1 x 1 (data, model), NCCL",
+                  "mapping": "TP, every row on every rank (ServeEngine(mesh=))", **traffic,
+                  "identical_streams": True, "order": "[no mesh, mesh]",
+                  "tokens_out": stats.tokens_out,
+                  "decode_tok_per_s": [p_stats.decode_tok_per_s, stats.decode_tok_per_s],
+                  "decode_call_ms_p50": [_p50(p_stats.decode_call_s) * 1e3,
+                                         _p50(stats.decode_call_s) * 1e3],
+                  "prefill_s": [p_stats.prefill_s, stats.prefill_s],
+                  "spec_rounds": [p_stats.spec_rounds, stats.spec_rounds],
+                  "prefix_hit_tokens": [p_stats.prefix_hit_tokens, stats.prefix_hit_tokens],
+                  "wall_s": [p_wall, wall], "peak_mem_gb": [p_peak / 1e9, peak / 1e9],
+                  "captured_steps": [p_steps, steps], "launches": n, "gpu": gpu})
+            eager_twin(f"{path} (ServeEngine(mesh=))", path, streams, n,
+                       lambda: run(capture=False))
+            launches[path] = n
+    finally:
+        if joined:
+            dist.destroy_process_group()
+    emit({"phase": "engine_tp_total", "s": time.perf_counter() - t0, "gpu": gpu})
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3786,6 +3923,16 @@ def main() -> int:
           f"the examples launched {example_launches}: expected the CF matmul and both paged "
           "kernels (quickstart, serve_quantized)")
 
+    # ---- phase 14: the paged engine on a mesh over NCCL; its references (the
+    # unmeshed engine on the same traffic) run before the counts are set to 0
+    torch.cuda.empty_cache()
+    plain_tp = {"llama": engine_run(torch, 0, llama, precision=mixed_spec),
+                "mixtral": serve_run(torch, dataclasses.replace(mixtral_full,
+                                                                n_layers=TP_MOE_LAYERS),
+                                     0, 8, MIXTRAL_PROMPT, 16, mixtral_precision)}
+    engine_tp_launches = engine_tp_paths(torch, gpu, count, eager_twin, plain_tp)
+    del plain_tp
+
     # ---- captured against eager on this card, step by step and end to end
     table = {}
     for step in ("chunk", "decode", "spec", "wave"):
@@ -3817,9 +3964,10 @@ def main() -> int:
                "gemma_spec": gemma_spec_launches, "mixtral": mixtral_launches,
                "minitron": minitron_launches, "kimi_waves": kimi_launches,
                **prefix_launches, "train": train_launches, "mesh": mesh_launches,
-               "tp": tp_launches, "dryrun": dry_launches, "examples": example_launches}
+               "tp": tp_launches, "dryrun": dry_launches, "examples": example_launches,
+               **engine_tp_launches}
     for path in ("sampled", "spec", "spec_sampled", "gemma", "gemma_spec", "mixtral",
-                 "minitron", "paligemma_spec"):
+                 "minitron", "paligemma_spec", "engine_tp", "engine_tp_moe"):
         for name in ("mpmm_dequant", "paged_decode", "paged_prefill"):
             check(by_path[path][name] > 0, f"{name} was never launched on the {path} path")
     # the one-shot prefix prefill runs plain attention; paged prefill serves
@@ -3878,6 +4026,15 @@ def main() -> int:
                if "tp_partials" in s else {}),
             **({"tp_heads": {**s["tp_heads"], "launches_tp_path": by_path["tp"][name]}}
                if "tp_heads" in s else {}),
+            # one rank's kv heads of llama3.2-3b on a 2-wide model axis (a
+            # chunk, a verify window, a decode step), and the launches on
+            # phase 14's meshed llama path
+            **({"tp_kv_heads": {**s["tp_kv_heads"],
+                                "launches_engine_tp_path": by_path["engine_tp"][name]}}
+               if "tp_kv_heads" in s else {}),
+            **({"tp_kv_heads_verify": {**s["tp_kv_heads_verify"],
+                                       "launches_engine_tp_path": by_path["engine_tp"][name]}}
+               if "tp_kv_heads_verify" in s else {}),
             # paligemma-3b's head dim 256 (the wide instantiation): its calls
             # in phase 12's paligemma decode step on the card (the cost
             # count's, one run)

@@ -750,26 +750,43 @@ def _map_with_path(fn, tree, prefix: str = ""):
     return fn(prefix, tree)
 
 
+def leaf_sharding(path: str, shape, mesh) -> NamedSharding:
+    """The :class:`NamedSharding` the pattern rules give the leaf at
+    ``path`` of global ``shape`` (None: a leaf with no shape, a quantized
+    dict's ``bits``, replicated)."""
+    shape = tuple(shape) if shape is not None else None
+    nd = len(shape) if shape is not None else 0
+    # quantized dicts: the leaf names are data/scale/bits under the
+    # original weight name: reuse the parent rule for `data`.
+    if path.endswith(("/data", "/scale")):
+        # parent rule; size-1 dims (the scale's reduced K axis) drop in
+        # validation automatically
+        spec = param_spec(path.rsplit("/", 1)[0], nd, shape, mesh)
+    elif path.endswith("/bits") or shape is None:
+        spec = P()
+    else:
+        spec = param_spec(path, nd, shape, mesh)
+    if shape is not None:
+        spec = validate_spec(spec, shape, mesh)
+    return NamedSharding(mesh, spec)
+
+
 def tree_shardings(params, mesh):
     """A tree of :class:`NamedSharding` matching ``params`` (tensors or
-    anything with ``shape``) via the pattern rules; a leaf with no shape
-    (a quantized dict's ``bits``) is replicated."""
+    anything with ``shape``) via the pattern rules (:func:`leaf_sharding`)."""
+    return _map_with_path(
+        lambda path, leaf: leaf_sharding(path, getattr(leaf, "shape", None), mesh), params)
 
-    def one(path: str, leaf):
-        shape = tuple(leaf.shape) if hasattr(leaf, "shape") else None
-        nd = len(shape) if shape is not None else 0
-        # quantized dicts: the leaf names are data/scale/bits under the
-        # original weight name: reuse the parent rule for `data`.
-        if path.endswith(("/data", "/scale")):
-            # parent rule; size-1 dims (the scale's reduced K axis) drop in
-            # validation automatically
-            spec = param_spec(path.rsplit("/", 1)[0], nd, shape, mesh)
-        elif path.endswith("/bits") or shape is None:
-            spec = P()
-        else:
-            spec = param_spec(path, nd, shape, mesh)
-        if shape is not None:
-            spec = validate_spec(spec, shape, mesh)
-        return NamedSharding(mesh, spec)
 
-    return _map_with_path(one, params)
+def dim_all_max(t: torch.Tensor, sharding: NamedSharding, dim: int, ndim: int) -> torch.Tensor:
+    """``t``, a max along ``dim`` of this rank's block of an ``ndim``-dim
+    tensor under ``sharding`` (or of a trailing slice of the block that
+    keeps ``dim``), maxed in place over the mesh axes that split that dim:
+    the max of the whole tensor."""
+    import torch.distributed as dist
+
+    sizes = mesh_shape(sharding.mesh)
+    for a in sharding._dims(ndim)[dim]:
+        if sizes[a] > 1:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=sharding.mesh.get_group(a))
+    return t

@@ -118,16 +118,24 @@ def _mqa_decode_flops(q_shape, k_shape, *args, out_shape=None, **kwargs):
     return mqa_mod.decode_cost(b, hkv, g, d, b * k_shape[1], kv_bits)[0]
 
 
-def pack_weights(w: torch.Tensor, bits: int) -> tuple[torch.Tensor, torch.Tensor]:
+def pack_weights(w: torch.Tensor, bits: int,
+                 amax_reduce=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-output-channel symmetric quantization of a [..., K, N] weight.
 
     Returns (w_data, w_scale): w_data is [..., K, N] int8/int16, or
     [..., K//2, N] int8 with two K-consecutive nibbles per byte when
     bits == 4; w_scale is [..., 1, N] f32.  Leading dims quantize
     independently (the JAX package vmaps over stacked layers).
+    ``amax_reduce(amax)``, where ``w`` is one rank's block of a weight split
+    along K, turns the block's column maxima [..., 1, N] into the whole
+    weight's (``sharding.dim_all_max``), so the block quantizes as its
+    rows of the whole weight do.
     """
     prec = Precision.from_bits(bits)
-    amax = torch.clamp_min(w.abs().amax(dim=-2, keepdim=True), 1e-30)
+    amax = w.abs().amax(dim=-2, keepdim=True)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
+    amax = torch.clamp_min(amax, 1e-30)
     scale = (amax / prec.spec.qmax).to(torch.float32)
     q = torch.clamp(torch.round(w / scale), prec.spec.qmin, prec.spec.qmax)
     q = q.to(_INT_DTYPE[bits])

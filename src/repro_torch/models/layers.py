@@ -168,22 +168,31 @@ def embed_lookup(embed, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return sharding.model_reduce(torch.where(inside[..., None], x, 0))
 
 
-def quantize_dense_weight(w: torch.Tensor, bits: int) -> dict:
+_QUANT_COLS = 8192  # columns of one matrix quantized at a time
+
+
+def quantize_dense_weight(w: torch.Tensor, bits: int, amax_reduce=None) -> dict:
     """Per-output-channel quantization of a [K, N] weight, or of a stack
-    [L, ..., K, N] one matrix at a time (the matrices quantize independently,
-    so the bytes are those of one call on the stack, without its f32 copy).  A
-    meta stack (the dry run's shapes) takes the one call: it holds no bytes."""
-    if w.ndim == 2 or w.is_meta:
-        data, scale = ops.pack_weights(w.float(), bits)
+    [L, ..., K, N] one matrix at a time, each matrix _QUANT_COLS columns at a
+    time (columns quantize independently, so the f32 copies ``pack_weights``
+    makes are one slab's: the unembedding's whole [K, V] would take three
+    f32 copies of it, 4.7 GB at llama3.2-3b's widths).  A meta weight (the
+    dry run's shapes) takes the one call: it holds no bytes.
+    ``amax_reduce``: ``ops.pack_weights``'s, for a block split along K."""
+    if w.is_meta:
+        data, scale = ops.pack_weights(w.float(), bits, amax_reduce)
         return {"data": data, "scale": scale, "bits": int(bits)}
     mats = w.reshape(-1, *w.shape[-2:])
+    n = w.shape[-1]
     data = scale = None
     for i, m in enumerate(mats):
-        d_i, s_i = ops.pack_weights(m.float(), bits)
-        if data is None:
-            data = d_i.new_empty((len(mats), *d_i.shape))
-            scale = s_i.new_empty((len(mats), *s_i.shape))
-        data[i], scale[i] = d_i, s_i
+        for c in range(0, n, _QUANT_COLS):
+            d_c, s_c = ops.pack_weights(m[:, c:c + _QUANT_COLS].float(), bits, amax_reduce)
+            if data is None:
+                data = d_c.new_empty((len(mats), d_c.shape[0], n))
+                scale = s_c.new_empty((len(mats), 1, n))
+            data[i, :, c:c + d_c.shape[1]] = d_c
+            scale[i, :, c:c + s_c.shape[1]] = s_c
     return {"data": data.reshape(*w.shape[:-2], *data.shape[1:]),
             "scale": scale.reshape(*w.shape[:-2], *scale.shape[1:]), "bits": int(bits)}
 

@@ -146,8 +146,8 @@ def moe_ffn(
         if sharding.tp_active():
             raise NotImplementedError(
                 "moe_dispatch='alltoall' under the tensor-parallel mapping is not wired: its "
-                "expert leaves would be TP blocks (ROADMAP: the paged engine on a mesh); "
-                "the mesh step runs the replicated dispatch")
+                "expert leaves would be TP blocks (ROADMAP: the alltoall MoE dispatch under "
+                "TP); the mesh step and the meshed engine run the replicated dispatch")
         return _moe_ffn_alltoall(x, params, top_k=top_k, capacity_factor=capacity_factor,
                                  axis=mesh_model_axis, mesh=mesh)
     return _moe_ffn_replicated(x, params, top_k, capacity_factor)

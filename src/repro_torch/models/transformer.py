@@ -161,25 +161,53 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
     return params
 
 
-def quantize_params(params: Params, bits: int) -> Params:
+def quantize_params(params: Params, bits: int, mesh=None) -> Params:
     """The paper's technique on the serving path: every large matmul weight
     becomes an int4/int8 payload + per-output-channel scale (stacked [L, K,
     N] weights quantize layer by layer, MoE experts [L, E, K, N] expert by
     expert, as the JAX ``vmap`` does).  Embeddings stay in the model dtype
-    (a gather, not a matmul); norms and the MoE router stay f32."""
+    (a gather, not a matmul); norms and the MoE router stay f32.
 
-    def walk(tree):
+    With ``mesh``, ``params`` are this rank's blocks (``reshard_state``),
+    and each block quantizes on its own: its column maxima reduced over the
+    axes that split K (:func:`_quantize_block`), so the payload and scales
+    are this rank's blocks of the whole weight's, bit for bit."""
+
+    def walk(tree, prefix):
         out = {}
         for name, leaf in tree.items():
+            path = f"{prefix}/{name}" if prefix else name
             if isinstance(leaf, dict):
-                out[name] = walk(leaf)
+                out[name] = walk(leaf, path)
             elif name in _QUANT_KEYS and leaf.ndim >= 2:
-                out[name] = quantize_dense_weight(leaf, bits)
+                out[name] = (quantize_dense_weight(leaf, bits) if mesh is None
+                             else _quantize_block(path, leaf, bits, mesh))
             else:
                 out[name] = leaf
         return out
 
-    return walk(params)
+    return walk(params, "")
+
+
+def _quantize_block(path: str, block: torch.Tensor, bits: int, mesh) -> dict:
+    """This rank's block (a ``reshard_state`` leaf at ``path``) quantized as
+    its piece of the whole weight: the scale of a column is the whole
+    column's, and the payload and scale are the blocks the sharding rules
+    give the quantized leaf, which must be the block's own (an int4 payload
+    halves K, which the axes that split K must still divide)."""
+    s = block._mesh_sharding
+    q = quantize_dense_weight(block, bits,
+                              lambda amax: sharding.dim_all_max(amax, s, -2, block.ndim))
+    full = s.global_shape(tuple(block.shape))
+    for key in ("data", "scale"):
+        shape = list(full)
+        shape[-2] = 1 if key == "scale" else (full[-2] // 2 if bits == 4 else full[-2])
+        want = sharding.leaf_sharding(f"{path}/{key}", shape, mesh)
+        if tuple(q[key].shape) != tuple(sl.stop - sl.start for sl in want.index(shape)):
+            raise ValueError(f"{path}: the rules split the w{bits} {key} {shape} as "
+                             f"{want.spec}, not as the block's {s.spec}")
+        q[key]._mesh_sharding = want
+    return q
 
 
 def layer_params(blocks: Params, li: int) -> Params:
@@ -379,15 +407,21 @@ def _ssm_layer(p: Params, x: torch.Tensor, cfg: ArchConfig, dims, state=None):
     return x + y, st
 
 
-def _logits(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Last position's f32 logits, the padded vocab masked to -1e30; under
-    the TP mapping, where the model axis divides the padded vocab, each
-    rank's vocab columns gathered over ``model``."""
-    x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+def vocab_logits(x: torch.Tensor, unembed, cfg: ArchConfig) -> torch.Tensor:
+    """f32 logits of hidden states ``x`` [..., D], the padded vocab masked
+    to -1e30; under the TP mapping, where the model axis divides the padded
+    vocab, each rank's vocab columns gathered over ``model``, so every rank
+    samples from the same logits."""
     cols, _ = _split("unembed", cfg.padded_vocab)
-    logits = sharding.model_all_gather(dense(x[:, -1], params["unembed"], cols).float())
+    logits = sharding.model_all_gather(dense(x, unembed, cols).float())
     pad = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab
     return logits.masked_fill(pad, -1e30)
+
+
+def _logits(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Last position's f32 logits (:func:`vocab_logits`)."""
+    x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+    return vocab_logits(x[:, -1], params["unembed"], cfg)
 
 
 def prefill(params: Params, batch: dict, cfg: ArchConfig, max_len: int,

@@ -9,6 +9,17 @@ tokens; the token being decoded enters the softmax as a fused extra term.
 Weight matmuls go through ``models.layers.dense``: the W4/W8 dequant kernel
 for quantized weights.
 
+Under the tensor-parallel mapping (the engine's ``mesh``: ``sharding.use_mesh``
+inside ``sharding.whole_batch()``) a step takes ``transformer.decode_step``'s
+splits: where the model axis divides the kv heads, ``wq`` / ``wk`` / ``wv``
+column-split and ``wo`` row-split (``transformer._heads``), the paged
+kernels on this rank's kv heads and their query heads, whose pools hold
+only those heads; the MLP or the experts through ``transformer.ffn_block``;
+the embedding and the unembedding split over the vocab, the logits gathered
+over ``model`` before the sampler (``transformer.vocab_logits``).  Every
+rank computes every row.  With no mapping installed every split is the
+whole layer.
+
 The JAX ``lax.scan`` over layers is a Python loop here.  As in JAX, every
 layer's attention runs first (it reads only positions below each row's
 length, and the new token enters as the fused term), then one scatter
@@ -27,7 +38,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as model_lib
-from repro_torch.models.layers import apply_rope, dense, rms_norm, torch_dtype
+from repro_torch.models.layers import apply_rope, dense, embed_lookup, rms_norm, torch_dtype
 
 
 # each pool dtype's integer type of the same width (scatter_rows' bit view)
@@ -105,10 +116,11 @@ def paged_decode_step(
     quant = cfg.serve_kv_bits < 16
     bits = cfg.serve_kv_bits
     b = tokens.shape[0]
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h, hkv, cols, rows_split = model_lib._heads(cfg)  # this rank's heads
+    hd = cfg.hd
     n_layers, page_size = pool_k.shape[0], pool_k.shape[2]
     pools = (pool_k, pool_v, pool_ks, pool_vs)
-    x = params["embed"].to(torch_dtype(cfg.dtype))[tokens.long()]  # [B, 1, D]
+    x = embed_lookup(params["embed"], tokens, torch_dtype(cfg.dtype))  # [B, 1, D]
     posv = lengths[:, None]  # [B, 1] per-row positions
     rows, live = append_targets(tables, lengths, valid, page_size)
     windows = model_lib._per_layer_window(cfg, cfg.n_layers)
@@ -118,9 +130,9 @@ def paged_decode_step(
         p = model_lib.layer_params(params["blocks"], li)
         win = model_lib.layer_window(cfg, windows, li)
         xn = rms_norm(x, p["norm1"].to(x.dtype), cfg.norm_eps)
-        q = dense(xn, p["wq"]).reshape(b, 1, h, hd)
-        k = dense(xn, p["wk"]).reshape(b, 1, hkv, hd)
-        v = dense(xn, p["wv"]).reshape(b, 1, hkv, hd)
+        q = dense(xn, p["wq"], cols).reshape(b, 1, h, hd)
+        k = dense(xn, p["wk"], cols).reshape(b, 1, hkv, hd)
+        v = dense(xn, p["wv"], cols).reshape(b, 1, hkv, hd)
         q = apply_rope(q, posv, cfg.rope_theta)
         k = apply_rope(k, posv, cfg.rope_theta)
         if quant:
@@ -141,14 +153,12 @@ def paged_decode_step(
             )
             new_kv = (kc, vc, None, None)
         appended.append(new_kv)
-        x = x + dense(o.reshape(b, 1, h * hd), p["wo"])
+        x = x + dense(o.reshape(b, 1, h * hd), p["wo"], rows_split)
         x = x + model_lib.ffn_block(p, x, cfg)  # dense MLP or MoE experts
 
     scatter_rows(pools, rows, live, stack_layers(appended))
     x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
-    logits = dense(x[:, -1], params["unembed"]).float()
-    vocab_ok = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab
-    return torch.where(vocab_ok, logits, torch.full_like(logits, -1e30)), pools
+    return model_lib.vocab_logits(x[:, -1], params["unembed"], cfg), pools
 
 
 def paged_decode_sample(

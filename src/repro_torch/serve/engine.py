@@ -69,10 +69,28 @@ come back in one read.  There is no donation: the step functions update the
 pools in place.  The engine runs on the card unless the caller asks for the
 CPU (``device="cpu"``, which runs every kernel's plain version, eagerly);
 with no card present the default raises.
+
+``ServeEngine(mesh=)``, a ``("data", "model")`` DeviceMesh with one process
+per device (``launch/mesh.py``: NCCL on the card, gloo on the CPU), serves
+the dense and moe families under the tensor-parallel mapping, as the JAX
+engine jits its steps over its mesh.  The weights are resharded once
+(``reshard_state``), and each ``w_bits`` view is quantized from this rank's
+blocks (``transformer.quantize_params(..., mesh=)``); each pool holds this
+rank's kv heads (``PagedKVCache(mesh=)``).  Every group call runs under the
+engine's own mapping, ``sharding.use_mesh(mesh)`` inside
+``sharding.whole_batch()``: every rank computes every row of every group,
+on its blocks of the weights and its kv heads (``serve/decode.py``), and
+samples from the logits gathered over ``model``.  Rows stay whole because a
+request's row moves between groups and positions from step to step, so a
+rank's pool must hold every page of its kv heads; every rank runs the same
+scheduler on the same tokens and returns the same streams.  The captured
+steps' keys name the split.  The one-shot-prefill families (vlm, audio)
+and ``moe_dispatch="alltoall"`` take no mesh (NotImplementedError).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from dataclasses import dataclass, field
@@ -83,6 +101,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as model_lib
 from repro_torch.models.frontends import prefix_embeddings
@@ -193,7 +212,17 @@ class ServeEngine:
         spec_k: int = 0,
         draft_bits: int = 4,
         device=None,
+        mesh=None,
     ):
+        if mesh is not None and cfg.prefix_len:
+            raise NotImplementedError(
+                f"ServeEngine(mesh=) does not serve {cfg.name} ({cfg.family!r}): the "
+                "one-shot-prefill families take no mesh yet (ROADMAP: the one-shot-prefill "
+                "families on a mesh)")
+        if mesh is not None and cfg.moe_dispatch == "alltoall":
+            raise NotImplementedError(
+                "ServeEngine(mesh=) runs the replicated MoE dispatch under the "
+                "tensor-parallel mapping (ROADMAP: the alltoall MoE dispatch under TP)")
         if not self.supports(cfg):
             what = (f"{cfg.first_dense} leading dense MoE block(s)" if cfg.family == "moe"
                     else f"the {cfg.family!r} family")
@@ -218,8 +247,17 @@ class ServeEngine:
         self._legacy_prefill = bool(cfg.prefix_len)
         self._prefix_enabled = enable_prefix_cache and not self._legacy_prefill
         self._sched = Scheduler(max_slots)
+        self.mesh = mesh
+        params = _to_device(params, self.device)
+        if mesh is not None:  # this rank's blocks (at world size 1, the tensors)
+            from repro_torch.distributed.elastic import mesh_device, reshard_state
+
+            if mesh_device(mesh).type != self.device.type:
+                raise ValueError(f"the mesh computes on {mesh_device(mesh)}, the engine on "
+                                 f"{self.device}")
+            params = reshard_state(params, mesh)
         # w_bits -> param tree (quantized lazily)
-        self._params = {16: _to_device(params, self.device)}
+        self._params = {16: params}
         self._caches: dict[int, PagedKVCache] = {}  # kv_bits -> page pool
         self._prefix: dict[int, PrefixCache] = {}  # kv_bits -> prefix cache
         self._block_hashes: dict[int, list[bytes]] = {}  # rid -> prompt chain
@@ -232,7 +270,8 @@ class ServeEngine:
     # -------------------------------------------------------------- plumbing
     def params_for(self, w_bits: int):
         if w_bits not in self._params:
-            self._params[w_bits] = model_lib.quantize_params(self._params[16], w_bits)
+            self._params[w_bits] = model_lib.quantize_params(self._params[16], w_bits,
+                                                             self.mesh)
         return self._params[w_bits]
 
     def cache_for(self, kv_bits: int) -> PagedKVCache:
@@ -243,6 +282,7 @@ class ServeEngine:
                 page_size=self.page_size,
                 kv_bits=kv_bits,
                 device=self.device,
+                mesh=self.mesh,
             )
             if self._prefix_enabled:
                 self._prefix[kv_bits] = PrefixCache(self._caches[kv_bits])
@@ -275,6 +315,26 @@ class ServeEngine:
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    @contextlib.contextmanager
+    def _mapping(self):
+        """The engine's TP mapping, every row on every rank (the module
+        note); nothing without a mesh."""
+        if self.mesh is None:
+            yield
+            return
+        with sharding.use_mesh(self.mesh), sharding.whole_batch():
+            yield
+
+    @property
+    def split(self) -> Optional[tuple]:
+        """How a group call splits, part of its captured step's key: None
+        without a mesh, else the mapping, the mesh's axes and this rank's
+        coordinate in it, and the rows (whole on every rank)."""
+        if self.mesh is None:
+            return None
+        return ("tp", tuple(sharding.mesh_shape(self.mesh).items()),
+                tuple(self.mesh.get_coordinate()), "whole_batch")
 
     # ---------------------------------------------------------------- submit
     def submit(
@@ -467,17 +527,18 @@ class ServeEngine:
         parameters in another, and ``body(*arrays as tensors, samp)`` is the
         step, returning one tensor.  ``static`` names the weight sets (and
         spec_k); the key adds the group's cfg, the arrays' shapes and the
-        sampling structure."""
+        sampling structure and, on a mesh, the split (:attr:`split`)."""
         flat, shapes = graphs.pack(arrays)
         host, kind = self._samp_host(reqs, shapes[0][0])
         inputs = (self._tensor(flat), None if host is None else self._tensor(host))
         cfg = self._group_cfg(kv_bits)
-        key = graphs.step_key(step, cfg, (*static, shapes, kind), inputs)
+        key = graphs.step_key(step, cfg, (*static, shapes, kind, self.split), inputs)
 
         def fn(ints, samp):
             return body(*graphs.unpack(ints, shapes), _samp_views(samp, kind))
 
-        return self.graphs.run(key, fn, inputs)
+        with self._mapping():
+            return self.graphs.run(key, fn, inputs)
 
     def _chunk_group(self, reqs: list[ServeRequest], chunk: int) -> None:
         w_bits, kv_bits = reqs[0].w_bits, reqs[0].kv_bits

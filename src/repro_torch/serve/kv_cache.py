@@ -23,6 +23,14 @@ tokens into them with ``index_put_``, ``write_prompt`` scatters a one-shot
 prefill's contiguous rows into a request's pages with ``index_copy_``, and
 ``fork_page`` copies one page over another.  (The JAX package updates its pools functionally and donates the
 old buffers; here there is nothing to donate.)
+
+With ``mesh`` (a meshed engine's, under the tensor-parallel mapping) the
+pool holds this rank's kv heads, ``Hkv / M`` of them on an M-wide model
+axis, wherever the model axis divides the kv heads
+(``sharding.model_splits``, the rule of the attention's split); elsewhere
+it holds them all.  Page ids, tables, refcounts and the prefix cache's
+hashes are host state, the same on every rank: every rank runs the same
+scheduler on the same tokens.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding
 from repro_torch.models.layers import torch_dtype
 
 
@@ -44,6 +53,7 @@ class PagedKVCache:
         page_size: int,
         kv_bits: int = 8,
         device,
+        mesh=None,
     ):
         if kv_bits not in (4, 8, 16):
             raise ValueError(f"kv_bits must be 4, 8 or 16, got {kv_bits}")
@@ -54,6 +64,11 @@ class PagedKVCache:
         self.quantized = kv_bits < 16
         self.device = torch.device(device)
         n_layers, hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+        if mesh is not None:
+            with sharding.use_mesh(mesh):
+                if sharding.model_splits(hkv):
+                    hkv //= sharding.model_size()
+        self.kv_heads = hkv
         if kv_bits == 4 and hd % 2:
             raise ValueError(f"kv4 packs nibble pairs along head_dim; hd={hd} is odd")
         payload = torch.int8 if self.quantized else torch_dtype(cfg.dtype)

@@ -14,7 +14,9 @@ As in ``serve/decode.py`` the layer scan is a Python loop, and every
 layer's chunk K/V goes into the pools in place in one scatter after it;
 padding positions and slots at or past the table width write nothing (JAX
 drops them with ``mode="drop"``; here a fixed-shape scatter,
-``decode.scatter_rows``).
+``decode.scatter_rows``).  Under the tensor-parallel mapping a chunk takes
+the paged decode step's splits (``serve/decode.py``): this rank's kv heads
+and their query heads, the vocab split and its logits gathered.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as model_lib
-from repro_torch.models.layers import apply_rope, dense, rms_norm, torch_dtype
+from repro_torch.models.layers import apply_rope, dense, embed_lookup, rms_norm, torch_dtype
 from repro_torch.serve.decode import append_targets, scatter_rows, stack_layers
 
 
@@ -61,10 +63,11 @@ def chunk_forward(
     quant = cfg.serve_kv_bits < 16
     bits = cfg.serve_kv_bits
     b, c = tokens.shape
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h, hkv, cols, rows_split = model_lib._heads(cfg)  # this rank's heads
+    hd = cfg.hd
     n_layers, page_size = pool_k.shape[0], pool_k.shape[2]
     pools = (pool_k, pool_v, pool_ks, pool_vs)
-    x = params["embed"].to(torch_dtype(cfg.dtype))[tokens.long()]  # [B, C, D]
+    x = embed_lookup(params["embed"], tokens, torch_dtype(cfg.dtype))  # [B, C, D]
     cpos = torch.arange(c, device=tokens.device, dtype=torch.int32)
     posv = q_start[:, None] + cpos[None, :]  # [B, C] absolute positions
     live = cpos[None, :] < q_lens[:, None]
@@ -76,9 +79,9 @@ def chunk_forward(
         p = model_lib.layer_params(params["blocks"], li)
         win = model_lib.layer_window(cfg, windows, li)
         xn = rms_norm(x, p["norm1"].to(x.dtype), cfg.norm_eps)
-        q = dense(xn, p["wq"]).reshape(b, c, h, hd)
-        k = dense(xn, p["wk"]).reshape(b, c, hkv, hd)
-        v = dense(xn, p["wv"]).reshape(b, c, hkv, hd)
+        q = dense(xn, p["wq"], cols).reshape(b, c, h, hd)
+        k = dense(xn, p["wk"], cols).reshape(b, c, hkv, hd)
+        v = dense(xn, p["wv"], cols).reshape(b, c, hkv, hd)
         q = apply_rope(q, posv, cfg.rope_theta)
         k = apply_rope(k, posv, cfg.rope_theta)
         if quant:
@@ -99,7 +102,7 @@ def chunk_forward(
             )
             new_kv = (kc, vc, None, None)
         appended.append(new_kv)
-        x = x + dense(o.reshape(b, c, h * hd), p["wo"])
+        x = x + dense(o.reshape(b, c, h * hd), p["wo"], rows_split)
         x = x + model_lib.ffn_block(p, x, cfg)  # dense MLP or MoE experts
 
     scatter_rows(pools, rows, live, stack_layers(appended))
@@ -119,9 +122,7 @@ def chunk_prefill_step(
     )
     rows = torch.arange(x.shape[0], device=x.device)
     last = x[rows, torch.clamp(q_lens.long() - 1, min=0)]  # [B, D]
-    logits = dense(last, params["unembed"]).float()
-    vocab_ok = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab
-    return torch.where(vocab_ok, logits, torch.full_like(logits, -1e30)), pools
+    return model_lib.vocab_logits(last, params["unembed"], cfg), pools
 
 
 def chunk_prefill_sample(

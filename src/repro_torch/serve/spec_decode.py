@@ -29,7 +29,9 @@ one call of :func:`spec_decode_round`:
 Every draw is keyed by ``(seed, position, salt)`` (``ops.sample_keys``), so
 a round is reproducible under a fixed seed whatever the batch.  The engine
 then advances ``cache_len`` by the emitted count and rolls rejected tail
-pages back with ``PagedKVCache.truncate``.
+pages back with ``PagedKVCache.truncate``.  Under the tensor-parallel
+mapping the drafts and the verify take the splits of ``serve/decode.py``,
+and every rank draws from the same gathered logits.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops, prng
-from repro_torch.models.layers import dense
+from repro_torch.models import transformer as model_lib
 from repro_torch.serve.decode import paged_decode_step
 from repro_torch.serve.prefill import chunk_forward
 
@@ -173,9 +175,7 @@ def spec_decode_round(
     q_lens = torch.where(valid, n_draft + 1, 0).to(torch.int32)
     x, pools = chunk_forward(params, wtok, lengths, q_lens, tables, *pools, cfg=cfg,
                              verify=True)
-    logits = dense(x, params["unembed"]).float()  # [B, C, V]
-    vocab_ok = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab
-    logits = torch.where(vocab_ok, logits, torch.full_like(logits, -1e30))
+    logits = model_lib.vocab_logits(x, params["unembed"], cfg)  # [B, C, V]
 
     if greedy:
         tgt = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, C]

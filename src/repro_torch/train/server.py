@@ -23,16 +23,18 @@ once at the wave's end.  The one-shot prefill of a wave (the JAX
 ``Server._prefill``) runs eagerly.
 
 ``Server(mesh=)``, a ``("data", "model")`` DeviceMesh with one process per
-device, serves the static waves under the tensor-parallel mapping
+device, passes the mesh to the paged engine for the dense and moe families
+(``ServeEngine(mesh=)``, as the JAX ``Server`` does; the vlm and audio
+families raise there: ROADMAP, the one-shot-prefill families on a mesh),
+and serves the static waves under the tensor-parallel mapping
 (``sharding.use_mesh(mesh)``, as the JAX ``Server`` traces its jitted
 ``prefill`` / ``decode_step`` under ``set_mesh(mesh)``): every rank holds
 its blocks of the (quantized) weights under ``tree_shardings``, runs the
 same waves on the same requests, computes its rows of each wave (all of
 them where the batch ranks do not divide the wave) and its kv heads, and
 gathers the logits over ``model`` before the argmax; the wave's tokens are
-gathered over the batch ranks at its end, and every rank returns the
-requests completed (rank 0's are the ones to report).  The engine families
-do not take a mesh yet (ROADMAP: the paged engine on a mesh).
+gathered over the batch ranks at its end.  Either way every rank returns
+the requests completed (rank 0's are the ones to report).
 """
 from __future__ import annotations
 
@@ -107,17 +109,12 @@ class Server:
         self.w_bits = arch.serve_w_bits if quantize else 16
         self.device = resolve_device(device)
         self.engine = None
-        if engine_family(arch) and mesh is not None:
-            raise NotImplementedError(
-                f"{arch.name} is served by the paged engine, which does not take a mesh yet "
-                "(ROADMAP: the paged engine on a mesh); Server(mesh=) serves the static-wave "
-                "families (ssm, hybrid, and moe with leading dense blocks)")
         if engine_family(arch):
             pages_per_slot = -(-max_len // page_size)
             self.engine = ServeEngine(
                 arch, params, max_slots=batch_size,
                 num_pages=batch_size * pages_per_slot, page_size=page_size,
-                device=self.device,
+                device=self.device, mesh=mesh,
             )
         else:
             params = _to_device(params, self.device)

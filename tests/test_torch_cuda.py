@@ -1860,3 +1860,55 @@ def test_tp_server_waves_over_nccl_equal_unsharded(nccl_mesh):
     before = mqa_decode_cuda.launches
     assert streams(nccl_mesh) == streams(None)
     assert mqa_decode_cuda.launches > before
+
+
+@pytest.mark.parametrize("name", ["llama3.2-3b", "mixtral-8x22b"])
+def test_tp_engine_over_nccl_equals_unsharded(nccl_mesh, name):
+    """Reduced llama3.2-3b / mixtral-8x22b (bf16) through ServeEngine(mesh=)
+    on the 1 x 1 mesh, mixed (w, kv) with spec on two requests, a prefix
+    hit: the unmeshed engine's streams and pools bit for bit, captured and
+    eager, every captured key naming the split, the paged kernels launched."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_decode import paged_mqa_decode_cuda
+    from repro_torch.kernels.paged_prefill import paged_mqa_prefill_cuda
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.serve import graphs
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.params import PrecisionParams, SamplingParams
+
+    cfg = get_config(name).reduced()
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (23, 21, 25, 22, 24)]
+    prompts[4][:16] = prompts[0][:16]
+    precs = [(4, 8, 0), (8, 4, 2), (16, 16, 0), (8, 4, 2), (4, 8, 0)]
+
+    def run(mesh):
+        params = model_lib.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        eng = ServeEngine(cfg, params, max_slots=4, num_pages=32, page_size=8, device="cuda",
+                          mesh=mesh)
+        out = []
+        for wave in (range(4), range(4, 5)):
+            hs = [eng.submit(prompts[i], SamplingParams(max_new_tokens=6),
+                             PrecisionParams(w_bits=precs[i][0], kv_bits=precs[i][1],
+                                             spec_k=precs[i][2])) for i in wave]
+            eng.run()
+            out += [list(h.out_tokens) for h in hs]
+        assert eng.stats.prefix_hit_tokens == 16 and eng.stats.spec_rounds > 0
+        pools = {kv: [t.clone() for t in c.pools if t is not None]
+                 for kv, c in eng._caches.items()}
+        return out, pools, {key[2][-1] for key in eng.graphs.calls}, eng.split
+
+    before = (paged_mqa_decode_cuda.launches, paged_mqa_prefill_cuda.launches)
+    streams, pools, splits, split = run(nccl_mesh)
+    assert splits == {split} and split[0] == "tp"
+    assert paged_mqa_decode_cuda.launches > before[0]
+    assert paged_mqa_prefill_cuda.launches > before[1]
+    plain, plain_pools, plain_splits, _ = run(None)
+    assert plain_splits == {None}
+    assert streams == plain
+    for kv in plain_pools:
+        assert all(torch.equal(a, b) for a, b in zip(pools[kv], plain_pools[kv])), kv
+    with graphs.disable_capture():
+        assert run(nccl_mesh)[0] == streams

@@ -20,7 +20,9 @@ wave of 6 (3 rows a rank) and a wave of 3 (whole, 3 rows a rank) hand
 the decode step tokens of one shape, but read different caches and split
 differently.  9 requests at batch size 6 take two steps, and their streams
 equal the unsharded ``Server``'s; on a mesh ``decode_wave`` without the
-wave's size raises.  An engine-family arch with a mesh raises.
+wave's size raises.  A one-shot-prefill engine arch (vlm) with a mesh
+raises; the dense and moe engine families take one
+(tests/test_torch_engine_tp.py).
 """
 import dataclasses
 import json
@@ -202,7 +204,7 @@ def test_wave_size_keys_the_captured_step(streams):
 
 
 def test_engine_family_with_a_mesh_raises():
-    cfg = tget("llama3.2-3b").reduced()
+    cfg = tget("paligemma-3b").reduced()
     params = tT.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="the paged engine on a mesh"):
+    with pytest.raises(NotImplementedError, match="the one-shot-prefill families on a mesh"):
         Server(cfg, params, batch_size=2, max_len=32, device="cpu", mesh=object())
