@@ -28,7 +28,15 @@ Phases, each printing one JSON line that names the card:
                stride-2 downsample convs): max abs error against the stated
                tolerance, the kernel's time, the plain version's, a PyTorch
                library call's as a yardstick, and the least time the card
-               could take (bound_ms).  Then the sampler
+               could take (bound_ms).  The dequant matmul's f32-activation
+               entries (the CNN path and the quickstart run float32):
+               the CF order at ResNet18's CF layers and at rows 3a / 3b's
+               serving shapes (W4 M 8 3072 -> 8192, w8 M 256 3072 -> 3072),
+               the FF order at ResNet18's FF layers, against their plain
+               versions within f32 summation-order error, their bound at
+               the card's f32 rate (67 TFLOP/s) and torch.mm in full f32
+               on weights dequantized beforehand as the library call.
+               Then the sampler
                (ops.sample_tokens, plain torch ops) on the card against the
                CPU at llama3.2-3b's vocabulary: bit-equal keys and uniforms,
                equal tokens away from CDF boundaries.
@@ -36,12 +44,17 @@ Phases, each printing one JSON line that names the card:
                vocab 128256): one chunked-prefill step and one decode step on
                the card (kernels) and on the CPU (plain versions); the logits
                must agree and pick the same token on every row.
-4. cnn      -- the paper's CNN path: full ResNet18 (20 convs, 224x224x3 bf16
+4. cnn      -- the paper's CNN path: full ResNet18 (20 convs, 224x224x3
                input, batch 8, w8, the mixed FF/CF strategy) through
-               models.cnn.run_network: per-layer decisions (17 FF / 3 CF),
-               images/s, peak memory, the FF kernel's device time and
-               launches in one profiled run; card vs CPU at batch 2 (bf16
-               card vs bf16 and float32 CPU); a w4 run over layers 2-20; three layers
+               models.cnn.run_network in float32, as the JAX example runs
+               it (the f32-activation entries): per-layer decisions (17 FF /
+               3 CF), images/s, peak memory, the f32 kernel's device time
+               and launches in one profiled run, card vs CPU at batch 2
+               within CNN_F32_RTOL of the output's largest value; the same
+               in bf16 (the bf16 kernels; bf16 card vs bf16 and float32
+               CPU); the entry point itself (launch.cnn --net ResNet18
+               --layers 20) on the card against --device cpu; a w4 run
+               over layers 2-20; three layers
                through ops.mpconv(mode="int") on int16 activations, bit-exact
                against the CPU.
 5. engine   -- the full 28-layer llama3.2-3b with seeded random weights
@@ -220,8 +233,9 @@ Phases, each printing one JSON line that names the card:
                matmul and mqa_decode must launch on it ("dryrun").
 13. examples -- the port's three examples on the card, as a user runs them
                (src/repro_torch/examples): quickstart (the 16-bit product
-               bit-exact, the ISA programs, the selector, the W4 matmul
-               through the CF kernel), serve_quantized (W4 + W8 + bf16
+               bit-exact, the ISA programs, the selector, the W4 matmul on
+               float32 activations with the selector's dataflow, CF: the
+               f32 CF entry), serve_quantized (W4 + W8 + bf16
                requests in one ServeEngine, streamed, its own assertions)
                and train_lm (the JAX example's 8-layer llama through
                run_with_restarts and the captured Trainer,
@@ -233,21 +247,26 @@ Phases, each printing one JSON line that names the card:
                tensor-parallel mapping with every row on every rank, captured:
                (a) full llama3.2-3b with phase 5's (w, kv) cycle, requests
                4-7 speculative (spec_k 4, a w4 draft); (b) mixtral-8x22b cut
-               to TP_MOE_LAYERS layer(s) at full width.  Streams equal to the
+               to TP_MOE_LAYERS layer(s) at full width; (c) full paligemma-3b
+               and full musicgen-medium through the one-shot prefix prefill
+               under the mapping, TP_PREFIX_REQUESTS requests of
+               TP_PREFIX_PROMPT tokens, phase 8's (w, kv) cycles, every
+               other request speculative.  Streams equal to the
                unmeshed engine's on the same traffic (run just before the
                counts are set to 0), the eager streams and launches equal to
                the captured ones, every captured step's key naming the
                split; meshed and unmeshed decode tokens/s, captures and
                capture seconds.  The three serving kernels must launch on
-               both paths ("engine_tp", "engine_tp_moe").  Phase 2 also
+               every path ("engine_tp", "engine_tp_moe", "engine_tp_paligemma",
+               "engine_tp_musicgen").  Phase 2 also
                holds paged decode (ctx 1024) and paged prefill (a 128-token
                chunk and a verify window) at one rank's kv heads of
                llama3.2-3b on a 2-wide model axis (4 x 3 x 128, kv8 / kv4 /
                bf16): "tp_kv_heads" and "tp_kv_heads_verify" in the kernels
                line.
 15. kernels line -- each kernel's launches on its path (all > 0): the serving
-               kernels in phase 5's first run, the FF and int matmuls in
-               phase 4, contiguous-cache decode in phase 6's first zamba2
+               kernels in phase 5's first run, the FF and int matmuls and
+               the two f32-activation entries in phase 4, contiguous-cache decode in phase 6's first zamba2
                run; the counts are set to 0 just before each path runs, and
                a replayed step adds the launches its graph holds.  The
                serving kernels must also launch on each of phase 5's sampled
@@ -281,7 +300,8 @@ Times come from CUDA events with the L2 cache flushed before every launch
 the bytes the call must move over 3.35 TB/s and its operations over 989
 TFLOP/s (H100 SXM bf16 dense peak, at the full 700 W power limit), or, for
 the int-mode matmul, its int8 tensor-core operations (one pass per pair of
-radix-256 digit planes) over 1979 TOP/s.  The int-mode plain version runs on
+radix-256 digit planes) over 1979 TOP/s, and for the f32-activation
+entries, their f32 operations over 67 TFLOP/s (outside the tensor cores).  The int-mode plain version runs on
 the CPU (CUDA has no int32 matmul), so its plain_ms is a host-clock time on
 the CPU.
 """
@@ -300,6 +320,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores (H100 SXM)
 MPMM_TOL = dict(atol=2e-2, rtol=1e-2)  # bf16 output: one rounding step each way
 ATTN_TOL = dict(atol=1e-2, rtol=1e-2)
 MPMM_SHAPES = [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072), (3072, 128256)]
@@ -352,12 +373,19 @@ TPU_KERNELS = {
     "mqa_decode": ("src/repro_torch/kernels/csrc/mqa_decode.cu",
                    "src/repro/kernels/mqa_decode.py:101 (mqa_decode_pallas: _decode_kernel "
                    ":40, pallas_call :133)"),
+    "mpmm_dequant_x32": ("src/repro_torch/kernels/csrc/mpmm.cu",
+                         "src/repro/kernels/mpmm.py:174 (mpmm_pallas, CF dequant on f32 x: "
+                         "_mpmm_cf_kernel :115, pallas_call :216)"),
+    "mpmm_ff_dequant_x32": ("src/repro_torch/kernels/csrc/mpmm.cu",
+                            "src/repro/kernels/mpmm.py:174 (mpmm_pallas, FF dequant on f32 x: "
+                            "_mpmm_ff_kernel :148, pallas_call :244)"),
 }
 # the profiled spec round's sum that counts each kernel's verify launches
 VERIFY_PROF = {"mpmm_dequant": "mpmm_verify_m", "paged_prefill": "paged_prefill_verify"}
 # the path each kernel's launches are read from in the kernels line
 KERNEL_PATH = {"mpmm_dequant": "serve", "paged_decode": "serve", "paged_prefill": "serve",
-               "mpmm_ff_dequant": "cnn", "mpmm_int": "cnn", "mqa_decode": "waves"}
+               "mpmm_ff_dequant": "cnn", "mpmm_int": "cnn", "mqa_decode": "waves",
+               "mpmm_dequant_x32": "cnn", "mpmm_ff_dequant_x32": "cnn"}
 # phase 2 mqa_decode cases: (label, B, S, Hkv, G, D, lengths, kv_bits); zamba2-7b
 # serving (S = 512 prompt + 32 new + 8), a long context, llama3.2-3b's GQA, and
 # the shape and plan of phase 12's llama3.2-3b decode step (one rank's 8 rows
@@ -380,6 +408,12 @@ WAVE_REQUESTS, WAVE_PROMPT, WAVE_NEW = 8, 512, 32
 # the ResNet18 convs phase 2 times the FF matmul at (batch 8): M = 8*Ho*Wo
 FF_LAYERS = ["conv1", "layer1.0.conv2", "layer3.1.conv1", "layer4.1.conv1"]
 CF_LAYERS = ["layer2.0.down", "layer3.0.down", "layer4.0.down"]  # the CF layers at w8
+# the f32-activation entries' phase-2 cases beside their ResNet18 layers:
+# the CF order at rows 3a / 3b's serving shapes, (w_bits, M, K, N)
+X32_SERVING_CASES = {"3a": (4, 8, 3072, 8192), "3b": (8, 256, 3072, 3072)}
+# phase 4's float32 CNN run against the CPU: f32 summation order only, so
+# within 1e-4 of the output's largest value (as the CPU run is held to JAX's)
+CNN_F32_RTOL = 1e-4
 INT_GRID = [(16, 16), (8, 8), (4, 8), (8, 16), (16, 8)]  # (w_bits, x_bits)
 INT_LAYERS = ["conv1", "layer2.0.down", "layer4.1.conv2"]  # phase 4 int mode: FF, CF, FF
 # gemma3-1b's attention (Hkv 1, G 4, head_dim 256, a 1024 window on 5 of 6
@@ -430,6 +464,11 @@ TP_WAVE_LAYERS = 7
 # heads with their G = 3 query heads each, head dim 128 (phase 2's paged
 # decode and prefill cases; the pools of ServeEngine(mesh=) hold these)
 TP_KV_HEADS = (4, 3, 128)
+# phase 14's one-shot-prefill families on the mesh: full paligemma-3b and
+# musicgen-medium, TP_PREFIX_REQUESTS requests of TP_PREFIX_PROMPT tokens
+# after their prefix embeddings, TP_PREFIX_NEW new, phase 8's (w, kv) cycles
+# with every other request speculative (spec_k SPEC_K, a w4 draft)
+TP_PREFIX_REQUESTS, TP_PREFIX_PROMPT, TP_PREFIX_NEW = 4, 256, 16
 MAMBA_STEPS, MAMBA_CKPT_EVERY, MAMBA_FAIL_AT = 12, 4, 6
 # phase 12, the dry run against the card at world size 1: phase 9's train
 # step, and full llama3.2-3b's W4 / kv8 static-wave decode_step at
@@ -1134,6 +1173,106 @@ def cnn_kernel_cases(torch, timer, gpu, summary) -> None:
     torch.cuda.empty_cache()
 
 
+def x32_tol(k: int, x, ws=None) -> dict:
+    """An f32-activation kernel against its plain version: every product of
+    an f32 x and an integer weight is exact in f32, so the two differ only
+    by summation order, at most about K f32 rounding steps of the largest
+    |x| * 127 (times the largest scale where the output is scaled)."""
+    scale = 1.0 if ws is None else ws.max().item()
+    return dict(atol=k * 2.0**-22 * x.abs().max().item() * 127 * scale, rtol=1e-5)
+
+
+def x32_kernel_cases(torch, timer, gpu, summary) -> None:
+    """Phase 2 for the f32-activation entries (``mpmm_dequant_x32``,
+    ``mpmm_ff_dequant_x32``: the CNN path and the quickstart in float32):
+    the CF order at ResNet18's CF layers and at rows 3a / 3b's serving
+    shapes, the FF order at ResNet18's FF layers (batch 8), w8 and (where K
+    is even) w4.  Each against its plain version on the card (cuBLAS in
+    full f32, TF32 off), twice for the same bits, its time beside the
+    plain version's, the library's (``torch.mm`` in f32 on weights
+    dequantized beforehand) and the bound at the card's f32 rate."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mpmm import (mpmm_cost, mpmm_cuda, mpmm_ff_cuda,
+                                          x32_launch_plan)
+    from repro_torch.kernels import ops
+    from repro_torch.models.cnn_zoo import resnet18_layers
+    from repro_torch.quant.pack import unpack_int4
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on: the f32 "
+          "plain version and library call would not compute in full f32")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    table = {l.name: l for l in resnet18_layers()}
+    b = 8
+
+    def case(name, label, x, wd, ws, w_bits, ff, representative):
+        m, k = x.shape
+        n = wd.shape[-1]
+        if ff:
+            def kern():
+                return mpmm_ff_cuda(x, wd, w_bits=w_bits)
+
+            def plain():
+                return ref.mpmm_ff_ref(x, wd, w_bits=w_bits)
+            tol = x32_tol(k, x)
+        else:
+            def kern():
+                return mpmm_cuda(x, wd, ws, w_bits=w_bits)
+
+            def plain():
+                return ref.mpmm_ref(x, wd, ws, w_bits=w_bits)
+            tol = x32_tol(k, x, ws)
+        got = kern()
+        check(got.dtype == torch.float32, f"{label}: the f32 entry wrote {got.dtype}")
+        if not ff:  # phase 12 holds the CF entry's meta contract to it
+            summary[name].setdefault("contract_cases", []).append(
+                ([(tuple(t.shape), t.dtype) for t in (x, wd, ws)],
+                 dict(w_bits=w_bits, out_dtype=torch.float32), tuple(got.shape), got.dtype))
+        err = max_err(torch, got, plain(), tol)
+        check(torch.equal(got, kern()), f"{label}: two runs gave other bits")
+        w_deq = (unpack_int4(wd, 0) if w_bits == 4 else wd).float()
+        if not ff:
+            w_deq = w_deq * ws
+        flops, nbytes = mpmm_cost(m, k, n, wd.numel(), x_bytes=4, out_bytes=4, scale=not ff)
+        b_ms, b_by = bound(nbytes, flops, PEAK_F32_FLOPS)
+        plan = x32_launch_plan(m, n, k, stage_k=ref.FF_STAGE_K if ff else None)
+        rec = {
+            "case": f"{label} w{w_bits} f32 x M={m} K={k} N={n}", "max_abs_err": err,
+            "tol": tol, "kernel_plan": {key: plan[key] for key in ("splits", "grid")},
+            "ms": timer(kern), "plain_ms": timer(plain, iters=3),
+            "library_ms": timer(lambda: torch.mm(x, w_deq)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        rec["tflops"] = flops / rec["ms"] / 1e9
+        note_case(summary, gpu, name, rec, representative)
+        return rec
+
+    def layer_x(layer):
+        img = torch.randn(b, layer.h, layer.w, layer.cin, generator=gen, device="cuda")
+        x = ref.conv_patches(img, layer.k, layer.stride, layer.padding)
+        return x.reshape(-1, x.shape[-1]).contiguous()
+
+    for name, ff, layer_names in (("mpmm_ff_dequant_x32", True, FF_LAYERS),
+                                  ("mpmm_dequant_x32", False, CF_LAYERS)):
+        for lname in layer_names:
+            x = layer_x(table[lname])
+            w = torch.randn(x.shape[1], table[lname].cout, generator=gen, device="cuda")
+            for w_bits in (8, 4):
+                if w_bits == 4 and x.shape[1] % 2:
+                    continue  # int4 packs K in pairs (conv1: K = 147)
+                wd, ws = ops.pack_weights(w / math.sqrt(x.shape[1]), w_bits)
+                rep = (lname, w_bits) in (("layer3.1.conv1", 8), ("layer3.0.down", 8))
+                case(name, lname, x, wd, ws, w_bits, ff, rep)
+            del x, w
+    for label, (w_bits, m, k, n) in X32_SERVING_CASES.items():
+        wd, ws = ops.pack_weights(torch.randn(k, n, generator=gen, device="cuda")
+                                  / math.sqrt(k), w_bits)
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        rec = case("mpmm_dequant_x32", f"serving {label}", x, wd, ws, w_bits, False, False)
+        summary["mpmm_dequant_x32"].setdefault("serving", {})[label] = {
+            key: rec[key] for key in LINE_KEYS}
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------- phase 3
 def step_card_vs_cpu(torch, gpu, base, layers: int = 2, q_start=(0, 40), c: int = 32,
                      what: str = "step", witness_all: bool = False) -> None:
@@ -1605,17 +1744,29 @@ def step_profile(torch, run_once, wall_s: float, step_graphs, step: str, capture
     return prof
 
 
+def x32_kernel(name: str) -> bool:
+    """A device kernel of the f32-activation entries (either order)."""
+    return "mpmm_x32_kernel" in name
+
+
 def cnn_run(torch, gpu) -> None:
-    """The paper's CNN path on the card: ResNet18 through run_network."""
+    """The paper's CNN path on the card: ResNet18 through run_network, in
+    float32 as the JAX example and ``launch.cnn`` run it (the f32-activation
+    entries), then in bf16 (the bf16 kernels), then the entry point itself."""
+    import io
+
     from repro_torch.core.perfmodel import select_dataflow
     from repro_torch.core.precision import Precision
     from repro_torch.kernels import ops
+    from repro_torch.launch import cnn as cnn_cli
     from repro_torch.models import cnn
 
     b = 8
     layers, params = cnn.init_network("ResNet18", 0, w_bits=8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(3)
-    x = torch.randn(b, 224, 224, 3, generator=gen, device="cuda").to(torch.bfloat16)
+    x32 = torch.randn(b, 224, 224, 3, generator=gen, device="cuda")
+    x = x32.to(torch.bfloat16)
+    cpu_params = [(wd.cpu(), ws.cpu()) for wd, ws in params]
 
     def run(inp, prm, lyr, device="cuda", w_bits=8):
         out, dec = cnn.run_network("ResNet18", inp, prm, lyr, w_bits=w_bits, device=device)
@@ -1623,30 +1774,56 @@ def cnn_run(torch, gpu) -> None:
             torch.cuda.synchronize()
         return out, dec
 
-    out, decisions = run(x, params, layers)
-    ff = [d for d in decisions if d.endswith(": ff")]
-    cf = [d.split(":")[0] for d in decisions if d.endswith(": cf")]
-    check(len(ff) == 17 and cf == CF_LAYERS,
-          f"ResNet18 w8 decisions: {len(ff)} FF, CF at {cf} (expected 17 FF, the 3 downsamples)")
-    check(tuple(out.shape) == (b, 7, 7, 512) and bool(torch.isfinite(out).all()),
-          f"ResNet18 output {tuple(out.shape)} is not finite [8, 7, 7, 512]")
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        run(x, params, layers)
-        times.append(time.perf_counter() - t0)
-    wall = sorted(times)[len(times) // 2]
-    peak = torch.cuda.max_memory_allocated()
-    profile = device_profile(torch, lambda: run(x, params, layers), wall,
-                             sums={"ff_dequant": ff_kernel})
-    check(profile["ff_dequant"]["launches"] > 0, "the profiled run shows no FF kernel")
+    def measured(inp, sums):
+        """Decisions, output, median wall of 5 runs, peak and one profiled run."""
+        out, decisions = run(inp, params, layers)
+        ff = [d for d in decisions if d.endswith(": ff")]
+        cf = [d.split(":")[0] for d in decisions if d.endswith(": cf")]
+        check(len(ff) == 17 and cf == CF_LAYERS, f"ResNet18 w8 decisions ({inp.dtype}): "
+              f"{len(ff)} FF, CF at {cf} (expected 17 FF, the 3 downsamples)")
+        check(tuple(out.shape) == (b, 7, 7, 512) and out.dtype == inp.dtype
+              and bool(torch.isfinite(out).all()),
+              f"ResNet18 output {tuple(out.shape)} {out.dtype} is not finite [8, 7, 7, 512]")
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run(inp, params, layers)
+            times.append(time.perf_counter() - t0)
+        wall = sorted(times)[len(times) // 2]
+        peak = torch.cuda.max_memory_allocated()
+        profile = device_profile(torch, lambda: run(inp, params, layers), wall, sums=sums)
+        return decisions, len(ff), len(cf), wall, peak, profile
 
-    # card vs CPU at batch 2: the CPU's bf16 run against its float32 run is
-    # the noise; the card's bf16 run must be as close to the CPU's bf16 run
-    # as twice that, in the largest and the mean difference (as in phase 3)
+    # ---- float32: the entry point's type; card vs CPU at batch 2 within
+    # CNN_F32_RTOL of the output's largest value (f32 summation order)
+    decisions, n_ff, n_cf, wall, peak, profile = measured(x32, {"x32": x32_kernel})
+    check(profile["x32"]["launches"] > 0, "the profiled f32 run shows no f32-activation kernel")
+    card2, _ = run(x32[:2], params, layers)
+    t0 = time.perf_counter()
+    cpu2, _ = run(x32[:2].cpu(), cpu_params, layers, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    diff, big = (card2.cpu() - cpu2).abs(), cpu2.abs().max().item()
+    emit({"phase": "cnn", "model": "ResNet18 (20 convs, 224x224x3)", "dtype": "float32",
+          "w_bits": 8, "batch": b, "strategy": "mixed", "decisions": decisions,
+          "ff_layers": n_ff, "cf_layers": n_cf, "images_per_s": b / wall,
+          "wall_ms_p50": wall * 1e3, "peak_mem_gb": peak / 1e9,
+          "card_vs_cpu_batch": 2, "max_abs_err": diff.max().item(),
+          "mean_abs_err": diff.mean().item(), "out_abs_max": big,
+          "tol": f"atol {CNN_F32_RTOL} x out_abs_max, rtol {CNN_F32_RTOL}",
+          "cpu_f32_s": cpu_s, "profile": profile, "gpu": gpu})
+    check(bool((diff <= CNN_F32_RTOL * big + CNN_F32_RTOL * cpu2.abs()).all()),
+          f"ResNet18 f32 card vs CPU differ by max {diff.max().item():.4g} (largest |out| "
+          f"{big:.4g}, tolerance {CNN_F32_RTOL} of it)")
+    del card2, cpu2
+
+    # ---- bf16: the bf16 kernels on the same network; card vs CPU at batch
+    # 2: the CPU's bf16 run against its float32 run is the noise; the card's
+    # bf16 run must be as close to the CPU's bf16 run as twice that, in the
+    # largest and the mean difference (as in phase 3)
+    decisions, n_ff, n_cf, wall, peak, profile = measured(x, {"ff_dequant": ff_kernel})
+    check(profile["ff_dequant"]["launches"] > 0, "the profiled run shows no FF kernel")
     x2 = x[:2]
-    cpu_params = [(wd.cpu(), ws.cpu()) for wd, ws in params]
     card2, _ = run(x2, params, layers)
     t0 = time.perf_counter()
     cpu16, _ = run(x2.cpu(), cpu_params, layers, device="cpu")
@@ -1654,9 +1831,9 @@ def cnn_run(torch, gpu) -> None:
     cpu32, _ = run(x2.cpu().float(), cpu_params, layers, device="cpu")
     card2 = card2.cpu().float()
     diff, noise = (card2 - cpu16.float()).abs(), (cpu32 - cpu16.float()).abs()
-    emit({"phase": "cnn", "model": "ResNet18 (20 convs, 224x224x3)", "w_bits": 8,
-          "batch": b, "strategy": "mixed", "decisions": decisions,
-          "ff_layers": len(ff), "cf_layers": len(cf), "images_per_s": b / wall,
+    emit({"phase": "cnn_bf16", "model": "ResNet18 (20 convs, 224x224x3)", "dtype": "bfloat16",
+          "w_bits": 8, "batch": b, "strategy": "mixed", "decisions": decisions,
+          "ff_layers": n_ff, "cf_layers": n_cf, "images_per_s": b / wall,
           "wall_ms_p50": wall * 1e3, "peak_mem_gb": peak / 1e9,
           "card_vs_cpu_batch": 2, "max_abs_err": diff.max().item(),
           "mean_abs_err": diff.mean().item(), "bf16_noise_max": noise.max().item(),
@@ -1668,6 +1845,33 @@ def cnn_run(torch, gpu) -> None:
           f"{diff.mean().item():.4g}, over twice the bf16 noise {noise.max().item():.4g} / "
           f"{noise.mean().item():.4g}")
     del card2, cpu16, cpu32, cpu_params
+
+    # ---- the entry point, as a user runs it (python -m repro_torch.launch.cnn
+    # --net ResNet18 --layers 20): float32 on the card against --device cpu,
+    # the same seeded input and weights
+    reports = {}
+    for device in ("cuda", "cpu"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            reports[device] = cnn_cli.main(["--net", "ResNet18", "--layers", "20",
+                                            "--device", device])
+            if device == "cuda":
+                torch.cuda.synchronize()
+            reports[device]["wall_s"] = time.perf_counter() - t0
+    card, cpu = reports["cuda"], reports["cpu"]
+    got, exp = card["activation"].cpu(), cpu["activation"]
+    diff, big = (got - exp).abs(), exp.abs().max().item()
+    emit({"phase": "cnn_entry_point", "argv": "--net ResNet18 --layers 20",
+          "dtype": card["dtype"], "shape": list(card["shape"]), "finite": card["finite"],
+          "decisions_equal": card["decisions"] == cpu["decisions"],
+          "max_abs_err": diff.max().item(), "out_abs_max": big,
+          "wall_s": [card["wall_s"], cpu["wall_s"]], "order": "[card, cpu]", "gpu": gpu})
+    check(card["dtype"] == "torch.float32" and card["finite"]
+          and card["decisions"] == cpu["decisions"], f"launch.cnn on the card: {card['dtype']}, "
+          f"finite {card['finite']}, decisions equal {card['decisions'] == cpu['decisions']}")
+    check(bool((diff <= CNN_F32_RTOL * big + CNN_F32_RTOL * exp.abs()).all()),
+          f"launch.cnn card vs CPU differ by max {diff.max().item():.4g} (largest |out| "
+          f"{big:.4g})")
 
     # w4: init_network raises as the JAX package does (conv1's K = 147 is
     # odd), so layers 2-20 get their w4 weights here
@@ -3191,7 +3395,8 @@ def tp_paths(torch, gpu, plain_train, plain_waves) -> None:
 
 # --------------------------------------------------------------- phase 12
 def contract_cases(torch, gpu, summary) -> None:
-    """(a) Each phase-2 case of the CF matmul and of mqa_decode once more
+    """(a) Each phase-2 case of the CF matmul (its bf16 and its f32
+    activations) and of mqa_decode once more
     through its meta contract: the kernel's operator
     (``torch.ops.repro_torch``, ``kernels/ops.py``) on meta tensors of the
     case's shapes and dtypes returns the kernel's output shape and dtype
@@ -3202,16 +3407,18 @@ def contract_cases(torch, gpu, summary) -> None:
 
     kernel_ops = getattr(torch.ops, ops.NAMESPACE)
     counts = {}
-    for name, op, fn in (("mpmm_dequant", kernel_ops.mpmm, mpmm_cuda),
-                         ("mqa_decode", kernel_ops.mqa_decode, mqa_decode_cuda)):
-        before = fn.launches
+    for name, op, fn, attr in (
+            ("mpmm_dequant", kernel_ops.mpmm, mpmm_cuda, "launches"),
+            ("mpmm_dequant_x32", kernel_ops.mpmm, mpmm_cuda, "x32_launches"),
+            ("mqa_decode", kernel_ops.mqa_decode, mqa_decode_cuda, "launches")):
+        before = getattr(fn, attr)
         cases = summary[name]["contract_cases"]
         for specs, kwargs, shape, dtype in cases:
             out = op(*(torch.empty(sh, dtype=dt, device="meta") for sh, dt in specs), **kwargs)
             check(out.is_meta and tuple(out.shape) == shape and out.dtype == dtype,
                   f"{name} contract on {specs}: {tuple(out.shape)} {out.dtype}, the kernel "
                   f"gave {shape} {dtype}")
-        check(fn.launches == before, f"{name}'s meta contract launched the kernel")
+        check(getattr(fn, attr) == before, f"{name}'s meta contract launched the kernel")
         counts[name] = len(cases)
     emit({"phase": "dryrun_contracts", "what": "each phase-2 case through its kernel's "
           "meta contract: the kernel's output shape and dtype, no launch",
@@ -3368,8 +3575,10 @@ def example_paths(torch, gpu) -> None:
         return out, time.perf_counter() - t0, text.getvalue().splitlines()
 
     q, q_s, q_text = run(quickstart, ["--device", "cuda"])
+    y = q["mpmm"].pop("y")
     check(q["product"] == -12345 * 23456 and q["mpmm"]["launches"] == 1
-          and q["mpmm"]["rel_err"] < 0.2, f"quickstart on the card: {q}")
+          and q["mpmm"]["rel_err"] < 0.2 and y.dtype == torch.float32
+          and bool(torch.isfinite(y).all()), f"quickstart on the card: {q}")
     emit({"phase": "example_quickstart", "wall_s": q_s, "product": q["product"],
           "programs": q["programs"], "selector": q["selector"], "mpmm": q["mpmm"],
           "stdout": q_text, "gpu": gpu})
@@ -3401,6 +3610,28 @@ def example_paths(torch, gpu) -> None:
 
 
 # --------------------------------------------------------------- phase 14
+def pali_tp_precision(i: int) -> dict:
+    """Phase 8's paligemma-3b (w, kv) cycle, every other request speculative."""
+    return {**pali_precision(i), "spec_k": SPEC_K if i % 2 else 0}
+
+
+def music_tp_precision(i: int) -> dict:
+    """Phase 8's musicgen-medium (w, kv) cycle, every other request speculative."""
+    return {**music_precision(i), "spec_k": SPEC_K if i % 2 else 0}
+
+
+# phase 14's one-shot-prefill paths: (key of the unmeshed reference, arch,
+# precision of request i)
+PREFIX_TP_PATHS = [("paligemma", "paligemma-3b", pali_tp_precision),
+                   ("musicgen", "musicgen-medium", music_tp_precision)]
+
+
+def prefix_tp_run(torch, cfg, precision, capture: bool = True, mesh=None):
+    """Phase 14's traffic for a one-shot-prefill arch (serve_run)."""
+    return serve_run(torch, cfg, 0, TP_PREFIX_REQUESTS, TP_PREFIX_PROMPT, TP_PREFIX_NEW,
+                     precision, capture, mesh=mesh)
+
+
 def engine_tp_paths(torch, gpu, count, eager_twin, plain) -> dict:
     """Phase 14, the paged engine on a mesh: ``ServeEngine(mesh=)`` on a 1 x
     1 (data, model) mesh over an NCCL group of one rank, under the TP
@@ -3409,11 +3640,13 @@ def engine_tp_paths(torch, gpu, count, eager_twin, plain) -> dict:
     tensor, so the streams must be the unmeshed engine's bit for bit): (a)
     full llama3.2-3b with phase 5's (w, kv) cycle, the second four requests
     speculative (``mixed_spec``); (b) mixtral-8x22b cut to TP_MOE_LAYERS
-    layer(s) at full width with phase 7's precisions.  Each runs captured
-    (every captured step's key naming the split), then eager through
-    ``eager_twin`` (identical streams and launches).  ``plain`` holds the
-    unmeshed runs of the same traffic, made before the counts were set to
-    0.  Returns each path's launches."""
+    layer(s) at full width with phase 7's precisions; (c) full paligemma-3b
+    and full musicgen-medium (the one-shot prefix prefill under the mapping)
+    with phase 8's (w, kv) cycles, every other request speculative
+    (``PREFIX_TP_PATHS``).  Each runs captured (every captured step's key
+    naming the split), then eager through ``eager_twin`` (identical streams
+    and launches).  ``plain`` holds the unmeshed runs of the same traffic,
+    made before the counts were set to 0.  Returns each path's launches."""
     import datetime
 
     import torch.distributed as dist
@@ -3438,6 +3671,19 @@ def engine_tp_paths(torch, gpu, count, eager_twin, plain) -> dict:
             return serve_run(torch, mixtral, 0, 8, MIXTRAL_PROMPT, 16, mixtral_precision,
                              capture, mesh=mesh)
 
+        def prefix_path(key, arch, precision):
+            cfg = get_config(arch)
+
+            def run(capture=True):
+                return prefix_tp_run(torch, cfg, precision, capture, mesh)
+
+            return (f"engine_tp_{key}", f"{arch} ({cfg.n_layers} layers, full width)", run,
+                    plain[key], {"requests": TP_PREFIX_REQUESTS, "prefix": cfg.prefix_len,
+                                 "prompt": TP_PREFIX_PROMPT, "new_tokens": TP_PREFIX_NEW,
+                                 "precisions": [precision(i) for i in
+                                                range(TP_PREFIX_REQUESTS)],
+                                 "spec": f"spec_k {SPEC_K}, w4 draft, requests 1 and 3"})
+
         paths = [("engine_tp", "llama3.2-3b (28 layers, full width)", llama_run,
                   plain["llama"], {"requests": 8, "prompt": 512, "shared_prefix": 256,
                                    "new_tokens": 32, "precisions": PRECISIONS,
@@ -3446,7 +3692,8 @@ def engine_tp_paths(torch, gpu, count, eager_twin, plain) -> dict:
                   "d_model 6144, 48 heads of 128, 8 experts of d_ff 16384, top-2)",
                   mixtral_run, plain["mixtral"], {"requests": 8, "prompt": MIXTRAL_PROMPT,
                                                   "new_tokens": 16,
-                                                  "precisions": MIXTRAL_PRECISIONS})]
+                                                  "precisions": MIXTRAL_PRECISIONS}),
+                 *(prefix_path(*p) for p in PREFIX_TP_PATHS)]
         for path, model, run, ref, traffic in paths:
             torch.cuda.empty_cache()
             (streams, stats, peak, wall, steps, *_), n = count(run)
@@ -3457,7 +3704,11 @@ def engine_tp_paths(torch, gpu, count, eager_twin, plain) -> dict:
                   f"{path}: no step captured and replayed: {steps}")
             check(len(steps["splits"]) == 1 and "'tp'" in steps["splits"][0],
                   f"{path}: captured-step keys without the split: {steps['splits']}")
-            check(path != "engine_tp" or stats.spec_rounds > 0, f"{path}: no spec round ran")
+            check(path == "engine_tp_moe" or stats.spec_rounds > 0, f"{path}: no spec round ran")
+            check(not path.startswith("engine_tp_") or path == "engine_tp_moe" or (
+                stats.prefills == TP_PREFIX_REQUESTS and stats.prefill_chunks == 0),
+                f"{path}: {stats.prefills} prefills, {stats.prefill_chunks} chunk calls: not "
+                "the one-shot prefill alone")
             emit({"phase": path, "model": model, "mesh": "1 x 1 (data, model), NCCL",
                   "mapping": "TP, every row on every rank (ServeEngine(mesh=))", **traffic,
                   "identical_streams": True, "order": "[no mesh, mesh]",
@@ -3530,24 +3781,32 @@ def main() -> int:
     timer = Timer(torch)
     summary = kernel_cases(torch, timer, gpu)
     cnn_kernel_cases(torch, timer, gpu, summary)
+    x32_kernel_cases(torch, timer, gpu, summary)
     mqa_kernel_cases(torch, timer, gpu, summary)
     sampler_case(torch, timer, gpu)
     step_card_vs_cpu(torch, gpu, llama)
     hybrid_step_card_vs_cpu(torch, gpu, zamba)
     torch.cuda.empty_cache()
 
-    counters = {"mpmm_dequant": mpmm_cuda, "paged_decode": paged_mqa_decode_cuda,
-                "paged_prefill": paged_mqa_prefill_cuda, "mpmm_ff_dequant": mpmm_ff_cuda,
-                "mpmm_int": mpmm_int_cuda, "mqa_decode": mqa_decode_cuda}
+    # each kernel's launch count: (wrapper, attribute); the f32-activation
+    # entries are counted apart from the bf16 ones of the same wrappers
+    counters = {"mpmm_dequant": (mpmm_cuda, "launches"),
+                "paged_decode": (paged_mqa_decode_cuda, "launches"),
+                "paged_prefill": (paged_mqa_prefill_cuda, "launches"),
+                "mpmm_ff_dequant": (mpmm_ff_cuda, "launches"),
+                "mpmm_int": (mpmm_int_cuda, "launches"),
+                "mqa_decode": (mqa_decode_cuda, "launches"),
+                "mpmm_dequant_x32": (mpmm_cuda, "x32_launches"),
+                "mpmm_ff_dequant_x32": (mpmm_ff_cuda, "x32_launches")}
 
     def count(path):
         """Drive one path with every count at 0; its launches per kernel
         (and, apart, the CF matmul's launches at prefill M)."""
-        for fn in counters.values():
-            fn.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
         mpmm_cuda.prefill_m_launches = 0
         result = path()
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
         launches["mpmm_dequant_prefill_m"] = mpmm_cuda.prefill_m_launches
         return result, launches
 
@@ -3919,9 +4178,9 @@ def main() -> int:
     _, example_launches = count(lambda: example_paths(torch, gpu))
     emit({"phase": "examples_launches", "launches": example_launches, "gpu": gpu})
     check(all(example_launches[k] > 0 for k in ("mpmm_dequant", "paged_decode",
-                                                 "paged_prefill")),
+                                                 "paged_prefill", "mpmm_dequant_x32")),
           f"the examples launched {example_launches}: expected the CF matmul and both paged "
-          "kernels (quickstart, serve_quantized)")
+          "kernels (serve_quantized) and the f32 CF entry (quickstart)")
 
     # ---- phase 14: the paged engine on a mesh over NCCL; its references (the
     # unmeshed engine on the same traffic) run before the counts are set to 0
@@ -3929,7 +4188,9 @@ def main() -> int:
     plain_tp = {"llama": engine_run(torch, 0, llama, precision=mixed_spec),
                 "mixtral": serve_run(torch, dataclasses.replace(mixtral_full,
                                                                 n_layers=TP_MOE_LAYERS),
-                                     0, 8, MIXTRAL_PROMPT, 16, mixtral_precision)}
+                                     0, 8, MIXTRAL_PROMPT, 16, mixtral_precision),
+                **{key: prefix_tp_run(torch, get_config(arch), precision)
+                   for key, arch, precision in PREFIX_TP_PATHS}}
     engine_tp_launches = engine_tp_paths(torch, gpu, count, eager_twin, plain_tp)
     del plain_tp
 
@@ -3967,7 +4228,8 @@ def main() -> int:
                "tp": tp_launches, "dryrun": dry_launches, "examples": example_launches,
                **engine_tp_launches}
     for path in ("sampled", "spec", "spec_sampled", "gemma", "gemma_spec", "mixtral",
-                 "minitron", "paligemma_spec", "engine_tp", "engine_tp_moe"):
+                 "minitron", "paligemma_spec", "engine_tp", "engine_tp_moe",
+                 "engine_tp_paligemma", "engine_tp_musicgen"):
         for name in ("mpmm_dequant", "paged_decode", "paged_prefill"):
             check(by_path[path][name] > 0, f"{name} was never launched on the {path} path")
     # the one-shot prefix prefill runs plain attention; paged prefill serves
@@ -4041,6 +4303,11 @@ def main() -> int:
             **({"paligemma_heads": {**s["paligemma_heads"], "calls_dryrun_d256_step":
                                     dry_calls["decode_d256"].get("mqa_decode", 0)}}
                if "paligemma_heads" in s else {}),
+            # the f32 CF entry at rows 3a / 3b's serving shapes, and its
+            # launches in the quickstart's f32 section (phase 13)
+            **({"serving": {**s["serving"],
+                            "launches_examples_path": by_path["examples"][name]}}
+               if "serving" in s else {}),
         })
     print(json.dumps({"kernels": kernels, "total_s": time.perf_counter() - t_start}))
     print(gpu)

@@ -4,9 +4,10 @@ a few minutes.
 1. Bit-exact multi-precision arithmetic: a 16-bit MAC out of 4-bit multipliers
 2. The custom ISA executing a convolution (FF and CF dataflows)
 3. The mixed-dataflow selector on GoogLeNet layers
-4. A W4 matmul through the kernel path: the CF dequant kernel on the card
-   (bf16 activations, as the serving paths feed it), its plain version on
-   the CPU
+4. A W4 matmul through the kernel path on float32 activations, the
+   dataflow picked by the cycle model's selector, as the JAX example runs
+   it: the dequant kernel's float32-activation entry on the card, its plain
+   version on the CPU
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
 """
@@ -72,19 +73,22 @@ def main(argv: Optional[list[str]] = None) -> dict:
               f"({perf.area_eff:.1f} GOPS/mm^2)")
         out["selector"][layer.name] = (df.name, perf.gops, perf.area_eff)
 
-    kernel = "the CF kernel" if dev.type == "cuda" else "its plain version"
-    print(f"\n== 4. multi-precision matmul (W4A16, {kernel}) ==")
+    kernel = "the f32 kernel" if dev.type == "cuda" else "its plain version"
+    print(f"\n== 4. multi-precision matmul (W4, f32 activations, {kernel}) ==")
     xf = torch.from_numpy(rng.normal(size=(64, 512)).astype(np.float32)).to(dev)
     wf = torch.from_numpy(rng.normal(size=(512, 256)).astype(np.float32)).to(dev)
     wd, ws = ops.pack_weights(wf, 4)
-    before = mpmm_mod.mpmm_cuda.launches
-    y = ops.mpmm(xf.to(torch.bfloat16), wd, ws, w_bits=4, dataflow="cf").float()
+    wrappers = (mpmm_mod.mpmm_cuda, mpmm_mod.mpmm_ff_cuda)
+    before = sum(fn.x32_launches for fn in wrappers)
+    y = ops.mpmm(xf, wd, ws, w_bits=4, dataflow="auto")
     ref = xf @ wf
     rel = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
     print(f"   int4 weights: payload {wd.numel()} B (bf16 would be {wf.numel()*2} B), "
           f"rel quant error {rel:.3f}")
-    out["mpmm"] = {"payload_bytes": wd.numel(), "rel_err": rel,
-                   "launches": mpmm_mod.mpmm_cuda.launches - before}
+    out["mpmm"] = {"payload_bytes": wd.numel(), "rel_err": rel, "y": y.cpu(),
+                   "dataflow": ops.select_matmul_dataflow(xf.shape[0], wf.shape[1],
+                                                          xf.shape[1]).name,
+                   "launches": sum(fn.x32_launches for fn in wrappers) - before}
     print("\nquickstart OK")
     return out
 

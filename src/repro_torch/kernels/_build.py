@@ -32,6 +32,8 @@ _SIGNATURES = {
     "mpmm_dequant_f32": [_P] * 5 + [_I] * 7 + [_P],
     "mpmm_ff_dequant_f32": [_P] * 4 + [_I] * 6 + [_P],
     "mpmm_ff_block_m": [_I] * 3,
+    "mpmm_dequant_x32": [_P] * 5 + [_I] * 6 + [_P],
+    "mpmm_ff_dequant_x32": [_P] * 4 + [_I] * 6 + [_P],
     "mpmm_int_i32": [_P] * 4 + [_I] * 7 + [_P],
     "mqa_decode": [_P] * 8 + [_I] * 9 + [_F, _P],
     "paged_decode_bf16": [_P] * 13 + [_I] * 13 + [_F, _P],

@@ -37,6 +37,12 @@
 // K <= 512), and the same fixed-order second pass adds the stages, as the
 // Pallas FF grid does.
 //
+// Float32 activations (the Pallas kernel's "x is bf16/f32"; the CNN path and
+// the quickstart run f32) take a kernel of their own on the CUDA cores, in
+// both orders (entries mpmm_dequant_x32, mpmm_ff_dequant_x32; described at
+// mpmm_x32_kernel below).  The bf16 kernels and entries above are untouched
+// by it.
+//
 // Ragged M, N and K edges are masked inside the kernels (the JAX wrapper
 // pads to blocks instead).  The wrappers (kernels/mpmm.py) check shapes,
 // types and 16-byte alignment before they launch; the CF wrapper also
@@ -502,6 +508,142 @@ int mpmm_dequant(const void* x, const void* w, const void* scale, T* out, void* 
   return (int)cudaGetLastError();
 }
 
+// ---- float32 activations (entries mpmm_dequant_x32, mpmm_ff_dequant_x32) --
+// The Pallas body dots x against w.astype(x.dtype) with an f32 accumulator,
+// so with f32 x every product is an f32 product of x and the exact integer
+// weight.  wgmma has no f32 operand (its TF32 form rounds x to 10 mantissa
+// bits), so this kernel multiplies on the CUDA cores in f32 FMA: what bounds
+// it is the card's f32 rate (67 TFLOP/s outside the tensor cores), not the
+// bytes.  Block tile 64 x-rows by 64 weight columns, 256 threads of 4 x 4
+// outputs each (4 consecutive rows by 4 consecutive columns, read from
+// shared memory as one float4 each per k); K advances 16 rows a step
+// through two shared-memory buffers, the next step's x and weights loaded
+// into registers while the current one is multiplied.  x lands transposed
+// (k-major); the weights land dequantized to f32 and unscaled (int8, or
+// int4 packed along K: byte row r holds K index 2r in the low nibble and
+// 2r + 1 in the high one).  Ragged M, N and K edges load as zeros and are
+// masked at the store.  A block sums its K range in k order from zero; the
+// K split (CF) or the 512-row stages (FF) are the grid's z, and their
+// partials go through the same fixed-order second passes as the bf16
+// kernel's (mpmm_splitk_reduce, sum_stages).
+constexpr int X32_BM = 64;
+constexpr int X32_BN = 64;
+constexpr int X32_BK = 16;
+constexpr int X32_THREADS = 256;
+constexpr int X32_XPITCH = X32_BM + 4;  // floats; keeps float4 rows aligned
+
+// One split (or stage) per blockIdx.z.  out non-null (the CF order with one
+// split): scale * sum written to out; otherwise the unscaled sum written to
+// partial's slice of this split (partial may be out itself for one FF stage).
+template <int W_BITS>
+__global__ void __launch_bounds__(X32_THREADS)
+mpmm_x32_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
+                const float* __restrict__ scale, float* out, float* partial, int M, int N,
+                int K, int k_per_split) {
+  __shared__ __align__(16) float xs[2][X32_BK][X32_XPITCH];
+  __shared__ __align__(16) float ws[2][X32_BK][X32_BN];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;  // output columns tx*4.., rows ty*4..
+  const int m0 = blockIdx.y * X32_BM, n0 = blockIdx.x * X32_BN;
+  const int split = blockIdx.z;
+  const int k_begin = split * k_per_split;
+  const int k_end = min(K, k_begin + k_per_split);
+  const int n_kt = (k_end - k_begin + X32_BK - 1) / X32_BK;
+  // this thread's loads: x row lr, k lk..lk+3; weight k row wk, columns wn..wn+3
+  const int lr = tid / 4, lk = (tid % 4) * 4;
+  const int wk = tid / 16, wn = (tid % 16) * 4;
+
+  float xr[4], wr[4];
+  auto load = [&](int kt) {
+    const int k0 = k_begin + kt * X32_BK;
+    const int gm = m0 + lr;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gk = k0 + lk + j;
+      xr[j] = gm < M && gk < k_end ? x[(int64_t)gm * K + gk] : 0.f;
+    }
+    const int gk = k0 + wk;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + wn + j;
+      float v = 0.f;
+      if (gk < k_end && gn < N) {
+        if constexpr (W_BITS == 8) {
+          v = (float)w[(int64_t)gk * N + gn];
+        } else {
+          const int8_t b = w[(int64_t)(gk >> 1) * N + gn];
+          v = (float)(gk & 1 ? (int8_t)(b >> 4) : (int8_t)((int8_t)(b << 4) >> 4));
+        }
+      }
+      wr[j] = v;
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) xs[buf][lk + j][lr] = xr[j];
+    *reinterpret_cast<float4*>(&ws[buf][wk][wn]) = make_float4(wr[0], wr[1], wr[2], wr[3]);
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  if (n_kt > 0) {
+    load(0);
+    store(0);
+  }
+  __syncthreads();
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < n_kt) load(kt + 1);
+#pragma unroll
+    for (int kk = 0; kk < X32_BK; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&xs[cur][kk][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&ws[cur][kk][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (kt + 1 < n_kt) store(cur ^ 1);  // the buffer step kt - 1 read, before the sync
+    __syncthreads();
+  }
+
+  const int gn0 = n0 + tx * 4;
+  if (gn0 >= N) return;
+  const bool direct = out != nullptr;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gm = m0 + ty * 4 + i;
+    if (gm >= M) continue;
+    float* row = direct ? out + (int64_t)gm * N : partial + ((int64_t)split * M + gm) * N;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = gn0 + j;
+      if (gn < N) row[gn] = direct ? acc[i][j] * scale[gn] : acc[i][j];
+    }
+  }
+}
+
+cudaError_t launch_x32(const float* x, const int8_t* w, const float* scale, float* out,
+                       float* partial, int M, int N, int K, int w_bits, int splits,
+                       int k_per_split, cudaStream_t s) {
+  dim3 grid((N + X32_BN - 1) / X32_BN, (M + X32_BM - 1) / X32_BM, splits);
+  if (w_bits == 8) {
+    mpmm_x32_kernel<8><<<grid, X32_THREADS, 0, s>>>(x, w, scale, out, partial, M, N, K,
+                                                    k_per_split);
+  } else if (w_bits == 4) {
+    mpmm_x32_kernel<4><<<grid, X32_THREADS, 0, s>>>(x, w, scale, out, partial, M, N, K,
+                                                    k_per_split);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x [M, K] bf16, w [K or K/2, N] int8, scale [N] f32, out [M, N] bf16.
@@ -555,3 +697,56 @@ extern "C" int mpmm_ff_dequant_f32(const void* x, const void* w, void* out, void
 
 // The block rows mpmm_ff_dequant_f32 launches an [M, K] x [K, N] product with.
 extern "C" int mpmm_ff_block_m(int M, int N, int K) { return ff_block_m(M, N, K); }
+
+// The CF order on float32 activations.  x [M, K] f32, w [K or K/2, N] int8
+// (int4 packed along K; K even), scale [N] f32, out [M, N] f32 = scale * the
+// f32 sum.  partial: [splits, M, N] f32 scratch when splits > 1 (else
+// unused); k_per_split a multiple of 16 with (splits - 1) * k_per_split < K
+// <= splits * k_per_split (kernels/mpmm.py::x32_launch_plan), else
+// cudaErrorInvalidValue and nothing is launched.  Returns cudaGetLastError()
+// after the launches.
+extern "C" int mpmm_dequant_x32(const void* x, const void* w, const void* scale, void* out,
+                                void* partial, int M, int N, int K, int w_bits, int splits,
+                                int k_per_split, void* stream) {
+  if (splits < 1 || k_per_split < 1 || k_per_split % X32_BK ||
+      (int64_t)splits * k_per_split < K || (int64_t)(splits - 1) * k_per_split >= K ||
+      (w_bits == 4 && K % 2)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* sp = static_cast<const float*>(scale);
+  auto* op = static_cast<float*>(out);
+  auto* pp = static_cast<float*>(partial);
+  const cudaError_t err =
+      launch_x32(static_cast<const float*>(x), static_cast<const int8_t*>(w), sp,
+                 splits == 1 ? op : nullptr, pp, M, N, K, w_bits, splits, k_per_split, s);
+  if (err != cudaSuccess) return (int)err;
+  if (splits > 1) {
+    const int64_t total = (int64_t)M * N;
+    mpmm_splitk_reduce<float><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(pp, sp, op, M,
+                                                                             N, splits);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The FF order on float32 activations.  x [M, K] f32, w as above, out [M, N]
+// f32: the unscaled sum of the K stages of stage_k rows, in stage order.
+// part: [stages, M, N] f32 scratch when stages > 1 (else unused); stage_k
+// must be the FF stage (512) and stages ceil(K / stage_k), else
+// cudaErrorInvalidValue.  Returns cudaGetLastError() after the launches.
+extern "C" int mpmm_ff_dequant_x32(const void* x, const void* w, void* out, void* part,
+                                   int M, int N, int K, int w_bits, int stage_k, int stages,
+                                   void* stream) {
+  if (stage_k != FF_STAGE_K || !stages_fit(K, stage_k, stages) || (w_bits == 4 && K % 2)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* op = static_cast<float*>(out);
+  float* pp = stages > 1 ? static_cast<float*>(part) : op;
+  const cudaError_t err =
+      launch_x32(static_cast<const float*>(x), static_cast<const int8_t*>(w), nullptr, nullptr,
+                 pp, M, N, K, w_bits, stages, stage_k, s);
+  if (err != cudaSuccess) return (int)err;
+  if (stages > 1) launch_sum_stages(pp, op, (int64_t)M * N, stages, s);
+  return (int)cudaGetLastError();
+}

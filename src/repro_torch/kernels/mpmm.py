@@ -8,12 +8,16 @@ Three kernels replace ``repro/kernels/mpmm.py::mpmm_pallas``:
   (or, with ``out_dtype=torch.float32``, the scaled f32 sum uncast: a
   row-split partial product, summed over ``model`` before its one cast).
   :func:`launch_plan` picks its kernel, tiles and K split from the shape.
-  Plain version :func:`repro_torch.kernels.ref.mpmm_ref`.
+  Float32 ``x`` (the CNN path, the quickstart) takes the entry
+  ``mpmm_dequant_x32`` instead, an f32 FMA kernel whose output is f32 (the
+  Pallas kernel writes ``x.dtype``); :func:`x32_launch_plan` picks its K
+  split.  Plain version :func:`repro_torch.kernels.ref.mpmm_ref`.
 - ``mpmm_ff_cuda`` (``csrc/mpmm.cu`` too): dequant mode, FF order.  The same
   product with k outermost, K stages of 512 rows added in stage order into
-  an unscaled f32 output.  It runs on the CF order's tensor-core kernel with
-  the K split fixed at the stages and an unscaled f32 epilogue
-  (``launch_plan(..., stage_k=512)``).  Plain version
+  an unscaled f32 output.  On bf16 ``x`` it runs on the CF order's
+  tensor-core kernel with the K split fixed at the stages and an unscaled
+  f32 epilogue (``launch_plan(..., stage_k=512)``); on f32 ``x`` on the f32
+  kernel with the same stages (``mpmm_ff_dequant_x32``).  Plain version
   :func:`repro_torch.kernels.ref.mpmm_ff_ref`.
 - ``mpmm_int_cuda`` (``csrc/mpmm_int.cu``): int mode, CF or FF order.  int8 /
   int16 ``x`` times int4 / int8 / int16 weights, the exact int32 product mod
@@ -24,7 +28,9 @@ Three kernels replace ``repro/kernels/mpmm.py::mpmm_pallas``:
 
 The dispatch wrapper ``ops.mpmm`` runs the plain versions for CPU tensors;
 ``chip_smoke.py`` holds each kernel against its plain version.  Each
-wrapper's ``launches`` counts the calls that launched its kernel.
+wrapper's ``launches`` counts the calls that launched its kernel (for the
+dequant wrappers, on bf16 ``x``), and ``x32_launches`` the calls that
+launched the f32-activation kernel.
 :func:`mpmm_contract` is the CF kernel's contract on meta tensors (the dry
 run): ``mpmm_cuda``'s checks and allocations (:func:`launch_buffers`),
 nothing launched.  :func:`mpmm_cost` is the work of one call.
@@ -49,6 +55,10 @@ TC_MIN_STEPS = 2  # K steps a split keeps at least
 TC_SPLIT_MIN_K = 512  # a shorter K is not split: the second pass would cost more
 INT_TILE = 64  # block rows and columns of the int-mode kernel (csrc: IB_M, IB_N)
 INT_SPLIT_MIN_K = 1024  # its CF order splits no shorter K: the second pass would cost more
+X32_TILE = 64  # block rows and columns of the f32-activation kernel (csrc: X32_BM, X32_BN)
+X32_BK = 16  # its K step; a split is a whole number of steps (csrc: X32_BK)
+X32_SPLIT_MIN_K = 256  # K rows an f32 split keeps at least
+X32_DTYPES = (torch.bfloat16, torch.float32)  # the dequant kernels' activations
 
 
 def wave_fill(blocks: int, per_sm: int | None = None) -> float:
@@ -140,6 +150,28 @@ def launch_plan(m: int, n: int, k: int, stage_k: int | None = None,
             "k_per_split": per, "grid": (col_tiles, -(-m // block_m), splits)}
 
 
+def x32_launch_plan(m: int, n: int, k: int, stage_k: int | None = None) -> dict:
+    """How the f32-activation kernel launches an [M, K] x [K, N] product:
+    64 x 64 output tiles and K in ``splits`` ranges of ``k_per_split`` rows
+    (the grid's z, summed in range order by a second pass).  With
+    ``stage_k`` (the FF order) one range per stage.  The CF order splits K
+    only where K >= ``TC_SPLIT_MIN_K`` and the tiles alone give fewer than
+    two blocks per SM: into as many ranges as bring the grid to two blocks
+    per SM, each a whole number of 16-row steps and at least
+    ``X32_SPLIT_MIN_K`` rows."""
+    tiles = -(-n // X32_TILE) * -(-m // X32_TILE)
+    if stage_k is not None:
+        per = stage_k
+    elif k >= TC_SPLIT_MIN_K and tiles < 2 * SMS:
+        want = min(-(-2 * SMS // tiles), k // X32_SPLIT_MIN_K)
+        per = -(-(-(-k // want)) // X32_BK) * X32_BK
+    else:
+        per = -(-k // X32_BK) * X32_BK
+    splits = -(-k // per)
+    return {"kernel": "f32_fma", "block_m": X32_TILE, "block_n": X32_TILE, "splits": splits,
+            "k_per_split": per, "grid": (-(-n // X32_TILE), -(-m // X32_TILE), splits)}
+
+
 def mpmm_cost(m: int, k: int, n: int, w_bytes: int, x_bytes: int = 2, out_bytes: int = 2,
               scale: bool = True) -> tuple[int, int]:
     """(FLOPs, HBM bytes) of one [M, K] x [K, N] launch: 2·M·N·K, and x
@@ -149,64 +181,98 @@ def mpmm_cost(m: int, k: int, n: int, w_bytes: int, x_bytes: int = 2, out_bytes:
     return 2 * m * n * k, m * k * x_bytes + w_bytes + 4 * n * scale + m * n * out_bytes
 
 
+def _expect_dequant(x, w_data, w_bits: int, m: int, k: int, n: int) -> bool:
+    """The dequant kernels' checks of x ([M, K] bf16 or f32) and the packed
+    weights; True for f32 x.  The bf16 kernels copy 16 bytes at a time, the
+    f32 kernel loads elements."""
+    x32 = x.dtype == torch.float32
+    expect(x, "x", x.dtype if x.dtype in X32_DTYPES else torch.bfloat16, (m, k), x.device,
+           align=4 if x32 else 16)
+    expect(w_data, "w_data", torch.int8, (k // 2 if w_bits == 4 else k, n), x.device,
+           align=1 if x32 else 16)
+    return x32
+
+
 def launch_buffers(
     x: torch.Tensor, w_data: torch.Tensor, w_scale: torch.Tensor, w_bits: int,
     out_dtype: torch.dtype,
 ) -> tuple[torch.Tensor, torch.Tensor, dict | None]:
-    """The CF kernel's checks on CUDA or meta tensors, then what a launch
+    """The CF kernels' checks on CUDA or meta tensors, then what a launch
     allocates: (out [M, N] ``out_dtype``, the f32 partials of its K split
-    (``out`` itself when it has one split), its :func:`launch_plan`, or
-    None at M = 0, where nothing is launched)."""
+    (``out`` itself when it has one split), its plan (:func:`launch_plan`,
+    or :func:`x32_launch_plan` for f32 ``x``), or None at M = 0, where
+    nothing is launched).  ``x`` is bf16 or f32; f32 ``x`` writes f32."""
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"mpmm kernel writes bf16 or f32, got {out_dtype}")
     if w_bits not in (4, 8):
         raise ValueError(f"mpmm kernel takes w_bits 4 or 8, got {w_bits}")
+    x32 = x.dtype == torch.float32
+    if x32 and out_dtype != torch.float32:
+        raise ValueError(f"the f32-activation kernel writes f32, got out_dtype={out_dtype}")
     m, k = x.shape
     n = w_data.shape[-1]
     if w_bits == 4 and k % 2:
         raise ValueError(f"int4 weights pack K in pairs; K={k} is odd")
-    if n % 8:
+    if n % 8 and not x32:
         raise ValueError(f"mpmm kernel reads 8 columns per load; N={n} % 8 != 0")
     if k == 0:
         raise ValueError("mpmm kernel needs K >= 1")
     dev = x.device
-    expect(x, "x", torch.bfloat16, (m, k), dev, align=16)
-    expect(w_data, "w_data", torch.int8, (k // 2 if w_bits == 4 else k, n), dev, align=16)
-    expect(w_scale.reshape(-1), "w_scale", torch.float32, (n,), dev, align=16)
+    _expect_dequant(x, w_data, w_bits, m, k, n)
+    expect(w_scale.reshape(-1), "w_scale", torch.float32, (n,), dev, align=4 if x32 else 16)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0:
         return out, out, None  # nothing to compute
-    plan = launch_plan(m, n, k, w_bits=w_bits)
+    plan = x32_launch_plan(m, n, k) if x32 else launch_plan(m, n, k, w_bits=w_bits)
     # one split writes out directly (bf16), or its partial into out (f32)
     partial = (torch.empty((plan["splits"], m, n), dtype=torch.float32, device=dev)
                if plan["splits"] > 1 else out)
     return out, partial, plan
 
 
+def _out_dtype(x: torch.Tensor, out_dtype) -> torch.dtype:
+    """The CF kernels' output type: ``out_dtype``, by default bf16 for bf16
+    ``x`` and f32 for f32 ``x`` (the Pallas kernel writes ``x.dtype``)."""
+    if out_dtype is not None:
+        return out_dtype
+    return torch.float32 if x.dtype == torch.float32 else torch.bfloat16
+
+
 def mpmm_contract(
     x: torch.Tensor, w_data: torch.Tensor, w_scale: torch.Tensor, *, w_bits: int,
-    out_dtype: torch.dtype = torch.bfloat16,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """The CF kernel on meta tensors: :func:`mpmm_cuda`'s checks and
     allocations, its output returned, nothing launched."""
     if not x.is_meta:
         raise ValueError("mpmm_contract takes meta tensors")
-    return launch_buffers(x, w_data, w_scale, w_bits, out_dtype)[0]
+    return launch_buffers(x, w_data, w_scale, w_bits, _out_dtype(x, out_dtype))[0]
 
 
 def mpmm_cuda(
     x: torch.Tensor, w_data: torch.Tensor, w_scale: torch.Tensor, *, w_bits: int,
-    out_dtype: torch.dtype = torch.bfloat16,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Launch the dequant matmul on ``x``'s card: [M, K] bf16 -> [M, N]
-    ``out_dtype``, bf16 (the scaled sum cast once) or f32 (uncast)."""
+    ``out_dtype``, bf16 (the default: the scaled sum cast once) or f32
+    (uncast); [M, K] f32 -> [M, N] f32 on the f32-activation kernel."""
     if not x.is_cuda:
         raise ValueError("mpmm_cuda takes CUDA tensors")
+    out_dtype = _out_dtype(x, out_dtype)
     out, partial, plan = launch_buffers(x, w_data, w_scale, w_bits, out_dtype)
     if plan is None:
         return out
     m, k = x.shape
     n = w_data.shape[-1]
+    if x.dtype == torch.float32:
+        err = _build.lib().mpmm_dequant_x32(
+            x.data_ptr(), w_data.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+            partial.data_ptr(), m, n, k, w_bits, plan["splits"], plan["k_per_split"],
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        _build.check(err, "mpmm_dequant_x32")
+        mpmm_cuda.x32_launches += 1
+        return out
     entry = "mpmm_dequant_bf16" if out_dtype == torch.bfloat16 else "mpmm_dequant_f32"
     err = getattr(_build.lib(), entry)(
         x.data_ptr(), w_data.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
@@ -219,8 +285,9 @@ def mpmm_cuda(
     return out
 
 
-mpmm_cuda.launches = 0
+mpmm_cuda.launches = 0  # launches on bf16 x (either output type)
 mpmm_cuda.prefill_m_launches = 0  # of them, launches at M > 8 (prefill M)
+mpmm_cuda.x32_launches = 0  # launches of the f32-activation entry
 
 
 def _dims(x, w_data, w_bits: int, name: str) -> tuple[int, int, int]:
@@ -247,27 +314,32 @@ def _stage_scratch(m, n, stages, dtype, out) -> torch.Tensor:
 
 
 def mpmm_ff_cuda(x: torch.Tensor, w_data: torch.Tensor, *, w_bits: int) -> torch.Tensor:
-    """Launch the FF-order dequant matmul on ``x``'s card: [M, K] bf16 ->
-    [M, N] f32, the unscaled sum of the 512-row K stages in stage order."""
+    """Launch the FF-order dequant matmul on ``x``'s card: [M, K] bf16 or
+    f32 -> [M, N] f32, the unscaled sum of the 512-row K stages in stage
+    order (f32 ``x`` on the f32-activation kernel)."""
     if w_bits not in (4, 8):
         raise ValueError(f"mpmm kernel takes w_bits 4 or 8, got {w_bits}")
     m, k, n = _dims(x, w_data, w_bits, "mpmm_ff_cuda")
     dev = x.device
-    expect(x, "x", torch.bfloat16, (m, k), dev, align=16)
-    expect(w_data, "w_data", torch.int8, (k // 2 if w_bits == 4 else k, n), dev, align=16)
+    x32 = _expect_dequant(x, w_data, w_bits, m, k, n)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    stages = launch_plan(m, n, k, stage_k=FF_STAGE_K)["splits"]
+    stages = -(-k // FF_STAGE_K)
     part = _stage_scratch(m, n, stages, torch.float32, out)
-    err = _build.lib().mpmm_ff_dequant_f32(
+    entry = "mpmm_ff_dequant_x32" if x32 else "mpmm_ff_dequant_f32"
+    err = getattr(_build.lib(), entry)(
         x.data_ptr(), w_data.data_ptr(), out.data_ptr(), part.data_ptr(), m, n, k, w_bits,
         FF_STAGE_K, stages, torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(err, "mpmm_ff_dequant_f32")
-    mpmm_ff_cuda.launches += 1
+    _build.check(err, entry)
+    if x32:
+        mpmm_ff_cuda.x32_launches += 1
+    else:
+        mpmm_ff_cuda.launches += 1
     return out
 
 
-mpmm_ff_cuda.launches = 0
+mpmm_ff_cuda.launches = 0  # launches on bf16 x
+mpmm_ff_cuda.x32_launches = 0  # launches of the f32-activation entry
 
 _INT_X = {torch.int8: 8, torch.int16: 16}
 _INT_W = {4: torch.int8, 8: torch.int8, 16: torch.int16}

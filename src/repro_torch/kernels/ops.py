@@ -182,9 +182,11 @@ def mpmm(
     dequant mode returns x.dtype: CF fuses the scale on the f32 sum
     (``out_dtype=torch.float32``: that scaled sum uncast, CF only); FF sums
     512-row K stages into an f32 accumulator, then the scale is applied in
-    f32 and the result cast once.  On the card the activations must be bf16.
-    int mode (x int8/int16) returns f32 = int32 product (exact mod 2^32) *
-    w_scale.  ``dataflow="auto"`` asks the cycle model's selector."""
+    f32 and the result cast once.  On the card (and in the meta contract)
+    the activations are bf16 or f32, each with its own kernel; any other
+    type raises.  int mode (x int8/int16) returns f32 = int32 product (exact
+    mod 2^32) * w_scale.  ``dataflow="auto"`` asks the cycle model's
+    selector."""
     if mode not in ("int", "dequant"):
         raise ValueError(f"mode must be 'int' or 'dequant', got {mode!r}")
     if dataflow not in ("ff", "cf", "auto"):
@@ -214,9 +216,9 @@ def mpmm(
         return (acc.float() * w_scale.float()).reshape(*lead, n)
     if x_bits != 16:
         raise ValueError(f"dequant mode takes 16-bit activations, got x_bits={x_bits}")
-    if x2.device.type != "cpu" and x2.dtype != torch.bfloat16:
-        raise ValueError(f"the dequant kernels take bf16 activations on the card (and in "
-                         f"their contract), got {x2.dtype}")
+    if x2.device.type != "cpu" and x2.dtype not in mpmm_mod.X32_DTYPES:
+        raise ValueError(f"the dequant kernels take bf16 activations or float32 ones on the "
+                         f"card (and in their contract), got {x2.dtype}")
     if out_dtype not in (None, x.dtype) and (dataflow != "cf" or out_dtype != torch.float32):
         raise ValueError(f"dequant mode writes x.dtype, or f32 in the CF order; got "
                          f"out_dtype={out_dtype} with dataflow={dataflow!r}")

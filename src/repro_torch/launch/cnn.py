@@ -9,9 +9,11 @@ The counterpart of ``examples/cnn_inference_speed.py``, with its flags
 ``--device`` (default ``cuda``; with no card present that raises instead of
 running on the CPU, so pass ``--device cpu`` to run the kernels' plain
 versions).  As in the JAX example, seed 0 draws the random weights and seed
-1 the input.  The first N layers run numerically on a 1 x 64 x 64 x 3 input,
-bf16 on the card (the kernels' type) and float32 on the CPU; the JAX example
-runs float32.
+1 the input; both are drawn on the CPU and moved to the device, so a run on
+the card and one on the CPU compute on the same numbers.  The first N
+layers run numerically on a 1 x 64 x 64 x 3 float32 input, as in the JAX
+example: on the card through the dequant kernels' float32-activation
+entries, on the CPU through their plain versions.
 
 The "modelled" GOPS and GOPS/mm^2 lines come from the SPEED cycle model
 (``core/perfmodel.py``): the paper's 28 nm processor at 500 MHz, not a
@@ -47,13 +49,12 @@ def main(argv: Optional[list[str]] = None) -> dict:
     from repro_torch.models.cnn import init_network, run_network
 
     device = resolve_device(args.device)
-    layers, params = init_network(args.net, 0, w_bits=args.w_bits, device=device)
+    layers, params = init_network(args.net, 0, w_bits=args.w_bits, device="cpu")
+    params = [(wd.to(device), ws.to(device)) for wd, ws in params]
     print(f"{args.net}: {len(layers)} conv layers, w{args.w_bits} quantized")
 
     # numerics on a downscaled input through the first N layers
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    gen = torch.Generator(device=device).manual_seed(1)
-    x = torch.randn(1, 64, 64, 3, generator=gen, device=device).to(dtype)
+    x = torch.randn(1, 64, 64, 3, generator=torch.Generator().manual_seed(1)).to(device)
     out, decisions = run_network(
         args.net, x, params[: args.layers], layers[: args.layers], w_bits=args.w_bits,
         device=device,
@@ -73,7 +74,8 @@ def main(argv: Optional[list[str]] = None) -> dict:
         print(f"modelled {prec.name}: {r['gops']:.1f} GOPS, "
               f"{r['area_eff']:.1f} GOPS/mm^2")
     return {"net": args.net, "device": str(device), "shape": tuple(out.shape),
-            "finite": finite, "decisions": decisions, "modelled": modelled}
+            "dtype": str(out.dtype), "finite": finite, "decisions": decisions,
+            "modelled": modelled, "activation": out}
 
 
 if __name__ == "__main__":

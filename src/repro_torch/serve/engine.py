@@ -72,7 +72,7 @@ with no card present the default raises.
 
 ``ServeEngine(mesh=)``, a ``("data", "model")`` DeviceMesh with one process
 per device (``launch/mesh.py``: NCCL on the card, gloo on the CPU), serves
-the dense and moe families under the tensor-parallel mapping, as the JAX
+every family of the engine under the tensor-parallel mapping, as the JAX
 engine jits its steps over its mesh.  The weights are resharded once
 (``reshard_state``), and each ``w_bits`` view is quantized from this rank's
 blocks (``transformer.quantize_params(..., mesh=)``); each pool holds this
@@ -85,7 +85,9 @@ request's row moves between groups and positions from step to step, so a
 rank's pool must hold every page of its kv heads; every rank runs the same
 scheduler on the same tokens and returns the same streams.  The captured
 steps' keys name the split.  The one-shot-prefill families (vlm, audio)
-and ``moe_dispatch="alltoall"`` take no mesh (NotImplementedError).
+run their eager ``_prefill_group`` under the same mapping, so each pool
+receives this rank's kv heads of the prompt; ``moe_dispatch="alltoall"``
+takes no mesh (NotImplementedError).
 """
 from __future__ import annotations
 
@@ -214,11 +216,6 @@ class ServeEngine:
         device=None,
         mesh=None,
     ):
-        if mesh is not None and cfg.prefix_len:
-            raise NotImplementedError(
-                f"ServeEngine(mesh=) does not serve {cfg.name} ({cfg.family!r}): the "
-                "one-shot-prefill families take no mesh yet (ROADMAP: the one-shot-prefill "
-                "families on a mesh)")
         if mesh is not None and cfg.moe_dispatch == "alltoall":
             raise NotImplementedError(
                 "ServeEngine(mesh=) runs the replicated MoE dispatch under the "
@@ -626,16 +623,22 @@ class ServeEngine:
                        plen: int) -> None:
         """One eager ``transformer.prefill`` over the group's prefix
         embeddings and prompts, its cache rows written into each request's
-        pages; the first token comes from its logits."""
+        pages; the first token comes from its logits.  On a mesh it runs
+        under the engine's mapping, as the group calls do: every rank draws
+        the same prefix, computes every row on its blocks of the weights and
+        its kv heads (the pool's ``kv_heads``: its block where the model
+        axis divides them, else all of them) and samples from the logits
+        gathered over ``model``."""
         cache = self.cache_for(kv_bits)
         max_len = cache.pages_for(plen) * self.page_size
+        params = self.params_for(w_bits)
         batch = {"tokens": self._tensor(np.stack([r.feed_tokens() for r in reqs])),
                  "prefix_emb": prefix_embeddings(self.cfg, len(reqs), device=self.device)}
-        logits, kv = model_lib.prefill(self.params_for(w_bits), batch,
-                                       self._group_cfg(kv_bits), max_len)
         host, kind = self._samp_host(reqs, len(reqs))
         samp = None if host is None else _samp_views(self._tensor(host), kind)
-        first = ops.sample_or_argmax(logits, samp).cpu().numpy()
+        with self._mapping():
+            logits, kv = model_lib.prefill(params, batch, self._group_cfg(kv_bits), max_len)
+            first = ops.sample_or_argmax(logits, samp).cpu().numpy()
         for i, req in enumerate(reqs):
             cache.allocate(req.rid, cache.pages_for(plen))
             if cache.quantized:

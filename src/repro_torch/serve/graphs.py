@@ -56,7 +56,9 @@ __all__ = ["StepGraphs", "disable_capture", "pack", "step_key", "unpack"]
 COUNTERS = (
     (mpmm.mpmm_cuda, "launches"),
     (mpmm.mpmm_cuda, "prefill_m_launches"),
+    (mpmm.mpmm_cuda, "x32_launches"),
     (mpmm.mpmm_ff_cuda, "launches"),
+    (mpmm.mpmm_ff_cuda, "x32_launches"),
     (mpmm.mpmm_int_cuda, "launches"),
     (mqa_decode.mqa_decode_cuda, "launches"),
     (paged_decode.paged_mqa_decode_cuda, "launches"),

@@ -23,10 +23,9 @@ once at the wave's end.  The one-shot prefill of a wave (the JAX
 ``Server._prefill``) runs eagerly.
 
 ``Server(mesh=)``, a ``("data", "model")`` DeviceMesh with one process per
-device, passes the mesh to the paged engine for the dense and moe families
-(``ServeEngine(mesh=)``, as the JAX ``Server`` does; the vlm and audio
-families raise there: ROADMAP, the one-shot-prefill families on a mesh),
-and serves the static waves under the tensor-parallel mapping
+device, passes the mesh to the paged engine for the families it hosts
+(``ServeEngine(mesh=)``, as the JAX ``Server`` does), and serves the static
+waves under the tensor-parallel mapping
 (``sharding.use_mesh(mesh)``, as the JAX ``Server`` traces its jitted
 ``prefill`` / ``decode_step`` under ``set_mesh(mesh)``): every rank holds
 its blocks of the (quantized) weights under ``tree_shardings``, runs the

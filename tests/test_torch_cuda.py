@@ -4,7 +4,12 @@ tensor-core kernel's 8-row tile at M <= 8, its 64- and 128-row tiles above,
 at ragged edges and at the serving paths' prefill shapes; its f32 entry, a
 row-split partial under the TP mapping, and the plain row-split partial
 GEMM) and the FF order,
-the int-mode matmul (bit-exact against the CPU), paged decode and paged
+the f32-activation entries of both orders (at the serving paths' shapes,
+at every ResNet18 conv, at ragged edges, through the three dispatch
+routes, in the float32 CNN path, and the f16 / int activations they
+refuse), the bf16 entries' bits on fixed inputs (digests taken before the
+f32 entries were added), the int-mode matmul (bit-exact against the CPU),
+paged decode and paged
 prefill (also at a speculative verify window, at gemma3-1b's head dim 256
 and at 160 / 192, which pad to 256, at one query head per kv head as
 musicgen-medium has, and paged prefill at paligemma-3b's verify window), the
@@ -38,9 +43,12 @@ reason.  On the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerance: the outputs are bf16 and the kernel sums in f32 in another order
-than the plain version, so one bf16 rounding step either way is expected:
-``atol = rtol = 1e-2``.  The FF kernel's unscaled f32 output is held to its
+Tolerance: the f32-activation entries' products are exact in f32, so they
+are held to their plain versions within f32 summation-order error (``atol``
+K * 2^-22 * max|x| * 127, times the largest scale where the output is
+scaled; ``rtol`` 1e-5).  Otherwise the outputs are bf16 and the kernel
+sums in f32 in another order than the plain version, so one bf16 rounding
+step either way is expected: ``atol = rtol = 1e-2``.  The FF kernel's unscaled f32 output is held to its
 plain version within float32 summation-order error: the products are exact
 in f32, so ``atol`` is K * 2^-22 times the largest |x| * 127.  Int mode is
 bit-exact.
@@ -280,20 +288,172 @@ def test_mpmm_entry_point_refuses_plans_that_do_not_fit(dev):
 
 
 def test_mpmm_rejects_unported_modes(dev):
-    """What no kernel takes raises on the card: f32 activations in dequant
-    mode (both orders), float activations in int mode; nothing falls back."""
+    """What no kernel takes raises on the card: f16 or int activations in
+    dequant mode (both orders), float activations in int mode, f32
+    activations asked for a bf16 output; nothing falls back or casts."""
     x = torch.zeros(2, 8, dtype=torch.bfloat16, device=dev)
     wd = torch.zeros(8, 8, dtype=torch.int8, device=dev)
     ws = torch.ones(1, 8, device=dev)
-    for df in ("cf", "ff", "auto"):
-        with pytest.raises(ValueError, match="float32"):
-            ops.mpmm(x.float(), wd, ws, w_bits=8, dataflow=df)
+    for bad in (torch.float16, torch.int8, torch.int16):
+        for df in ("cf", "ff", "auto"):
+            with pytest.raises(ValueError, match="bf16 activations or float32"):
+                ops.mpmm(x.to(bad), wd, ws, w_bits=8, dataflow=df)
+        with pytest.raises(TypeError):
+            mpmm_cuda(x.to(bad), wd, ws, w_bits=8)
+        with pytest.raises(TypeError):
+            mpmm_ff_cuda(x.to(bad), wd, w_bits=8)
     with pytest.raises(TypeError, match="int8 or int16"):
         ops.mpmm(x, wd, ws, w_bits=8, mode="int")
-    with pytest.raises(TypeError):
-        mpmm_cuda(x.float(), wd, ws, w_bits=8)
-    with pytest.raises(TypeError):
-        mpmm_ff_cuda(x.float(), wd, w_bits=8)
+    with pytest.raises(ValueError, match="writes f32"):
+        mpmm_cuda(x.float(), wd, ws, w_bits=8, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="dequant mode writes x.dtype"):
+        ops.mpmm(x.float(), wd, ws, w_bits=8, out_dtype=torch.bfloat16)
+
+
+# ------------------------------------------- mpmm, float32 activations
+# The f32-activation entries (mpmm_dequant_x32, mpmm_ff_dequant_x32) against
+# their plain versions at phase 2's serving shapes and at every ResNet18
+# conv (batch 2), w4 (where K is even) and w8, CF and FF.  Every product is
+# exact in f32 (an f32 x times an integer weight), so the two differ only by
+# the order of the f32 sums: atol = K * 2^-22 * max|x| * 127 (times the
+# largest scale where the output is scaled), rtol 1e-5.  Two runs give the
+# same bits (fixed-order split sums, no atomics).
+X32_SERVING = [(m, k, n) for k, n in ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072),
+                                      (3072, 128256)) for m in (1, 8, 40, 256)]
+
+
+def _resnet18_shapes(batch=2):
+    from repro_torch.models.cnn_zoo import BENCHMARK_NETWORKS
+
+    out = []
+    for l in BENCHMARK_NETWORKS["ResNet18"]():
+        ho = (l.h + 2 * l.padding - l.k) // l.stride + 1
+        wo = (l.w + 2 * l.padding - l.k) // l.stride + 1
+        out.append((l.name, batch * ho * wo, l.cin * l.k * l.k, l.cout))
+    return out
+
+
+def _x32_check(dev, m, k, n, w_bits, seed):
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) / math.sqrt(k))
+    w_data, w_scale = (t.to(dev) for t in ops.pack_weights(w.to(dev), w_bits))
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev)
+    xmax = x.abs().max().item()
+    before = (mpmm_cuda.launches, mpmm_cuda.x32_launches, mpmm_ff_cuda.launches,
+              mpmm_ff_cuda.x32_launches)
+    cf = ops.mpmm(x, w_data, w_scale, w_bits=w_bits, dataflow="cf")
+    acc = mpmm_ff_cuda(x, w_data, w_bits=w_bits)
+    ff = ops.mpmm(x, w_data, w_scale, w_bits=w_bits, dataflow="ff")
+    torch.cuda.synchronize()
+    assert cf.dtype == ff.dtype == acc.dtype == torch.float32
+    assert (mpmm_cuda.launches, mpmm_cuda.x32_launches, mpmm_ff_cuda.launches,
+            mpmm_ff_cuda.x32_launches) == (before[0], before[1] + 1, before[2], before[3] + 2)
+    atol = k * 2.0**-22 * xmax * 127
+    exp = ref.mpmm_ref(x, w_data, w_scale, w_bits=w_bits)
+    torch.testing.assert_close(cf, exp, atol=atol * w_scale.max().item(), rtol=1e-5)
+    torch.testing.assert_close(ff, exp, atol=atol * w_scale.max().item(), rtol=1e-5)
+    del exp
+    torch.testing.assert_close(acc, ref.mpmm_ff_ref(x, w_data, w_bits=w_bits), atol=atol,
+                               rtol=1e-5)
+    assert torch.equal(cf, ops.mpmm(x, w_data, w_scale, w_bits=w_bits, dataflow="cf"))
+    assert torch.equal(acc, mpmm_ff_cuda(x, w_data, w_bits=w_bits))
+
+
+@pytest.mark.parametrize("w_bits", [4, 8])
+@pytest.mark.parametrize("m,k,n", X32_SERVING)
+def test_mpmm_x32_entries_match_plain_at_serving_shapes(dev, w_bits, m, k, n):
+    _x32_check(dev, m, k, n, w_bits, m * 11 + k + n)
+
+
+@pytest.mark.parametrize("w_bits", [4, 8])
+@pytest.mark.parametrize("layer", [name for name, *_ in _resnet18_shapes()])
+def test_mpmm_x32_entries_match_plain_at_resnet18_convs(dev, w_bits, layer):
+    _, m, k, n = next(s for s in _resnet18_shapes() if s[0] == layer)
+    if w_bits == 4 and k % 2:
+        pytest.skip(f"{layer}: K={k} is odd and int4 packs K in pairs (init_network raises)")
+    _x32_check(dev, m, k, n, w_bits, m + k * 3 + n)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 16, 1), (37, 130, 200), (300, 1100, 130),
+                                   (65, 520, 63), (129, 147, 64)])
+def test_mpmm_x32_entries_at_ragged_edges(dev, m, k, n):
+    """Ragged M, N and K against the 64 x 64 tiles, the 16-row K step and
+    the 512-row stages; N with no 8-column loads (the f32 kernel takes any
+    N in both orders)."""
+    for w_bits in (4, 8) if k % 2 == 0 else (8,):
+        _x32_check(dev, m, k, n, w_bits, m * 13 + k + n)
+
+
+def test_dispatch_f32_card_cpu_meta(dev):
+    """f32 activations through ``ops.mpmm``'s three routes: the card
+    launches the f32 entry, the CPU runs the plain version, meta gets the
+    contract; f32 out of all three."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(96, 3072, generator=g)
+    wd, ws = ops.pack_weights(torch.randn(3072, 1024, generator=g) / 55.4, 4)
+    meta = [torch.empty(t.shape, dtype=t.dtype, device="meta") for t in (x, wd, ws)]
+    before = (mpmm_cuda.launches, mpmm_cuda.x32_launches)
+    got = ops.mpmm(x.to(dev), wd.to(dev), ws.to(dev), w_bits=4)
+    assert (mpmm_cuda.launches, mpmm_cuda.x32_launches) == (before[0], before[1] + 1)
+    plain = ops.mpmm(x, wd, ws, w_bits=4)
+    contract = ops.mpmm(*meta, w_bits=4)
+    assert mpmm_cuda.x32_launches == before[1] + 1
+    assert contract.is_meta and contract.shape == got.shape == plain.shape
+    assert contract.dtype == got.dtype == plain.dtype == torch.float32
+    atol = 3072 * 2.0**-22 * x.abs().max().item() * 7 * ws.max().item()
+    torch.testing.assert_close(got.cpu(), plain, atol=atol, rtol=1e-5)
+
+
+# The bf16 entries' outputs on fixed inputs, as sha256 digests of their
+# bytes: the CF entry at the 8-row tile (with and without a K split), the
+# 64- and 128-row tiles and its f32-out twin, and the FF order.  The f32
+# activations' entries were added beside them without touching them, so
+# they give the bits they gave before (the digests were taken on the H100
+# from the tree before those entries were added).
+BF16_DIGEST_CASES = [("cf", 4, 8, 3072, 8192), ("cf", 8, 5, 8192, 3072),
+                     ("cf", 8, 40, 3072, 3072), ("cf", 4, 256, 3072, 3072),
+                     ("f32", 8, 256, 2048, 3072), ("ff", 8, 1568, 2304, 256),
+                     ("ff", 4, 392, 4608, 512)]
+BF16_DIGESTS = {
+    "cf w4 M=8 K=3072 N=8192":
+        "d20ecb5ccee30e3afe79252d48dd21a9ae082e9db51e18dae3bc030844ebe1e6",
+    "cf w8 M=5 K=8192 N=3072":
+        "94ac4a6c517e42edfbfbf1124200451528a4237dd2ec2596a39ae79f510b4350",
+    "cf w8 M=40 K=3072 N=3072":
+        "60223ae5a2bb9e134b39a6d920af84a7f2afaeea90e4201f63abb0796643cb16",
+    "cf w4 M=256 K=3072 N=3072":
+        "c46a1185eb039c176d6c3106c3ecc6224eea44d7b7ae1b69398d378bd56df72b",
+    "f32 w8 M=256 K=2048 N=3072":
+        "ae0bdeedb74dd79dd52889cd70f36ae9f2f0203e3b86d83e62ae6041918f72f0",
+    "ff w8 M=1568 K=2304 N=256":
+        "e7f3e67039edcf40a33629146741538295a66e896ea8c9d467dcd33ba33661e6",
+    "ff w4 M=392 K=4608 N=512":
+        "5923335f76159f9eedcacf318ba9bdf3ffe0f2625538170961e982a4bd5f7e81",
+}
+
+
+def bf16_entry_digests(dev) -> dict:
+    import hashlib
+
+    out = {}
+    for entry, w_bits, m, k, n in BF16_DIGEST_CASES:
+        rng = np.random.default_rng(m + k + n)
+        wd, ws = ops.pack_weights(
+            torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) / math.sqrt(k)), w_bits)
+        x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(torch.bfloat16)
+        x, wd, ws = x.to(dev), wd.to(dev), ws.to(dev)
+        if entry == "ff":
+            y = mpmm_ff_cuda(x, wd, w_bits=w_bits)
+        else:
+            y = mpmm_cuda(x, wd, ws, w_bits=w_bits,
+                          out_dtype=torch.float32 if entry == "f32" else torch.bfloat16)
+        raw = y.cpu().contiguous().view(torch.uint8).numpy().tobytes()
+        out[f"{entry} w{w_bits} M={m} K={k} N={n}"] = hashlib.sha256(raw).hexdigest()
+    return out
+
+
+def test_mpmm_bf16_entries_keep_their_bits(dev):
+    assert bf16_entry_digests(dev) == BF16_DIGESTS
 
 
 # ------------------------------------------------------- mpmm, FF order
@@ -520,6 +680,33 @@ def test_mpconv_on_card_matches_cpu(dev, mode, dataflow):
         assert torch.equal(got, exp)
     else:
         _close(got, exp)
+
+
+def test_run_network_f32_on_card_matches_cpu(dev):
+    """The CNN path in float32, as ``launch.cnn`` runs it on the card: the
+    f32 entries in both orders, within f32 summation-order error of the
+    CPU's plain versions (1e-4 of the output's largest value, as the CPU
+    run is held to JAX's); the same FF / CF decisions."""
+    from repro_torch.core.dataflow import ConvLayer
+    from repro_torch.models import cnn
+
+    layers = [ConvLayer("a", 3, 16, 7, 32, 32, 2, 3), ConvLayer("b", 16, 32, 3, 16, 16, 1, 1),
+              ConvLayer("c", 32, 48, 1, 16, 16, 2, 0), ConvLayer("d", 48, 64, 3, 6, 6, 1, 1)]
+    gen = torch.Generator().manual_seed(1)
+    params = [ops.conv_pack_weights(torch.randn(l.k, l.k, l.cin, l.cout, generator=gen)
+                                    / (l.k * l.cin ** 0.5), 8) for l in layers]
+    x = torch.randn(2, 24, 24, 3, generator=gen)
+    for strategy in ("ff", "cf", "mixed"):
+        before = (mpmm_cuda.x32_launches, mpmm_ff_cuda.x32_launches)
+        exp, dec = cnn.run_network("t", x, params, layers, strategy=strategy, device="cpu")
+        got, dec_card = cnn.run_network(
+            "t", x.to(dev), [(a.to(dev), b.to(dev)) for a, b in params], layers,
+            strategy=strategy, device=dev)
+        assert dec_card == dec and got.dtype == torch.float32
+        launched = (mpmm_cuda.x32_launches - before[0], mpmm_ff_cuda.x32_launches - before[1])
+        assert sum(launched) == len(layers) and (strategy != "ff" or launched[0] == 0)
+        big = exp.abs().max().item()
+        torch.testing.assert_close(got.cpu(), exp, atol=1e-4 * big, rtol=1e-4)
 
 
 def test_run_network_on_card_matches_cpu(dev):
@@ -1862,12 +2049,16 @@ def test_tp_server_waves_over_nccl_equal_unsharded(nccl_mesh):
     assert mqa_decode_cuda.launches > before
 
 
-@pytest.mark.parametrize("name", ["llama3.2-3b", "mixtral-8x22b"])
+@pytest.mark.parametrize("name", ["llama3.2-3b", "mixtral-8x22b", "paligemma-3b",
+                                  "musicgen-medium"])
 def test_tp_engine_over_nccl_equals_unsharded(nccl_mesh, name):
-    """Reduced llama3.2-3b / mixtral-8x22b (bf16) through ServeEngine(mesh=)
-    on the 1 x 1 mesh, mixed (w, kv) with spec on two requests, a prefix
-    hit: the unmeshed engine's streams and pools bit for bit, captured and
-    eager, every captured key naming the split, the paged kernels launched."""
+    """Reduced llama3.2-3b / mixtral-8x22b / paligemma-3b / musicgen-medium
+    (bf16) through ServeEngine(mesh=) on the 1 x 1 mesh, mixed (w, kv) with
+    spec on two requests, a prefix hit where the engine keeps a prefix cache
+    (the one-shot-prefill families keep none, and their prefill runs under
+    the mapping too): the unmeshed engine's streams and pools bit for bit,
+    captured and eager, every captured key naming the split, the paged
+    kernels launched."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1895,7 +2086,8 @@ def test_tp_engine_over_nccl_equals_unsharded(nccl_mesh, name):
                                              spec_k=precs[i][2])) for i in wave]
             eng.run()
             out += [list(h.out_tokens) for h in hs]
-        assert eng.stats.prefix_hit_tokens == 16 and eng.stats.spec_rounds > 0
+        assert eng.stats.prefix_hit_tokens == (0 if cfg.prefix_len else 16)
+        assert eng.stats.spec_rounds > 0
         pools = {kv: [t.clone() for t in c.pools if t is not None]
                  for kv, c in eng._caches.items()}
         return out, pools, {key[2][-1] for key in eng.graphs.calls}, eng.split

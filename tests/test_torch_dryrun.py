@@ -171,7 +171,7 @@ def _mpmm_meta(m, k, n, w_bits=4, x_dtype=torch.bfloat16, kd=None, wdt=torch.int
 @pytest.mark.parametrize("bad,err", [
     (dict(m=4, k=255, n=64, kd=128), "K=255 is odd"),  # int4 packs K in pairs
     (dict(m=4, k=256, n=60), "N=60 % 8"),  # 8 columns a load
-    (dict(m=4, k=256, n=64, x_dtype=torch.float32), "bf16 activations"),
+    (dict(m=4, k=256, n=64, x_dtype=torch.float16), "bf16 activations"),
     (dict(m=4, k=256, n=64, kd=256), "w_data must have shape"),
     (dict(m=4, k=256, n=64, wdt=torch.int16), "w_data must be torch.int8"),
 ])

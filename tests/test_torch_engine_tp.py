@@ -7,23 +7,28 @@ mesh under ``set_mesh(mesh)``, the port's on 4 gloo ranks, each on its
 blocks of the weights and its kv heads, every row of every group on every
 rank.
 
-Reduced llama3.2-3b (dense) and reduced mixtral-8x22b (moe: 8 experts split
-over the model axis, a window of 64), float32, the JAX weights carried over
-with ``params_from_numpy``.  Six requests in two waves (the second submitted
-once the first has finished): (w, kv) in {(4, 8), (8, 4), (16, 16)},
-``spec_k`` 2 on two of them (a w4 and a w8 draft), ragged prompts of 21-25
-tokens, one sampled request (temperature 0.8, top_p 0.9, seed 7), and a
-second-wave request whose first two pages are a finished first-wave
-request's prompt (a prefix-cache hit).  Its streams equal JAX's meshed
-engine's and the port's unmeshed engine's token for token, and every rank
-returns the same streams.  After the run each rank's pools hold its kv head
-(1 of the 2 on the 2-wide model axis) and equal that head of the unmeshed
-engine's pools on every page the prefix cache holds (after the run, every
-allocated page), within a float32 summation-order tolerance (the row-split
-``wo`` / ``wd`` partials are summed over ``model``).  Every captured-step
-key names the split.  ``Server(mesh=)`` on llama3.2-3b equals JAX's
-``Server(mesh=)``; the one-shot-prefill families (vlm) and the alltoall MoE
-dispatch raise with a mesh.
+Reduced llama3.2-3b (dense), reduced mixtral-8x22b (moe: 8 experts split
+over the model axis, a window of 64), and the one-shot-prefill families:
+reduced paligemma-3b (vlm: 1 kv head, which the 2-wide model axis cannot
+split, so its attention runs whole on every rank) and musicgen-medium
+(audio: 4 kv heads, 2 a rank), each with 8 frontend prefix embeddings;
+float32, the JAX weights carried over with ``params_from_numpy``.  Six
+requests in two waves (the second submitted once the first has finished):
+(w, kv) in {(4, 8), (8, 4), (16, 16)}, ``spec_k`` 2 on two of them (a w4
+and a w8 draft), ragged prompts of 21-25 tokens, one sampled request
+(temperature 0.8, top_p 0.9, seed 7), and a second-wave request whose first
+two pages are a finished first-wave request's prompt (a prefix-cache hit;
+the one-shot-prefill families keep no prefix cache, as in JAX, so none
+there).  Its streams equal JAX's meshed engine's and the port's unmeshed
+engine's token for token, and every rank returns the same streams.  After
+the run each rank's pools hold its kv heads (1 of llama's and mixtral's 2,
+2 of musicgen's 4, paligemma's 1 whole) and equal those heads of the
+unmeshed engine's pools on every page the prefix cache holds (after the
+run, every allocated page; every page of the pool where there is no prefix
+cache), within a float32 summation-order tolerance (the row-split ``wo`` /
+``wd`` partials are summed over ``model``).  Every captured-step key names
+the split.  ``Server(mesh=)`` on llama3.2-3b and on paligemma-3b equals
+JAX's ``Server(mesh=)``; the alltoall MoE dispatch raises with a mesh.
 """
 import concurrent.futures
 import dataclasses
@@ -43,10 +48,11 @@ from repro_torch.models import transformer as tT  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.params import PrecisionParams, SamplingParams  # noqa: E402
-from repro_torch.train.server import Server  # noqa: E402
 from test_torch_sharding import run_ranks  # noqa: E402
 
-ARCHS = ["llama3.2-3b", "mixtral-8x22b"]
+ARCHS = ["llama3.2-3b", "mixtral-8x22b", "paligemma-3b", "musicgen-medium"]
+PREFIX_ARCHS = ("paligemma-3b", "musicgen-medium")  # one-shot prefill, no prefix cache
+SERVER_ARCHS = ["llama3.2-3b", "paligemma-3b"]
 ENGINE = dict(max_slots=4, num_pages=32, page_size=8)
 # (wave, prompt length, new tokens, w_bits, kv_bits, spec_k, draft_bits, sampled)
 REQUESTS = [
@@ -140,12 +146,12 @@ params = jax.tree.map(jax.numpy.asarray, params)
 eng = ServeEngine(cfg, params, mesh=mesh, **job["engine"])
 res[NAME] = _drive(eng, job["requests"][NAME], SamplingParams, PrecisionParams)
 res[NAME + ":hits"] = eng.stats.prefix_hit_tokens
-if NAME == job["archs"][0]:
+if NAME in job["server_archs"]:
     srv = Server(cfg, params, mesh=mesh, **job["server"])
     reqs = [Request(rid=i, prompt=np.asarray(p, np.int32), max_new_tokens=m)
             for i, (p, m) in enumerate(job["server_prompts"])]
     srv.serve(reqs)
-    res["server"] = [list(map(int, r.out_tokens)) for r in reqs]
+    res["server:" + NAME] = [list(map(int, r.out_tokens)) for r in reqs]
 json.dump(res, open(f"{{OUT}}/jax-{{NAME}}.json", "w"))
 print("jax done")
 """
@@ -174,19 +180,21 @@ _PORT = """
         res[name + ":split"] = repr(eng.split)
         pools = {{}}
         for kv, cache in eng._caches.items():
-            pages = sorted(eng.prefix_cache_for(kv)._entries.values())
+            pc = eng.prefix_cache_for(kv)
+            pages = sorted(pc._entries.values()) if pc else list(range(cache.num_pages))
             pools[f"{{kv}}:pages"] = np.asarray(pages, np.int64)
             for part, t in zip(("k", "v", "ks", "vs"), cache.pools):
                 if t is not None:
                     pools[f"{{kv}}:{{part}}"] = t.numpy()
         np.savez(f"{{OUT}}/{{name}}-pools-{{RANK}}.npz", **pools)
-    cfg, params = load(job["archs"][0], OUT)
-    srv = Server(cfg, params_from_numpy(params, "cpu"), device="cpu", mesh=mesh,
-                 **job["server"])
-    reqs = [Request(rid=i, prompt=np.asarray(p, np.int32), max_new_tokens=m)
-            for i, (p, m) in enumerate(job["server_prompts"])]
-    srv.serve(reqs)
-    res["server"] = [list(map(int, r.out_tokens)) for r in reqs]
+    for name in job["server_archs"]:
+        cfg, params = load(name, OUT)
+        srv = Server(cfg, params_from_numpy(params, "cpu"), device="cpu", mesh=mesh,
+                     **job["server"])
+        reqs = [Request(rid=i, prompt=np.asarray(p, np.int32), max_new_tokens=m)
+                for i, (p, m) in enumerate(job["server_prompts"])]
+        srv.serve(reqs)
+        res["server:" + name] = [list(map(int, r.out_tokens)) for r in reqs]
     json.dump(res, open(f"{{OUT}}/port-{{RANK}}.json", "w"))
     print("port done")
 """
@@ -218,7 +226,7 @@ def runs(tmp_path_factory, subproc):
         reqs[name] = _requests(cfg.vocab)
     vocab = get_config(ARCHS[0]).reduced().vocab
     (out / "job.json").write_text(json.dumps(dict(
-        archs=ARCHS, engine=ENGINE, requests=reqs, server=SERVER,
+        archs=ARCHS, server_archs=SERVER_ARCHS, engine=ENGINE, requests=reqs, server=SERVER,
         server_prompts=_server_prompts(vocab))))
     drive = textwrap.dedent(inspect.getsource(_drive))
     with concurrent.futures.ThreadPoolExecutor(len(ARCHS)) as pool:
@@ -258,28 +266,35 @@ def test_meshed_engine_matches_jax_meshed_and_unmeshed_engines(name, runs, plain
     assert [len(s) for s in theirs[name]] == [r[2] for r in REQUESTS]
     streams, eng = plain[name]
     assert ranks[0][name] == streams
-    # the second wave's request 4 adopted request 0's two prompt pages
-    assert all(r[name + ":hits"] == HIT_TOKENS for r in ranks)
-    assert theirs[name + ":hits"] == eng.stats.prefix_hit_tokens == HIT_TOKENS
+    # the second wave's request 4 adopted request 0's two prompt pages,
+    # where the engine keeps a prefix cache
+    hits = 0 if name in PREFIX_ARCHS else HIT_TOKENS
+    assert all(r[name + ":hits"] == hits for r in ranks)
+    assert theirs[name + ":hits"] == eng.stats.prefix_hit_tokens == hits
     assert eng.stats.spec_rounds > 0 and eng.stats.mixed_precision_steps > 0
 
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_meshed_pools_hold_this_ranks_kv_heads(name, runs, plain):
-    """Each rank's pools: its kv head of the unmeshed engine's pools, on
-    every page the prefix cache holds after the run."""
+    """Each rank's pools: its kv heads of the unmeshed engine's pools (all
+    of them where the 2-wide model axis does not divide them), on every
+    page the prefix cache holds after the run (every page where there is
+    none)."""
     _, eng = plain[name]
     cfg = eng.cfg
-    m_size = 2
+    m_size = 2 if cfg.n_kv_heads % 2 == 0 else 1
     hkv = cfg.n_kv_heads // m_size
+    assert hkv == {"paligemma-3b": 1, "musicgen-medium": 2}.get(name, 1)
     for rank, res in enumerate(runs["ranks"]):
-        m = res["coordinate"][1]
+        m = res["coordinate"][1] if m_size > 1 else 0
         got = np.load(runs["out"] / f"{name}-pools-{rank}.npz")
         assert sorted({k.split(":")[0] for k in got.files}) == sorted(
             str(kv) for kv in eng._caches)
         for kv, cache in eng._caches.items():
             pages = got[f"{kv}:pages"]
-            assert pages.tolist() == sorted(eng.prefix_cache_for(kv)._entries.values())
+            pc = eng.prefix_cache_for(kv)
+            assert pages.tolist() == (sorted(pc._entries.values()) if pc
+                                      else list(range(cache.num_pages)))
             assert len(pages) > 0
             ref = dict(zip(("k", "v", "ks", "vs"), (None if t is None else t.numpy()
                                                     for t in cache.pools)))
@@ -316,20 +331,25 @@ def test_every_captured_step_key_names_the_split(name, runs, plain):
     assert {key[2][-1] for key in plain[name][1].graphs.calls} == {None}
 
 
-def test_server_mesh_engine_matches_jax_server_mesh(runs):
+def _server_matches(runs, name):
+    key = "server:" + name
     ranks = runs["ranks"]
-    assert all(r["server"] == ranks[0]["server"] for r in ranks)
-    assert ranks[0]["server"] == runs["jax"]["server"]
-    assert [len(s) for s in ranks[0]["server"]] == [m for _, m in SERVER_BUDGETS]
+    assert all(r[key] == ranks[0][key] for r in ranks)
+    assert ranks[0][key] == runs["jax"][key]
+    assert [len(s) for s in ranks[0][key]] == [m for _, m in SERVER_BUDGETS]
 
 
-def test_one_shot_prefill_and_alltoall_take_no_mesh():
-    pali = tget("paligemma-3b").reduced()
-    params = tT.init_params(pali, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="the one-shot-prefill families on a mesh"):
-        ServeEngine(pali, params, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="the one-shot-prefill families on a mesh"):
-        Server(pali, params, batch_size=2, max_len=32, device="cpu", mesh=object())
+def test_server_mesh_engine_matches_jax_server_mesh(runs):
+    _server_matches(runs, "llama3.2-3b")
+
+
+def test_server_mesh_engine_matches_jax_server_mesh_one_shot_prefill(runs):
+    """paligemma-3b: ``Server(mesh=)`` passes its mesh to the engine, whose
+    one-shot prefill runs under the mapping."""
+    _server_matches(runs, "paligemma-3b")
+
+
+def test_alltoall_takes_no_mesh():
     moe = dataclasses.replace(tget("mixtral-8x22b").reduced(), moe_dispatch="alltoall")
     with pytest.raises(NotImplementedError, match="the alltoall MoE dispatch under TP"):
         ServeEngine(moe, tT.init_params(moe, torch.Generator().manual_seed(0)), device="cpu",

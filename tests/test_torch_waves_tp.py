@@ -20,8 +20,8 @@ wave of 6 (3 rows a rank) and a wave of 3 (whole, 3 rows a rank) hand
 the decode step tokens of one shape, but read different caches and split
 differently.  9 requests at batch size 6 take two steps, and their streams
 equal the unsharded ``Server``'s; on a mesh ``decode_wave`` without the
-wave's size raises.  A one-shot-prefill engine arch (vlm) with a mesh
-raises; the dense and moe engine families take one
+wave's size raises.  An engine arch with the alltoall MoE dispatch and a
+mesh raises; every engine family takes a mesh otherwise
 (tests/test_torch_engine_tp.py).
 """
 import dataclasses
@@ -204,7 +204,10 @@ def test_wave_size_keys_the_captured_step(streams):
 
 
 def test_engine_family_with_a_mesh_raises():
-    cfg = tget("paligemma-3b").reduced()
+    """What the meshed engine does not take raises through ``Server(mesh=)``,
+    which passes its mesh to the engine: the alltoall MoE dispatch (every
+    engine family takes a mesh otherwise)."""
+    cfg = dataclasses.replace(tget("mixtral-8x22b").reduced(), moe_dispatch="alltoall")
     params = tT.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="the one-shot-prefill families on a mesh"):
+    with pytest.raises(NotImplementedError, match="the alltoall MoE dispatch under TP"):
         Server(cfg, params, batch_size=2, max_len=32, device="cpu", mesh=object())
