@@ -33,9 +33,13 @@ Phases, each printing one JSON line that names the card:
                the CF order at ResNet18's CF layers and at rows 3a / 3b's
                serving shapes (W4 M 8 3072 -> 8192, w8 M 256 3072 -> 3072),
                the FF order at ResNet18's FF layers, against their plain
-               versions within f32 summation-order error, their bound at
-               the card's f32 rate (67 TFLOP/s) and torch.mm in full f32
-               on weights dequantized beforehand as the library call.
+               versions within x's split error (x in two TF32 terms: hi
+               + lo is x within 2^-22 |x|) and f32 summation order, their
+               bound for an f32-accurate product (three bf16 terms of x at
+               989 TFLOP/s; beside it this kernel's two TF32 passes at
+               494.7 and one pass at the f32 rate, 67 TFLOP/s) and
+               torch.mm in full f32 on weights dequantized beforehand as
+               the library call.
                Then the sampler
                (ops.sample_tokens, plain torch ops) on the card against the
                CPU at llama3.2-3b's vocabulary: bit-equal keys and uniforms,
@@ -301,9 +305,13 @@ the bytes the call must move over 3.35 TB/s and its operations over 989
 TFLOP/s (H100 SXM bf16 dense peak, at the full 700 W power limit), or, for
 the int-mode matmul, its int8 tensor-core operations (one pass per pair of
 radix-256 digit planes) over 1979 TOP/s, and for the f32-activation
-entries, their f32 operations over 67 TFLOP/s (outside the tensor cores).  The int-mode plain version runs on
-the CPU (CUDA has no int32 matmul), so its plain_ms is a host-clock time on
-the CPU.
+entries, the least work for an f32-accurate product with integer weights:
+three bf16 terms of x (each element keeps its own exponent) against the
+weights, exact in bf16, at 989 TFLOP/s.  Beside it, bound_tf32_ms is the
+two TF32 passes this kernel makes at 494.7 TFLOP/s and bound_f32_ms one
+pass over 67 TFLOP/s, outside the tensor cores.  The int-mode plain
+version runs on the CPU (CUDA has no int32 matmul), so its plain_ms is a
+host-clock time on the CPU.
 """
 from __future__ import annotations
 
@@ -321,6 +329,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores (H100 SXM)
+PEAK_TF32_FLOPS = 494.7e12  # TF32 on the tensor cores, dense (H100 SXM)
 MPMM_TOL = dict(atol=2e-2, rtol=1e-2)  # bf16 output: one rounding step each way
 ATTN_TOL = dict(atol=1e-2, rtol=1e-2)
 MPMM_SHAPES = [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072), (3072, 128256)]
@@ -1174,10 +1183,12 @@ def cnn_kernel_cases(torch, timer, gpu, summary) -> None:
 
 
 def x32_tol(k: int, x, ws=None) -> dict:
-    """An f32-activation kernel against its plain version: every product of
-    an f32 x and an integer weight is exact in f32, so the two differ only
-    by summation order, at most about K f32 rounding steps of the largest
-    |x| * 127 (times the largest scale where the output is scaled)."""
+    """An f32-activation kernel against its plain version: the kernel
+    multiplies the exact integer weights by x's two TF32 terms (hi + lo = x
+    to within 2^-22 |x|), so each product is within 2^-22 |x| * 127 of the
+    f32 product, and the sums run in another order: at most about K such
+    steps of the largest |x| * 127 (times the largest scale where the output
+    is scaled)."""
     scale = 1.0 if ws is None else ws.max().item()
     return dict(atol=k * 2.0**-22 * x.abs().max().item() * 127 * scale, rtol=1e-5)
 
@@ -1190,7 +1201,11 @@ def x32_kernel_cases(torch, timer, gpu, summary) -> None:
     is even) w4.  Each against its plain version on the card (cuBLAS in
     full f32, TF32 off), twice for the same bits, its time beside the
     plain version's, the library's (``torch.mm`` in f32 on weights
-    dequantized beforehand) and the bound at the card's f32 rate."""
+    dequantized beforehand) and three bounds: the card's least time for an
+    f32-accurate product, three bf16 terms of x times the weights (3 x 2MNK
+    at the bf16 tensor-core rate, ``bound_ms``); this kernel's own work, two
+    TF32 terms (2 x 2MNK at the TF32 rate, ``bound_tf32_ms``); and one pass
+    at the card's f32 rate outside the tensor cores (``bound_f32_ms``)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.mpmm import (mpmm_cost, mpmm_cuda, mpmm_ff_cuda,
                                           x32_launch_plan)
@@ -1233,14 +1248,20 @@ def x32_kernel_cases(torch, timer, gpu, summary) -> None:
         if not ff:
             w_deq = w_deq * ws
         flops, nbytes = mpmm_cost(m, k, n, wd.numel(), x_bytes=4, out_bytes=4, scale=not ff)
-        b_ms, b_by = bound(nbytes, flops, PEAK_F32_FLOPS)
-        plan = x32_launch_plan(m, n, k, stage_k=ref.FF_STAGE_K if ff else None)
+        b_ms, b_by = bound(nbytes, 3 * flops, PEAK_FLOPS)
+        tf32_ms, tf32_by = bound(nbytes, 2 * flops, PEAK_TF32_FLOPS)
+        f32_ms, f32_by = bound(nbytes, flops, PEAK_F32_FLOPS)
+        plan = x32_launch_plan(m, n, k, stage_k=ref.FF_STAGE_K if ff else None,
+                               w_bits=w_bits)
         rec = {
             "case": f"{label} w{w_bits} f32 x M={m} K={k} N={n}", "max_abs_err": err,
-            "tol": tol, "kernel_plan": {key: plan[key] for key in ("splits", "grid")},
+            "tol": tol,
+            "kernel_plan": {key: plan[key] for key in ("block_m", "splits", "grid")},
             "ms": timer(kern), "plain_ms": timer(plain, iters=3),
             "library_ms": timer(lambda: torch.mm(x, w_deq)),
             "bound_ms": b_ms, "bound_by": b_by,
+            "bound_tf32_ms": tf32_ms, "bound_tf32_by": tf32_by,
+            "bound_f32_ms": f32_ms, "bound_f32_by": f32_by,
         }
         rec["tflops"] = flops / rec["ms"] / 1e9
         note_case(summary, gpu, name, rec, representative)
@@ -1746,7 +1767,7 @@ def step_profile(torch, run_once, wall_s: float, step_graphs, step: str, capture
 
 def x32_kernel(name: str) -> bool:
     """A device kernel of the f32-activation entries (either order)."""
-    return "mpmm_x32_kernel" in name
+    return "mpmm_x32_tc_kernel" in name
 
 
 def cnn_run(torch, gpu) -> None:
@@ -3773,6 +3794,15 @@ def main() -> int:
     check(sorted((e["kv_bits"], e["gq"]) for e in wide) == [(4, 1), (4, 2), (8, 1), (8, 2)]
           and all("registers" in e and "spill_store_bytes" in e for e in wide),
           f"ptxas -v reports no DMAX = 256 mqa_decode instantiations: {wide}")
+    x32_tc = ptxas_report(lib_path, "mpmm_x32_tc_kernelI", ("block_m", "w_bits"))
+    for e in x32_tc:
+        e["smem_bytes"] = _build.lib().mpmm_x32_smem_bytes(e["block_m"], e["w_bits"])
+    emit({"phase": "ptxas", "kernel": "mpmm_x32_tc_kernel<BM, W_BITS> (f32 x as two TF32 "
+          "terms)", "instantiations": x32_tc, "gpu": gpu})
+    check(sorted((e["block_m"], e["w_bits"]) for e in x32_tc)
+          == [(8, 4), (8, 8), (64, 4), (64, 8)]
+          and all("registers" in e and "spill_store_bytes" in e for e in x32_tc),
+          f"ptxas -v reports no f32-activation tensor-core instantiations: {x32_tc}")
 
     from repro_torch.configs import get_config
 

@@ -34,6 +34,7 @@ _SIGNATURES = {
     "mpmm_ff_block_m": [_I] * 3,
     "mpmm_dequant_x32": [_P] * 5 + [_I] * 6 + [_P],
     "mpmm_ff_dequant_x32": [_P] * 4 + [_I] * 6 + [_P],
+    "mpmm_x32_smem_bytes": [_I] * 2,
     "mpmm_int_i32": [_P] * 4 + [_I] * 7 + [_P],
     "mqa_decode": [_P] * 8 + [_I] * 9 + [_F, _P],
     "paged_decode_bf16": [_P] * 13 + [_I] * 13 + [_F, _P],

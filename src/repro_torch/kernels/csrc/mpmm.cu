@@ -38,10 +38,10 @@
 // Pallas FF grid does.
 //
 // Float32 activations (the Pallas kernel's "x is bf16/f32"; the CNN path and
-// the quickstart run f32) take a kernel of their own on the CUDA cores, in
-// both orders (entries mpmm_dequant_x32, mpmm_ff_dequant_x32; described at
-// mpmm_x32_kernel below).  The bf16 kernels and entries above are untouched
-// by it.
+// the quickstart run f32) take a tensor-core kernel of their own, in both
+// orders: x split into two TF32 terms, two TF32 wgmma passes (entries
+// mpmm_dequant_x32, mpmm_ff_dequant_x32; described at mpmm_x32_tc_kernel
+// below).  The bf16 kernels and entries above are untouched by it.
 //
 // Ragged M, N and K edges are masked inside the kernels (the JAX wrapper
 // pads to blocks instead).  The wrappers (kernels/mpmm.py) check shapes,
@@ -511,138 +511,333 @@ int mpmm_dequant(const void* x, const void* w, const void* scale, T* out, void* 
 // ---- float32 activations (entries mpmm_dequant_x32, mpmm_ff_dequant_x32) --
 // The Pallas body dots x against w.astype(x.dtype) with an f32 accumulator,
 // so with f32 x every product is an f32 product of x and the exact integer
-// weight.  wgmma has no f32 operand (its TF32 form rounds x to 10 mantissa
-// bits), so this kernel multiplies on the CUDA cores in f32 FMA: what bounds
-// it is the card's f32 rate (67 TFLOP/s outside the tensor cores), not the
-// bytes.  Block tile 64 x-rows by 64 weight columns, 256 threads of 4 x 4
-// outputs each (4 consecutive rows by 4 consecutive columns, read from
-// shared memory as one float4 each per k); K advances 16 rows a step
-// through two shared-memory buffers, the next step's x and weights loaded
-// into registers while the current one is multiplied.  x lands transposed
-// (k-major); the weights land dequantized to f32 and unscaled (int8, or
-// int4 packed along K: byte row r holds K index 2r in the low nibble and
-// 2r + 1 in the high one).  Ragged M, N and K edges load as zeros and are
-// masked at the store.  A block sums its K range in k order from zero; the
-// K split (CF) or the 512-row stages (FF) are the grid's z, and their
-// partials go through the same fixed-order second passes as the bf16
-// kernel's (mpmm_splitk_reduce, sum_stages).
-constexpr int X32_BM = 64;
-constexpr int X32_BN = 64;
-constexpr int X32_BK = 16;
-constexpr int X32_THREADS = 256;
-constexpr int X32_XPITCH = X32_BM + 4;  // floats; keeps float4 rows aligned
+// weight.  The tensor cores take f32 only as TF32 (11 significant bits),
+// but the weights (|w| <= 127) are exact in TF32, so only x needs more:
+// each element is split into two TF32 terms, hi = rna(x) and
+// lo = rna(x - hi), both rounded explicitly (cvt.rna.tf32.f32; the tensor
+// core would truncate raw f32 bits), and the product runs as two TF32
+// passes into one f32 accumulator, hi * w then lo * w.  x - hi is exact and
+// |x - hi| <= 2^-11 |x|, so hi + lo is x to within 2^-22 |x| (below TF32's
+// normal range, to within half its smallest step, 2^-137): a product's error
+// stays below the K * 2^-22 * max|x| * 127 that the checks allow for the
+// f32 sums.  A finite x whose hi would round past TF32's largest finite
+// value takes that value as hi; an infinite x has lo = 0, so inf * w stays
+// inf (tests/test_torch_mpmm_f32.py emulates the split bit for bit).
+//
+// The kernel is the bf16 kernel's skeleton in TF32 (wgmma.m64nNk8.f32.tf32):
+// the transposed product out^T = w^T x^T, the dequantized weights its
+// register operand A (exact f32 integers; 64 weight columns per warpgroup,
+// fragment rows g / g + 8 of a warp's slice holding columns 2g / 2g + 1, so
+// a lane's accumulators are adjacent column pairs, as there) and x its
+// operand B from shared memory (BM x-rows by 32 k a slice: one 128-byte row
+// of f32, K-major, in the 128-byte swizzle).  x and the packed weights
+// stream through a cp.async ring of X32_STAGES stages; once a stage has
+// landed, one pass over its x tile writes hi in place and lo into a tile of
+// its own (elementwise, so the swizzle is kept), and after fence.proxy.async
+// both feed the wgmmas, which are waited for within the step, as the bf16
+// kernel's are (splitting the next stage while they run measured no faster
+// on the H100: PERF.md).  Block tile: 128 weight columns (2 warpgroups) by
+// BM = 64 or, for M <= 8 in the CF order, 8 x-rows (x32_block_m); K steps
+// of 32 rows (128 at 8 rows, where a stage is nearly all weights).  What bounds it on
+// an H100: at M <= 8 the weight bytes; at the CNN's and prefill shapes the
+// two TF32 passes (2 x 2MNK at 494.7 TFLOP/s dense) and the shared-memory
+// traffic of the split pass beside the wgmmas' reads.  The K split (CF) or
+// the 512-row stages (FF) are the grid's z, summed in a fixed order by the
+// bf16 kernel's second passes (mpmm_splitk_reduce, sum_stages), so results
+// are the same run to run.  x rows off 16 bytes (K % 4 != 0, or the
+// pointer) land by 4-byte cp.async; weights of any N or alignment by plain
+// masked byte loads; ragged M, N and K edges land as zeros.
+constexpr int X32_STAGES = 4;
+
+// K rows per step: one 32-k slice; four at 8 rows.
+template <int BM>
+__host__ __device__ constexpr int x32_bk() {
+  return BM == 8 ? 128 : 32;
+}
+// A stage: x (BK / 32 slices of BM rows of 128 bytes), then the weight tile,
+// rounded up to the swizzle's 1024-byte alignment.
+template <int BM, int W_BITS>
+__host__ __device__ constexpr int x32_stage_bytes() {
+  using WT = WTile<W_BITS, x32_bk<BM>()>;
+  return (BM * 4 * x32_bk<BM>() + WT::ROWS * WT::PITCH + 1023) / 1024 * 1024;
+}
+// the ring, the lo tile and the alignment slack
+template <int BM, int W_BITS>
+constexpr int x32_smem_bytes() {
+  return X32_STAGES * x32_stage_bytes<BM, W_BITS>() + BM * 4 * x32_bk<BM>() + 1024;
+}
+
+// D[64 x N] += A[64 x 8] * B[8 x N]: wgmma.m64nNk8, TF32 in, f32 accumulate;
+// A from registers (mma.m16n8k8 TF32 A fragments, one 16-row slice per warp:
+// a0 = (row g, k q), a1 = (g + 8, q), a2 = (g, q + 4), a3 = (g + 8, q + 4)),
+// B K-major from shared memory through its descriptor.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n8k8_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ float tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
+// v = hi + lo in two TF32 terms (the comment above); hi may be v's register.
+__device__ __forceinline__ void split_tf32(float v, float& hi, float& lo) {
+  float h = tf32_rna(v);
+  if (isinf(h) && !isinf(v)) h = copysignf(__uint_as_float(0x7F7FE000u), v);
+  lo = isinf(v) ? 0.f : tf32_rna(v - h);
+  hi = h;
+}
+// A signed int4 nibble pair, biased (each nibble v + 8) at bits 0-3 and 8-11
+// of u, -> the exact f32 values {low, high} (2^23 + v + 8, less 2^23 + 8).
+__device__ __forceinline__ void s4x2_biased_to_f32(uint32_t u, uint32_t& lo, uint32_t& hi) {
+  lo = __float_as_uint(__uint_as_float(0x4B000000u | (u & 0xFu)) - 8388616.f);
+  hi = __float_as_uint(__uint_as_float(0x4B000000u | ((u >> 8) & 0xFu)) - 8388616.f);
+}
 
 // One split (or stage) per blockIdx.z.  out non-null (the CF order with one
 // split): scale * sum written to out; otherwise the unscaled sum written to
-// partial's slice of this split (partial may be out itself for one FF stage).
-template <int W_BITS>
-__global__ void __launch_bounds__(X32_THREADS)
-mpmm_x32_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
-                const float* __restrict__ scale, float* out, float* partial, int M, int N,
-                int K, int k_per_split) {
-  __shared__ __align__(16) float xs[2][X32_BK][X32_XPITCH];
-  __shared__ __align__(16) float ws[2][X32_BK][X32_BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;  // output columns tx*4.., rows ty*4..
-  const int m0 = blockIdx.y * X32_BM, n0 = blockIdx.x * X32_BN;
+// partial's slice of this split (partial may be out itself for one FF
+// stage).  x_vec: x rows are whole 16-byte copies (K % 4 == 0, x on 16
+// bytes); w_vec: weight rows are (N % 16 == 0, w on 16 bytes).
+template <int BM, int W_BITS>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+mpmm_x32_tc_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
+                   const float* __restrict__ scale, float* out, float* partial, int M, int N,
+                   int K, int k_per_split, bool x_vec, bool w_vec) {
+  constexpr int BK = x32_bk<BM>();
+  using WT = WTile<W_BITS, BK>;
+  constexpr int SLICE = BM * 128;  // x bytes of 32 k
+  constexpr int X_BYTES = SLICE * (BK / 32);
+  constexpr int STAGE = x32_stage_bytes<BM, W_BITS>();
+  constexpr int X_CHUNKS = X_BYTES / 16;
+  constexpr int W_CHUNKS = WT::ROWS * TC_BN / 16;
+  static_assert(X_CHUNKS % TC_THREADS == 0, "x copy split");
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* lo_tile = smem + X32_STAGES * STAGE;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * TC_BN;
+  const int wcol = (warp >> 2) * 64 + (warp & 3) * 16 + 2 * g;  // this lane's column pair
   const int split = blockIdx.z;
   const int k_begin = split * k_per_split;
   const int k_end = min(K, k_begin + k_per_split);
-  const int n_kt = (k_end - k_begin + X32_BK - 1) / X32_BK;
-  // this thread's loads: x row lr, k lk..lk+3; weight k row wk, columns wn..wn+3
-  const int lr = tid / 4, lk = (tid % 4) * 4;
-  const int wk = tid / 16, wn = (tid % 16) * 4;
+  const int n_kt = (k_end - k_begin + BK - 1) / BK;
+  const int w_row_end = W_BITS == 8 ? k_end : k_end / 2;  // k_end is even for int4
 
-  float xr[4], wr[4];
-  auto load = [&](int kt) {
-    const int k0 = k_begin + kt * X32_BK;
-    const int gm = m0 + lr;
+  auto load_stage = [&](int kt) {
+    uint8_t* st = smem + (kt % X32_STAGES) * STAGE;
+    const int k0 = k_begin + kt * BK;
+    // x row r, 16-byte chunk c of a 32-k slice lands at chunk c ^ (r % 8) of
+    // row r of that slice (128B swizzle)
+    if (x_vec) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gk = k0 + lk + j;
-      xr[j] = gm < M && gk < k_end ? x[(int64_t)gm * K + gk] : 0.f;
-    }
-    const int gk = k0 + wk;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + wn + j;
-      float v = 0.f;
-      if (gk < k_end && gn < N) {
-        if constexpr (W_BITS == 8) {
-          v = (float)w[(int64_t)gk * N + gn];
-        } else {
-          const int8_t b = w[(int64_t)(gk >> 1) * N + gn];
-          v = (float)(gk & 1 ? (int8_t)(b >> 4) : (int8_t)((int8_t)(b << 4) >> 4));
-        }
+      for (int i = 0; i < X_CHUNKS / TC_THREADS; ++i) {
+        const int c = tid + i * TC_THREADS;
+        const int r = c / (BK / 4), ch = c % (BK / 4);
+        const int gm = m0 + r, gk = k0 + ch * 4;
+        const bool ok = gm < M && gk < k_end;
+        cp_async<16>(st + (ch >> 3) * SLICE + r * 128 + (((ch & 7) ^ (r & 7)) << 4),
+                     ok ? x + (int64_t)gm * K + gk : x, ok);
       }
-      wr[j] = v;
+    } else {
+#pragma unroll 4
+      for (int i = tid; i < BM * BK; i += TC_THREADS) {
+        const int r = i / BK, kk = i % BK;
+        const int gm = m0 + r, gk = k0 + kk;
+        const bool ok = gm < M && gk < k_end;
+        cp_async<4>(st + (kk >> 5) * SLICE + r * 128 + ((((kk & 31) >> 2) ^ (r & 7)) << 4) +
+                        (kk & 3) * 4,
+                    ok ? x + (int64_t)gm * K + gk : x, ok);
+      }
+    }
+    uint8_t* ws = st + X_BYTES;
+    const int wr0 = W_BITS == 8 ? k0 : k0 / 2;
+    if (w_vec) {
+#pragma unroll
+      for (int i = 0; i < (W_CHUNKS + TC_THREADS - 1) / TC_THREADS; ++i) {
+        const int c = tid + i * TC_THREADS;
+        if (W_CHUNKS % TC_THREADS && c >= W_CHUNKS) break;  // int4 at 32 k: 128 chunks
+        const int r = c / (TC_BN / 16), nc = (c % (TC_BN / 16)) * 16;
+        const int gr = wr0 + r, gn = n0 + nc;
+        const bool ok = gr < w_row_end && gn < N;  // N % 16 == 0: whole or nothing
+        cp_async<16>(ws + r * WT::PITCH + nc, ok ? w + (int64_t)gr * N + gn : w, ok);
+      }
+    } else {
+#pragma unroll 4  // a full unroll holds too many loads in registers
+      for (int c = tid; c < WT::ROWS * TC_BN; c += TC_THREADS) {
+        const int r = c / TC_BN, nc = c % TC_BN;
+        const int gr = wr0 + r, gn = n0 + nc;
+        ws[r * WT::PITCH + nc] =
+            gr < w_row_end && gn < N ? (uint8_t)w[(int64_t)gr * N + gn] : (uint8_t)0;
+      }
     }
   };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) xs[buf][lk + j][lr] = xr[j];
-    *reinterpret_cast<float4*>(&ws[buf][wk][wn]) = make_float4(wr[0], wr[1], wr[2], wr[3]);
-  };
 
-  float acc[4][4];
+  float acc[BM / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
 
-  if (n_kt > 0) {
-    load(0);
-    store(0);
+#pragma unroll
+  for (int s = 0; s < X32_STAGES - 1; ++s) {
+    if (s < n_kt) load_stage(s);
+    cp_async_commit();  // empty groups keep the count uniform
   }
-  __syncthreads();
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < n_kt) load(kt + 1);
+    cp_async_wait<X32_STAGES - 2>();  // step kt has landed
+    __syncthreads();  // ... for every thread; stage kt - 1 and the lo tile are free
+    if (kt + X32_STAGES - 1 < n_kt) load_stage(kt + X32_STAGES - 1);
+    cp_async_commit();
+    uint8_t* st = smem + (kt % X32_STAGES) * STAGE;
 #pragma unroll
-    for (int kk = 0; kk < X32_BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[cur][kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[cur][kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    for (int i = 0; i < X_CHUNKS / TC_THREADS; ++i) {  // x -> hi in place, lo beside
+      float4* hp = reinterpret_cast<float4*>(st) + tid + i * TC_THREADS;
+      float4 v = *hp, l;
+      split_tf32(v.x, v.x, l.x);
+      split_tf32(v.y, v.y, l.y);
+      split_tf32(v.z, v.z, l.z);
+      split_tf32(v.w, v.w, l.w);
+      *hp = v;
+      reinterpret_cast<float4*>(lo_tile)[tid + i * TC_THREADS] = l;
     }
-    if (kt + 1 < n_kt) store(cur ^ 1);  // the buffer step kt - 1 read, before the sync
-    __syncthreads();
+    fence_proxy_async();  // the hi / lo writes before the wgmmas' reads
+    const uint8_t* ws = st + X_BYTES + wcol;
+    uint32_t a[BK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      if constexpr (W_BITS == 8) {  // k rows q and q + 4 of this k8 step
+        const uint8_t* p = ws + (kk * 8 + q) * WT::PITCH;
+        const uint32_t h0 = *reinterpret_cast<const uint16_t*>(p);
+        const uint32_t h4 = *reinterpret_cast<const uint16_t*>(p + 4 * WT::PITCH);
+        // bytes [col 2g k q, col 2g + 1 k q, col 2g k q + 4, col 2g + 1 k q + 4]
+        const uint32_t b = __byte_perm(h0, h4, 0x5410) ^ 0x80808080u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) a[kk][j] = __float_as_uint(s8_biased_to_f32(b, j));
+      } else {  // byte rows q / 2 and q / 2 + 2 hold k q and q + 4 in nibble q % 2
+        const uint8_t* p = ws + (kk * 4 + (q >> 1)) * WT::PITCH;
+        const int sh = (q & 1) * 4;
+        s4x2_biased_to_f32((*reinterpret_cast<const uint16_t*>(p) >> sh) ^ 0x0808u, a[kk][0],
+                           a[kk][1]);
+        s4x2_biased_to_f32(
+            (*reinterpret_cast<const uint16_t*>(p + 2 * WT::PITCH) >> sh) ^ 0x0808u, a[kk][2],
+            a[kk][3]);
+      }
+    }
+    __syncthreads();  // every thread's hi / lo are written
+    fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      // the slice's descriptors, + 32 bytes of k per 8-k step within it
+      const int off = (kk >> 2) * SLICE;
+      const uint64_t desc_hi = desc_k128(st + off) + 2 * (kk & 3);
+      const uint64_t desc_lo = desc_k128(lo_tile + off) + 2 * (kk & 3);
+      if constexpr (BM == 64) {
+        wgmma_m64n64k8_tf32(acc, a[kk], desc_hi);
+        wgmma_m64n64k8_tf32(acc, a[kk], desc_lo);
+      } else {
+        wgmma_m64n8k8_tf32(acc, a[kk], desc_hi);
+        wgmma_m64n8k8_tf32(acc, a[kk], desc_lo);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();  // the stage, the lo tile and a[] may be reused after this
+    fence_operands(acc);
   }
+  cp_async_wait<0>();
 
-  const int gn0 = n0 + tx * 4;
-  if (gn0 >= N) return;
-  const bool direct = out != nullptr;
+  // acc[4j + e]: fragment row g (e = 0, 1) or g + 8 (e = 2, 3) = weight column
+  // wcol or wcol + 1; x row 8j + 2q (e = 0, 2) or 8j + 2q + 1 (e = 1, 3)
+  const int gn = n0 + wcol;
+  if (gn >= N) return;
+  const bool direct = out != nullptr, pair = gn + 1 < N;
+  float s0 = 1.f, s1 = 1.f;
+  if (direct) {
+    s0 = scale[gn];
+    if (pair) s1 = scale[gn + 1];
+  }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= M) continue;
-    float* row = direct ? out + (int64_t)gm * N : partial + ((int64_t)split * M + gm) * N;
+  for (int j = 0; j < BM / 8; ++j) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = gn0 + j;
-      if (gn < N) row[gn] = direct ? acc[i][j] * scale[gn] : acc[i][j];
+    for (int e = 0; e < 2; ++e) {
+      const int gm = m0 + 8 * j + 2 * q + e;
+      if (gm >= M) continue;
+      const float v0 = acc[4 * j + e] * s0, v1 = acc[4 * j + 2 + e] * s1;
+      float* p = direct ? out + (int64_t)gm * N + gn : partial + ((int64_t)split * M + gm) * N + gn;
+      if (pair && N % 2 == 0) {
+        *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+      } else {  // odd N: rows start off 8 bytes, the pair may straddle N
+        p[0] = v0;
+        if (pair) p[1] = v1;
+      }
     }
   }
+}
+
+template <int BM, int W_BITS>
+cudaError_t launch_x32_tc(const float* x, const int8_t* w, const float* scale, float* out,
+                          float* partial, int M, int N, int K, int splits, int k_per_split,
+                          cudaStream_t s) {
+  constexpr int smem = x32_smem_bytes<BM, W_BITS>();
+  auto kernel = mpmm_x32_tc_kernel<BM, W_BITS>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const bool x_vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool w_vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  dim3 grid((N + TC_BN - 1) / TC_BN, (M + BM - 1) / BM, splits);
+  kernel<<<grid, TC_THREADS, smem, s>>>(x, w, scale, out, partial, M, N, K, k_per_split, x_vec,
+                                        w_vec);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_x32(const float* x, const int8_t* w, const float* scale, float* out,
                        float* partial, int M, int N, int K, int w_bits, int splits,
-                       int k_per_split, cudaStream_t s) {
-  dim3 grid((N + X32_BN - 1) / X32_BN, (M + X32_BM - 1) / X32_BM, splits);
-  if (w_bits == 8) {
-    mpmm_x32_kernel<8><<<grid, X32_THREADS, 0, s>>>(x, w, scale, out, partial, M, N, K,
-                                                    k_per_split);
-  } else if (w_bits == 4) {
-    mpmm_x32_kernel<4><<<grid, X32_THREADS, 0, s>>>(x, w, scale, out, partial, M, N, K,
-                                                    k_per_split);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+                       int k_per_split, int block_m, cudaStream_t s) {
+#define MPMM_X32_CASE(BM, WB)                                                             \
+  if (block_m == BM && w_bits == WB)                                                      \
+    return launch_x32_tc<BM, WB>(x, w, scale, out, partial, M, N, K, splits, k_per_split, s);
+  MPMM_X32_CASE(64, 8)
+  MPMM_X32_CASE(64, 4)
+  MPMM_X32_CASE(8, 8)
+  MPMM_X32_CASE(8, 4)
+#undef MPMM_X32_CASE
+  return cudaErrorInvalidValue;
 }
+
+// Its block rows: 8 at M <= 8 in the CF order, else 64 (kernels/mpmm.py::
+// x32_launch_plan: DECODE_M, X32_BLOCK_M).  On the H100, 64-row tiles were
+// as fast as 128-row ones or faster at every phase-2 shape of chip_smoke.py,
+// 19% at ResNet18's layer3.1.conv1, where 130 blocks of 128 rows leave each
+// SM one block (PERF.md), so 128 rows are not built.
+int x32_block_m(int M, bool ff) { return M <= 8 && !ff ? 8 : 64; }
 
 }  // namespace
 
@@ -701,14 +896,17 @@ extern "C" int mpmm_ff_block_m(int M, int N, int K) { return ff_block_m(M, N, K)
 // The CF order on float32 activations.  x [M, K] f32, w [K or K/2, N] int8
 // (int4 packed along K; K even), scale [N] f32, out [M, N] f32 = scale * the
 // f32 sum.  partial: [splits, M, N] f32 scratch when splits > 1 (else
-// unused); k_per_split a multiple of 16 with (splits - 1) * k_per_split < K
-// <= splits * k_per_split (kernels/mpmm.py::x32_launch_plan), else
-// cudaErrorInvalidValue and nothing is launched.  Returns cudaGetLastError()
-// after the launches.
+// unused).  The block rows are x32_block_m's; k_per_split a multiple of
+// their K step (x32_bk: 128 at 8 rows, else 32) with (splits - 1) *
+// k_per_split < K <= splits * k_per_split (kernels/mpmm.py::x32_launch_plan),
+// else cudaErrorInvalidValue and nothing is launched.  Returns
+// cudaGetLastError() after the launches.
 extern "C" int mpmm_dequant_x32(const void* x, const void* w, const void* scale, void* out,
                                 void* partial, int M, int N, int K, int w_bits, int splits,
                                 int k_per_split, void* stream) {
-  if (splits < 1 || k_per_split < 1 || k_per_split % X32_BK ||
+  const int block_m = x32_block_m(M, false);
+  const int step = block_m == 8 ? x32_bk<8>() : x32_bk<64>();
+  if (splits < 1 || k_per_split < 1 || k_per_split % step ||
       (int64_t)splits * k_per_split < K || (int64_t)(splits - 1) * k_per_split >= K ||
       (w_bits == 4 && K % 2)) {
     return (int)cudaErrorInvalidValue;
@@ -717,9 +915,10 @@ extern "C" int mpmm_dequant_x32(const void* x, const void* w, const void* scale,
   const auto* sp = static_cast<const float*>(scale);
   auto* op = static_cast<float*>(out);
   auto* pp = static_cast<float*>(partial);
-  const cudaError_t err =
-      launch_x32(static_cast<const float*>(x), static_cast<const int8_t*>(w), sp,
-                 splits == 1 ? op : nullptr, pp, M, N, K, w_bits, splits, k_per_split, s);
+  const cudaError_t err = launch_x32(static_cast<const float*>(x),
+                                     static_cast<const int8_t*>(w), sp,
+                                     splits == 1 ? op : nullptr, pp, M, N, K, w_bits, splits,
+                                     k_per_split, block_m, s);
   if (err != cudaSuccess) return (int)err;
   if (splits > 1) {
     const int64_t total = (int64_t)M * N;
@@ -729,11 +928,20 @@ extern "C" int mpmm_dequant_x32(const void* x, const void* w, const void* scale,
   return (int)cudaGetLastError();
 }
 
+// The dynamic shared memory of the f32-activation kernel at block_m rows
+// and w_bits (its ring, the lo tile and the alignment slack), or -1.
+extern "C" int mpmm_x32_smem_bytes(int block_m, int w_bits) {
+  if (block_m == 64) return w_bits == 8 ? x32_smem_bytes<64, 8>() : x32_smem_bytes<64, 4>();
+  if (block_m == 8) return w_bits == 8 ? x32_smem_bytes<8, 8>() : x32_smem_bytes<8, 4>();
+  return -1;
+}
+
 // The FF order on float32 activations.  x [M, K] f32, w as above, out [M, N]
-// f32: the unscaled sum of the K stages of stage_k rows, in stage order.
-// part: [stages, M, N] f32 scratch when stages > 1 (else unused); stage_k
-// must be the FF stage (512) and stages ceil(K / stage_k), else
-// cudaErrorInvalidValue.  Returns cudaGetLastError() after the launches.
+// f32: the unscaled sum of the K stages of stage_k rows, in stage order, on
+// 64-row tiles.  part: [stages, M, N] f32 scratch when
+// stages > 1 (else unused); stage_k must be the FF stage (512) and stages
+// ceil(K / stage_k), else cudaErrorInvalidValue.  Returns cudaGetLastError()
+// after the launches.
 extern "C" int mpmm_ff_dequant_x32(const void* x, const void* w, void* out, void* part,
                                    int M, int N, int K, int w_bits, int stage_k, int stages,
                                    void* stream) {
@@ -745,7 +953,7 @@ extern "C" int mpmm_ff_dequant_x32(const void* x, const void* w, void* out, void
   float* pp = stages > 1 ? static_cast<float*>(part) : op;
   const cudaError_t err =
       launch_x32(static_cast<const float*>(x), static_cast<const int8_t*>(w), nullptr, nullptr,
-                 pp, M, N, K, w_bits, stages, stage_k, s);
+                 pp, M, N, K, w_bits, stages, stage_k, x32_block_m(M, true), s);
   if (err != cudaSuccess) return (int)err;
   if (stages > 1) launch_sum_stages(pp, op, (int64_t)M * N, stages, s);
   return (int)cudaGetLastError();

@@ -9,15 +9,18 @@ Three kernels replace ``repro/kernels/mpmm.py::mpmm_pallas``:
   row-split partial product, summed over ``model`` before its one cast).
   :func:`launch_plan` picks its kernel, tiles and K split from the shape.
   Float32 ``x`` (the CNN path, the quickstart) takes the entry
-  ``mpmm_dequant_x32`` instead, an f32 FMA kernel whose output is f32 (the
-  Pallas kernel writes ``x.dtype``); :func:`x32_launch_plan` picks its K
-  split.  Plain version :func:`repro_torch.kernels.ref.mpmm_ref`.
+  ``mpmm_dequant_x32`` instead, a tensor-core kernel that splits x into two
+  TF32 terms (hi + lo) and multiplies each with the exact integer weights,
+  whose output is f32 (the Pallas kernel writes ``x.dtype``);
+  :func:`x32_launch_plan` picks its tiles and K split.  Plain version
+  :func:`repro_torch.kernels.ref.mpmm_ref`.
 - ``mpmm_ff_cuda`` (``csrc/mpmm.cu`` too): dequant mode, FF order.  The same
   product with k outermost, K stages of 512 rows added in stage order into
   an unscaled f32 output.  On bf16 ``x`` it runs on the CF order's
   tensor-core kernel with the K split fixed at the stages and an unscaled
-  f32 epilogue (``launch_plan(..., stage_k=512)``); on f32 ``x`` on the f32
-  kernel with the same stages (``mpmm_ff_dequant_x32``).  Plain version
+  f32 epilogue (``launch_plan(..., stage_k=512)``); on f32 ``x`` on the
+  two-term TF32 kernel with the same stages (``mpmm_ff_dequant_x32``).
+  Plain version
   :func:`repro_torch.kernels.ref.mpmm_ff_ref`.
 - ``mpmm_int_cuda`` (``csrc/mpmm_int.cu``): int mode, CF or FF order.  int8 /
   int16 ``x`` times int4 / int8 / int16 weights, the exact int32 product mod
@@ -55,9 +58,8 @@ TC_MIN_STEPS = 2  # K steps a split keeps at least
 TC_SPLIT_MIN_K = 512  # a shorter K is not split: the second pass would cost more
 INT_TILE = 64  # block rows and columns of the int-mode kernel (csrc: IB_M, IB_N)
 INT_SPLIT_MIN_K = 1024  # its CF order splits no shorter K: the second pass would cost more
-X32_TILE = 64  # block rows and columns of the f32-activation kernel (csrc: X32_BM, X32_BN)
-X32_BK = 16  # its K step; a split is a whole number of steps (csrc: X32_BK)
-X32_SPLIT_MIN_K = 256  # K rows an f32 split keeps at least
+X32_BLOCK_M = 64  # block rows of the f32-activation kernel above DECODE_M (csrc: x32_block_m)
+X32_BK = 32  # its K step there (128 at 8 rows; csrc: x32_bk)
 X32_DTYPES = (torch.bfloat16, torch.float32)  # the dequant kernels' activations
 
 
@@ -150,26 +152,21 @@ def launch_plan(m: int, n: int, k: int, stage_k: int | None = None,
             "k_per_split": per, "grid": (col_tiles, -(-m // block_m), splits)}
 
 
-def x32_launch_plan(m: int, n: int, k: int, stage_k: int | None = None) -> dict:
-    """How the f32-activation kernel launches an [M, K] x [K, N] product:
-    64 x 64 output tiles and K in ``splits`` ranges of ``k_per_split`` rows
-    (the grid's z, summed in range order by a second pass).  With
-    ``stage_k`` (the FF order) one range per stage.  The CF order splits K
-    only where K >= ``TC_SPLIT_MIN_K`` and the tiles alone give fewer than
-    two blocks per SM: into as many ranges as bring the grid to two blocks
-    per SM, each a whole number of 16-row steps and at least
-    ``X32_SPLIT_MIN_K`` rows."""
-    tiles = -(-n // X32_TILE) * -(-m // X32_TILE)
-    if stage_k is not None:
-        per = stage_k
-    elif k >= TC_SPLIT_MIN_K and tiles < 2 * SMS:
-        want = min(-(-2 * SMS // tiles), k // X32_SPLIT_MIN_K)
-        per = -(-(-(-k // want)) // X32_BK) * X32_BK
-    else:
-        per = -(-k // X32_BK) * X32_BK
-    splits = -(-k // per)
-    return {"kernel": "f32_fma", "block_m": X32_TILE, "block_n": X32_TILE, "splits": splits,
-            "k_per_split": per, "grid": (-(-n // X32_TILE), -(-m // X32_TILE), splits)}
+def x32_launch_plan(m: int, n: int, k: int, stage_k: int | None = None,
+                    w_bits: int | None = None) -> dict:
+    """How the f32-activation kernel (two TF32 terms on the tensor cores)
+    launches an [M, K] x [K, N] product: the bf16 kernel's K split
+    (:func:`launch_plan`, with ``stage_k`` the FF order's stages; at
+    M <= 8 its decode split, which needs ``w_bits``) and its 128 weight
+    columns, on 8-row tiles at M <= 8 in the CF order and ``X32_BLOCK_M``
+    rows otherwise, as the C entries launch them (csrc: ``x32_block_m``).
+    Every split is a whole number of the kernel's K steps: 32 rows, 128 at
+    8 block rows."""
+    base = launch_plan(m, n, k, stage_k=stage_k, w_bits=w_bits)
+    block_m = DECODE_M if stage_k is None and m <= DECODE_M else X32_BLOCK_M
+    return {"kernel": "tensor_core_tf32x2", "block_m": block_m, "block_n": TC_BN,
+            "splits": base["splits"], "k_per_split": base["k_per_split"],
+            "grid": (-(-n // TC_BN), -(-m // block_m), base["splits"])}
 
 
 def mpmm_cost(m: int, k: int, n: int, w_bytes: int, x_bytes: int = 2, out_bytes: int = 2,
@@ -183,8 +180,9 @@ def mpmm_cost(m: int, k: int, n: int, w_bytes: int, x_bytes: int = 2, out_bytes:
 
 def _expect_dequant(x, w_data, w_bits: int, m: int, k: int, n: int) -> bool:
     """The dequant kernels' checks of x ([M, K] bf16 or f32) and the packed
-    weights; True for f32 x.  The bf16 kernels copy 16 bytes at a time, the
-    f32 kernel loads elements."""
+    weights; True for f32 x.  The bf16 kernels copy 16 bytes at a time; the
+    f32 kernel copies 16 bytes where x's rows and the weight rows allow it
+    and 4 (x) or 1 (weights) elsewhere."""
     x32 = x.dtype == torch.float32
     expect(x, "x", x.dtype if x.dtype in X32_DTYPES else torch.bfloat16, (m, k), x.device,
            align=4 if x32 else 16)
@@ -223,7 +221,8 @@ def launch_buffers(
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0:
         return out, out, None  # nothing to compute
-    plan = x32_launch_plan(m, n, k) if x32 else launch_plan(m, n, k, w_bits=w_bits)
+    plan = (x32_launch_plan(m, n, k, w_bits=w_bits) if x32
+            else launch_plan(m, n, k, w_bits=w_bits))
     # one split writes out directly (bf16), or its partial into out (f32)
     partial = (torch.empty((plan["splits"], m, n), dtype=torch.float32, device=dev)
                if plan["splits"] > 1 else out)

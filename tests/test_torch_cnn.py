@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.core import isa as jisa  # noqa: E402
 from repro.core import perfmodel as jperf  # noqa: E402

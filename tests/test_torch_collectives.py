@@ -15,6 +15,7 @@ one chunk (reduced exactly) against the JAX function.
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 from repro.distributed import collectives as jcol  # noqa: E402

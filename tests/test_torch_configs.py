@@ -15,6 +15,7 @@ import jax
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.configs import SHAPES as JSHAPES  # noqa: E402
 from repro.configs import cells_for_arch as jcells  # noqa: E402

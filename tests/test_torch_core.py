@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.core import sau as jsau  # noqa: E402
 from repro.core.assembler import assemble_conv as jassemble  # noqa: E402

@@ -43,8 +43,10 @@ reason.  On the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerance: the f32-activation entries' products are exact in f32, so they
-are held to their plain versions within f32 summation-order error (``atol``
+Tolerance: the f32-activation entries split x into two TF32 terms whose
+sum is x to within 2^-22 |x|, and the integer weights are exact, so every
+product is within 2^-22 |x| * 127 of its f32 value; they are held to their
+plain versions within that and f32 summation-order error (``atol``
 K * 2^-22 * max|x| * 127, times the largest scale where the output is
 scaled; ``rtol`` 1e-5).  Otherwise the outputs are bf16 and the kernel
 sums in f32 in another order than the plain version, so one bf16 rounding
@@ -64,6 +66,7 @@ from repro_torch.kernels.mpmm import mpmm_cuda, mpmm_ff_cuda, mpmm_int_cuda  # n
 from repro_torch.kernels.mqa_decode import mqa_decode_cuda  # noqa: E402
 from repro_torch.kernels.paged_decode import paged_mqa_decode_cuda  # noqa: E402
 from repro_torch.kernels.paged_prefill import paged_mqa_prefill_cuda  # noqa: E402
+from repro_torch.quant.pack import pack_int4  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -313,11 +316,12 @@ def test_mpmm_rejects_unported_modes(dev):
 # ------------------------------------------- mpmm, float32 activations
 # The f32-activation entries (mpmm_dequant_x32, mpmm_ff_dequant_x32) against
 # their plain versions at phase 2's serving shapes and at every ResNet18
-# conv (batch 2), w4 (where K is even) and w8, CF and FF.  Every product is
-# exact in f32 (an f32 x times an integer weight), so the two differ only by
-# the order of the f32 sums: atol = K * 2^-22 * max|x| * 127 (times the
-# largest scale where the output is scaled), rtol 1e-5.  Two runs give the
-# same bits (fixed-order split sums, no atomics).
+# conv (batch 2), w4 (where K is even) and w8, CF and FF.  The kernel
+# multiplies the exact integer weights by x's two TF32 terms (hi + lo = x
+# to within 2^-22 |x|), so a product is within 2^-22 |x| * 127 of the f32
+# product, and the sums run in another order: atol = K * 2^-22 * max|x| *
+# 127 (times the largest scale where the output is scaled), rtol 1e-5.  Two
+# runs give the same bits (fixed-order split sums, no atomics).
 X32_SERVING = [(m, k, n) for k, n in ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072),
                                       (3072, 128256)) for m in (1, 8, 40, 256)]
 
@@ -375,13 +379,67 @@ def test_mpmm_x32_entries_match_plain_at_resnet18_convs(dev, w_bits, layer):
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 16, 1), (37, 130, 200), (300, 1100, 130),
-                                   (65, 520, 63), (129, 147, 64)])
+                                   (65, 520, 63), (129, 147, 64), (5, 3000, 72),
+                                   (9, 4100, 136)])
 def test_mpmm_x32_entries_at_ragged_edges(dev, m, k, n):
-    """Ragged M, N and K against the 64 x 64 tiles, the 16-row K step and
-    the 512-row stages; N with no 8-column loads (the f32 kernel takes any
-    N in both orders)."""
+    """Ragged M, N and K against the 8- and 64-row tiles, the 32-row K step
+    (128 at 8 rows), the K split and the 512-row stages; K % 4 != 0
+    (x by 4-byte copies) and N % 16 != 0 (weights by byte loads: the f32
+    kernel takes any N in both orders)."""
     for w_bits in (4, 8) if k % 2 == 0 else (8,):
         _x32_check(dev, m, k, n, w_bits, m * 13 + k + n)
+
+
+def test_mpmm_x32_off_16_byte_rows(dev):
+    """x and the weights at storage offsets of one element: rows off 16
+    bytes though K % 4 == N % 16 == 0, so x lands by 4-byte copies and the
+    weights by byte loads, with the same result as aligned copies."""
+    m, k, n = 96, 1024, 256
+    g = torch.Generator().manual_seed(9)
+    x0 = torch.randn(m, k, generator=g)
+    wd0, ws = ops.pack_weights(torch.randn(k, n, generator=g) / 32.0, 8)
+    x = torch.empty(m * k + 1, device=dev)[1:].view(m, k)
+    x.copy_(x0)
+    wd = torch.empty(k * n + 1, dtype=torch.int8, device=dev)[1:].view(k, n)
+    wd.copy_(wd0)
+    assert x.data_ptr() % 16 and wd.data_ptr() % 16
+    ws = ws.to(dev)
+    aligned = (x0.to(dev), wd0.to(dev))
+    assert torch.equal(mpmm_cuda(x, wd, ws, w_bits=8), mpmm_cuda(*aligned, ws, w_bits=8))
+    assert torch.equal(mpmm_ff_cuda(x, wd, w_bits=8), mpmm_ff_cuda(*aligned, w_bits=8))
+
+
+@pytest.mark.parametrize("w_bits", [4, 8])
+def test_mpmm_x32_extreme_x(dev, w_bits):
+    """The TF32 split at the ends of f32's range: a finite x near FLT_MAX,
+    whose hi would round to inf, times a zero weight row gives 0 (not
+    inf * 0 = NaN); an infinite x times a weight row of ones gives inf in
+    every column (its lo is 0, not inf - inf); subnormal and zero x give
+    the plain version's values.  Both orders."""
+    m, k, n = 16, 1024, 128
+    g = torch.Generator().manual_seed(11)
+    lim = 7 if w_bits == 4 else 127
+    wi = torch.randint(-lim, lim + 1, (k, n), generator=g, dtype=torch.int8)
+    wi[0] = 0
+    wi[1] = 1
+    x = torch.randn(m, k, generator=g)
+    x[:, 0] = 3.4028e38
+    x[:, 1] = float("inf")
+    x[:, 2] = 1e-40
+    x[:, 3] = 0.0
+    wd = (pack_int4(wi, dim=0) if w_bits == 4 else wi).to(dev)
+    ws = torch.full((1, n), 0.01).to(dev)
+    x = x.to(dev)
+    cf = mpmm_cuda(x, wd, ws, w_bits=w_bits)
+    ff = mpmm_ff_cuda(x, wd, w_bits=w_bits)
+    assert bool(torch.isposinf(cf).all()) and bool(torch.isposinf(ff).all())
+    x[:, 1] = 0.0
+    atol = k * 2.0**-22 * x[:, 4:].abs().max().item() * lim
+    torch.testing.assert_close(mpmm_cuda(x, wd, ws, w_bits=w_bits),
+                               ref.mpmm_ref(x, wd, ws, w_bits=w_bits), atol=atol * 0.01,
+                               rtol=1e-5)
+    torch.testing.assert_close(mpmm_ff_cuda(x, wd, w_bits=w_bits),
+                               ref.mpmm_ff_ref(x, wd, w_bits=w_bits), atol=atol, rtol=1e-5)
 
 
 def test_dispatch_f32_card_cpu_meta(dev):

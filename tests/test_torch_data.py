@@ -10,6 +10,7 @@ import dataclasses
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.configs import get_config  # noqa: E402
 from repro.data import pipeline as jpipe  # noqa: E402

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 import jax  # noqa: E402
 
 from repro.configs import get_config as jax_config  # noqa: E402

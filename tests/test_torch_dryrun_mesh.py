@@ -13,6 +13,7 @@ import math
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.shapes import ShapeSpec  # noqa: E402

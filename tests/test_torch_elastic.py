@@ -16,6 +16,7 @@ import json
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from test_torch_sharding import run_ranks  # noqa: E402
 

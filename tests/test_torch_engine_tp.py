@@ -40,6 +40,7 @@ import jax
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.configs import get_config  # noqa: E402
 from repro.models import transformer as jT  # noqa: E402
@@ -70,16 +71,6 @@ SERVER = dict(batch_size=2, max_len=32)
 # row-split partials' summation order (a few f32 ulps of the activations);
 # a quantized payload may then round one step the other way
 POOL_TOL = dict(rtol=1e-4, atol=1e-5)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: these runs are many small ops, which a host
-    whose cores are busy slows most when each op fans out over threads."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _requests(vocab: int) -> list[dict]:

@@ -11,6 +11,7 @@ and without ``--device cpu`` each raises.  Their card runs are in
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import assembler as jassembler  # noqa: E402
@@ -23,16 +24,6 @@ from repro.core.sau import pe_multiply as jpe_multiply  # noqa: E402
 from repro_torch.examples import quickstart, serve_quantized, train_lm  # noqa: E402
 
 TINY_LM = ["--steps", "12", "--layers", "2", "--d-model", "64", "--seq", "32", "--batch", "4"]
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: these runs are many small ops, which a host
-    whose cores are busy slows most when each op fans out over threads."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_quickstart_lines_equal_the_jax_packages():

@@ -14,6 +14,7 @@ from pathlib import Path
 import jax  # noqa: F401  (the tier-1 environment has both packages)
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 import repro_torch  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -199,3 +200,16 @@ def test_a_card_mesh_without_nccl_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="NCCL"):
         init_distributed("cuda")
     assert not torch.distributed.is_initialized()
+
+
+def test_every_cpu_test_module_runs_on_one_intra_op_thread():
+    """Every port test module but the card-only one imports the one-thread
+    fixture of ``tests/torch_threads.py``: without it, torch ops in several
+    test workers at once contend for the cores and the suite slows
+    several-fold."""
+    uses = re.compile(r"^from torch_threads import one_intra_op_thread\b", re.M)
+    modules = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    assert len(modules) > 30
+    missing = [p.name for p in modules
+               if p.name != "test_torch_cuda.py" and not uses.search(p.read_text())]
+    assert missing == []

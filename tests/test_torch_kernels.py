@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.quant.pack import pack_int4 as jpack_int4  # noqa: E402

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.configs import get_config  # noqa: E402
 from repro.models import transformer as jT  # noqa: E402

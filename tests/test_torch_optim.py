@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.optim import adafactor as jadafactor  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402

@@ -24,6 +24,7 @@ from pathlib import Path
 
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from jax.sharding import PartitionSpec as JP  # noqa: E402
 from repro.distributed import sharding as jsh  # noqa: E402

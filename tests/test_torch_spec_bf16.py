@@ -18,6 +18,7 @@ import jax
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.configs import get_config  # noqa: E402
 from repro.models import transformer as jT  # noqa: E402
@@ -44,23 +45,18 @@ def runs():
     tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, 9).astype(np.int32) for _ in PRECISIONS]
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)  # many small ops: fan-out only slows them
     out = {}
-    try:
-        for name, spec_k in (("jax", 0), ("jax", SPEC_K), ("port", 0), ("port", SPEC_K)):
-            if name == "port":
-                eng = ServeEngine(tcfg, tparams, spec_k=spec_k, device="cpu", **ENGINE)
-                samp, prec = SamplingParams, PrecisionParams
-            else:
-                eng = JEngine(cfg, params, spec_k=spec_k, **ENGINE)
-                samp, prec = JSampling, JPrecision
-            reqs = [eng.submit(p, samp(max_new_tokens=NEW), prec(**pr))
-                    for p, pr in zip(prompts, PRECISIONS)]
-            eng.run()
-            out[name, spec_k] = ([[int(t) for t in r.out_tokens] for r in reqs], eng.stats)
-    finally:
-        torch.set_num_threads(n_threads)
+    for name, spec_k in (("jax", 0), ("jax", SPEC_K), ("port", 0), ("port", SPEC_K)):
+        if name == "port":
+            eng = ServeEngine(tcfg, tparams, spec_k=spec_k, device="cpu", **ENGINE)
+            samp, prec = SamplingParams, PrecisionParams
+        else:
+            eng = JEngine(cfg, params, spec_k=spec_k, **ENGINE)
+            samp, prec = JSampling, JPrecision
+        reqs = [eng.submit(p, samp(max_new_tokens=NEW), prec(**pr))
+                for p, pr in zip(prompts, PRECISIONS)]
+        eng.run()
+        out[name, spec_k] = ([[int(t) for t in r.out_tokens] for r in reqs], eng.stats)
     return out
 
 

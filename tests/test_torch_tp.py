@@ -31,6 +31,7 @@ exps).
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro_torch.distributed import sharding as sh  # noqa: E402
 from test_torch_sharding import run_ranks  # noqa: E402

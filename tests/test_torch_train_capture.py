@@ -37,6 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 from torch.utils._pytree import tree_leaves  # noqa: E402
 
@@ -61,16 +62,6 @@ from test_torch_train import TOL, _arch  # noqa: E402
 KW = dict(lr=3e-3, warmup=1, total_steps=10, grad_clip=1.0)
 DATA = dict(vocab=256, seq_len=64, global_batch=8, seed=2)
 STEPS = 3
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: these runs are many small ops, which a host
-    whose cores are busy slows most when each op fans out over threads."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------ (a) the lr

@@ -13,6 +13,7 @@ plus ``device``.  The step's parity with JAX is in
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.data.pipeline import DataConfig  # noqa: E402

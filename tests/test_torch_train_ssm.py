@@ -21,6 +21,7 @@ import jax
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.data.pipeline import DataConfig as JData  # noqa: E402
 from repro.data.pipeline import make_batch as jmake  # noqa: E402

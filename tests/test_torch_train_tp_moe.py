@@ -15,6 +15,7 @@ instead (``wg`` / ``wu`` columns, ``wd`` rows).  Tolerance rtol = atol =
 """
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from test_torch_train_tp import hold, run_cases  # noqa: E402
 

@@ -31,6 +31,7 @@ import jax
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.configs import get_config  # noqa: E402
 from repro.models import transformer as jT  # noqa: E402

@@ -2,13 +2,15 @@
 """Runs phase 2 of ``chip_smoke.py`` (every kernel against its plain version,
 with its time, the plain version's, the library call's and the bound) from
 the checkout at ROOT, and with ``cnn`` also its phase 4 (full ResNet18).
+With ``x32`` phase 2 runs only its f32-activation cases
+(``x32_kernel_cases``; ``x32 cnn`` adds phase 4).
 With ``decode`` it runs only this checkout's engine decode-step profile
 (``chip_smoke.engine_decode_profile``: one decode step of full llama3.2-3b,
 8 rows, w8/kv8; captured, or eager with ``eager``) on ROOT's package, which
 also profiles a commit whose chip_smoke.py has no such phase (its package
 must have captured steps, ``serve/graphs.py``).  Needs one CUDA card:
 
-    python3 tools/smoke_phase2.py ROOT [cnn | decode [eager]] > phase2.jsonl
+    python3 tools/smoke_phase2.py ROOT [x32] [cnn | decode [eager]] > phase2.jsonl
 
 ROOT may be another commit's checkout (``git archive`` of it into an ignored
 directory), whose kernels are built into ROOT/build: run parent and change
@@ -54,9 +56,14 @@ def main() -> int:
                                                            capture)})
         return 0
     timer = smoke.Timer(torch)
-    summary = smoke.kernel_cases(torch, timer, gpu)
-    smoke.cnn_kernel_cases(torch, timer, gpu, summary)
-    smoke.mqa_kernel_cases(torch, timer, gpu, summary)
+    if "x32" in sys.argv[2:]:
+        summary = {name: {"max_abs_err": 0.0} for name in smoke.TPU_KERNELS}
+        smoke.x32_kernel_cases(torch, timer, gpu, summary)
+    else:
+        summary = smoke.kernel_cases(torch, timer, gpu)
+        smoke.cnn_kernel_cases(torch, timer, gpu, summary)
+        smoke.x32_kernel_cases(torch, timer, gpu, summary)
+        smoke.mqa_kernel_cases(torch, timer, gpu, summary)
     if "cnn" in sys.argv[2:]:
         smoke.cnn_run(torch, gpu)
     return 0

@@ -3,9 +3,9 @@
 shapes, beside the plan ``src/repro_torch/kernels/mpmm.py`` picks and a
 PyTorch call that computes the same product.  Needs one CUDA card:
 
-    python3 tools/sweep_mpmm_plans.py [cf] [decode] [int] > sweep.jsonl
+    python3 tools/sweep_mpmm_plans.py [cf] [decode] [int] [x32] > sweep.jsonl
 
-(no section named: all three).  One JSON line per shape, each with every
+(no section named: all four).  One JSON line per shape, each with every
 plan's median time in ms (CUDA events, L2 flushed before each launch, as
 chip_smoke.py times), the chosen plan's time and the fastest:
 
@@ -19,6 +19,9 @@ chip_smoke.py times), the chosen plan's time and the fastest:
 - ``int``: the int-mode matmul at ResNet18's int shapes, int8 and int16 x
   w8: the CF order at every K split the entry point takes and the FF order,
   beside ``int_launch_plan`` and, for int8 x, ``torch._int_mm``.
+- ``x32``: the CF dequant matmul on float32 x (the two-term TF32 kernel,
+  whose block rows follow M) at every K split, beside ``x32_launch_plan``
+  and ``torch.mm`` in full f32 on the pre-dequantized weights.
 """
 from __future__ import annotations
 
@@ -44,6 +47,13 @@ INT_SHAPES = [("layer3.1.conv1 b2", 392, 2304, 256), ("layer1.0.conv2 b1", 3136,
               ("conv1 b2", 25088, 147, 64), ("layer2.0.conv2 b1", 784, 1152, 128),
               ("layer2.0.down b2", 1568, 64, 128), ("layer4.1.conv2 b2", 98, 4608, 512),
               ("layer4.1.conv2 b1", 49, 4608, 512), ("layer1.0.conv2 b2", 6272, 576, 64)]
+# (M, K, N, w_bits) of the f32-activation CF order: ResNet18's CF layers at
+# batch 8, chip_smoke.py's rows 3a / 3b, the quickstart's section 4, and
+# llama3.2-3b projections at M 1 and 128
+X32_SHAPES = [(6272, 64, 128, 8), (1568, 128, 256, 8), (392, 256, 512, 8),
+              (8, 3072, 8192, 4), (256, 3072, 3072, 8), (64, 512, 256, 4),
+              (1, 3072, 3072, 8), (128, 3072, 3072, 8), (128, 3072, 8192, 8),
+              (128, 8192, 3072, 8)]
 
 
 def main() -> int:
@@ -56,7 +66,7 @@ def main() -> int:
     from repro_torch.kernels import _build, mpmm, ops
     from repro_torch.quant.pack import unpack_int4
 
-    sections = set(sys.argv[1:]) or {"cf", "decode", "int"}
+    sections = set(sys.argv[1:]) or {"cf", "decode", "int", "x32"}
     torch.backends.cuda.matmul.allow_tf32 = False
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
@@ -200,6 +210,38 @@ def main() -> int:
                            library_ms, section="int", label=label, x_bits=x_bits)
                 del x, wd, out, exp
                 torch.cuda.empty_cache()
+
+    if "x32" in sections:
+        for m, k, n, w_bits in X32_SHAPES:
+            wd, ws = ops.pack_weights(torch.randn(k, n, generator=gen, device="cuda")
+                                      / math.sqrt(k), w_bits)
+            x = torch.randn(m, k, generator=gen, device="cuda")
+            w_deq = (unpack_int4(wd, 0) if w_bits == 4 else wd).float() * ws
+            plan = mpmm.x32_launch_plan(m, n, k, w_bits=w_bits)
+            bm = plan["block_m"]
+            step = mpmm.DECODE_BK if bm == mpmm.DECODE_M else mpmm.X32_BK
+            steps = -(-k // step)
+            cands = {plan["splits"]: plan["k_per_split"]}
+            for want in DECODE_SPLITS:
+                if want <= steps:
+                    per = -(-steps // want) * step
+                    cands.setdefault(-(-k // per), per)
+            out = torch.empty(m, n, device="cuda")
+            times = {}
+            for splits, per in cands.items():
+                part = torch.empty(splits, m, n, device="cuda") if splits > 1 else out
+
+                def run():
+                    err = lib.mpmm_dequant_x32(
+                        x.data_ptr(), wd.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                        part.data_ptr(), m, n, k, w_bits, splits, per, stream)
+                    if err:
+                        raise RuntimeError(f"mpmm_dequant_x32: CUDA error {err}")
+                times[(bm, splits)] = timed(run)
+            report([m, k, n], (bm, plan["splits"]), times, timed(lambda: torch.mm(x, w_deq)),
+                   section="x32", w_bits=w_bits)
+            del wd, ws, x, w_deq, out
+            torch.cuda.empty_cache()
     return 0
 
 
