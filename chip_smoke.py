@@ -7,8 +7,9 @@ Phases, each printing one JSON line that names the card:
 
 1. build    -- nvcc builds the kernels under src/repro_torch/kernels/csrc;
                ptxas -v's registers and spill bytes of paged prefill at
-               DP = 256 and of mqa_decode's wide instantiation (DMAX = 256,
-               head dims 129-256) (lines "phase": "ptxas").
+               DP = 256, of the f32 instantiations of both paged kernels
+               (every DP; both NC) and of mqa_decode's wide instantiation
+               (DMAX = 256, head dims 129-256) (lines "phase": "ptxas").
 2. kernels  -- each hand-written kernel against its plain PyTorch version on
                the same inputs, in bf16 at llama3.2-3b's serving shapes (the
                CF dequant matmul at decode M 1-8, at a speculative round's
@@ -39,7 +40,19 @@ Phases, each printing one JSON line that names the card:
                989 TFLOP/s; beside it this kernel's two TF32 passes at
                494.7 and one pass at the f32 rate, 67 TFLOP/s) and
                torch.mm in full f32 on weights dequantized beforehand as
-               the library call.
+               the library call.  The f32 instantiations of paged decode
+               and paged prefill (a float32 model: f32 q and out, f32
+               16-bit pools) at llama3.2-3b's heads (decode ctx 0, 1, 17,
+               1024 with and without a window of 256, and a row at its
+               table's end; prefill C 1, 5 and 128), gemma3-1b's (1 x 4 x
+               256, window 1024: decode, C 128 and a verify window, and D
+               192) and paligemma-3b's (1 x 8 x 256: decode and a verify
+               window), kv4 / kv8 / kv16, against their f32 plain versions
+               within F32_ATTN_TOL (two prefill runs the same bits), with
+               the error the same kernel gives on q rounded to bf16
+               beside it, their bound three bf16 passes of the products
+               (bound_f32_ms: one pass at the f32 FMA rate) and SDPA in
+               f32 as the library call.
                Then the sampler
                (ops.sample_tokens, plain torch ops) on the card against the
                CPU at llama3.2-3b's vocabulary: bit-equal keys and uniforms,
@@ -47,7 +60,12 @@ Phases, each printing one JSON line that names the card:
 3. step     -- a 2-layer cut of llama3.2-3b at full width (d_model 3072,
                vocab 128256): one chunked-prefill step and one decode step on
                the card (kernels) and on the CPU (plain versions); the logits
-               must agree and pick the same token on every row.
+               must agree and pick the same token on every row.  The card
+               runs the same steps in float32 (dtype="float32": the f32
+               paged instantiations, the f32-activation matmul), held to the
+               CPU's float32 run within F32_LOGIT_RULE of the bf16 noise
+               (compare_logits_f32); so do phases 7 and 8's card-vs-CPU
+               cuts and the zamba2-7b hybrid step.
 4. cnn      -- the paper's CNN path: full ResNet18 (20 convs, 224x224x3
                input, batch 8, w8, the mixed FF/CF strategy) through
                models.cnn.run_network in float32, as the JAX example runs
@@ -78,7 +96,15 @@ Phases, each printing one JSON line that names the card:
                speculation (temperature 0.8, w4 draft), twice: identical
                streams; (d) one spec round under the profiler (8 rows, w8
                target, w4 draft, kv8): verify and draft device times and
-               launches, the card's busy share.
+               launches, the card's busy share; (e) float32
+               (dataclasses.replace(cfg, dtype="float32")): the same 8
+               requests, (w, kv) over PRECISIONS, greedy on even requests
+               and sampled on odd ones, spec_k 4 (w4 draft) on requests
+               4-7, twice captured (identical streams) and once eager
+               (identical streams and launches); only the f32 paged
+               instantiations and the f32-activation matmul may launch;
+               decode tokens/s, TTFT, peak memory and the paged launches a
+               captured step holds, beside the same traffic in bf16.
 6. waves    -- the full 81-layer zamba2-7b (hybrid: Mamba2 + shared
                attention) with seeded random weights served by the
                static-wave train.server.Server: 8 greedy requests of 512
@@ -269,7 +295,9 @@ Phases, each printing one JSON line that names the card:
                bf16): "tp_kv_heads" and "tp_kv_heads_verify" in the kernels
                line.
 15. kernels line -- each kernel's launches on its path (all > 0): the serving
-               kernels in phase 5's first run, the FF and int matmuls and
+               kernels in phase 5's first run, the f32 paged instantiations
+               in phase 5(e)'s first float32 run (their other shapes under
+               "shapes"), the FF and int matmuls and
                the two f32-activation entries in phase 4, contiguous-cache decode in phase 6's first zamba2
                run; the counts are set to 0 just before each path runs, and
                a replayed step adds the launches its graph holds.  The
@@ -332,6 +360,14 @@ PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores (H100 SXM)
 PEAK_TF32_FLOPS = 494.7e12  # TF32 on the tensor cores, dense (H100 SXM)
 MPMM_TOL = dict(atol=2e-2, rtol=1e-2)  # bf16 output: one rounding step each way
 ATTN_TOL = dict(atol=1e-2, rtol=1e-2)
+# the f32 instantiations of the paged kernels against their f32 plain
+# versions: f32 summation order only (a q rounded to bf16 misses it)
+F32_ATTN_TOL = dict(atol=1e-4, rtol=1e-4)
+# float32 card vs float32 CPU logits (phases 3, 7, 8 and the hybrid step):
+# max and mean |card - CPU| within F32_LOGIT_RULE x the CPU's bf16 noise,
+# ten times tighter than compare_logits' 2x; the same argmax on every row
+# whose float32 top-two gap exceeds F32_LOGIT_RULE x the largest noise
+F32_LOGIT_RULE = 0.2
 MPMM_SHAPES = [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072), (3072, 128256)]
 PRECISIONS = [(4, 8), (8, 4), (8, 8), (16, 16)]
 # zamba2-7b's in_proj (d_model -> 2 * d_inner + 2 * state + heads) and
@@ -388,13 +424,20 @@ TPU_KERNELS = {
     "mpmm_ff_dequant_x32": ("src/repro_torch/kernels/csrc/mpmm.cu",
                             "src/repro/kernels/mpmm.py:174 (mpmm_pallas, FF dequant on f32 x: "
                             "_mpmm_ff_kernel :148, pallas_call :244)"),
+    "paged_decode_f32": ("src/repro_torch/kernels/csrc/paged_decode.cu",
+                         "src/repro/kernels/paged_decode.py:153 (paged_mqa_decode_pallas on an "
+                         "f32 q: _paged_kernel :51, its f32 cast :86, pallas_call :244)"),
+    "paged_prefill_f32": ("src/repro_torch/kernels/csrc/paged_prefill.cu",
+                          "src/repro/kernels/paged_prefill.py:157 (paged_mqa_prefill_pallas on "
+                          "an f32 q: _prefill_kernel :49, its f32 cast :88, pallas_call :245)"),
 }
 # the profiled spec round's sum that counts each kernel's verify launches
 VERIFY_PROF = {"mpmm_dequant": "mpmm_verify_m", "paged_prefill": "paged_prefill_verify"}
 # the path each kernel's launches are read from in the kernels line
 KERNEL_PATH = {"mpmm_dequant": "serve", "paged_decode": "serve", "paged_prefill": "serve",
                "mpmm_ff_dequant": "cnn", "mpmm_int": "cnn", "mqa_decode": "waves",
-               "mpmm_dequant_x32": "cnn", "mpmm_ff_dequant_x32": "cnn"}
+               "mpmm_dequant_x32": "cnn", "mpmm_ff_dequant_x32": "cnn",
+               "paged_decode_f32": "serve_f32", "paged_prefill_f32": "serve_f32"}
 # phase 2 mqa_decode cases: (label, B, S, Hkv, G, D, lengths, kv_bits); zamba2-7b
 # serving (S = 512 prompt + 32 new + 8), a long context, llama3.2-3b's GQA, and
 # the shape and plan of phase 12's llama3.2-3b decode step (one rank's 8 rows
@@ -698,50 +741,81 @@ def kernel_cases(torch, timer, gpu) -> dict:
         del x, wd, ws, w_deq
         torch.cuda.empty_cache()
 
-    # ---- paged attention inputs at llama3.2-3b's widths
+    # ---- paged attention inputs at llama3.2-3b's widths; the f32
+    # instantiations (a float32 model) take f32 q, f32 16-bit pools and give
+    # f32 out, held to F32_ATTN_TOL, their bound three bf16 passes of the
+    # products (an f32-accurate product with integer K/V, as for the f32
+    # matmul entries) beside one pass at the f32 FMA rate (bound_f32_ms),
+    # and the error a q rounded to bf16 gives printed beside theirs
     hkv, g, d, ps, n_layers, layer = 8, 3, 128, 16, 2, 1
     h = hkv * g
+    f32 = torch.float32
 
-    def payload(shape, kv_bits):
+    def payload(shape, kv_bits, dtype=torch.bfloat16):
         """Random K or V in the pool's format: (payload, per-token scales)."""
         x = torch.randn(*shape, generator=gen, device="cuda")
         if kv_bits == 16:
-            return x.to(torch.bfloat16), None
+            return x.to(dtype), None
         return ops.quantize_kv(x, kv_bits)
 
-    def kv_bytes(tokens, kv_bits, heads=hkv, dim=d):
-        per_tok = heads * (dim // 2 if kv_bits == 4 else dim) * (2 if kv_bits == 16 else 1)
+    def kv_bytes(tokens, kv_bits, heads=hkv, dim=d, itemsize=2):
+        per_tok = heads * (dim // 2 if kv_bits == 4 else dim) * (itemsize if kv_bits == 16 else 1)
         return tokens * 2 * (per_tok + (heads * 4 if kv_bits < 16 else 0))
 
-    def gathered(pool, scale, tables, kv_bits, new, new_scale, groups=g):
-        """[B, H, S, D] bf16 K or V for SDPA: the table's pages dequantized,
-        then the new token(s) [B, T, Hkv, Dk], KV heads repeated to H."""
+    def gathered(pool, scale, tables, kv_bits, new, new_scale, groups=g, dtype=torch.bfloat16):
+        """[B, H, S, D] K or V for SDPA (``dtype``): the table's pages
+        dequantized, then the new token(s) [B, T, Hkv, Dk], KV heads repeated
+        to H."""
         sc = None if scale is None else ref.gather_pages(scale, tables)[layer]
         old = ref._dequant(ref.gather_pages(pool, tables)[layer], sc, kv_bits)
         full = torch.cat([old, ref._dequant(new, new_scale, kv_bits)], dim=1)
-        return full.to(torch.bfloat16).transpose(1, 2).repeat_interleave(groups, dim=1).contiguous()
+        return full.to(dtype).transpose(1, 2).repeat_interleave(groups, dim=1).contiguous()
 
     def touched(n, lo):
         """Table slots a row reads for live positions [lo, n)."""
         return -(-n // ps) - lo // ps if n > lo else 0
 
+    def summary_line(name, line, rec):
+        """A case the kernels line carries: the bf16 kernels' under its own
+        key, the f32 instantiations' under "shapes"."""
+        keys = LINE_KEYS + (("bound_f32_ms", "bf16_q_max_abs_err") if name.endswith("f32") else ())
+        entry = {key: rec[key] for key in keys}
+        if name.endswith("f32"):
+            summary[name].setdefault("shapes", {})[line] = entry
+        else:
+            summary[name][line] = entry
+
+    def costed(rec, dtype, nbytes, flops):
+        """bound_ms / bound_by of a case; for f32, three bf16 passes of
+        the products, and bound_f32_ms beside it."""
+        if dtype == f32:
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, 3 * flops)
+            rec["bound_f32_ms"] = bound(nbytes, flops, PEAK_F32_FLOPS)[0]
+        else:
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+        return rec
+
     # ---- paged decode: B = 8 at llama3.2-3b's heads, ctx in {0, 1, 17, 1024},
     # with and without a window; yi-9b's heads (4 x 8 x 128) at ctx 1024 (kv8,
     # kv4); gemma3-1b's (1 x 4 x 256) with its window of 1024 at ctx 2048 (kv8)
-    def decode_cases(kv_bits, ctxs, windows, heads=(hkv, g, d), label="", line=None):
+    def decode_cases(kv_bits, ctxs, windows, heads=(hkv, g, d), label="", line=None,
+                     dtype=torch.bfloat16, table_end=False):
         """``line``: this call's kv8 case is the kernels line's ``line``
-        entry."""
+        entry; ``table_end``: the table holds exactly max(ctxs) positions,
+        so a row of that length sits at its table's end."""
         hk, gq, dd = heads
         hh, b = hk * gq, 8
-        w = -(-(max(ctxs) + 1) // ps)
+        name = "paged_decode_f32" if dtype == f32 else "paged_decode"
+        tol = F32_ATTN_TOL if dtype == f32 else ATTN_TOL
+        w = -(-max(ctxs) // ps) if table_end else -(-(max(ctxs) + 1) // ps)
         n_pages = b * w + 4
-        kp, ks = payload((n_layers, n_pages, ps, hk, dd), kv_bits)
-        vp, vs = payload((n_layers, n_pages, ps, hk, dd), kv_bits)
+        kp, ks = payload((n_layers, n_pages, ps, hk, dd), kv_bits, dtype)
+        vp, vs = payload((n_layers, n_pages, ps, hk, dd), kv_bits, dtype)
         tables = torch.randperm(n_pages, generator=gen, device="cuda")[: b * w]
         tables = tables.reshape(b, w).to(torch.int32)
-        nk, nks = payload((b, hk, dd), kv_bits)
-        nv, nvs = payload((b, hk, dd), kv_bits)
-        q = torch.randn(b, hh, dd, generator=gen, device="cuda").to(torch.bfloat16)
+        nk, nks = payload((b, hk, dd), kv_bits, dtype)
+        nv, nvs = payload((b, hk, dd), kv_bits, dtype)
+        q = torch.randn(b, hh, dd, generator=gen, device="cuda").to(dtype)
         qg = q.reshape(b, hk, gq, dd)
         for ctx in ctxs:
             lengths = torch.tensor([max(ctx - (i % 3), 0) for i in range(b)],
@@ -753,18 +827,19 @@ def kernel_cases(torch, timer, gpu) -> dict:
                                             window=window).reshape(b, hh, dd)
                 exp = ref.paged_mqa_decode_ref(q, *args, sm_scale=sm, kv_bits=kv_bits,
                                                window=window)
-                err = max_err(torch, got, exp, ATTN_TOL)
+                err = max_err(torch, got, exp, tol)
+                check(got.dtype == dtype, f"{name}: output {got.dtype}, not {dtype}")
                 lens = lengths.tolist()
                 los = [max(n + 1 - window, 0) if window else 0 for n in lens]
                 live = [n - lo if n > lo else 0 for n, lo in zip(lens, los)]
                 slots = sum(touched(n, lo) for n, lo in zip(lens, los))
-                nbytes = (2 * q.numel() * 2 + kv_bytes(sum(live) + b, kv_bits, hk, dd)
+                nbytes = (2 * q.numel() * q.element_size()
+                          + kv_bytes(sum(live) + b, kv_bits, hk, dd, q.element_size())
                           + 4 * (slots + b))
-                b_ms, b_by = bound(nbytes, 4.0 * hh * dd * sum(n + 1 for n in live))
                 # library yardstick: SDPA over gathered, dequantized K/V + new token
                 one = lambda t: None if t is None else t[:, None]  # noqa: E731
-                kg = gathered(kp, ks, tables, kv_bits, one(nk), one(nks), gq)
-                vg = gathered(vp, vs, tables, kv_bits, one(nv), one(nvs), gq)
+                kg = gathered(kp, ks, tables, kv_bits, one(nk), one(nks), gq, dtype)
+                vg = gathered(vp, vs, tables, kv_bits, one(nv), one(nvs), gq, dtype)
                 pos = torch.arange(kg.shape[2], device="cuda")
                 mask = (pos[None] < lengths[:, None]) | (pos[None] == kg.shape[2] - 1)
                 if window:
@@ -772,20 +847,26 @@ def kernel_cases(torch, timer, gpu) -> dict:
                 mask = mask[:, None, None, :]
                 q4 = q[:, :, None, :]
                 heads_s = f"{label} {hk}x{gq}x{dd} " if label else ""
-                rec = {
-                    "case": f"{heads_s}kv{kv_bits} B={b} ctx={ctx} window={window}",
-                    "max_abs_err": err, "tol": ATTN_TOL,
+                rec = costed({
+                    "case": f"{'f32 ' if dtype == f32 else ''}{heads_s}kv{kv_bits} B={b} "
+                            f"ctx={ctx} window={window}" + (" table end" if table_end else ""),
+                    "max_abs_err": err, "tol": tol,
                     "ms": timer(lambda: paged_mqa_decode_cuda(
                         qg, *args, kv_bits=kv_bits, sm_scale=sm, window=window)),
                     "plain_ms": timer(lambda: ref.paged_mqa_decode_ref(
                         q, *args, sm_scale=sm, kv_bits=kv_bits, window=window), iters=3),
                     "library_ms": timer(lambda: F.scaled_dot_product_attention(
                         q4, kg, vg, attn_mask=mask)),
-                    "bound_ms": b_ms, "bound_by": b_by,
-                }
-                note("paged_decode", rec, (kv_bits, ctx, window, label) == (8, 1024, None, ""))
+                }, dtype, nbytes, 4.0 * hh * dd * sum(n + 1 for n in live))
+                if dtype == f32:  # the same kernel on q rounded to bf16: what it loses
+                    rq = qg.to(torch.bfloat16).float()
+                    rec["bf16_q_max_abs_err"] = (paged_mqa_decode_cuda(
+                        rq, *args, kv_bits=kv_bits, sm_scale=sm, window=window
+                    ).reshape(b, hh, dd) - exp).abs().max().item()
+                note(name, rec, (kv_bits, ctx, window, label, table_end)
+                     == (8, 1024, None, "", False))
                 if line and kv_bits == 8:
-                    summary["paged_decode"][line] = {key: rec[key] for key in LINE_KEYS}
+                    summary_line(name, line, rec)
         del kp, vp, ks, vs
         torch.cuda.empty_cache()
 
@@ -801,30 +882,43 @@ def kernel_cases(torch, timer, gpu) -> dict:
     for kv_bits in (8, 4, 16):
         decode_cases(kv_bits, (1024,), (None,), TP_KV_HEADS, "llama3.2-3b one rank of 2 (TP)",
                      "tp_kv_heads")
+    # the f32 instantiation: llama3.2-3b's heads (split and one-split rows,
+    # with and without a window, a row at its table's end), gemma3-1b's
+    # (head dim 256, its window) and paligemma-3b's (1 x 8 x 256)
+    for kv_bits in (4, 8, 16):
+        decode_cases(kv_bits, (0, 1, 17, 1024), (None, 256), dtype=f32)
+        decode_cases(kv_bits, (1024,), (None,), label="llama3.2-3b", line="table_end",
+                     dtype=f32, table_end=True)
+        decode_cases(kv_bits, (2048,), (GEMMA_WINDOW,), GEMMA_HEADS, "gemma3-1b heads",
+                     "g4_d256_window", f32)
+        decode_cases(kv_bits, (PALI_DECODE_CTX,), (None,), PALI_HEADS, "paligemma-3b heads",
+                     "g8_d256", f32)
 
     # ---- paged prefill: C in {1, 32, 128}, ragged q_lens, ctx > 0; then a
     # speculative verify window (C = SPEC_K + 1 at B = 8, VERIFY_CTX); then
     # gemma3-1b's heads (1 x 4 x 256) at ctx ~1536, C 128 and a verify
     # window, with and without its window of 1024, and D = 192 (padded to 256)
     def prefill_cases(kv_bits, ctx_list, chunks, label="", heads=(hkv, g, d), window=None,
-                      line=None):
+                      line=None, dtype=torch.bfloat16):
         """``line`` = (key, C): that C's case at kv8 is the kernels line's
         ``key`` entry."""
         hk, gq, dd = heads
         hh = hk * gq
         b = len(ctx_list)
+        name = "paged_prefill_f32" if dtype == f32 else "paged_prefill"
+        tol = F32_ATTN_TOL if dtype == f32 else ATTN_TOL
         w = -(-(max(ctx_list) + max(c for c, _ in chunks)) // ps)
         n_pages = b * w + 4
-        kp, ks = payload((n_layers, n_pages, ps, hk, dd), kv_bits)
-        vp, vs = payload((n_layers, n_pages, ps, hk, dd), kv_bits)
+        kp, ks = payload((n_layers, n_pages, ps, hk, dd), kv_bits, dtype)
+        vp, vs = payload((n_layers, n_pages, ps, hk, dd), kv_bits, dtype)
         tables = torch.randperm(n_pages, generator=gen, device="cuda")[: b * w]
         tables = tables.reshape(b, w).to(torch.int32)
         ctx = torch.tensor(ctx_list, dtype=torch.int32, device="cuda")
         for c, ql in chunks:
             q_lens = torch.tensor(ql, dtype=torch.int32, device="cuda")
-            q = torch.randn(b, c, hh, dd, generator=gen, device="cuda").to(torch.bfloat16)
-            ck, cks = payload((b, c, hk, dd), kv_bits)
-            cv, cvs = payload((b, c, hk, dd), kv_bits)
+            q = torch.randn(b, c, hh, dd, generator=gen, device="cuda").to(dtype)
+            ck, cks = payload((b, c, hk, dd), kv_bits, dtype)
+            cv, cvs = payload((b, c, hk, dd), kv_bits, dtype)
             qg = q.reshape(b, c, hk, gq, dd).permute(0, 2, 1, 3, 4).contiguous()
 
             def t(x):
@@ -838,11 +932,12 @@ def kernel_cases(torch, timer, gpu) -> dict:
             got = got.permute(0, 2, 1, 3, 4).reshape(b, c, hh, dd)
             exp = ref.paged_mqa_prefill_ref(q, *pargs, sm_scale=sm, kv_bits=kv_bits,
                                             window=window)
-            err = max_err(torch, got, exp, ATTN_TOL)
+            err = max_err(torch, got, exp, tol)
+            check(got.dtype == dtype, f"{name}: output {got.dtype}, not {dtype}")
             again = paged_mqa_prefill_cuda(qg, *kargs, kv_bits=kv_bits, sm_scale=sm,
                                            window=window)
             check(torch.equal(got, again.permute(0, 2, 1, 3, 4).reshape(b, c, hh, dd)),
-                  f"paged prefill {label}kv{kv_bits} C={c}: two runs gave other bits")
+                  f"{name} {label}kv{kv_bits} C={c}: two runs gave other bits")
             # what this run's data needs: each valid query sees its causal
             # keys inside the window; a row reads its keys from the first
             # query's window start on (query positions past q_len, and chunk
@@ -854,11 +949,10 @@ def kernel_cases(torch, timer, gpu) -> dict:
                           for n, qn in zip(ctx_list, ql) for ci in range(qn))
             keys = sum(n - lo_of(n) + qn for n, qn in zip(ctx_list, ql) if qn)
             slots = sum(touched(n, lo_of(n)) for n, qn in zip(ctx_list, ql) if qn)
-            nbytes = (2 * q.numel() * 2 + kv_bytes(keys, kv_bits, hk, dd)
-                      + 4 * (slots + 2 * b))
-            b_ms, b_by = bound(nbytes, 4.0 * hh * dd * visible)
-            kg = gathered(kp, ks, tables, kv_bits, ck, cks, gq)
-            vg = gathered(vp, vs, tables, kv_bits, cv, cvs, gq)
+            nbytes = (2 * q.numel() * q.element_size()
+                      + kv_bytes(keys, kv_bits, hk, dd, q.element_size()) + 4 * (slots + 2 * b))
+            kg = gathered(kp, ks, tables, kv_bits, ck, cks, gq, dtype)
+            vg = gathered(vp, vs, tables, kv_bits, cv, cvs, gq, dtype)
             s_len = w * ps
             kpos = torch.cat([torch.arange(s_len, device="cuda").expand(b, s_len),
                               ctx[:, None] + torch.arange(c, device="cuda")[None]], 1)
@@ -871,21 +965,26 @@ def kernel_cases(torch, timer, gpu) -> dict:
             mask = mask[:, None]
             qt = q.transpose(1, 2)
             heads_s = "" if heads == (hkv, g, d) else f"{hk}x{gq}x{dd} "
-            rec = {
-                "case": f"{label}{heads_s}kv{kv_bits} B={b} C={c} ctx={ctx_list} q_lens={ql}"
+            rec = costed({
+                "case": f"{'f32 ' if dtype == f32 else ''}{label}{heads_s}kv{kv_bits} B={b} "
+                        f"C={c} ctx={ctx_list} q_lens={ql}"
                         + (f" window={window}" if window else ""),
-                "max_abs_err": err, "tol": ATTN_TOL, "grid": launch_grid(b, hk, c, gq),
+                "max_abs_err": err, "tol": tol, "grid": launch_grid(b, hk, c, gq),
                 "ms": timer(lambda: paged_mqa_prefill_cuda(
                     qg, *kargs, kv_bits=kv_bits, sm_scale=sm, window=window)),
                 "plain_ms": timer(lambda: ref.paged_mqa_prefill_ref(
                     q, *pargs, sm_scale=sm, kv_bits=kv_bits, window=window), iters=3),
                 "library_ms": timer(lambda: F.scaled_dot_product_attention(
                     qt, kg, vg, attn_mask=mask)),
-                "bound_ms": b_ms, "bound_by": b_by,
-            }
-            note("paged_prefill", rec, (kv_bits, c, label) == (8, 128, ""))
+            }, dtype, nbytes, 4.0 * hh * dd * visible)
+            if dtype == f32:  # the same kernel on q rounded to bf16: what it loses
+                rq = qg.to(torch.bfloat16).float()
+                rec["bf16_q_max_abs_err"] = (paged_mqa_prefill_cuda(
+                    rq, *kargs, kv_bits=kv_bits, sm_scale=sm, window=window
+                ).permute(0, 2, 1, 3, 4).reshape(b, c, hh, dd) - exp).abs().max().item()
+            note(name, rec, (kv_bits, c, label) == (8, 128, ""))
             if line and kv_bits == 8 and c == line[1]:
-                summary["paged_prefill"][line[0]] = {key: rec[key] for key in LINE_KEYS}
+                summary_line(name, line[0], rec)
         del kp, vp, ks, vs
 
     for kv_bits in (4, 8, 16):
@@ -915,17 +1014,40 @@ def kernel_cases(torch, timer, gpu) -> dict:
         prefill_cases(kv_bits, VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)],
                       "llama3.2-3b one rank of 2 (TP) verify ", TP_KV_HEADS,
                       line=("tp_kv_heads_verify", SPEC_K + 1))
+    # the f32 instantiation: llama3.2-3b's heads at C 1, 5 (a verify
+    # window) and 128; gemma3-1b's at C 128 with its window and at a verify
+    # window, D = 192 (padded to 256); paligemma-3b's verify window
+    for kv_bits in (4, 8, 16):
+        prefill_cases(kv_bits, [256, 200, 384, 128],
+                      [(c, [c, max(c - 1, 1), max(c // 2, 1), 1]) for c in (1, 128)],
+                      dtype=f32)
+        prefill_cases(kv_bits, VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)], "verify ",
+                      line=("verify", SPEC_K + 1), dtype=f32)
+        prefill_cases(kv_bits, GEMMA_PREFILL_CTX, [(128, GEMMA_PREFILL_Q_LENS)], "gemma3-1b ",
+                      GEMMA_HEADS, GEMMA_WINDOW, ("d256", 128), f32)
+        prefill_cases(kv_bits, GEMMA_VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)],
+                      "gemma3-1b verify ", GEMMA_HEADS, GEMMA_WINDOW, dtype=f32)
+        prefill_cases(kv_bits, GEMMA_PREFILL_CTX, [(128, GEMMA_PREFILL_Q_LENS)],
+                      "D=192 (pads to 256) ", (1, 4, 192), GEMMA_WINDOW, dtype=f32)
+        prefill_cases(kv_bits, PALI_VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)],
+                      "paligemma-3b verify ", PALI_HEADS, line=("paligemma_verify", SPEC_K + 1),
+                      dtype=f32)
     torch.cuda.empty_cache()
     return summary
 
 
 def note_case(summary, gpu, name, rec, representative) -> None:
-    """Print one phase-2 case; keep the kernel's largest error and, from its
+    """Print one phase-2 case; keep the kernel's largest error (and, for the
+    f32 instantiations, the largest a q rounded to bf16 gives) and, from its
     representative case, the numbers of the kernels line."""
     summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], rec["max_abs_err"])
+    if "bf16_q_max_abs_err" in rec:
+        summary[name]["bf16_q_max_abs_err"] = max(summary[name].get("bf16_q_max_abs_err", 0.0),
+                                                  rec["bf16_q_max_abs_err"])
     if representative:
         summary[name].update({k: rec[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "case")})
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "case",
+            *(("bound_f32_ms",) if "bound_f32_ms" in rec else ()))})
     emit({"phase": "kernels", "kernel": name, **rec, "gpu": gpu})
 
 
@@ -1323,7 +1445,10 @@ def step_card_vs_cpu(torch, gpu, base, layers: int = 2, q_start=(0, 40), c: int 
     same step on the card with both paged attention kernels swapped for
     their plain versions, which must lie within twice the bf16 noise of the
     kernels' run and, on every split row with int8 or 16-bit KV, pick the
-    kernels' token: the split is then not the attention kernels' doing."""
+    kernels' token: the split is then not the attention kernels' doing.
+    The same step runs on the card in float32 too (the f32 instantiations
+    of the paged kernels, the f32-activation matmul), held to the CPU's
+    float32 run by compare_logits_f32."""
     from repro_torch.models import transformer as model_lib
     from repro_torch.serve import decode, prefill
 
@@ -1380,16 +1505,22 @@ def step_card_vs_cpu(torch, gpu, base, layers: int = 2, q_start=(0, 40), c: int 
         cpu = run("cpu")
         t_cpu = time.perf_counter() - t0
         cpu32 = run("cpu", wide=True)
+        t0 = time.perf_counter()
+        card32 = run("cuda", wide=True)
+        t_card32 = time.perf_counter() - t0
         plain = (None, None)
         if witness_all:
             with plain_paged_attention():
                 plain = run("cuda")
         rec = {"phase": what, "model": f"{arch} ({layers} of {depth} layers, full width)",
                "w_bits": w_bits, "kv_bits": kv_bits, "batch": b, "chunk": c,
-               "q_start": list(q_start), "card_s": t_card, "cpu_s": t_cpu, "gpu": gpu}
+               "q_start": list(q_start), "card_s": t_card, "cpu_s": t_cpu,
+               "card_f32_s": t_card32, "gpu": gpu}
         for i, name in enumerate(("prefill", "decode")):
             compare_logits(torch, rec, name, f"{arch} {name} w{w_bits}kv{kv_bits}",
                            on_card[i], cpu[i], cpu32[i], kv_bits, witness_all, plain[i])
+            compare_logits_f32(torch, rec, name, f"{arch} {name} w{w_bits}kv{kv_bits}",
+                               card32[i], cpu32[i], cpu[i])
         emit(rec)
         del params
     del params16
@@ -1456,6 +1587,35 @@ def compare_logits(torch, rec, name, tag, a, e, f, kv_bits, witness_all=False,
                       f"{tag} row {r}: with plain attention the card picks "
                       f"{row['card_plain_attention']}, with the kernels {ta}")
     rec[f"{name}_argmax_splits"] = split
+
+
+def compare_logits_f32(torch, rec, name, tag, a32, f, e) -> None:
+    """The card's float32 logits ``a32`` against the CPU's float32 ``f``
+    run of the same step (``e``: the CPU's bf16 run, whose distance to
+    ``f`` is the bf16 noise): max and mean |a32 - f| within F32_LOGIT_RULE
+    x the noise's max and mean, ten times tighter than compare_logits'
+    bound, and the same argmax on every row whose float32 top-two gap
+    exceeds F32_LOGIT_RULE x the largest noise."""
+    b = a32.shape[0]
+    check(bool(torch.isfinite(a32).all()), f"{tag} f32: non-finite logits")
+    diff, noise = (a32 - f).abs(), (f - e).abs()
+    tol_max, tol_mean = F32_LOGIT_RULE * noise.max(), F32_LOGIT_RULE * noise.mean()
+    f_two = f.topk(2, dim=-1).values
+    wide_gap = (f_two[:, 0] - f_two[:, 1]) > tol_max
+    same = a32.argmax(-1) == f.argmax(-1)
+    rec.update({f"{name}_f32_max_abs_err": diff.max().item(),
+                f"{name}_f32_mean_abs_err": diff.mean().item(),
+                f"{name}_f32_tol_max": tol_max.item(), f"{name}_f32_tol_mean": tol_mean.item(),
+                f"{name}_f32_argmax_agree": f"{int(same.sum())}/{b}",
+                f"{name}_f32_rows_past_tol_gap": int(wide_gap.sum())})
+    check(diff.max() <= tol_max and diff.mean() <= tol_mean,
+          f"{tag}: card vs CPU float32 logits differ by max {diff.max().item():.4g} / mean "
+          f"{diff.mean().item():.4g}, over {F32_LOGIT_RULE} x the bf16 noise "
+          f"{noise.max().item():.4g} / {noise.mean().item():.4g}")
+    check(bool(same[wide_gap].all()),
+          f"{tag}: float32 argmax differs between card and CPU on rows "
+          f"{torch.nonzero(wide_gap & ~same).flatten().tolist()}, whose top two lie "
+          f"more than {tol_max.item():.4g} apart")
 
 
 @contextlib.contextmanager
@@ -1556,7 +1716,8 @@ def hybrid_step_card_vs_cpu(torch, gpu, base) -> None:
     """zamba2-7b cut to 7 layers at full width (one group of 6 SSM layers,
     the shared attention block, a 1-layer tail), w8/kv8: prefill of 2 x 64
     tokens and two decode steps on the card and on the CPU (bf16 and
-    float32), held by compare_logits (the rule of phase 3)."""
+    float32), held by compare_logits (the rule of phase 3); the card's
+    float32 run of the same steps by compare_logits_f32."""
     from repro_torch.models import transformer as model_lib
 
     cfg = dataclasses.replace(base, n_layers=7)
@@ -1583,12 +1744,17 @@ def hybrid_step_card_vs_cpu(torch, gpu, base) -> None:
     cpu = run("cpu")
     t_cpu = time.perf_counter() - t0
     cpu32 = run("cpu", "float32")
+    t0 = time.perf_counter()
+    card32 = run("cuda", "float32")
+    t_card32 = time.perf_counter() - t0
     rec = {"phase": "step_hybrid", "model": "zamba2-7b (7 of 81 layers, full width)",
            "w_bits": cfg.serve_w_bits, "kv_bits": cfg.serve_kv_bits, "batch": 2,
-           "prompt": 64, "decode_steps": 2, "card_s": t_card, "cpu_s": t_cpu, "gpu": gpu}
+           "prompt": 64, "decode_steps": 2, "card_s": t_card, "cpu_s": t_cpu,
+           "card_f32_s": t_card32, "gpu": gpu}
     for i, name in enumerate(("prefill", "decode1", "decode2")):
         compare_logits(torch, rec, name, f"zamba2 {name}", on_card[i], cpu[i], cpu32[i],
                        cfg.serve_kv_bits)
+        compare_logits_f32(torch, rec, name, f"zamba2 {name}", card32[i], cpu32[i], cpu[i])
     emit(rec)
     del params
 
@@ -1973,6 +2139,11 @@ def sampled(i: int) -> dict:
     return {"temperature": 0.8, "top_p": 0.95, "top_k": 50 if i % 2 == 0 else 0, "seed": i}
 
 
+def mixed_sampling(i: int) -> dict:
+    """Greedy on even requests, phase 5's sampled traffic on odd ones."""
+    return sampled(i) if i % 2 else {}
+
+
 def temperature_only(i: int) -> dict:
     """Temperature 0.8 alone, seed = the request's index."""
     return {"temperature": 0.8, "seed": i}
@@ -2207,13 +2378,13 @@ def spec_round_profile(torch, cfg, capture: bool = True) -> dict:
 
 
 # --------------------------------------------------------------- phase 7
-def ptxas_report(lib_path: Path, kernel: str = "paged_prefill_kernelILi256E",
+def ptxas_report(lib_path: Path, kernel: str = "paged_prefill_kernelI13__nv_bfloat16Li256E",
                  names: tuple = ("kv_bits",)) -> list:
     """Registers, stack and spill bytes that ``ptxas -v`` gave each kernel
     instantiation whose mangled name holds ``kernel`` (the build's log
     beside the library), with the integer template arguments that follow
-    ``kernel`` in the name under ``names``: by default paged prefill at DP =
-    256, one per kv_bits."""
+    ``kernel`` in the name under ``names``: by default bf16 paged prefill at
+    DP = 256, one per kv_bits."""
     out, cur = [], False
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -2332,10 +2503,22 @@ def serve_run(torch, cfg, seed: int, requests: int, prompt: int, new: int, preci
 
 
 def captured_steps(engine) -> dict:
-    """An engine's captured steps: {captured, replays, capture_s} and, on a
-    mesh, the splits its step keys name (``ServeEngine.split``)."""
+    """An engine's captured steps: {captured, replays, capture_s}, the paged
+    attention launches (either kernel, either instantiation) a replay of
+    each step adds, by step name, and, on a mesh, the splits its step keys
+    name (``ServeEngine.split``)."""
+    from repro_torch.kernels.paged_decode import paged_mqa_decode_cuda
+    from repro_torch.kernels.paged_prefill import paged_mqa_prefill_cuda
+    from repro_torch.serve.graphs import COUNTERS
+
+    paged = {}
+    for key, g in engine.graphs._graphs.items():
+        n = sum(d for (fn, _), d in zip(COUNTERS, g.launches)
+                if fn in (paged_mqa_decode_cuda, paged_mqa_prefill_cuda))
+        paged.setdefault(key[0], set()).add(n)
     steps = {"captured": engine.graphs.captured, "replays": engine.graphs.replays,
-             "capture_s": engine.graphs.capture_s}
+             "capture_s": engine.graphs.capture_s,
+             "paged_launches_per_replay": {k: sorted(v) for k, v in paged.items()}}
     if engine.mesh is not None:
         steps["splits"] = sorted({repr(key[2][-1]) for key in engine.graphs.calls})
     return steps
@@ -2398,7 +2581,9 @@ def prefix_step_card_vs_cpu(torch, gpu, base, layers: int = 2, prompt: int = 32)
     the card (kernels) and on the CPU (plain versions), for three (w_bits,
     kv_bits) pairs, judged by phase 3's rule with float32 and the card with
     plain paged attention as witnesses on near-tied rows (``witness_all``:
-    257216 random logits).  Both runs take the CPU's prefix draw."""
+    257216 random logits).  Both runs take the CPU's prefix draw.  The card
+    runs the step in float32 too, held to the CPU's float32 run by
+    compare_logits_f32."""
     from repro_torch.models import transformer as model_lib
     from repro_torch.models.frontends import prefix_embeddings
     from repro_torch.serve import decode
@@ -2454,14 +2639,20 @@ def prefix_step_card_vs_cpu(torch, gpu, base, layers: int = 2, prompt: int = 32)
         cpu = run("cpu")
         t_cpu = time.perf_counter() - t0
         cpu32 = run("cpu", wide=True)
+        t0 = time.perf_counter()
+        card32 = run("cuda", wide=True)
+        t_card32 = time.perf_counter() - t0
         with plain_paged_attention():
             plain = run("cuda")
         rec = {"phase": "step_prefix", "model": f"{arch} ({layers} of {depth} layers, full width)",
                "w_bits": w_bits, "kv_bits": kv_bits, "batch": b, "prefix": base.prefix_len,
-               "prompt": prompt, "card_s": t_card, "cpu_s": t_cpu, "gpu": gpu}
+               "prompt": prompt, "card_s": t_card, "cpu_s": t_cpu, "card_f32_s": t_card32,
+               "gpu": gpu}
         for i, name in enumerate(("prefill", "decode")):
             compare_logits(torch, rec, name, f"{arch} one-shot {name} w{w_bits}kv{kv_bits}",
                            on_card[i], cpu[i], cpu32[i], kv_bits, True, plain[i])
+            compare_logits_f32(torch, rec, name, f"{arch} one-shot {name} w{w_bits}kv{kv_bits}",
+                               card32[i], cpu32[i], cpu[i])
         emit(rec)
         del params, cpu_params
     del params16
@@ -3786,6 +3977,17 @@ def main() -> int:
     check(sorted(e["kv_bits"] for e in spills) == [4, 8, 16] and
           all("registers" in e and "spill_store_bytes" in e for e in spills),
           f"ptxas -v reports no DP = 256 paged prefill instantiations: {spills}")
+    # the f32 instantiations of both paged kernels: prefill at every DP,
+    # decode at both NC (4: D <= 128, 8: D <= 256)
+    f32_prefill = ptxas_report(lib_path, "paged_prefill_kernelIf", ("dp", "kv_bits"))
+    f32_decode = ptxas_report(lib_path, "paged_decode_kernelIf", ("kv_bits", "nc"))
+    emit({"phase": "ptxas", "kernel": "paged_prefill_kernel<float, DP, kv_bits> and "
+          "paged_decode_kernel<float, kv_bits, NC> (f32 q)", "prefill": f32_prefill,
+          "decode": f32_decode, "gpu": gpu})
+    check(len(f32_prefill) == 12 and len(f32_decode) == 6
+          and all("registers" in e and "spill_store_bytes" in e
+                  for e in f32_prefill + f32_decode),
+          f"ptxas -v reports no f32 paged instantiations: {f32_prefill} {f32_decode}")
     mqa_all = ptxas_report(lib_path, "mqa_decode_split_kernelI", ("kv_bits", "gq", "dmax"))
     wide = [e for e in mqa_all if e.get("dmax") == 256]
     emit({"phase": "ptxas", "kernel": "mqa_decode_split_kernel<kv_bits, gq, DMAX = 256> "
@@ -3827,7 +4029,9 @@ def main() -> int:
                 "mpmm_int": (mpmm_int_cuda, "launches"),
                 "mqa_decode": (mqa_decode_cuda, "launches"),
                 "mpmm_dequant_x32": (mpmm_cuda, "x32_launches"),
-                "mpmm_ff_dequant_x32": (mpmm_ff_cuda, "x32_launches")}
+                "mpmm_ff_dequant_x32": (mpmm_ff_cuda, "x32_launches"),
+                "paged_decode_f32": (paged_mqa_decode_cuda, "f32_launches"),
+                "paged_prefill_f32": (paged_mqa_prefill_cuda, "f32_launches")}
 
     def count(path):
         """Drive one path with every count at 0; its launches per kernel
@@ -4000,6 +4204,56 @@ def main() -> int:
               "what": "one spec round of the full engine (8 rows, w8 target, w4 draft, kv8, "
                       f"spec_k {SPEC_K})", "profile": sp_prof, "gpu": gpu})
     sprof = profiles[("spec", True)]
+
+    # ---- (e) float32: full llama3.2-3b with dtype="float32" (the f32
+    # instantiations of both paged kernels, the f32-activation matmul),
+    # mixed (w, kv), greedy and sampled, spec on requests 4-7; twice
+    # captured, once eager; the same traffic in bf16 beside it
+    torch.cuda.empty_cache()
+    t_f32 = time.perf_counter()
+    llama32 = dataclasses.replace(llama, dtype="float32")
+
+    def f32_run(cfg, capture=True):
+        return engine_run(torch, 0, cfg, sampling=mixed_sampling, precision=mixed_spec,
+                          capture=capture)
+
+    (f_streams, f_stats, f_peak, f_wall, f_steps), f32_launches = count(lambda: f32_run(llama32))
+    f_streams2, f_stats2, _, f_wall2, _ = f32_run(llama32)
+    check(f_streams == f_streams2, "float32: a second run with the same seeds gave other streams")
+    check(f_stats.tokens_out == 8 * 32, f"float32 tokens_out {f_stats.tokens_out} != 256")
+    check(f_stats.spec_rounds > 0, "float32: no speculative round ran")
+    check(all(f32_launches[k] > 0 for k in ("paged_decode_f32", "paged_prefill_f32",
+                                             "mpmm_dequant_x32")),
+          f"float32 launches {f32_launches}: expected both f32 paged kernels and the f32 "
+          "CF matmul")
+    check(not any(f32_launches[k] for k in ("paged_decode", "paged_prefill", "mpmm_dequant")),
+          f"float32 launches {f32_launches}: a bf16 kernel ran on the float32 path")
+    eager_twin("float32 mixed, sampled, spec", "serve_f32", f_streams, f32_launches,
+               lambda: f32_run(llama32, capture=False))
+    torch.cuda.empty_cache()
+    bf_streams, bf_stats, bf_peak, bf_wall, bf_steps = f32_run(llama)
+
+    def f32_line(st, pk, wall, steps):
+        return {"decode_tok_per_s": st.decode_tok_per_s,
+                "decode_call_ms_p50": _p50(st.decode_call_s) * 1e3,
+                "ttft_ms_first": min(st.ttfts) * 1e3, "ttft_ms_last": max(st.ttfts) * 1e3,
+                "prefill_s": st.prefill_s, "wall_s": wall, "peak_mem_gb": pk / 1e9,
+                "spec_rounds": st.spec_rounds, "spec_accept_rate": st.spec_accept_rate,
+                "paged_launches_per_replay": steps["paged_launches_per_replay"],
+                "captured": steps["captured"], "capture_s": steps["capture_s"]}
+
+    emit({"phase": "engine_f32", "model": "llama3.2-3b (28 layers, full width), "
+          "dtype float32", "requests": 8, "prompt": 512, "shared_prefix": 256,
+          "new_tokens": 32, "precisions": PRECISIONS,
+          "traffic": "greedy on even requests, sampled (temperature 0.8, top_p 0.95, top_k 50 "
+                     "on every other) on odd, seed = index; spec_k 4 with a w4 draft on "
+                     "requests 4-7",
+          "identical_streams": True, "eager_identical": True, "tokens_out": f_stats.tokens_out,
+          "float32": f32_line(f_stats, f_peak, f_wall, f_steps),
+          "float32_repeat": {"decode_tok_per_s": f_stats2.decode_tok_per_s, "wall_s": f_wall2},
+          "bfloat16": f32_line(bf_stats, bf_peak, bf_wall, bf_steps),
+          "streams_unlike_bf16": f"{sum(a != b for a, b in zip(f_streams, bf_streams))}/8",
+          "launches": f32_launches, "phase_s": time.perf_counter() - t_f32, "gpu": gpu})
 
     # ---- waves: full zamba2-7b through the static-wave Server, twice
     (streams, wstats, wpeak, wwall, srv), wave_launches = count(
@@ -4249,7 +4503,8 @@ def main() -> int:
           "capture_s": {"serve": steps["capture_s"], "sampled": s_steps["capture_s"],
                         "spec_sampled": ss_steps["capture_s"]}, "gpu": gpu})
 
-    by_path = {"serve": launches, "sampled": sampled_launches, "spec": spec_launches,
+    by_path = {"serve": launches, "serve_f32": f32_launches, "sampled": sampled_launches,
+               "spec": spec_launches,
                "spec_sampled": spec_sampled_launches, "cnn": cnn_launches,
                "waves": wave_launches, "waves_ssm": mamba_launches, "gemma": gemma_launches,
                "gemma_spec": gemma_spec_launches, "mixtral": mixtral_launches,
@@ -4333,6 +4588,11 @@ def main() -> int:
             **({"paligemma_heads": {**s["paligemma_heads"], "calls_dryrun_d256_step":
                                     dry_calls["decode_d256"].get("mqa_decode", 0)}}
                if "paligemma_heads" in s else {}),
+            # the f32 paged instantiations: their largest error beside the
+            # one a q rounded to bf16 gives, the representative case's one
+            # f32 pass, and their cases at the other shapes
+            **({key: s[key] for key in ("bf16_q_max_abs_err", "bound_f32_ms", "shapes")
+                if key in s} if name.endswith("f32") else {}),
             # the f32 CF entry at rows 3a / 3b's serving shapes, and its
             # launches in the quickstart's f32 section (phase 13)
             **({"serving": {**s["serving"],

@@ -38,8 +38,12 @@ _SIGNATURES = {
     "mpmm_int_i32": [_P] * 4 + [_I] * 7 + [_P],
     "mqa_decode": [_P] * 8 + [_I] * 9 + [_F, _P],
     "paged_decode_bf16": [_P] * 13 + [_I] * 13 + [_F, _P],
+    "paged_decode_f32": [_P] * 13 + [_I] * 13 + [_F, _P],
+    "paged_decode_block_warps": [_I] * 3,
     "paged_prefill_bf16": [_P] * 13 + [_I] * 11 + [_F, _P],
+    "paged_prefill_f32": [_P] * 13 + [_I] * 11 + [_F, _P],
     "paged_prefill_rows_per_block": [],
+    "paged_prefill_smem_bytes": [_I] * 3,
 }
 
 _lib: ctypes.CDLL | None = None

@@ -21,10 +21,21 @@ def expect(
         raise ValueError(f"{name} must start on a {align}-byte boundary")
 
 
-def pool_dtype(kv_bits: int) -> torch.dtype:
+QUERY_DTYPES = (torch.bfloat16, torch.float32)  # the paged kernels' instantiations
+
+
+def paged_dtypes(q_dtype: torch.dtype, kv_bits: int) -> tuple[torch.dtype, torch.dtype]:
+    """What the paged attention kernels take with a query of ``q_dtype``:
+    (pool payload dtype, output dtype).  A kv16 pool holds the model's float
+    type, as the query does (``PagedKVCache`` holds ``cfg.dtype``); kv8 and
+    kv4 pools hold int8 payloads (kv4 nibble-packed) with f32 scales; the
+    output is the query's type.  bf16 and f32 queries each have their own
+    instantiation; any other type raises ``TypeError``."""
     if kv_bits not in (4, 8, 16):
         raise ValueError(f"kv_bits must be 4, 8 or 16, got {kv_bits}")
-    return torch.bfloat16 if kv_bits == 16 else torch.int8
+    if q_dtype not in QUERY_DTYPES:
+        raise TypeError(f"the paged kernels take bf16 or float32 queries, got {q_dtype}")
+    return (q_dtype if kv_bits == 16 else torch.int8), q_dtype
 
 
 def window_arg(window) -> int:

@@ -56,10 +56,24 @@
 //   round trip for every batch of its loads, so a block of 128 threads
 //   merges each (row, kv head, query), every thread issuing all its loads
 //   before their use.
+// The f32 instantiation (paged_decode_f32: f32 q and out, f32 16-bit pools,
+// the JAX kernel's function for a float32 model, whose products are f32)
+// keeps the ring, the page walk, the split and the merge, and runs both
+// products as f32 FMAs on the CUDA cores in the same register layouts: lane
+// (g, q) holds query g's dims 16 ks + 4q .. + 3 as f32, scores its 8
+// tokens over them, and a reduce-scatter over the quad (6 shuffles) leaves
+// it tokens 2q, 2q + 1, as the mma fragment does; for P V it gathers the
+// f32 weights of queries 2q, 2q + 1 (16 shuffles) and reads each token's V
+// dims 4u .. 4u + 3.  Decode is bound by the bytes it reads, so FMA does not
+// set its pace; a bf16 mma on a rounded q would lose 2^-9 relatively.  Its
+// kv16 tiles are twice as wide: a block takes two warps where four rings
+// would not fit in shared memory (D > 220).
 // D up to 128 and up to 256 take 4 and 8 groups of 32 dims (the V^T tiles);
 // larger query groups take several warps (each reads the K/V again, mostly
 // from L2).  Rows sit in shared memory at a pitch of 16 x (odd) bytes, so the
 // eight tokens' word reads fall in distinct banks.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -69,6 +83,7 @@ constexpr int PD_RING = 4;         // tiles per warp ring: 3 in flight while one
 constexpr int PD_MAX_WARPS = 4;    // warps a block takes at most
 constexpr int PD_MAX_SPLITS = 64;  // the merge reads a split's (m, l) a thread
 constexpr int PD_GQ = 8;           // queries a warp takes: rows 0-7 of the products
+constexpr int PD_SMEM_MAX = 227 * 1024;  // shared memory a block may have on an H100
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Stage bytes of one warp tile: K rows, V rows, then the K and V scales.
@@ -150,9 +165,49 @@ __device__ __forceinline__ void load_pairs4(const uint8_t* x, const uint8_t* y, 
 __device__ __forceinline__ float bf_lo(uint32_t x) { return __uint_as_float(x << 16); }
 __device__ __forceinline__ float bf_hi(uint32_t x) { return __uint_as_float(x & 0xFFFF0000u); }
 
-// The kernels' arguments (see the entry point paged_decode_bf16).
+// Dims e .. e + 3 of a stored row as f32, exactly; zeros past d.  A 16-bit
+// pool holds the query's type T (bf16 or f32 rows, D even: 8-byte pairs).
+template <int KV_BITS, typename T>
+__device__ __forceinline__ void load_f4(const uint8_t* row, int e, int d, float (&x)[4]) {
+  if constexpr (KV_BITS == 16 && std::is_same_v<T, float>) {
+    x[0] = x[1] = x[2] = x[3] = 0.f;
+    if (e >= d) return;
+    const float2* p = reinterpret_cast<const float2*>(row + 4 * e);
+    const float2 lo = p[0];
+    x[0] = lo.x;
+    x[1] = lo.y;
+    if (e + 2 < d) {
+      const float2 hi = p[1];
+      x[2] = hi.x;
+      x[3] = hi.y;
+    }
+  } else if constexpr (KV_BITS == 8) {
+    x[0] = x[1] = x[2] = x[3] = 0.f;
+    if (e >= d) return;
+    const uint32_t b = *reinterpret_cast<const uint32_t*>(row + e) ^ 0x80808080u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = s8_biased_to_f32(b, j);
+  } else {
+    uint32_t lo, hi;
+    load_dims4<KV_BITS>(row, e, d, lo, hi);
+    x[0] = bf_lo(lo);
+    x[1] = bf_hi(lo);
+    x[2] = bf_lo(hi);
+    x[3] = bf_hi(hi);
+  }
+}
+
+// Bytes of one stored K/V row: 16-bit pools hold T.
+template <typename T>
+__host__ __device__ __forceinline__ int pd_row_bytes(int d, int kv_bits) {
+  return kv_bits == 16 ? d * (int)sizeof(T) : d * kv_bits / 8;
+}
+
+// The kernels' arguments (see the entry points paged_decode_bf16 / _f32);
+// T is the query's and the output's type.
+template <typename T>
 struct PagedArgs {
-  const __nv_bfloat16* q;    // [B, Hkv, G, D]
+  const T* q;                // [B, Hkv, G, D]
   const uint8_t* k_pool;     // [L, P, ps, Hkv, Dk] as stored
   const uint8_t* v_pool;
   const float* k_scale;      // [L, P, ps, Hkv, 1], null for bf16 pools
@@ -163,7 +218,7 @@ struct PagedArgs {
   const uint8_t* new_v;
   const float* new_k_scale;  // [B, Hkv, 1], null for bf16 pools
   const float* new_v_scale;
-  __nv_bfloat16* out;        // [B, Hkv, G, D]
+  T* out;                    // [B, Hkv, G, D]
   float* part;               // [B, Hkv, G, splits, 4 * ceil(D / 4) + 4]
   int layer, n_pages, ps, hkv, g_size, n_groups, d, w, window, n_split, per_split;
   int pitch, copy_bytes, copy_shift;
@@ -175,28 +230,37 @@ struct PagedArgs {
 struct RowRange {
   int win_lo, length, n_live;
 };
-__device__ __forceinline__ RowRange row_range(const PagedArgs& a, int b) {
+template <typename T>
+__device__ __forceinline__ RowRange row_range(const PagedArgs<T>& a, int b) {
   const int length = min(a.lengths[b], a.w * a.ps);
   const int win_lo = a.window > 0 ? max(length + 1 - a.window, 0) : 0;
   const int live = length > win_lo ? (length - win_lo + a.per_split - 1) / a.per_split : 1;
   return {win_lo, length, min(max(live, 1), a.n_split)};
 }
 
-// out[row][4u .. 4u + 3] = o * inv (bf16 pairs: D is even).
-__device__ __forceinline__ void store_unit(const PagedArgs& a, int64_t row, int u,
+// out[row][4u .. 4u + 3] = o * inv (pairs: D is even).
+__device__ __forceinline__ void store_unit(const PagedArgs<__nv_bfloat16>& a, int64_t row, int u,
                                            const float (&o)[4], float inv) {
   __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(a.out + row * a.d) + 2 * u;
   dst[0] = __floats2bfloat162_rn(o[0] * inv, o[1] * inv);
   if (4 * u + 2 < a.d) dst[1] = __floats2bfloat162_rn(o[2] * inv, o[3] * inv);
 }
+__device__ __forceinline__ void store_unit(const PagedArgs<float>& a, int64_t row, int u,
+                                           const float (&o)[4], float inv) {
+  float2* dst = reinterpret_cast<float2*>(a.out + row * a.d) + 2 * u;
+  dst[0] = make_float2(o[0] * inv, o[1] * inv);
+  if (4 * u + 2 < a.d) dst[1] = make_float2(o[2] * inv, o[3] * inv);
+}
 
 // Warp (row b, unit = block y * warps + warp): kv head unit % Hkv, query
 // group (unit / Hkv) % groups, split unit / (Hkv * groups).  NC: groups of
-// 32 dims (D <= 32 NC); lane (g, q) = (lane / 4, lane % 4).
-template <int KV_BITS, int NC>
-__global__ void __launch_bounds__(32 * PD_MAX_WARPS) paged_decode_kernel(const PagedArgs a) {
+// 32 dims (D <= 32 NC); lane (g, q) = (lane / 4, lane % 4).  T: bf16 (both
+// products on the tensor cores) or f32 (both as f32 FMAs).
+template <typename T, int KV_BITS, int NC>
+__global__ void __launch_bounds__(32 * PD_MAX_WARPS) paged_decode_kernel(const PagedArgs<T> a) {
   constexpr int KS = 2 * NC;  // 16-dim steps of the score product
   constexpr bool SCALES = KV_BITS < 16;
+  constexpr bool F32 = std::is_same_v<T, float>;
   extern __shared__ __align__(16) uint8_t smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x, unit = blockIdx.y * (blockDim.x >> 5) + warp;
@@ -205,7 +269,7 @@ __global__ void __launch_bounds__(32 * PD_MAX_WARPS) paged_decode_kernel(const P
   if (split >= a.n_split) return;  // no block-wide barrier follows
   const RowRange rr = row_range(a, b);
   if (split >= rr.n_live) return;
-  const int d = a.d, dk = d * KV_BITS / 8, du = (d + 3) / 4;
+  const int d = a.d, dk = pd_row_bytes<T>(d, KV_BITS), du = (d + 3) / 4;
   const int ks_live = (d + 15) / 16, nc_live = (du + 7) / 8;  // warp-uniform
   const int pitch = a.pitch, copy_bytes = a.copy_bytes, copy_shift = a.copy_shift;
   const int tb = tile_bytes(pitch, SCALES);
@@ -277,18 +341,38 @@ __global__ void __launch_bounds__(32 * PD_MAX_WARPS) paged_decode_kernel(const P
   fetch(PD_RING - 1, pg_next, ip_next);
 
   const int g = lane >> 2, q = lane & 3;
-  // query g's dims 16 ks + 4q .. + 3 as bf16 pairs: the A fragments of S = Q K^T
-  uint32_t qa[KS][2];
+  // query g's dims 16 ks + 4q .. + 3: as bf16 pairs, the A fragments of
+  // S = Q K^T, or as f32 (F32)
+  uint32_t qa[F32 ? 1 : KS][2];
+  float qv[F32 ? KS : 1][4];
   {
-    const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
-        a.q + (bh * a.g_size + grp * PD_GQ + g) * d);
+    const T* qrow = a.q + (bh * a.g_size + grp * PD_GQ + g) * d;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       const int e = 16 * ks + 4 * q;
-      qa[ks][0] = g < gs && e < d ? qrow[e / 2] : 0u;
-      qa[ks][1] = g < gs && e + 2 < d ? qrow[e / 2 + 1] : 0u;
+      if constexpr (F32) {
+        float2 lo = make_float2(0.f, 0.f), hi = lo;
+        if (g < gs && e < d) lo = *reinterpret_cast<const float2*>(qrow + e);
+        if (g < gs && e + 2 < d) hi = *reinterpret_cast<const float2*>(qrow + e + 2);
+        qv[ks][0] = lo.x;
+        qv[ks][1] = lo.y;
+        qv[ks][2] = hi.x;
+        qv[ks][3] = hi.y;
+      } else {
+        const uint32_t* qw = reinterpret_cast<const uint32_t*>(qrow);
+        qa[ks][0] = g < gs && e < d ? qw[e / 2] : 0u;
+        qa[ks][1] = g < gs && e + 2 < d ? qw[e / 2 + 1] : 0u;
+      }
     }
   }
+  // dim 16 ks + 4q + j of query g, as f32
+  auto q_at = [&](int ks, int j) -> float {
+    if constexpr (F32) {
+      return qv[ks][j];
+    } else {
+      return j % 2 ? bf_hi(qa[ks][j / 2]) : bf_lo(qa[ks][j / 2]);
+    }
+  };
   // acc[c][hh]: O^T rows 4u + 2hh (g) and 4u + 2hh + 1 (g + 8), u = g + 8c, x
   // queries 2q, 2q + 1 (the m16n8k8 fragment); m and l of query g
   float acc[NC][2][4];
@@ -306,12 +390,10 @@ __global__ void __launch_bounds__(32 * PD_MAX_WARPS) paged_decode_kernel(const P
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       if (ks < ks_live) {
-        uint32_t lo, hi;
-        load_dims4<KV_BITS>(nk, 16 * ks + 4 * q, d, lo, hi);
-        s = fmaf(bf_lo(qa[ks][0]), bf_lo(lo), s);
-        s = fmaf(bf_hi(qa[ks][0]), bf_hi(lo), s);
-        s = fmaf(bf_lo(qa[ks][1]), bf_lo(hi), s);
-        s = fmaf(bf_hi(qa[ks][1]), bf_hi(hi), s);
+        float kf[4];
+        load_f4<KV_BITS, T>(nk, 16 * ks + 4 * q, d, kf);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s = fmaf(q_at(ks, j), kf[j], s);
       }
     }
     s += __shfl_xor_sync(0xffffffffu, s, 1);
@@ -321,9 +403,8 @@ __global__ void __launch_bounds__(32 * PD_MAX_WARPS) paged_decode_kernel(const P
     const float v_sc = SCALES ? a.new_v_scale[bh] : 1.f;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      uint32_t lo, hi;
-      load_dims4<KV_BITS>(nv, 4 * (g + 8 * c), d, lo, hi);
-      const float v[4] = {bf_lo(lo), bf_hi(lo), bf_lo(hi), bf_hi(hi)};
+      float v[4];
+      load_f4<KV_BITS, T>(nv, 4 * (g + 8 * c), d, v);
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         acc[c][hh][0] = acc[c][hh][1] = v[2 * hh] * v_sc;
@@ -342,25 +423,60 @@ __global__ void __launch_bounds__(32 * PD_MAX_WARPS) paged_decode_kernel(const P
     const float* sc = reinterpret_cast<const float*>(st + 2 * PD_TT * pitch);
     const int t0 = p0 + i * PD_TT;
 
-    // S = Q K^T: query g x tokens 2q, 2q + 1 (two chains of k steps)
-    float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
-    const uint8_t* krow = st + g * pitch;  // token g: column g of K^T
+    // S = Q K^T: query g x tokens 2q, 2q + 1 (sc0, sc1)
+    float sc0, sc1;
+    if constexpr (F32) {
+      // query g's dims of this lane against all 8 tokens, then a
+      // reduce-scatter over the quad: tokens 4 (q >> 1) + 0..3 after the
+      // first exchange, 2q and 2q + 1 after the second
+      float sp[PD_TT];
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      if (ks < ks_live) {
-        uint32_t b0, b1;
-        load_dims4<KV_BITS>(krow, 16 * ks + 4 * q, d, b0, b1);
-        const uint32_t qf[4] = {qa[ks][0], 0u, qa[ks][1], 0u};
-        mma_bf16_16816(ks % 2 ? s1 : s0, qf, b0, b1);
+      for (int t = 0; t < PD_TT; ++t) sp[t] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        if (ks < ks_live) {
+#pragma unroll
+          for (int t = 0; t < PD_TT; ++t) {
+            float kf[4];
+            load_f4<KV_BITS, T>(st + t * pitch, 16 * ks + 4 * q, d, kf);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) sp[t] = fmaf(q_at(ks, j), kf[j], sp[t]);
+          }
+        }
       }
+      float r[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float keep = q & 2 ? sp[4 + j] : sp[j], send = q & 2 ? sp[j] : sp[4 + j];
+        r[j] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
+      }
+      const float keep0 = q & 1 ? r[2] : r[0], send0 = q & 1 ? r[0] : r[2];
+      const float keep1 = q & 1 ? r[3] : r[1], send1 = q & 1 ? r[1] : r[3];
+      sc0 = keep0 + __shfl_xor_sync(0xffffffffu, send0, 1);
+      sc1 = keep1 + __shfl_xor_sync(0xffffffffu, send1, 1);
+    } else {
+      // two chains of k steps on the tensor cores
+      float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+      const uint8_t* krow = st + g * pitch;  // token g: column g of K^T
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        if (ks < ks_live) {
+          uint32_t b0, b1;
+          load_dims4<KV_BITS>(krow, 16 * ks + 4 * q, d, b0, b1);
+          const uint32_t qf[4] = {qa[ks][0], 0u, qa[ks][1], 0u};
+          mma_bf16_16816(ks % 2 ? s1 : s0, qf, b0, b1);
+        }
+      }
+      sc0 = s0[0] + s1[0];
+      sc1 = s0[1] + s1[1];
     }
     // log2 units: s * k_scale * sm_scale * log2(e); tokens past p1 masked
     const float2 ksc =
         SCALES ? *reinterpret_cast<const float2*>(sc + 2 * q) : make_float2(1.f, 1.f);
     const float2 vsc =
         SCALES ? *reinterpret_cast<const float2*>(sc + PD_TT + 2 * q) : make_float2(1.f, 1.f);
-    const float x0 = t0 + 2 * q < p1 ? (s0[0] + s1[0]) * ksc.x * sms : -INFINITY;
-    const float x1 = t0 + 2 * q + 1 < p1 ? (s0[1] + s1[1]) * ksc.y * sms : -INFINITY;
+    const float x0 = t0 + 2 * q < p1 ? sc0 * ksc.x * sms : -INFINITY;
+    const float x1 = t0 + 2 * q + 1 < p1 ? sc1 * ksc.y * sms : -INFINITY;
     float mx = fmaxf(x0, x1);
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -369,13 +485,9 @@ __global__ void __launch_bounds__(32 * PD_MAX_WARPS) paged_decode_kernel(const P
     const float e0 = exp2f(x0 - m_new), e1 = exp2f(x1 - m_new);  // 0 when masked
     l = l * alpha + e0 + e1;  // this lane's two tokens; the quad is summed at the end
     m = m_new;
-    // P^T for tokens 2q, 2q + 1 of query g: the B fragment of O^T = V^T P^T
-    const __nv_bfloat162 pb = __floats2bfloat162_rn(e0 * vsc.x, e1 * vsc.y);
-    const uint32_t pf = *reinterpret_cast<const uint32_t*>(&pb);
     // acc columns are queries 2q, 2q + 1: their rescale comes from quads 2q, 2q + 1
     const float a0 = __shfl_sync(0xffffffffu, alpha, 8 * q);
     const float a1 = __shfl_sync(0xffffffffu, alpha, 8 * q + 4);
-    const uint8_t* vx = st + (PD_TT + 2 * q) * pitch;  // V rows of tokens 2q, 2q + 1
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
 #pragma unroll
@@ -385,11 +497,49 @@ __global__ void __launch_bounds__(32 * PD_MAX_WARPS) paged_decode_kernel(const P
         acc[c][hh][2] *= a0;
         acc[c][hh][3] *= a1;
       }
-      if (c < nc_live) {
-        uint32_t pr[4];
-        load_pairs4<KV_BITS>(vx, vx + pitch, 4 * (g + 8 * c), d, pr);
-        mma_bf16_1688(acc[c][0], pr[0], pr[1], pf);
-        mma_bf16_1688(acc[c][1], pr[2], pr[3], pf);
+    }
+    if constexpr (F32) {
+      // P * v_scale of queries 2q + jj (jj = 0, 1) for the tile's 8 tokens,
+      // from the lanes of quads 2q and 2q + 1, in f32
+      const float pf0 = e0 * vsc.x, pf1 = e1 * vsc.y;
+      float pw[2][PD_TT];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int qq = 0; qq < 4; ++qq) {
+          pw[jj][2 * qq] = __shfl_sync(0xffffffffu, pf0, 8 * q + 4 * jj + qq);
+          pw[jj][2 * qq + 1] = __shfl_sync(0xffffffffu, pf1, 8 * q + 4 * jj + qq);
+        }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        if (c < nc_live) {
+#pragma unroll
+          for (int t = 0; t < PD_TT; ++t) {
+            float v[4];  // token t's dims 4u .. 4u + 3
+            load_f4<KV_BITS, T>(st + (PD_TT + t) * pitch, 4 * (g + 8 * c), d, v);
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              acc[c][0][jj] = fmaf(pw[jj][t], v[0], acc[c][0][jj]);
+              acc[c][0][2 + jj] = fmaf(pw[jj][t], v[1], acc[c][0][2 + jj]);
+              acc[c][1][jj] = fmaf(pw[jj][t], v[2], acc[c][1][jj]);
+              acc[c][1][2 + jj] = fmaf(pw[jj][t], v[3], acc[c][1][2 + jj]);
+            }
+          }
+        }
+      }
+    } else {
+      // P^T for tokens 2q, 2q + 1 of query g: the B fragment of O^T = V^T P^T
+      const __nv_bfloat162 pb = __floats2bfloat162_rn(e0 * vsc.x, e1 * vsc.y);
+      const uint32_t pf = *reinterpret_cast<const uint32_t*>(&pb);
+      const uint8_t* vx = st + (PD_TT + 2 * q) * pitch;  // V rows of tokens 2q, 2q + 1
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        if (c < nc_live) {
+          uint32_t pr[4];
+          load_pairs4<KV_BITS>(vx, vx + pitch, 4 * (g + 8 * c), d, pr);
+          mma_bf16_1688(acc[c][0], pr[0], pr[1], pf);
+          mma_bf16_1688(acc[c][1], pr[2], pr[3], pf);
+        }
       }
     }
   }
@@ -446,7 +596,9 @@ __global__ void __launch_bounds__(32 * PD_MAX_WARPS) paged_decode_kernel(const P
 // lanes), 16 at a time; the SL sums of a unit are added in lane order.  So
 // the order is fixed and the same inputs give the same bits.
 constexpr int PD_MERGE_THREADS = 128;
-__global__ void __launch_bounds__(PD_MERGE_THREADS) paged_decode_merge_kernel(const PagedArgs a) {
+template <typename T>
+__global__ void __launch_bounds__(PD_MERGE_THREADS)
+    paged_decode_merge_kernel(const PagedArgs<T> a) {
   __shared__ float w_s[PD_MAX_SPLITS], lw_s[PD_MAX_SPLITS];  // c_s and c_s l_s
   __shared__ float4 acc_s[PD_MERGE_THREADS];
   const int b = blockIdx.x, t = threadIdx.x;
@@ -509,23 +661,85 @@ __global__ void __launch_bounds__(PD_MERGE_THREADS) paged_decode_merge_kernel(co
   }
 }
 
-template <int KV_BITS, int NC>
-cudaError_t launch(const PagedArgs& a, int batch, size_t smem, cudaStream_t s) {
-  cudaError_t err = allow_smem(paged_decode_kernel<KV_BITS, NC>, smem);
+template <typename T, int KV_BITS, int NC>
+cudaError_t launch(const PagedArgs<T>& a, int batch, int warps, size_t smem, cudaStream_t s) {
+  cudaError_t err = allow_smem(paged_decode_kernel<T, KV_BITS, NC>, smem);
   if (err != cudaSuccess) return err;
   const int units = a.hkv * a.n_groups * a.n_split;
-  paged_decode_kernel<KV_BITS, NC>
-      <<<dim3(batch, (units + PD_MAX_WARPS - 1) / PD_MAX_WARPS), 32 * PD_MAX_WARPS, smem, s>>>(
-          a);
+  paged_decode_kernel<T, KV_BITS, NC>
+      <<<dim3(batch, (units + warps - 1) / warps), 32 * warps, smem, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.n_split == 1) return err;
-  paged_decode_merge_kernel<<<dim3(batch, a.hkv * a.g_size), PD_MERGE_THREADS, 0, s>>>(a);
+  paged_decode_merge_kernel<T><<<dim3(batch, a.hkv * a.g_size), PD_MERGE_THREADS, 0, s>>>(a);
   return cudaGetLastError();
 }
 
-template <int KV_BITS>
-cudaError_t dispatch(int nc, const PagedArgs& a, int batch, size_t smem, cudaStream_t s) {
-  return nc == 4 ? launch<KV_BITS, 4>(a, batch, smem, s) : launch<KV_BITS, 8>(a, batch, smem, s);
+template <typename T, int KV_BITS>
+cudaError_t dispatch(int nc, const PagedArgs<T>& a, int batch, int warps, size_t smem,
+                     cudaStream_t s) {
+  return nc == 4 ? launch<T, KV_BITS, 4>(a, batch, warps, smem, s)
+                 : launch<T, KV_BITS, 8>(a, batch, warps, smem, s);
+}
+
+// Bytes of a stored row padded to 16 x (odd) bytes: conflict-free fragment reads.
+int pd_pitch(int dk) {
+  int pitch = (dk + 15) / 16 * 16;
+  if ((pitch / 16) % 2 == 0) pitch += 16;
+  return pitch;
+}
+
+// Warps a block takes: PD_MAX_WARPS, halved while their rings would not fit
+// in shared memory (f32 pools at D > 128).
+int pd_block_warps(int dk, bool scales) {
+  int warps = PD_MAX_WARPS;
+  while (warps > 1 && (size_t)warps * PD_RING * tile_bytes(pd_pitch(dk), scales) > PD_SMEM_MAX)
+    warps /= 2;
+  return warps;
+}
+
+template <typename T>
+int paged_decode_entry(const void* q, const void* k_pool, const void* v_pool,
+                       const void* k_scale, const void* v_scale, const void* tables,
+                       const void* lengths, const void* new_k, const void* new_v,
+                       const void* new_k_scale, const void* new_v_scale, void* out, void* part,
+                       int batch, int layer, int n_pages, int ps, int hkv, int g_size, int d,
+                       int w, int kv_bits, int window, int n_groups, int n_split, int per_split,
+                       float sm_scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kv_bits != 4 && kv_bits != 8 && kv_bits != 16) return (int)cudaErrorInvalidValue;
+  const int dk = pd_row_bytes<T>(d, kv_bits);
+  const int64_t cap = (int64_t)w * ps;
+  const int64_t span = window > 0 && window < cap ? window : cap;
+  if (d < 2 || d > 256 || d % 2 || dk % 4 || g_size < 1 ||
+      n_groups != (g_size + PD_GQ - 1) / PD_GQ || ps < 1 || w < 1 || n_split < 1 ||
+      n_split > PD_MAX_SPLITS || per_split < PD_TT || per_split % PD_TT ||
+      (int64_t)n_split * per_split < span || (n_split > 1 && part == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // copy width: the widest of 16 / 8 / 4 bytes that splits the rows and the bases
+  const uintptr_t base = reinterpret_cast<uintptr_t>(k_pool) | reinterpret_cast<uintptr_t>(v_pool);
+  int copy_bytes = 16;
+  while (dk % copy_bytes || base % copy_bytes) copy_bytes /= 2;
+  if (copy_bytes < 4) return (int)cudaErrorInvalidValue;
+  int copy_shift = 0;
+  while ((1 << copy_shift) < dk / copy_bytes) ++copy_shift;
+  const int pitch = pd_pitch(dk);
+  const int warps = pd_block_warps(dk, kv_bits < 16);
+  const size_t smem = (size_t)warps * PD_RING * tile_bytes(pitch, kv_bits < 16);
+  const PagedArgs<T> a{static_cast<const T*>(q),
+                       static_cast<const uint8_t*>(k_pool), static_cast<const uint8_t*>(v_pool),
+                       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                       static_cast<const int32_t*>(tables), static_cast<const int32_t*>(lengths),
+                       static_cast<const uint8_t*>(new_k), static_cast<const uint8_t*>(new_v),
+                       static_cast<const float*>(new_k_scale),
+                       static_cast<const float*>(new_v_scale), static_cast<T*>(out),
+                       static_cast<float*>(part), layer, n_pages, ps, hkv, g_size, n_groups, d,
+                       w, window, n_split, per_split, pitch, copy_bytes, copy_shift, sm_scale};
+  const int nc = d <= 128 ? 4 : 8;
+  const cudaError_t err = kv_bits == 8   ? dispatch<T, 8>(nc, a, batch, warps, smem, s)
+                          : kv_bits == 4 ? dispatch<T, 4>(nc, a, batch, warps, smem, s)
+                                         : dispatch<T, 16>(nc, a, batch, warps, smem, s);
+  return (int)err;
 }
 
 }  // namespace
@@ -540,49 +754,30 @@ cudaError_t dispatch(int nc, const PagedArgs& a, int batch, size_t smem, cudaStr
 // n_split > 1, and a second launch then merges the splits.  window <= 0 means
 // no window.  Returns cudaErrorInvalidValue without
 // launching on arguments it does not take, else cudaGetLastError() after the
-// launches.
-extern "C" int paged_decode_bf16(const void* q, const void* k_pool, const void* v_pool,
-                                 const void* k_scale, const void* v_scale,
-                                 const void* tables, const void* lengths,
-                                 const void* new_k, const void* new_v,
-                                 const void* new_k_scale, const void* new_v_scale,
-                                 void* out, void* part, int batch, int layer,
-                                 int n_pages, int ps, int hkv, int g_size, int d, int w,
-                                 int kv_bits, int window, int n_groups, int n_split,
-                                 int per_split, float sm_scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int dk = d * kv_bits / 8;
-  const int64_t cap = (int64_t)w * ps;
-  const int64_t span = window > 0 && window < cap ? window : cap;
-  if ((kv_bits != 4 && kv_bits != 8 && kv_bits != 16) || d < 2 || d > 256 || d % 2 ||
-      (d * kv_bits) % 32 || g_size < 1 || n_groups != (g_size + PD_GQ - 1) / PD_GQ ||
-      ps < 1 || w < 1 || n_split < 1 || n_split > PD_MAX_SPLITS || per_split < PD_TT ||
-      per_split % PD_TT || (int64_t)n_split * per_split < span ||
-      (n_split > 1 && part == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  // copy width: the widest of 16 / 8 / 4 bytes that splits the rows and the bases
-  const uintptr_t base = reinterpret_cast<uintptr_t>(k_pool) | reinterpret_cast<uintptr_t>(v_pool);
-  int copy_bytes = 16;
-  while (dk % copy_bytes || base % copy_bytes) copy_bytes /= 2;
-  if (copy_bytes < 4) return (int)cudaErrorInvalidValue;
-  int copy_shift = 0;
-  while ((1 << copy_shift) < dk / copy_bytes) ++copy_shift;
-  int pitch = (dk + 15) / 16 * 16;  // 16 x odd bytes: conflict-free fragment reads
-  if ((pitch / 16) % 2 == 0) pitch += 16;
-  const size_t smem = (size_t)PD_MAX_WARPS * PD_RING * tile_bytes(pitch, kv_bits < 16);
-  const PagedArgs a{static_cast<const __nv_bfloat16*>(q),
-                    static_cast<const uint8_t*>(k_pool), static_cast<const uint8_t*>(v_pool),
-                    static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-                    static_cast<const int32_t*>(tables), static_cast<const int32_t*>(lengths),
-                    static_cast<const uint8_t*>(new_k), static_cast<const uint8_t*>(new_v),
-                    static_cast<const float*>(new_k_scale),
-                    static_cast<const float*>(new_v_scale), static_cast<__nv_bfloat16*>(out),
-                    static_cast<float*>(part), layer, n_pages, ps, hkv, g_size, n_groups, d, w,
-                    window, n_split, per_split, pitch, copy_bytes, copy_shift, sm_scale};
-  const int nc = d <= 128 ? 4 : 8;
-  const cudaError_t err = kv_bits == 8   ? dispatch<8>(nc, a, batch, smem, s)
-                          : kv_bits == 4 ? dispatch<4>(nc, a, batch, smem, s)
-                                         : dispatch<16>(nc, a, batch, smem, s);
-  return (int)err;
+// launches.  paged_decode_bf16: bf16 q and out, bf16 16-bit pools;
+// paged_decode_f32: f32 q and out, f32 16-bit pools (int8 / int4 pools and
+// their f32 scales as for bf16).
+#define PD_ENTRY_ARGS                                                                        \
+  const void *q, const void *k_pool, const void *v_pool, const void *k_scale,                \
+      const void *v_scale, const void *tables, const void *lengths, const void *new_k,       \
+      const void *new_v, const void *new_k_scale, const void *new_v_scale, void *out,        \
+      void *part, int batch, int layer, int n_pages, int ps, int hkv, int g_size, int d,     \
+      int w, int kv_bits, int window, int n_groups, int n_split, int per_split,              \
+      float sm_scale, void *stream
+#define PD_ENTRY_CALL                                                                        \
+  q, k_pool, v_pool, k_scale, v_scale, tables, lengths, new_k, new_v, new_k_scale,           \
+      new_v_scale, out, part, batch, layer, n_pages, ps, hkv, g_size, d, w, kv_bits, window, \
+      n_groups, n_split, per_split, sm_scale, stream
+extern "C" int paged_decode_bf16(PD_ENTRY_ARGS) {
+  return paged_decode_entry<__nv_bfloat16>(PD_ENTRY_CALL);
+}
+extern "C" int paged_decode_f32(PD_ENTRY_ARGS) { return paged_decode_entry<float>(PD_ENTRY_CALL); }
+#undef PD_ENTRY_ARGS
+#undef PD_ENTRY_CALL
+
+// Warps a block of the kernel takes at head dim d, kv_bits and elem_bytes
+// (2: bf16, 4: f32) the bytes of a 16-bit pool's value; its shared memory
+// is that many rings of 4 tiles.
+extern "C" int paged_decode_block_warps(int d, int kv_bits, int elem_bytes) {
+  return pd_block_warps(kv_bits == 16 ? d * elem_bytes : d * kv_bits / 8, kv_bits < 16);
 }

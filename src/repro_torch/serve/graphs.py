@@ -62,7 +62,9 @@ COUNTERS = (
     (mpmm.mpmm_int_cuda, "launches"),
     (mqa_decode.mqa_decode_cuda, "launches"),
     (paged_decode.paged_mqa_decode_cuda, "launches"),
+    (paged_decode.paged_mqa_decode_cuda, "f32_launches"),
     (paged_prefill.paged_mqa_prefill_cuda, "launches"),
+    (paged_prefill.paged_mqa_prefill_cuda, "f32_launches"),
 )
 
 _capture = True

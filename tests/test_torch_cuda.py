@@ -12,7 +12,10 @@ f32 entries were added), the int-mode matmul (bit-exact against the CPU),
 paged decode and paged
 prefill (also at a speculative verify window, at gemma3-1b's head dim 256
 and at 160 / 192, which pad to 256, at one query head per kv head as
-musicgen-medium has, and paged prefill at paligemma-3b's verify window), the
+musicgen-medium has, and paged prefill at paligemma-3b's verify window;
+their f32 instantiations, a float32 model's, at llama3.2-3b's, gemma3-1b's
+and paligemma-3b's heads and D 64 / 192, held within f32 summation-order
+error, ``atol = rtol = 1e-4``), the
 MoE FFN (``models/moe.py``:
 the CF kernel per expert) against the CPU's plain path, captured and eager,
 contiguous-cache decode
@@ -55,6 +58,7 @@ plain version within float32 summation-order error: the products are exact
 in f32, so ``atol`` is K * 2^-22 times the largest |x| * 127.  Int mode is
 bit-exact.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -789,11 +793,11 @@ def test_run_network_on_card_matches_cpu(dev):
 
 
 # ------------------------------------------------------------ paged attention
-def _pools(rng, dev, kv_bits, n_layers, n_pages, ps, hkv, d):
+def _pools(rng, dev, kv_bits, n_layers, n_pages, ps, hkv, d, dtype=torch.bfloat16):
     shape = (n_layers, n_pages, ps, hkv, d)
     if kv_bits == 16:
-        kp = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(torch.bfloat16)
-        vp = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(torch.bfloat16)
+        kp = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+        vp = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
         return kp.to(dev), vp.to(dev), None, None
     kf = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
     vf = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
@@ -803,10 +807,10 @@ def _pools(rng, dev, kv_bits, n_layers, n_pages, ps, hkv, d):
     return r(kq), r(vq), r(ks), r(vs)
 
 
-def _tokens(rng, dev, kv_bits, lead, d):
+def _tokens(rng, dev, kv_bits, lead, d, dtype=torch.bfloat16):
     x = torch.from_numpy(rng.normal(size=(*lead, d)).astype(np.float32))
     if kv_bits == 16:
-        return x.to(torch.bfloat16).to(dev), None
+        return x.to(dtype).to(dev), None
     q, s = ops.quantize_kv(x.reshape(-1, 1, *x.shape[-2:]), kv_bits)
     return q.reshape(*lead[:-1], *q.shape[-2:]).to(dev), s.reshape(*lead, 1).to(dev)
 
@@ -1251,6 +1255,129 @@ def test_paged_prefill_kernel_wide_heads(dev, kv_bits, window, d):
         live = torch.arange(c, device=dev)[None, :] < q_lens[:, None]
         _close(got[live], exp[live])
         assert torch.equal(got, ops.paged_mqa_prefill(*args, kv_bits=kv_bits, window=window))
+
+
+# ------------------------------------- paged attention, f32 instantiations
+F32_ATTN_TOL = dict(atol=1e-4, rtol=1e-4)  # f32 summation order only
+
+
+def _launched(fn, run):
+    """``run()``'s output, checking that it launched ``fn``'s f32
+    instantiation once and its bf16 one never."""
+    before = (fn.launches, fn.f32_launches)
+    out = run()
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.f32_launches) == (before[0], before[1] + 1)
+    return out
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8, 16])
+@pytest.mark.parametrize("window", [None, 200])
+@pytest.mark.parametrize("hkv,g,d,ps,w", [(8, 3, 128, 16, 65), (2, 2, 64, 8, 9),
+                                          (1, 4, 256, 16, 70), (1, 8, 256, 16, 50),
+                                          (2, 3, 192, 16, 20), (2, 2, 40, 4, 30)])
+def test_paged_decode_f32_matches_plain(dev, kv_bits, window, hkv, g, d, ps, w):
+    """An f32 query (a float32 model): f32 output, f32 16-bit pools; ragged
+    rows over one split and several (the merge), an empty row, one at its
+    table's end; llama3.2-3b's heads, gemma3-1b's and paligemma-3b's (D 256,
+    two-warp blocks with f32 pools), D 192, and D 40 (a 16-dim step half past
+    the row) at page size 4; within f32 summation-order error of the plain
+    version, and two calls give the same bits."""
+    rng = np.random.default_rng(kv_bits + d + (window or 0))
+    b = 5
+    lengths = [0, 1, 2 * ps + 3, w * ps // 2 + 5, w * ps]
+    q, args = _paged_case(rng, dev, kv_bits, b, hkv, g, d, ps, w, lengths)
+    n_layers = args[0].shape[0]
+    kp, vp, ks, vs = _pools(rng, dev, kv_bits, n_layers, args[0].shape[1], ps, hkv, d,
+                            torch.float32)
+    nk, nks = _tokens(rng, dev, kv_bits, (b, hkv), d, torch.float32)
+    nv, nvs = _tokens(rng, dev, kv_bits, (b, hkv), d, torch.float32)
+    args = (kp, vp, ks, vs, *args[4:7], nk, nv, nks, nvs)
+    q = q.float()
+    got = _launched(paged_mqa_decode_cuda, lambda: ops.paged_mqa_decode(
+        q, *args, kv_bits=kv_bits, window=window))
+    assert got.dtype == torch.float32
+    exp = ref.paged_mqa_decode_ref(q, *args, sm_scale=1 / math.sqrt(d), kv_bits=kv_bits,
+                                   window=window)
+    torch.testing.assert_close(got, exp, **F32_ATTN_TOL)
+    assert torch.equal(got, ops.paged_mqa_decode(q, *args, kv_bits=kv_bits, window=window))
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8, 16])
+@pytest.mark.parametrize("window", [None, 19])
+@pytest.mark.parametrize("c", [1, 5, 128])
+@pytest.mark.parametrize("hkv,g,d", [(2, 3, 64), (8, 3, 128), (1, 4, 256), (1, 4, 192),
+                                     (2, 2, 40)])
+def test_paged_prefill_f32_matches_plain(dev, kv_bits, window, c, hkv, g, d):
+    """An f32 query: chunks of 1 and 128 and a verify window (C 5) with
+    ragged q_lens and a padding row, D 64 / 128 / 256 (32-key tiles), 192
+    (padded to 256) and 40 (padded to 64; int rows by 8- and 4-byte copies);
+    within f32 summation-order error of the plain version, and two runs give
+    the same bits."""
+    rng = np.random.default_rng(kv_bits * 100 + c + d)
+    b, n_layers, ps = 4, 2, 16
+    ctx_list = [300, 97, 0, 40]
+    w = -(-(max(ctx_list) + c) // ps)
+    n_pages = b * w + 2
+    kp, vp, ks, vs = _pools(rng, dev, kv_bits, n_layers, n_pages, ps, hkv, d, torch.float32)
+    tables = torch.from_numpy(
+        rng.permutation(n_pages)[: b * w].reshape(b, w).astype(np.int32)).to(dev)
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
+    q_lens = torch.tensor([c, max(c - 1, 1), (c + 1) // 2, 0], dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.normal(size=(b, c, hkv * g, d)).astype(np.float32)).to(dev)
+    ck, cks = _tokens(rng, dev, kv_bits, (b, c, hkv), d, torch.float32)
+    cv, cvs = _tokens(rng, dev, kv_bits, (b, c, hkv), d, torch.float32)
+    args = (q, kp, vp, ks, vs, tables, ctx, q_lens, 1, ck, cv, cks, cvs)
+    got = _launched(paged_mqa_prefill_cuda, lambda: ops.paged_mqa_prefill(
+        *args, kv_bits=kv_bits, window=window))
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    exp = ref.paged_mqa_prefill_ref(*args, sm_scale=1 / math.sqrt(d), kv_bits=kv_bits,
+                                    window=window)
+    live = torch.arange(c, device=dev)[None, :] < q_lens[:, None]
+    torch.testing.assert_close(got[live], exp[live], **F32_ATTN_TOL)
+    assert torch.equal(got, ops.paged_mqa_prefill(*args, kv_bits=kv_bits, window=window))
+
+
+def test_paged_f32_geometry_matches_the_build(dev):
+    """The wrappers' mirrors of the kernels' shared memory and block warps
+    (``paged_prefill.smem_bytes``, ``paged_decode.block_warps``) equal the
+    library's, for both query types, every kv_bits and padded head dim."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_prefill as pf
+
+    lib = _build.lib()
+    for itemsize in (2, 4):
+        for kv_bits in (4, 8, 16):
+            for dp in pf.HEAD_DIMS:
+                assert lib.paged_prefill_smem_bytes(dp, kv_bits, itemsize) == pf.smem_bytes(
+                    dp, kv_bits, itemsize)
+            for d in (8, 64, 128, 192, 256):
+                assert lib.paged_decode_block_warps(d, kv_bits, itemsize) == pd.block_warps(
+                    d, kv_bits, itemsize)
+
+
+def test_paged_kernels_refuse_other_query_types_and_mixed_pools(dev):
+    """An f16 query raises; an f32 query over a bf16 16-bit pool (or a
+    bf16 query over an f32 one) raises: no cast hides a type."""
+    rng = np.random.default_rng(3)
+    q, args = _paged_case(rng, dev, 16, 2, 2, 3, 64, 16, 4, [20, 64])
+    qg = q.reshape(2, 2, 3, 64)
+    kw = dict(kv_bits=16, sm_scale=0.125)
+    with pytest.raises(TypeError, match="bf16 or float32"):
+        paged_mqa_decode_cuda(qg.half(), *args, **kw)
+    with pytest.raises(TypeError, match="k_pool must be torch.float32"):
+        paged_mqa_decode_cuda(qg.float(), *args, **kw)
+    f32_args = tuple(t.float() if torch.is_tensor(t) and t.dtype == torch.bfloat16 else t
+                     for t in args)
+    with pytest.raises(TypeError, match="k_pool must be torch.bfloat16"):
+        paged_mqa_decode_cuda(qg, *f32_args, **kw)
+    qp = torch.zeros(2, 2, 5, 3, 64, dtype=torch.float16, device=dev)
+    chunk = torch.zeros(2, 2, 5, 64, dtype=torch.float16, device=dev)
+    kp, vp, _, _, tables, lens = args[:6]
+    with pytest.raises(TypeError, match="bf16 or float32"):
+        paged_mqa_prefill_cuda(qp, kp, vp, None, None, tables, lens, lens, 0, chunk, chunk,
+                               None, None, **kw)
 
 
 # ------------------------------------------------------------------ MoE
@@ -2107,11 +2234,13 @@ def test_tp_server_waves_over_nccl_equal_unsharded(nccl_mesh):
     assert mqa_decode_cuda.launches > before
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("name", ["llama3.2-3b", "mixtral-8x22b", "paligemma-3b",
                                   "musicgen-medium"])
-def test_tp_engine_over_nccl_equals_unsharded(nccl_mesh, name):
+def test_tp_engine_over_nccl_equals_unsharded(nccl_mesh, name, dtype):
     """Reduced llama3.2-3b / mixtral-8x22b / paligemma-3b / musicgen-medium
-    (bf16) through ServeEngine(mesh=) on the 1 x 1 mesh, mixed (w, kv) with
+    (bf16, and float32: the f32 paged instantiations) through
+    ServeEngine(mesh=) on the 1 x 1 mesh, mixed (w, kv) with
     spec on two requests, a prefix hit where the engine keeps a prefix cache
     (the one-shot-prefill families keep none, and their prefill runs under
     the mapping too): the unmeshed engine's streams and pools bit for bit,
@@ -2127,7 +2256,8 @@ def test_tp_engine_over_nccl_equals_unsharded(nccl_mesh, name):
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.params import PrecisionParams, SamplingParams
 
-    cfg = get_config(name).reduced()
+    cfg = dataclasses.replace(get_config(name).reduced(), dtype=dtype)
+    attr = "f32_launches" if dtype == "float32" else "launches"
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (23, 21, 25, 22, 24)]
     prompts[4][:16] = prompts[0][:16]
@@ -2150,11 +2280,11 @@ def test_tp_engine_over_nccl_equals_unsharded(nccl_mesh, name):
                  for kv, c in eng._caches.items()}
         return out, pools, {key[2][-1] for key in eng.graphs.calls}, eng.split
 
-    before = (paged_mqa_decode_cuda.launches, paged_mqa_prefill_cuda.launches)
+    before = (getattr(paged_mqa_decode_cuda, attr), getattr(paged_mqa_prefill_cuda, attr))
     streams, pools, splits, split = run(nccl_mesh)
     assert splits == {split} and split[0] == "tp"
-    assert paged_mqa_decode_cuda.launches > before[0]
-    assert paged_mqa_prefill_cuda.launches > before[1]
+    assert getattr(paged_mqa_decode_cuda, attr) > before[0]
+    assert getattr(paged_mqa_prefill_cuda, attr) > before[1]
     plain, plain_pools, plain_splits, _ = run(None)
     assert plain_splits == {None}
     assert streams == plain

@@ -457,7 +457,7 @@ def test_paged_decode_plan_takes_no_tensor():
     from repro_torch.kernels import paged_decode as pd
 
     params = inspect.signature(pd.decode_plan).parameters
-    assert list(params) == ["b", "hkv", "g", "d", "w", "ps", "window"]
+    assert list(params) == ["b", "hkv", "g", "d", "w", "ps", "window", "kv_bits", "itemsize"]
     plan = pd.decode_plan(8, 8, 3, 128, 65, 16, 256)
     assert all(isinstance(v, int) for k, v in plan.items() if k != "grid")
     src = inspect.getsource(pd.paged_mqa_decode_cuda)
