@@ -7,8 +7,9 @@ Phases, each printing one JSON line that names the card:
 
 1. build    -- nvcc builds the kernels under src/repro_torch/kernels/csrc;
                ptxas -v's registers and spill bytes of paged prefill at
-               DP = 256, of the f32 instantiations of both paged kernels
-               (every DP; both NC) and of mqa_decode's wide instantiation
+               DP = 256, of the f32 kernels of both paged attentions
+               (prefill: every DP, kv_bits and row warps, and its merge;
+               decode: both NC) and of mqa_decode's wide instantiation
                (DMAX = 256, head dims 129-256) (lines "phase": "ptxas").
 2. kernels  -- each hand-written kernel against its plain PyTorch version on
                the same inputs, in bf16 at llama3.2-3b's serving shapes (the
@@ -50,7 +51,10 @@ Phases, each printing one JSON line that names the card:
                window), kv4 / kv8 / kv16, against their f32 plain versions
                within F32_ATTN_TOL (two prefill runs the same bits), with
                the error the same kernel gives on q rounded to bf16
-               beside it, their bound three bf16 passes of the products
+               beside it (at least ten times the kernel's wherever a
+               cached position counts), each case's plan (splits, merge
+               launches) and its instantiation's ptxas registers / spills,
+               their bound three bf16 passes of the products
                (bound_f32_ms: one pass at the f32 FMA rate) and SDPA in
                f32 as the library call.
                Then the sampler
@@ -608,12 +612,8 @@ def max_err(torch, got, exp, tol) -> float:
 # --------------------------------------------------------------- phase 2
 def kernel_cases(torch, timer, gpu) -> dict:
     """Every kernel against its plain version; returns per-kernel summaries."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.mpmm import launch_plan, mpmm_cost, mpmm_cuda
-    from repro_torch.kernels.paged_decode import paged_mqa_decode_cuda
-    from repro_torch.kernels.paged_prefill import launch_grid, paged_mqa_prefill_cuda
     from repro_torch.quant.pack import unpack_int4
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -741,6 +741,39 @@ def kernel_cases(torch, timer, gpu) -> dict:
         del x, wd, ws, w_deq
         torch.cuda.empty_cache()
 
+    paged_kernel_cases(torch, timer, gpu, summary)
+    return summary
+
+
+def paged_kernel_cases(torch, timer, gpu, summary, dtypes=("bf16", "f32")) -> None:
+    """Phase 2's paged decode and paged prefill cases (``dtypes``: the bf16
+    instantiations, the f32 ones or both) against their plain versions;
+    each f32 case also prints its plan (splits, merge launches) and the
+    registers / spills ptxas gave its instantiation."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import paged_prefill as pf_mod
+    from repro_torch.kernels.paged_decode import decode_plan, paged_mqa_decode_cuda
+    from repro_torch.kernels.paged_prefill import launch_grid, paged_mqa_prefill_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prefill_plan = getattr(pf_mod, "prefill_plan", None)  # absent from older checkouts
+    lib_path = _build.build()
+    f32_regs = {"prefill": ptxas_report(lib_path, "paged_prefill_f32_kernelI",
+                                        ("dp", "kv_bits", "row_warps")),
+                "decode": ptxas_report(lib_path, "paged_decode_kernelIf", ("kv_bits", "nc"))}
+
+    def note(name, rec, representative):
+        note_case(summary, gpu, name, rec, representative)
+
+    def ptxas_of(kind, **key):
+        """ptxas registers / spill bytes of the f32 instantiation ``key``."""
+        for e in f32_regs[kind]:
+            if all(e.get(k) == v for k, v in key.items()):
+                return {k: e.get(k) for k in ("registers", "spill_store_bytes")}
+        return None
+
     # ---- paged attention inputs at llama3.2-3b's widths; the f32
     # instantiations (a float32 model) take f32 q, f32 16-bit pools and give
     # f32 out, held to F32_ATTN_TOL, their bound three bf16 passes of the
@@ -863,6 +896,15 @@ def kernel_cases(torch, timer, gpu) -> dict:
                     rec["bf16_q_max_abs_err"] = (paged_mqa_decode_cuda(
                         rq, *args, kv_bits=kv_bits, sm_scale=sm, window=window
                     ).reshape(b, hh, dd) - exp).abs().max().item()
+                    check(rec["max_abs_err"] * 10 <= rec["bf16_q_max_abs_err"]
+                          or rec["bf16_q_max_abs_err"] == 0,  # ctx 0: the new token's V alone
+                          f"{name} {rec['case']}: error {rec['max_abs_err']:.3g} not a tenth "
+                          f"of a bf16 q's {rec['bf16_q_max_abs_err']:.3g}")
+                    plan = decode_plan(b, hk, gq, dd, w, ps, window, kv_bits, 4)
+                    rec["plan"] = {"splits": plan["splits"], "per_split": plan["per_split"],
+                                   "block_warps": plan["block_warps"],
+                                   "merge_launches": int(plan["splits"] > 1)}
+                    rec["ptxas"] = ptxas_of("decode", kv_bits=kv_bits, nc=4 if dd <= 128 else 8)
                 note(name, rec, (kv_bits, ctx, window, label, table_end)
                      == (8, 1024, None, "", False))
                 if line and kv_bits == 8:
@@ -870,29 +912,32 @@ def kernel_cases(torch, timer, gpu) -> dict:
         del kp, vp, ks, vs
         torch.cuda.empty_cache()
 
-    for kv_bits in (4, 8, 16):
-        decode_cases(kv_bits, (0, 1, 17, 1024), (None, 256))
-    for kv_bits in (8, 4):
-        decode_cases(kv_bits, (1024,), (None,), (4, 8, 128), "yi-9b heads")
-    decode_cases(8, (2048,), (1024,), (1, 4, 256), "gemma3-1b heads")
-    for kv_bits in (8, 4):
-        decode_cases(kv_bits, (MUSIC_DECODE_CTX,), (None,), MUSIC_HEADS, "musicgen-medium heads",
-                     "g1_d64")
-    decode_cases(8, (PALI_DECODE_CTX,), (None,), PALI_HEADS, "paligemma-3b heads", "g8_d256")
-    for kv_bits in (8, 4, 16):
-        decode_cases(kv_bits, (1024,), (None,), TP_KV_HEADS, "llama3.2-3b one rank of 2 (TP)",
-                     "tp_kv_heads")
-    # the f32 instantiation: llama3.2-3b's heads (split and one-split rows,
-    # with and without a window, a row at its table's end), gemma3-1b's
-    # (head dim 256, its window) and paligemma-3b's (1 x 8 x 256)
-    for kv_bits in (4, 8, 16):
-        decode_cases(kv_bits, (0, 1, 17, 1024), (None, 256), dtype=f32)
-        decode_cases(kv_bits, (1024,), (None,), label="llama3.2-3b", line="table_end",
-                     dtype=f32, table_end=True)
-        decode_cases(kv_bits, (2048,), (GEMMA_WINDOW,), GEMMA_HEADS, "gemma3-1b heads",
-                     "g4_d256_window", f32)
-        decode_cases(kv_bits, (PALI_DECODE_CTX,), (None,), PALI_HEADS, "paligemma-3b heads",
-                     "g8_d256", f32)
+    bf16, f32_on = "bf16" in dtypes, "f32" in dtypes
+    if bf16:
+        for kv_bits in (4, 8, 16):
+            decode_cases(kv_bits, (0, 1, 17, 1024), (None, 256))
+        for kv_bits in (8, 4):
+            decode_cases(kv_bits, (1024,), (None,), (4, 8, 128), "yi-9b heads")
+        decode_cases(8, (2048,), (1024,), (1, 4, 256), "gemma3-1b heads")
+        for kv_bits in (8, 4):
+            decode_cases(kv_bits, (MUSIC_DECODE_CTX,), (None,), MUSIC_HEADS, "musicgen-medium heads",
+                         "g1_d64")
+        decode_cases(8, (PALI_DECODE_CTX,), (None,), PALI_HEADS, "paligemma-3b heads", "g8_d256")
+        for kv_bits in (8, 4, 16):
+            decode_cases(kv_bits, (1024,), (None,), TP_KV_HEADS, "llama3.2-3b one rank of 2 (TP)",
+                         "tp_kv_heads")
+    if f32_on:
+        # the f32 instantiation: llama3.2-3b's heads (split and one-split rows,
+        # with and without a window, a row at its table's end), gemma3-1b's
+        # (head dim 256, its window) and paligemma-3b's (1 x 8 x 256)
+        for kv_bits in (4, 8, 16):
+            decode_cases(kv_bits, (0, 1, 17, 1024), (None, 256), dtype=f32)
+            decode_cases(kv_bits, (1024,), (None,), label="llama3.2-3b", line="table_end",
+                         dtype=f32, table_end=True)
+            decode_cases(kv_bits, (2048,), (GEMMA_WINDOW,), GEMMA_HEADS, "gemma3-1b heads",
+                         "g4_d256_window", f32)
+            decode_cases(kv_bits, (PALI_DECODE_CTX,), (None,), PALI_HEADS, "paligemma-3b heads",
+                         "g8_d256", f32)
 
     # ---- paged prefill: C in {1, 32, 128}, ragged q_lens, ctx > 0; then a
     # speculative verify window (C = SPEC_K + 1 at B = 8, VERIFY_CTX); then
@@ -982,58 +1027,70 @@ def kernel_cases(torch, timer, gpu) -> dict:
                 rec["bf16_q_max_abs_err"] = (paged_mqa_prefill_cuda(
                     rq, *kargs, kv_bits=kv_bits, sm_scale=sm, window=window
                 ).permute(0, 2, 1, 3, 4).reshape(b, c, hh, dd) - exp).abs().max().item()
+                check(rec["max_abs_err"] * 10 <= rec["bf16_q_max_abs_err"],
+                      f"{name} {rec['case']}: error {rec['max_abs_err']:.3g} not a tenth "
+                      f"of a bf16 q's {rec['bf16_q_max_abs_err']:.3g}")
+                if prefill_plan is not None:
+                    plan = prefill_plan(b, hk, c, gq, dd, w, ps, window, kv_bits, 4)
+                    rec["grid"] = plan["grid"]
+                    rec["plan"] = {**{k: plan[k] for k in ("rows_per_block", "key_warps",
+                                                            "keys_per_tile", "splits")},
+                                   "merge_launches": int(plan["splits"] > 1)}
+                    rec["ptxas"] = ptxas_of("prefill", dp=pf_mod.padded_head_dim(dd),
+                                            kv_bits=kv_bits, row_warps=plan["row_warps"])
             note(name, rec, (kv_bits, c, label) == (8, 128, ""))
             if line and kv_bits == 8 and c == line[1]:
                 summary_line(name, line[0], rec)
         del kp, vp, ks, vs
 
-    for kv_bits in (4, 8, 16):
-        prefill_cases(kv_bits, [256, 200, 384, 128],
-                      [(c, [c, max(c - 1, 1), max(c // 2, 1), 1]) for c in (1, 32, 128)])
-    for kv_bits in (8, 4, 16):
-        prefill_cases(kv_bits, VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)], "verify ",
-                      line=("verify", SPEC_K + 1))
-    for kv_bits in (8, 4, 16):
-        for window in (GEMMA_WINDOW, None):
-            line = ("d256", 128) if window else None
-            prefill_cases(kv_bits, GEMMA_PREFILL_CTX, [(128, GEMMA_PREFILL_Q_LENS)],
-                          "gemma3-1b ", GEMMA_HEADS, window, line)
+    if bf16:
+        for kv_bits in (4, 8, 16):
+            prefill_cases(kv_bits, [256, 200, 384, 128],
+                          [(c, [c, max(c - 1, 1), max(c // 2, 1), 1]) for c in (1, 32, 128)])
+        for kv_bits in (8, 4, 16):
+            prefill_cases(kv_bits, VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)], "verify ",
+                          line=("verify", SPEC_K + 1))
+        for kv_bits in (8, 4, 16):
+            for window in (GEMMA_WINDOW, None):
+                line = ("d256", 128) if window else None
+                prefill_cases(kv_bits, GEMMA_PREFILL_CTX, [(128, GEMMA_PREFILL_Q_LENS)],
+                              "gemma3-1b ", GEMMA_HEADS, window, line)
+                prefill_cases(kv_bits, GEMMA_VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)],
+                              "gemma3-1b verify ", GEMMA_HEADS, window)
+        prefill_cases(8, GEMMA_PREFILL_CTX, [(128, GEMMA_PREFILL_Q_LENS)], "D=192 (pads to 256) ",
+                      (1, 4, 192), GEMMA_WINDOW)
+        for kv_bits in (8, 4, 16):
+            prefill_cases(kv_bits, PALI_VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)],
+                          "paligemma-3b verify ", PALI_HEADS, line=("paligemma_verify", SPEC_K + 1))
+        # one rank's kv heads under the TP mapping: a 128-token chunk and a
+        # verify window
+        for kv_bits in (8, 4, 16):
+            prefill_cases(kv_bits, [256, 200, 384, 128], [(128, [128, 127, 64, 1])],
+                          "llama3.2-3b one rank of 2 (TP) ", TP_KV_HEADS,
+                          line=("tp_kv_heads", 128))
+            prefill_cases(kv_bits, VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)],
+                          "llama3.2-3b one rank of 2 (TP) verify ", TP_KV_HEADS,
+                          line=("tp_kv_heads_verify", SPEC_K + 1))
+    if f32_on:
+        # the f32 instantiation: llama3.2-3b's heads at C 1, 5 (a verify
+        # window) and 128; gemma3-1b's at C 128 with its window and at a verify
+        # window, D = 192 (padded to 256); paligemma-3b's verify window
+        for kv_bits in (4, 8, 16):
+            prefill_cases(kv_bits, [256, 200, 384, 128],
+                          [(c, [c, max(c - 1, 1), max(c // 2, 1), 1]) for c in (1, 128)],
+                          dtype=f32)
+            prefill_cases(kv_bits, VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)], "verify ",
+                          line=("verify", SPEC_K + 1), dtype=f32)
+            prefill_cases(kv_bits, GEMMA_PREFILL_CTX, [(128, GEMMA_PREFILL_Q_LENS)], "gemma3-1b ",
+                          GEMMA_HEADS, GEMMA_WINDOW, ("d256", 128), f32)
             prefill_cases(kv_bits, GEMMA_VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)],
-                          "gemma3-1b verify ", GEMMA_HEADS, window)
-    prefill_cases(8, GEMMA_PREFILL_CTX, [(128, GEMMA_PREFILL_Q_LENS)], "D=192 (pads to 256) ",
-                  (1, 4, 192), GEMMA_WINDOW)
-    for kv_bits in (8, 4, 16):
-        prefill_cases(kv_bits, PALI_VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)],
-                      "paligemma-3b verify ", PALI_HEADS, line=("paligemma_verify", SPEC_K + 1))
-    # one rank's kv heads under the TP mapping: a 128-token chunk and a
-    # verify window
-    for kv_bits in (8, 4, 16):
-        prefill_cases(kv_bits, [256, 200, 384, 128], [(128, [128, 127, 64, 1])],
-                      "llama3.2-3b one rank of 2 (TP) ", TP_KV_HEADS,
-                      line=("tp_kv_heads", 128))
-        prefill_cases(kv_bits, VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)],
-                      "llama3.2-3b one rank of 2 (TP) verify ", TP_KV_HEADS,
-                      line=("tp_kv_heads_verify", SPEC_K + 1))
-    # the f32 instantiation: llama3.2-3b's heads at C 1, 5 (a verify
-    # window) and 128; gemma3-1b's at C 128 with its window and at a verify
-    # window, D = 192 (padded to 256); paligemma-3b's verify window
-    for kv_bits in (4, 8, 16):
-        prefill_cases(kv_bits, [256, 200, 384, 128],
-                      [(c, [c, max(c - 1, 1), max(c // 2, 1), 1]) for c in (1, 128)],
-                      dtype=f32)
-        prefill_cases(kv_bits, VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)], "verify ",
-                      line=("verify", SPEC_K + 1), dtype=f32)
-        prefill_cases(kv_bits, GEMMA_PREFILL_CTX, [(128, GEMMA_PREFILL_Q_LENS)], "gemma3-1b ",
-                      GEMMA_HEADS, GEMMA_WINDOW, ("d256", 128), f32)
-        prefill_cases(kv_bits, GEMMA_VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)],
-                      "gemma3-1b verify ", GEMMA_HEADS, GEMMA_WINDOW, dtype=f32)
-        prefill_cases(kv_bits, GEMMA_PREFILL_CTX, [(128, GEMMA_PREFILL_Q_LENS)],
-                      "D=192 (pads to 256) ", (1, 4, 192), GEMMA_WINDOW, dtype=f32)
-        prefill_cases(kv_bits, PALI_VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)],
-                      "paligemma-3b verify ", PALI_HEADS, line=("paligemma_verify", SPEC_K + 1),
-                      dtype=f32)
+                          "gemma3-1b verify ", GEMMA_HEADS, GEMMA_WINDOW, dtype=f32)
+            prefill_cases(kv_bits, GEMMA_PREFILL_CTX, [(128, GEMMA_PREFILL_Q_LENS)],
+                          "D=192 (pads to 256) ", (1, 4, 192), GEMMA_WINDOW, dtype=f32)
+            prefill_cases(kv_bits, PALI_VERIFY_CTX, [(SPEC_K + 1, VERIFY_Q_LENS)],
+                          "paligemma-3b verify ", PALI_HEADS, line=("paligemma_verify", SPEC_K + 1),
+                          dtype=f32)
     torch.cuda.empty_cache()
-    return summary
 
 
 def note_case(summary, gpu, name, rec, representative) -> None:
@@ -2378,7 +2435,7 @@ def spec_round_profile(torch, cfg, capture: bool = True) -> dict:
 
 
 # --------------------------------------------------------------- phase 7
-def ptxas_report(lib_path: Path, kernel: str = "paged_prefill_kernelI13__nv_bfloat16Li256E",
+def ptxas_report(lib_path: Path, kernel: str = "paged_prefill_kernelILi256E",
                  names: tuple = ("kv_bits",)) -> list:
     """Registers, stack and spill bytes that ``ptxas -v`` gave each kernel
     instantiation whose mangled name holds ``kernel`` (the build's log
@@ -3972,21 +4029,23 @@ def main() -> int:
     emit({"phase": "build", "lib": lib_path.name, "nvcc_s": _build.last_build_seconds,
           "built_now": _build.last_build_seconds is not None, "gpu": gpu})
     spills = ptxas_report(lib_path)
-    emit({"phase": "ptxas", "kernel": "paged_prefill_kernel<DP = 256, kv_bits>",
+    emit({"phase": "ptxas", "kernel": "paged_prefill_kernel<DP = 256, kv_bits> (bf16 q)",
           "instantiations": spills, "gpu": gpu})
     check(sorted(e["kv_bits"] for e in spills) == [4, 8, 16] and
           all("registers" in e and "spill_store_bytes" in e for e in spills),
           f"ptxas -v reports no DP = 256 paged prefill instantiations: {spills}")
-    # the f32 instantiations of both paged kernels: prefill at every DP,
-    # decode at both NC (4: D <= 128, 8: D <= 256)
-    f32_prefill = ptxas_report(lib_path, "paged_prefill_kernelIf", ("dp", "kv_bits"))
+    # the f32 kernels of both paged attentions: prefill at every DP, kv_bits
+    # and row warps (and its merge), decode at both NC (4: D <= 128, 8: D <= 256)
+    f32_prefill = ptxas_report(lib_path, "paged_prefill_f32_kernelI",
+                               ("dp", "kv_bits", "row_warps"))
+    f32_merge = ptxas_report(lib_path, "paged_prefill_f32_merge_kernel", ())
     f32_decode = ptxas_report(lib_path, "paged_decode_kernelIf", ("kv_bits", "nc"))
-    emit({"phase": "ptxas", "kernel": "paged_prefill_kernel<float, DP, kv_bits> and "
-          "paged_decode_kernel<float, kv_bits, NC> (f32 q)", "prefill": f32_prefill,
-          "decode": f32_decode, "gpu": gpu})
-    check(len(f32_prefill) == 12 and len(f32_decode) == 6
+    emit({"phase": "ptxas", "kernel": "paged_prefill_f32_kernel<DP, kv_bits, R> (and its "
+          "merge) and paged_decode_kernel<float, kv_bits, NC> (f32 q)", "prefill": f32_prefill,
+          "prefill_merge": f32_merge, "decode": f32_decode, "gpu": gpu})
+    check(len(f32_prefill) == 36 and len(f32_merge) == 1 and len(f32_decode) == 6
           and all("registers" in e and "spill_store_bytes" in e
-                  for e in f32_prefill + f32_decode),
+                  for e in f32_prefill + f32_merge + f32_decode),
           f"ptxas -v reports no f32 paged instantiations: {f32_prefill} {f32_decode}")
     mqa_all = ptxas_report(lib_path, "mqa_decode_split_kernelI", ("kv_bits", "gq", "dmax"))
     wide = [e for e in mqa_all if e.get("dmax") == 256]
@@ -4031,7 +4090,8 @@ def main() -> int:
                 "mpmm_dequant_x32": (mpmm_cuda, "x32_launches"),
                 "mpmm_ff_dequant_x32": (mpmm_ff_cuda, "x32_launches"),
                 "paged_decode_f32": (paged_mqa_decode_cuda, "f32_launches"),
-                "paged_prefill_f32": (paged_mqa_prefill_cuda, "f32_launches")}
+                "paged_prefill_f32": (paged_mqa_prefill_cuda, "f32_launches"),
+                "paged_prefill_f32_merge": (paged_mqa_prefill_cuda, "f32_merge_launches")}
 
     def count(path):
         """Drive one path with every count at 0; its launches per kernel

@@ -42,8 +42,11 @@ _SIGNATURES = {
     "paged_decode_block_warps": [_I] * 3,
     "paged_prefill_bf16": [_P] * 13 + [_I] * 11 + [_F, _P],
     "paged_prefill_f32": [_P] * 13 + [_I] * 11 + [_F, _P],
+    "paged_prefill_f32_split": [_P] * 14 + [_I] * 12 + [_F, _P],
     "paged_prefill_rows_per_block": [],
-    "paged_prefill_smem_bytes": [_I] * 3,
+    "paged_prefill_f32_row_warps": [_I],
+    "paged_prefill_f32_keys_per_tile": [_I] * 3,
+    "paged_prefill_smem_bytes": [_I] * 4,
 }
 
 _lib: ctypes.CDLL | None = None

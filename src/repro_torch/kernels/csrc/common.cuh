@@ -101,6 +101,19 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// x0, x1 -> N bf16x2 terms (the f32 paged kernels' operands): t[0] = bf16(x), t[k] = bf16(x - t[0] - .. - t[k - 1])
+// (each residual exact in f32).
+template <int N>
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t (&t)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
+    t[k] = *reinterpret_cast<const uint32_t*>(&v);
+    x0 -= __low2float(v);
+    x1 -= __high2float(v);
+  }
+}
+
 // Exact integer -> bf16 conversions without the (quarter-rate) I2F unit.
 // int8: byte j of `biased` (= word ^ 0x80808080, so it holds v + 128)
 // becomes the low byte of the f32 2^23, whose ulp is 1; subtracting

@@ -58,16 +58,17 @@
 //   before their use.
 // The f32 instantiation (paged_decode_f32: f32 q and out, f32 16-bit pools,
 // the JAX kernel's function for a float32 model, whose products are f32)
-// keeps the ring, the page walk, the split and the merge, and runs both
-// products as f32 FMAs on the CUDA cores in the same register layouts: lane
-// (g, q) holds query g's dims 16 ks + 4q .. + 3 as f32, scores its 8
-// tokens over them, and a reduce-scatter over the quad (6 shuffles) leaves
-// it tokens 2q, 2q + 1, as the mma fragment does; for P V it gathers the
-// f32 weights of queries 2q, 2q + 1 (16 shuffles) and reads each token's V
-// dims 4u .. 4u + 3.  Decode is bound by the bytes it reads, so FMA does not
-// set its pace; a bf16 mma on a rounded q would lose 2^-9 relatively.  Its
-// kv16 tiles are twice as wide: a block takes two warps where four rings
-// would not fit in shared memory (D > 220).
+// keeps the ring, the page walk, the split and the merge, and the bf16
+// layouts on the tensor cores, with f32-accurate sums of bf16 products: q
+// is held as three bf16 terms, q1 in rows 0-7 of the score product's A
+// fragment and q2 in rows 8-15 (the bf16 instantiation's zero rows), so one
+// mma gives both terms' scores, and q3 takes a second; P * v_scale enters
+// P V as three bf16 B fragments, straight from the score fragment, against
+// the exact int V (2^-24 of the f32 products).  An f32 kv16 pool's K and V
+// are split into bf16 hi + lo as they are read (2^-17; one bf16 rounding
+// would lose 2^-9): S = q3 k_hi + [q1; q2] k_lo + [q1; q2] k_hi, P V = p2
+// v_hi + p1 v_lo + p1 v_hi.  f32 kv16 tiles are twice as wide: a block
+// takes two warps where four rings would not fit in shared memory (D > 220).
 // D up to 128 and up to 256 take 4 and 8 groups of 32 dims (the V^T tiles);
 // larger query groups take several warps (each reads the K/V again, mostly
 // from L2).  Rows sit in shared memory at a pitch of 16 x (odd) bytes, so the
@@ -255,7 +256,7 @@ __device__ __forceinline__ void store_unit(const PagedArgs<float>& a, int64_t ro
 // Warp (row b, unit = block y * warps + warp): kv head unit % Hkv, query
 // group (unit / Hkv) % groups, split unit / (Hkv * groups).  NC: groups of
 // 32 dims (D <= 32 NC); lane (g, q) = (lane / 4, lane % 4).  T: bf16 (both
-// products on the tensor cores) or f32 (both as f32 FMAs).
+// products on the tensor cores, from bf16 terms of q and P for f32).
 template <typename T, int KV_BITS, int NC>
 __global__ void __launch_bounds__(32 * PD_MAX_WARPS) paged_decode_kernel(const PagedArgs<T> a) {
   constexpr int KS = 2 * NC;  // 16-dim steps of the score product
@@ -342,9 +343,10 @@ __global__ void __launch_bounds__(32 * PD_MAX_WARPS) paged_decode_kernel(const P
 
   const int g = lane >> 2, q = lane & 3;
   // query g's dims 16 ks + 4q .. + 3: as bf16 pairs, the A fragments of
-  // S = Q K^T, or as f32 (F32)
-  uint32_t qa[F32 ? 1 : KS][2];
-  float qv[F32 ? KS : 1][4];
+  // S = Q K^T; an f32 query as NQ such terms (qa: q1, qt[0]: q2, qt[1]: q3)
+  constexpr int NQ = F32 ? 3 : 1;
+  uint32_t qa[KS][2];
+  uint32_t qt[2][F32 ? KS : 1][2];
   {
     const T* qrow = a.q + (bh * a.g_size + grp * PD_GQ + g) * d;
 #pragma unroll
@@ -354,10 +356,16 @@ __global__ void __launch_bounds__(32 * PD_MAX_WARPS) paged_decode_kernel(const P
         float2 lo = make_float2(0.f, 0.f), hi = lo;
         if (g < gs && e < d) lo = *reinterpret_cast<const float2*>(qrow + e);
         if (g < gs && e + 2 < d) hi = *reinterpret_cast<const float2*>(qrow + e + 2);
-        qv[ks][0] = lo.x;
-        qv[ks][1] = lo.y;
-        qv[ks][2] = hi.x;
-        qv[ks][3] = hi.y;
+        uint32_t t0[NQ], t1[NQ];
+        split_bf16x2<NQ>(lo.x, lo.y, t0);
+        split_bf16x2<NQ>(hi.x, hi.y, t1);
+        qa[ks][0] = t0[0];
+        qa[ks][1] = t1[0];
+#pragma unroll
+        for (int k = 1; k < NQ; ++k) {
+          qt[k - 1][ks][0] = t0[k];
+          qt[k - 1][ks][1] = t1[k];
+        }
       } else {
         const uint32_t* qw = reinterpret_cast<const uint32_t*>(qrow);
         qa[ks][0] = g < gs && e < d ? qw[e / 2] : 0u;
@@ -365,13 +373,16 @@ __global__ void __launch_bounds__(32 * PD_MAX_WARPS) paged_decode_kernel(const P
       }
     }
   }
-  // dim 16 ks + 4q + j of query g, as f32
+  // dim 16 ks + 4q + j of query g, as f32 (an f32 query: the sum of its
+  // terms, which is q)
   auto q_at = [&](int ks, int j) -> float {
+    auto half = [&](uint32_t x) { return j % 2 ? bf_hi(x) : bf_lo(x); };
+    float v = half(qa[ks][j / 2]);
     if constexpr (F32) {
-      return qv[ks][j];
-    } else {
-      return j % 2 ? bf_hi(qa[ks][j / 2]) : bf_lo(qa[ks][j / 2]);
+#pragma unroll
+      for (int k = 0; k < NQ - 1; ++k) v += half(qt[k][ks][j / 2]);
     }
+    return v;
   };
   // acc[c][hh]: O^T rows 4u + 2hh (g) and 4u + 2hh + 1 (g + 8), u = g + 8c, x
   // queries 2q, 2q + 1 (the m16n8k8 fragment); m and l of query g
@@ -423,52 +434,52 @@ __global__ void __launch_bounds__(32 * PD_MAX_WARPS) paged_decode_kernel(const P
     const float* sc = reinterpret_cast<const float*>(st + 2 * PD_TT * pitch);
     const int t0 = p0 + i * PD_TT;
 
-    // S = Q K^T: query g x tokens 2q, 2q + 1 (sc0, sc1)
+    // S = Q K^T: query g x tokens 2q, 2q + 1 (sc0, sc1), on the tensor
+    // cores in two chains of k steps
     float sc0, sc1;
-    if constexpr (F32) {
-      // query g's dims of this lane against all 8 tokens, then a
-      // reduce-scatter over the quad: tokens 4 (q >> 1) + 0..3 after the
-      // first exchange, 2q and 2q + 1 after the second
-      float sp[PD_TT];
-#pragma unroll
-      for (int t = 0; t < PD_TT; ++t) sp[t] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        if (ks < ks_live) {
-#pragma unroll
-          for (int t = 0; t < PD_TT; ++t) {
-            float kf[4];
-            load_f4<KV_BITS, T>(st + t * pitch, 16 * ks + 4 * q, d, kf);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) sp[t] = fmaf(q_at(ks, j), kf[j], sp[t]);
-          }
-        }
-      }
-      float r[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float keep = q & 2 ? sp[4 + j] : sp[j], send = q & 2 ? sp[j] : sp[4 + j];
-        r[j] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
-      }
-      const float keep0 = q & 1 ? r[2] : r[0], send0 = q & 1 ? r[0] : r[2];
-      const float keep1 = q & 1 ? r[3] : r[1], send1 = q & 1 ? r[1] : r[3];
-      sc0 = keep0 + __shfl_xor_sync(0xffffffffu, send0, 1);
-      sc1 = keep1 + __shfl_xor_sync(0xffffffffu, send1, 1);
-    } else {
-      // two chains of k steps on the tensor cores
+    {
       float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
       const uint8_t* krow = st + g * pitch;  // token g: column g of K^T
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
         if (ks < ks_live) {
-          uint32_t b0, b1;
-          load_dims4<KV_BITS>(krow, 16 * ks + 4 * q, d, b0, b1);
-          const uint32_t qf[4] = {qa[ks][0], 0u, qa[ks][1], 0u};
-          mma_bf16_16816(ks % 2 ? s1 : s0, qf, b0, b1);
+          if constexpr (F32) {
+            // rows 0-7 of A hold q1 and rows 8-15 q2 (the bf16 kernel's
+            // zero rows), so one mma gives both terms' scores; q3 takes a
+            // second.  f32 kv16 K splits into k_hi + k_lo as it is read:
+            // [q1; q2] k_hi, [q1; q2] k_lo, q3 k_hi.
+            const uint32_t q12[4] = {qa[ks][0], qt[0][ks][0], qa[ks][1], qt[0][ks][1]};
+            const uint32_t q3[4] = {qt[1][ks][0], 0u, qt[1][ks][1], 0u};
+            if constexpr (KV_BITS == 16) {
+              float kf[4];
+              load_f4<16, T>(krow, 16 * ks + 4 * q, d, kf);
+              uint32_t t0[2], t1[2];
+              split_bf16x2<2>(kf[0], kf[1], t0);
+              split_bf16x2<2>(kf[2], kf[3], t1);
+              mma_bf16_16816(s1, q3, t0[0], t1[0]);
+              mma_bf16_16816(s1, q12, t0[1], t1[1]);
+              mma_bf16_16816(s0, q12, t0[0], t1[0]);
+            } else {
+              uint32_t b0, b1;
+              load_dims4<KV_BITS>(krow, 16 * ks + 4 * q, d, b0, b1);
+              mma_bf16_16816(s1, q3, b0, b1);
+              mma_bf16_16816(s0, q12, b0, b1);
+            }
+          } else {
+            uint32_t b0, b1;
+            load_dims4<KV_BITS>(krow, 16 * ks + 4 * q, d, b0, b1);
+            const uint32_t qf[4] = {qa[ks][0], 0u, qa[ks][1], 0u};
+            mma_bf16_16816(ks % 2 ? s1 : s0, qf, b0, b1);
+          }
         }
       }
-      sc0 = s0[0] + s1[0];
-      sc1 = s0[1] + s1[1];
+      if constexpr (F32) {  // each chain's rows g (q1, q3) and g + 8 (q2), smallest first
+        sc0 = ((s1[0] + s1[2]) + s0[2]) + s0[0];
+        sc1 = ((s1[1] + s1[3]) + s0[3]) + s0[1];
+      } else {
+        sc0 = s0[0] + s1[0];
+        sc1 = s0[1] + s1[1];
+      }
     }
     // log2 units: s * k_scale * sm_scale * log2(e); tokens past p1 masked
     const float2 ksc =
@@ -498,31 +509,37 @@ __global__ void __launch_bounds__(32 * PD_MAX_WARPS) paged_decode_kernel(const P
         acc[c][hh][3] *= a1;
       }
     }
+    const uint8_t* vx = st + (PD_TT + 2 * q) * pitch;  // V rows of tokens 2q, 2q + 1
     if constexpr (F32) {
-      // P * v_scale of queries 2q + jj (jj = 0, 1) for the tile's 8 tokens,
-      // from the lanes of quads 2q and 2q + 1, in f32
-      const float pf0 = e0 * vsc.x, pf1 = e1 * vsc.y;
-      float pw[2][PD_TT];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int qq = 0; qq < 4; ++qq) {
-          pw[jj][2 * qq] = __shfl_sync(0xffffffffu, pf0, 8 * q + 4 * jj + qq);
-          pw[jj][2 * qq + 1] = __shfl_sync(0xffffffffu, pf1, 8 * q + 4 * jj + qq);
-        }
+      // P^T for tokens 2q, 2q + 1 of query g as bf16 terms, the B fragments
+      // of O^T = V^T P^T: int V (exact) against three (p1 + p2 + p3), f32
+      // kv16 V split as it is read, p1 v_hi + p1 v_lo + p2 v_hi; smallest first
+      constexpr int NP = KV_BITS == 16 ? 2 : 3;
+      uint32_t pt[NP];
+      split_bf16x2<NP>(e0 * vsc.x, e1 * vsc.y, pt);
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         if (c < nc_live) {
+          if constexpr (KV_BITS == 16) {
+            float xv[4], yv[4];  // tokens 2q, 2q + 1: dims 4u .. 4u + 3
+            load_f4<16, T>(vx, 4 * (g + 8 * c), d, xv);
+            load_f4<16, T>(vx + pitch, 4 * (g + 8 * c), d, yv);
+            uint32_t vt[4][2];  // {x[j], y[j]} as hi (vt[j][0]) + lo (vt[j][1])
 #pragma unroll
-          for (int t = 0; t < PD_TT; ++t) {
-            float v[4];  // token t's dims 4u .. 4u + 3
-            load_f4<KV_BITS, T>(st + (PD_TT + t) * pitch, 4 * (g + 8 * c), d, v);
+            for (int j = 0; j < 4; ++j) split_bf16x2<2>(xv[j], yv[j], vt[j]);
+            mma_bf16_1688(acc[c][0], vt[0][0], vt[1][0], pt[1]);
+            mma_bf16_1688(acc[c][1], vt[2][0], vt[3][0], pt[1]);
+            mma_bf16_1688(acc[c][0], vt[0][1], vt[1][1], pt[0]);
+            mma_bf16_1688(acc[c][1], vt[2][1], vt[3][1], pt[0]);
+            mma_bf16_1688(acc[c][0], vt[0][0], vt[1][0], pt[0]);
+            mma_bf16_1688(acc[c][1], vt[2][0], vt[3][0], pt[0]);
+          } else {
+            uint32_t pr[4];
+            load_pairs4<KV_BITS>(vx, vx + pitch, 4 * (g + 8 * c), d, pr);
 #pragma unroll
-            for (int jj = 0; jj < 2; ++jj) {
-              acc[c][0][jj] = fmaf(pw[jj][t], v[0], acc[c][0][jj]);
-              acc[c][0][2 + jj] = fmaf(pw[jj][t], v[1], acc[c][0][2 + jj]);
-              acc[c][1][jj] = fmaf(pw[jj][t], v[2], acc[c][1][jj]);
-              acc[c][1][2 + jj] = fmaf(pw[jj][t], v[3], acc[c][1][2 + jj]);
+            for (int k = NP - 1; k >= 0; --k) {
+              mma_bf16_1688(acc[c][0], pr[0], pr[1], pt[k]);
+              mma_bf16_1688(acc[c][1], pr[2], pr[3], pt[k]);
             }
           }
         }
@@ -531,7 +548,6 @@ __global__ void __launch_bounds__(32 * PD_MAX_WARPS) paged_decode_kernel(const P
       // P^T for tokens 2q, 2q + 1 of query g: the B fragment of O^T = V^T P^T
       const __nv_bfloat162 pb = __floats2bfloat162_rn(e0 * vsc.x, e1 * vsc.y);
       const uint32_t pf = *reinterpret_cast<const uint32_t*>(&pb);
-      const uint8_t* vx = st + (PD_TT + 2 * q) * pitch;  // V rows of tokens 2q, 2q + 1
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         if (c < nc_live) {

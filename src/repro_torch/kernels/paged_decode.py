@@ -11,8 +11,9 @@ split), streams its pages as stored (int8, packed int4 or bf16) through its
 own ``cp.async`` ring with the page ids looked up a tile ahead, and runs
 both products on the tensor cores with the query group as the M side; a
 float32 query (a float32 model) takes the f32 instantiation
-(``paged_decode_f32``: f32 output, f32 16-bit pools, both products as f32
-FMAs, as the JAX kernel computes them in f32).  :func:`decode_plan` splits
+(``paged_decode_f32``: f32 output, f32 16-bit pools, the same products from
+bf16 terms of q and P, and of an f32 pool's K / V, f32-accurate as the JAX
+kernel's f32 products).  :func:`decode_plan` splits
 each row's positions from the shapes alone (never reading ``lengths``
 back); a second launch merges the splits in a fixed order; see the source
 note for its design.  The plain version is

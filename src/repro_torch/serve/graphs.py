@@ -65,6 +65,7 @@ COUNTERS = (
     (paged_decode.paged_mqa_decode_cuda, "f32_launches"),
     (paged_prefill.paged_mqa_prefill_cuda, "launches"),
     (paged_prefill.paged_mqa_prefill_cuda, "f32_launches"),
+    (paged_prefill.paged_mqa_prefill_cuda, "f32_merge_launches"),
 )
 
 _capture = True

@@ -1257,6 +1257,162 @@ def test_paged_prefill_kernel_wide_heads(dev, kv_bits, window, d):
         assert torch.equal(got, ops.paged_mqa_prefill(*args, kv_bits=kv_bits, window=window))
 
 
+# ------------------------------------ paged attention, the bf16 kernels' bits
+# sha256 of the bf16 instantiations' outputs on fixed inputs (numpy draws,
+# quantized on the CPU), taken on the H100 before the f32 instantiations were
+# redesigned beside them: a change to the f32 paths that moves a bf16 bit
+# fails here.  Update them only for a change meant to move the bf16 bits.
+# Decode: (kv_bits, hkv, g, d, ps, w, lengths, window); prefill: (kv_bits,
+# hkv, g, d, c, ctx, q_lens, window): llama3.2-3b's heads (split rows, a
+# window, a chunk and a verify window), gemma3-1b's and paligemma-3b's D 256,
+# D 192 and 40 (padded), and the reduced configs' small heads.
+_LLAMA_LENS = [1022, 1023, 1024, 1022, 0, 1, 17, 600]
+BF16_PAGED_DECODE_CASES = [
+    (kv, *heads, lens, win)
+    for kv in (4, 8, 16)
+    for heads, lens, wins in (
+        ((8, 3, 128, 16, 65), _LLAMA_LENS, (None, 256)),
+        ((2, 2, 64, 8, 9), [0, 1, 19, 41, 72], (None, 21)),
+        ((1, 8, 256, 16, 50), [784, 782, 783, 0], (None,)),
+        ((1, 4, 256, 16, 130), [2048, 2047, 1300, 5], (1024,)),
+        ((2, 3, 192, 16, 20), [300, 7, 160], (None,)))
+    for win in wins]
+BF16_PAGED_PREFILL_CASES = [
+    (kv, *case)
+    for kv in (4, 8, 16)
+    for case in (
+        (8, 3, 128, 128, [256, 200, 384, 128], [128, 127, 64, 1], None),
+        (8, 3, 128, 5, [512, 1024, 700, 0], [1, 5, 3, 0], None),
+        (8, 3, 128, 5, [512, 1024, 700, 0], [1, 5, 3, 0], 200),
+        (1, 4, 256, 128, [1536, 1480, 1300, 1536], [128, 127, 64, 1], 1024),
+        (1, 8, 256, 5, [768, 800, 790, 0], [5, 2, 4, 0], None),
+        (2, 2, 40, 32, [40, 0, 97], [32, 31, 16], 19),
+        (1, 4, 192, 32, [300, 97, 0], [32, 9, 1], None))]
+BF16_PAGED_DIGESTS = {
+    "decode kv4 8x3x128 ps16 w65 [1022, 1023, 1024, 1022, 0, 1, 17, 600] window=None":
+        "db68749e890b7a36c949f637e6a88305f95261b0c44b356297828e7b73d2722c",
+    "decode kv4 8x3x128 ps16 w65 [1022, 1023, 1024, 1022, 0, 1, 17, 600] window=256":
+        "fe9d52ac875dc4db14ff07eaddbd98324cac494e623a5851c02ec3ff0ee9dc83",
+    "decode kv4 2x2x64 ps8 w9 [0, 1, 19, 41, 72] window=None":
+        "36415b9ca0331279301ab3fa16594cb8a14c8200880dc2f6b8b330fad748bf0f",
+    "decode kv4 2x2x64 ps8 w9 [0, 1, 19, 41, 72] window=21":
+        "04a14647de94767ae4f0d795c352d796da0738033bbf9f543a210ca300f728f2",
+    "decode kv4 1x8x256 ps16 w50 [784, 782, 783, 0] window=None":
+        "5cec045acc5b038573db2b77fabdb340197cce68d80d1f6c0b38011ca46c8327",
+    "decode kv4 1x4x256 ps16 w130 [2048, 2047, 1300, 5] window=1024":
+        "ff1b39642495595f2f1f249f5b677b7f7ed31f0dc71f354ce0a08889ddb444bb",
+    "decode kv4 2x3x192 ps16 w20 [300, 7, 160] window=None":
+        "b7446c8daadb61581000ef12ab9e38d23972777ead7b779feddd331944964c00",
+    "decode kv8 8x3x128 ps16 w65 [1022, 1023, 1024, 1022, 0, 1, 17, 600] window=None":
+        "831db564264e9a5e599446ba096c3aa433abcf404f3b295ac3aff9ef8253b617",
+    "decode kv8 8x3x128 ps16 w65 [1022, 1023, 1024, 1022, 0, 1, 17, 600] window=256":
+        "61dc7d4fd4ad9580ae2ea1d3f8ad43a7be27f326ba2050b446e38bccc718ee92",
+    "decode kv8 2x2x64 ps8 w9 [0, 1, 19, 41, 72] window=None":
+        "d1da5c08e78496663f9fdc3fcb36c6716f7029c1cd76d7530ac97e537bd603a1",
+    "decode kv8 2x2x64 ps8 w9 [0, 1, 19, 41, 72] window=21":
+        "f415aeea0ce627338690df604b089945bf11db37f8e03296d724205b8460d3c9",
+    "decode kv8 1x8x256 ps16 w50 [784, 782, 783, 0] window=None":
+        "7e337e888c401f4c578675eece1823aa8c47829c76efdd934b4eaa2b616b732b",
+    "decode kv8 1x4x256 ps16 w130 [2048, 2047, 1300, 5] window=1024":
+        "124689725a97696817469eeb98a326320f7cb8476e14e1dd8357f9a663379433",
+    "decode kv8 2x3x192 ps16 w20 [300, 7, 160] window=None":
+        "9695c301f2f3dd2a5e52e58a34335efc7427a6c6655d85edb270e8e27e782da2",
+    "decode kv16 8x3x128 ps16 w65 [1022, 1023, 1024, 1022, 0, 1, 17, 600] window=None":
+        "80222b144002a8b868ee751ac3668796d585cc52ea08602b81a7c3d453551280",
+    "decode kv16 8x3x128 ps16 w65 [1022, 1023, 1024, 1022, 0, 1, 17, 600] window=256":
+        "b0c554574a6120d99fa23c17d4820762ff614fbd055e46ffdaa0cf4400bd438e",
+    "decode kv16 2x2x64 ps8 w9 [0, 1, 19, 41, 72] window=None":
+        "86d0501ea3c6023966b675923e20f8c710fe7ebd37fa8149f940060a08f75864",
+    "decode kv16 2x2x64 ps8 w9 [0, 1, 19, 41, 72] window=21":
+        "7394d5d763bf1a3ff6828b300d942c3c1192b7ef6b6c1441057332de94a89b72",
+    "decode kv16 1x8x256 ps16 w50 [784, 782, 783, 0] window=None":
+        "dfc2b44b8b7485a14dc5a3636fcb8fdef47eec75928d1e62f7dcaab096c31bd9",
+    "decode kv16 1x4x256 ps16 w130 [2048, 2047, 1300, 5] window=1024":
+        "05c685e1c28cf4b36b9e042c515d868aca7c2877974a4109e9bcc03077be412d",
+    "decode kv16 2x3x192 ps16 w20 [300, 7, 160] window=None":
+        "7ead7138a53526110880bdd617850f674a7638f5b2079626e5ddedd823e27421",
+    "prefill kv4 8x3x128 C128 ctx[256, 200, 384, 128] q[128, 127, 64, 1] window=None":
+        "0543da31adc0f831a88de88b4fe0c27b3f62e5327444e8239d1899595a160408",
+    "prefill kv4 8x3x128 C5 ctx[512, 1024, 700, 0] q[1, 5, 3, 0] window=None":
+        "f8a709de0de1c5b4b2a4fc4d5ad5c598e98e61aa2ef7a6ea4d17cff98ef34793",
+    "prefill kv4 8x3x128 C5 ctx[512, 1024, 700, 0] q[1, 5, 3, 0] window=200":
+        "ae3566d89102d95e3f8cc804bbc7411f48526457dfb004c16cb29ead5975fb6a",
+    "prefill kv4 1x4x256 C128 ctx[1536, 1480, 1300, 1536] q[128, 127, 64, 1] window=1024":
+        "68816fa3aa60cc5b0875fe07bef71564295abf0eba7c79b304af3791a46046d5",
+    "prefill kv4 1x8x256 C5 ctx[768, 800, 790, 0] q[5, 2, 4, 0] window=None":
+        "711abe648f922d49723fd4d871f4067f041f93cbb7072d5535ada921aa075bfe",
+    "prefill kv4 2x2x40 C32 ctx[40, 0, 97] q[32, 31, 16] window=19":
+        "1b75dcad5a6a0225f8471cada409179d625e260a5219b0a0c9bdaa443b1a96e3",
+    "prefill kv4 1x4x192 C32 ctx[300, 97, 0] q[32, 9, 1] window=None":
+        "fbf9784d5ccde5fd1fb6fac4a83beb591e39d8e19c7aa95dd9c63d19f756e0a0",
+    "prefill kv8 8x3x128 C128 ctx[256, 200, 384, 128] q[128, 127, 64, 1] window=None":
+        "f993b6853566614e4a504255aae620f43698292c6a8befe56fb42890088b4f59",
+    "prefill kv8 8x3x128 C5 ctx[512, 1024, 700, 0] q[1, 5, 3, 0] window=None":
+        "47742bb11ae913cd280524c0cd731e762ea9f7257d428e91ee32c5e7ec9467b5",
+    "prefill kv8 8x3x128 C5 ctx[512, 1024, 700, 0] q[1, 5, 3, 0] window=200":
+        "cd1da8cdc4665a56db5f1b216722bf37495c13a4288086e3fd75163871daca01",
+    "prefill kv8 1x4x256 C128 ctx[1536, 1480, 1300, 1536] q[128, 127, 64, 1] window=1024":
+        "bd8eb4d051cce8b9bf7df0442936b451ca7f36b84101f0fee65f994c09f2b046",
+    "prefill kv8 1x8x256 C5 ctx[768, 800, 790, 0] q[5, 2, 4, 0] window=None":
+        "a911cba4896e25da54ade2846fc7da948d9643caebddc6543ecd4cddd1c000da",
+    "prefill kv8 2x2x40 C32 ctx[40, 0, 97] q[32, 31, 16] window=19":
+        "b0be66644b01941cd40e81d84a27dbaeaffa2991b8f577cc8ae3210f7f63e19f",
+    "prefill kv8 1x4x192 C32 ctx[300, 97, 0] q[32, 9, 1] window=None":
+        "92168a4ae3f4d320924ed1db02783844465767e10049acf7d97849d72320faee",
+    "prefill kv16 8x3x128 C128 ctx[256, 200, 384, 128] q[128, 127, 64, 1] window=None":
+        "59ae1b04a0297bc211ef9d1172cf143e044dce2d7ffed46badffd8057cbf12d5",
+    "prefill kv16 8x3x128 C5 ctx[512, 1024, 700, 0] q[1, 5, 3, 0] window=None":
+        "ee45e816bfb9e4cab73754b82b42db80ee7c92ee7f96e89e9f69d97d5ac4ec29",
+    "prefill kv16 8x3x128 C5 ctx[512, 1024, 700, 0] q[1, 5, 3, 0] window=200":
+        "31f33959b8d4fbbf7904b8e842509df2399c1260a29163031f434e2c23547ffa",
+    "prefill kv16 1x4x256 C128 ctx[1536, 1480, 1300, 1536] q[128, 127, 64, 1] window=1024":
+        "54bf80be12760a6cfc4c16d6b21c0cce6d3975b465ef2578f6b4cfb1c59471e5",
+    "prefill kv16 1x8x256 C5 ctx[768, 800, 790, 0] q[5, 2, 4, 0] window=None":
+        "4deed4ebd1b115eecf8a5a4add3ddfe9d1cfb926b5cab9ca3959484d17c8c603",
+    "prefill kv16 2x2x40 C32 ctx[40, 0, 97] q[32, 31, 16] window=19":
+        "ca18f7f22479b8c1f9d86f429d14fb259385cdfec98c621c89330117cc8e4086",
+    "prefill kv16 1x4x192 C32 ctx[300, 97, 0] q[32, 9, 1] window=None":
+        "cfaba07ccfb8e5cd444a3fc3cac2faa0a3fc5d3bfb7f988339b54e0e05b346ce",
+}
+
+
+def paged_bf16_digests(dev) -> dict:
+    """sha256 of each fixed case's bf16 output (decode, then prefill)."""
+    import hashlib
+
+    def digest(t):
+        return hashlib.sha256(t.cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()
+
+    out = {}
+    for i, (kv, hkv, g, d, ps, w, lens, win) in enumerate(BF16_PAGED_DECODE_CASES):
+        rng = np.random.default_rng(1000 + i)
+        q, args = _paged_case(rng, dev, kv, len(lens), hkv, g, d, ps, w, lens)
+        out[f"decode kv{kv} {hkv}x{g}x{d} ps{ps} w{w} {lens} window={win}"] = digest(
+            ops.paged_mqa_decode(q, *args, kv_bits=kv, window=win))
+    for i, (kv, hkv, g, d, c, ctx_list, qls, win) in enumerate(BF16_PAGED_PREFILL_CASES):
+        rng = np.random.default_rng(2000 + i)
+        b, ps = len(ctx_list), 16
+        w = -(-(max(ctx_list) + c) // ps)
+        n_pages = b * w + 2
+        kp, vp, ks, vs = _pools(rng, dev, kv, 2, n_pages, ps, hkv, d)
+        tables = torch.from_numpy(
+            rng.permutation(n_pages)[: b * w].reshape(b, w).astype(np.int32)).to(dev)
+        ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
+        q_lens = torch.tensor(qls, dtype=torch.int32, device=dev)
+        q = torch.from_numpy(rng.normal(size=(b, c, hkv * g, d)).astype(np.float32))
+        q = q.to(torch.bfloat16).to(dev)
+        ck, cks = _tokens(rng, dev, kv, (b, c, hkv), d)
+        cv, cvs = _tokens(rng, dev, kv, (b, c, hkv), d)
+        got = ops.paged_mqa_prefill(q, kp, vp, ks, vs, tables, ctx, q_lens, 1, ck, cv, cks,
+                                    cvs, kv_bits=kv, window=win)
+        out[f"prefill kv{kv} {hkv}x{g}x{d} C{c} ctx{ctx_list} q{qls} window={win}"] = digest(got)
+    return out
+
+
+def test_paged_bf16_kernels_keep_their_bits(dev):
+    assert paged_bf16_digests(dev) == BF16_PAGED_DIGESTS
+
+
 # ------------------------------------- paged attention, f32 instantiations
 F32_ATTN_TOL = dict(atol=1e-4, rtol=1e-4)  # f32 summation order only
 
@@ -1339,9 +1495,10 @@ def test_paged_prefill_f32_matches_plain(dev, kv_bits, window, c, hkv, g, d):
 
 
 def test_paged_f32_geometry_matches_the_build(dev):
-    """The wrappers' mirrors of the kernels' shared memory and block warps
-    (``paged_prefill.smem_bytes``, ``paged_decode.block_warps``) equal the
-    library's, for both query types, every kv_bits and padded head dim."""
+    """The wrappers' mirrors of the kernels' geometry (``paged_prefill``'s
+    ``smem_bytes``, ``keys_per_tile`` and ``row_warps``,
+    ``paged_decode.block_warps``) equal the library's, for both query types,
+    every kv_bits, padded head dim and (f32 prefill) row warps."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import paged_prefill as pf
@@ -1350,11 +1507,64 @@ def test_paged_f32_geometry_matches_the_build(dev):
     for itemsize in (2, 4):
         for kv_bits in (4, 8, 16):
             for dp in pf.HEAD_DIMS:
-                assert lib.paged_prefill_smem_bytes(dp, kv_bits, itemsize) == pf.smem_bytes(
-                    dp, kv_bits, itemsize)
+                for rw in ((1, 2, 4) if itemsize == 4 else (4,)):
+                    assert lib.paged_prefill_smem_bytes(dp, kv_bits, itemsize, rw) == pf.smem_bytes(
+                        dp, kv_bits, itemsize, rw)
+                    if itemsize == 4:
+                        assert lib.paged_prefill_f32_keys_per_tile(dp, kv_bits, rw) == \
+                            pf.keys_per_tile(dp, 4, kv_bits, rw)
             for d in (8, 64, 128, 192, 256):
                 assert lib.paged_decode_block_warps(d, kv_bits, itemsize) == pd.block_warps(
                     d, kv_bits, itemsize)
+    for rows in range(1, 200):
+        assert lib.paged_prefill_f32_row_warps(rows) == pf.row_warps(rows, 4)
+    assert lib.paged_prefill_smem_bytes(128, 8, 2, 1) == -1
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8, 16])
+@pytest.mark.parametrize("b,hkv,g,d,c,ctx_list,q_lens,window", [
+    (8, 8, 3, 128, 5, [512, 1024, 700, 513, 1000, 640, 901, 0], [1, 2, 3, 4, 5, 5, 3, 0], None),
+    (8, 1, 8, 256, 5, [768, 800, 790, 769, 777, 783, 795, 0], [1, 2, 3, 4, 5, 5, 3, 0], None),
+    (4, 1, 4, 256, 128, [1536, 1480, 1300, 1536], [128, 127, 64, 1], 1024),
+    (4, 8, 3, 128, 128, [256, 200, 384, 128], [128, 127, 64, 1], None),
+    (3, 2, 4, 64, 6, [0, 5, 333], [6, 1, 4], 40),
+    (2, 2, 1, 32, 9, [70, 0], [9, 9], None),
+    (5, 1, 2, 192, 300, [0, 40, 1000, 7, 64], [300, 1, 150, 299, 0], 256)])
+def test_paged_prefill_f32_plans_and_merges(dev, kv_bits, b, hkv, g, d, c, ctx_list, q_lens,
+                                            window):
+    """The f32 kernel under each kind of plan: row blocks of 16, 32 and 64
+    query rows (the key warps of a 16-row block splitting every tile), key
+    tiles split over blocks with a merge launch where the grid is under a
+    wave (the serving verify windows) and none where it fills the card;
+    32-key tiles at D 256; windows, ctx 0 and empty rows.  Within
+    ``F32_ATTN_TOL`` of the plain version, the merge counted once where the
+    plan splits, and two runs give the same bits."""
+    from repro_torch.kernels import paged_prefill as pf
+
+    rng = np.random.default_rng(kv_bits + d + c)
+    n_layers, ps = 2, 16
+    w = -(-(max(ctx_list) + c) // ps)
+    n_pages = b * w + 2
+    kp, vp, ks, vs = _pools(rng, dev, kv_bits, n_layers, n_pages, ps, hkv, d, torch.float32)
+    tables = torch.from_numpy(
+        rng.permutation(n_pages)[: b * w].reshape(b, w).astype(np.int32)).to(dev)
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
+    ql = torch.tensor(q_lens, dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.normal(size=(b, c, hkv * g, d)).astype(np.float32)).to(dev)
+    ck, cks = _tokens(rng, dev, kv_bits, (b, c, hkv), d, torch.float32)
+    cv, cvs = _tokens(rng, dev, kv_bits, (b, c, hkv), d, torch.float32)
+    args = (q, kp, vp, ks, vs, tables, ctx, ql, 1, ck, cv, cks, cvs)
+    plan = pf.prefill_plan(b, hkv, c, g, d, w, ps, window, kv_bits, 4)
+    merges = paged_mqa_prefill_cuda.f32_merge_launches
+    got = _launched(paged_mqa_prefill_cuda, lambda: ops.paged_mqa_prefill(
+        *args, kv_bits=kv_bits, window=window))
+    assert paged_mqa_prefill_cuda.f32_merge_launches == merges + (plan["splits"] > 1)
+    assert torch.isfinite(got).all()
+    exp = ref.paged_mqa_prefill_ref(*args, sm_scale=1 / math.sqrt(d), kv_bits=kv_bits,
+                                    window=window)
+    live = torch.arange(c, device=dev)[None, :] < ql[:, None]
+    torch.testing.assert_close(got[live], exp[live], **F32_ATTN_TOL)
+    assert torch.equal(got, ops.paged_mqa_prefill(*args, kv_bits=kv_bits, window=window))
 
 
 def test_paged_kernels_refuse_other_query_types_and_mixed_pools(dev):

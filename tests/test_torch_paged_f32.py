@@ -154,24 +154,24 @@ def test_plain_paged_prefill_on_f32_matches_pallas(kv_bits, c):
 @pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("kv_bits", [4, 8, 16])
 def test_prefill_instantiations_fit_shared_memory(itemsize, kv_bits):
-    """Every (DP, kv_bits) of both query types fits a block's 227 KB; the
-    f32 ones at DP = 256 hold 32 keys a tile (64 would not fit), and the
-    bf16 numbers are the source note's."""
+    """Every (DP, kv_bits, row warps) of both query types fits a block's
+    227 KB; the f32 ones take 64-key tiles but at DP 256 where those would
+    not fit (64 rows of kv8 or kv16, every kv16), and the bf16 numbers are
+    the source note's."""
     for dp in pf.HEAD_DIMS:
-        assert pf.smem_bytes(dp, kv_bits, itemsize) <= SMEM_MAX
+        for rw in ((1, 2, 4) if itemsize == 4 else (4,)):
+            assert pf.smem_bytes(dp, kv_bits, itemsize, rw) <= SMEM_MAX
+            kt = pf.keys_per_tile(dp, itemsize, kv_bits, rw)
+            assert kt == 64 or (itemsize, dp) == (4, 256)
+            if kt == 32:
+                assert pf._f32_bytes(dp, kv_bits, rw, 64) > SMEM_MAX
     if itemsize == 4:
-        assert pf.keys_per_tile(256, 4) == 32 and pf.keys_per_tile(128, 4) == 64
-        # 64-key f32 tiles at DP = 256: the Q tile, the ring and the
-        # converted tiles of 260-float rows
-        q_tile = tile = 64 * 260 * 4
-        raw = 64 * (256 if kv_bits == 8 else 128)
-        wide = (q_tile + 4 * tile if kv_bits == 16
-                else q_tile + 3 * (2 * raw + 512) + 2 * tile + 512)
-        assert wide > SMEM_MAX
+        assert [pf.keys_per_tile(256, 4, kv_bits, rw) for rw in (1, 2, 4)] == {
+            4: [64, 64, 64], 8: [64, 64, 32], 16: [32, 32, 32]}[kv_bits]
     assert {k: pf.smem_bytes(256, k, 2) for k in (16, 8, 4)} == {
         16: 168960, 8: 201728, 4: 152576}
     assert {k: pf.smem_bytes(256, k, 4) for k in (16, 8, 4)} == {
-        16: 199680, 8: 183296, 4: 158720}
+        16: 200704, 8: 185344, 4: 220160}
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
@@ -193,19 +193,74 @@ def test_decode_blocks_fit_shared_memory_and_rows_are_words(itemsize, kv_bits):
             assert pd.decode_smem_bytes(d, kv_bits, itemsize, 2 * warps) > SMEM_MAX
 
 
+@pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("c,g", [(1, 3), (5, 3), (128, 3), (5, 8), (128, 4), (65, 1)])
-def test_prefill_grid_covers_every_row_once(c, g):
+def test_prefill_grid_covers_every_row_once(itemsize, c, g):
     """Each (row, kv head, query row r = c * G + g) falls in exactly one
-    block of the grid, the same for both instantiations."""
+    row block of the plan's grid, whose z is row blocks x splits (bf16: 64
+    rows, one split; f32: 16, 32 or 64 rows)."""
     b, hkv = 3, 2
-    gb, gh, gz = pf.launch_grid(b, hkv, c, g)
+    plan = pf.prefill_plan(b, hkv, c, g, 64, 20, 16, None, 8, itemsize)
+    gb, gh, gz = plan["grid"]
+    rb, splits = plan["rows_per_block"], plan["splits"]
+    assert (gb, gh) == (b, hkv) and gz % splits == 0
+    assert plan["row_warps"] == pf.row_warps(c * g, itemsize) and rb == 16 * plan["row_warps"]
+    if itemsize == 2:
+        assert (gb, gh, gz) == pf.launch_grid(b, hkv, c, g) and splits == 1
     seen = np.zeros((b, hkv, c * g), np.int64)
     for bi in range(gb):
         for hi in range(gh):
-            for z in range(gz):
-                r0 = z * pf.ROWS_PER_BLOCK
-                seen[bi, hi, r0:r0 + pf.ROWS_PER_BLOCK] += 1
+            for z in range(gz // splits):
+                seen[bi, hi, z * rb:(z + 1) * rb] += 1
     assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("b,hkv,g,d,c,w,ps,window", [
+    (8, 8, 3, 128, 5, 65, 16, None), (8, 1, 8, 256, 5, 51, 16, None),
+    (4, 1, 4, 256, 128, 105, 16, 1024), (4, 8, 3, 128, 128, 33, 16, None),
+    (3, 2, 4, 64, 6, 22, 16, 40), (2, 2, 1, 32, 9, 5, 16, None),
+    (5, 1, 2, 192, 300, 82, 16, 256), (1, 4, 3, 128, 2048, 129, 16, None)])
+@pytest.mark.parametrize("kv_bits", [4, 8, 16])
+def test_prefill_plan_covers_every_query_key_once(b, hkv, g, d, c, w, ps, window, kv_bits):
+    """The f32 plan's splits and key warps take every key a query row can
+    see exactly once: for ragged ctx (0, mid-page, the table's end) and
+    q_len (0, 1, C), each row block's splits (``split_tiles``, the kernel's
+    on-card split) are consecutive runs of its tiles in order, the merge's
+    order, and each tile's ``key_warps`` ranges of ``keys_per_tile //
+    key_warps`` keys partition it; a row's visible keys (pool positions in
+    its window below ctx, chunk keys up to its own, below q_len) are each
+    covered by one (split, tile, key warp)."""
+    plan = pf.prefill_plan(b, hkv, c, g, d, w, ps, window, kv_bits, 4)
+    rb, kt, kw_n, splits = (plan["rows_per_block"], plan["keys_per_tile"], plan["key_warps"],
+                            plan["splits"])
+    kw = kt // kw_n
+    assert kw >= 16 and kw_n * kw == kt and 1 <= splits <= pf.MAX_SPLITS
+    assert plan["grid"][2] == -(-c * g // rb) * splits
+    rng = np.random.default_rng(c + d)
+    cap = w * ps
+    for ctx, q_len in [(0, c), (cap - c, c), (int(rng.integers(0, cap - c)), 1),
+                       (int(rng.integers(1, cap - c)), 0), (ps + 3, max(c // 2, 1))]:
+        for r0 in range(0, c * g, rb):
+            nr = min(rb, c * g - r0)
+            runs = pf.split_tiles(ctx, q_len, r0, nr, g, w, ps, window, kt, splits)
+            assert 1 <= len(runs) <= splits
+            tiles = [t for run in runs for t in run]
+            assert tiles == sorted(tiles, key=lambda t: (t[0] == "chunk", t[1]))
+            covered = {}
+            for s, run in enumerate(runs):
+                for kind, first, end in run:
+                    assert 0 < end - first <= kt
+                    for kp in range(kw_n):
+                        for key in range(first + kp * kw, min(first + (kp + 1) * kw, end)):
+                            covered[(kind, key)] = covered.get((kind, key), 0) + 1
+            assert all(n == 1 for n in covered.values())
+            for r in range(r0, r0 + nr):
+                ci = r // g
+                lo = max(ctx + ci + 1 - window, 0) if window else 0
+                seen = {("pool", p) for p in range(lo, min(ctx, cap))}
+                jlo = max(ci + 1 - window, 0) if window else 0
+                seen |= {("chunk", j) for j in range(jlo, min(ci + 1, q_len))}
+                assert seen <= covered.keys()
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])

@@ -34,7 +34,7 @@ ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("yi-9b", "kimi-k2-1t-a32b", "zamba2-7b", "mamba2-130m")
 
 _PRELUDE = """
-import datetime, sys
+import datetime, os, sys
 import torch
 import torch.distributed as dist
 RANK, WORLD, OUT = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
@@ -46,13 +46,24 @@ dist.init_process_group("gloo", init_method="file://" + sys.argv[4], rank=RANK,
 
 def run_ranks(code: str, world: int, out_dir, timeout: float = 180) -> list[str]:
     """Runs ``code`` in ``world`` processes of one gloo group -> their
-    outputs.  In ``code``: RANK, WORLD, OUT (``out_dir``, for results)."""
+    outputs.  In ``code``: RANK, WORLD, OUT (``out_dir``, for results).
+
+    Each rank ends with a barrier, ``destroy_process_group()`` and, once
+    its output is flushed, ``os._exit(0)``.  Under load two teardown races
+    showed in gloo ranks: a rank that is done closes its connections while a
+    peer is still connecting or receiving ("Connection closed by peer" in
+    that peer), which the barrier rules out; and the interpreter's own exit
+    (torch's and gloo's C++ teardown after the script's last line, with or
+    without ``destroy_process_group``) now and then aborts a rank with
+    "terminate called without an active exception" (signal 6) after every
+    result is written, which ending the process directly skips."""
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     store = out_dir / "gloo_store"
     store.unlink(missing_ok=True)  # a store left by an earlier group would hang this one
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    src = _PRELUDE + textwrap.dedent(code) + "\ndist.destroy_process_group()\n"
+    src = (_PRELUDE + textwrap.dedent(code) + "\ndist.barrier()\ndist.destroy_process_group()\n"
+           "sys.stdout.flush()\nsys.stderr.flush()\nos._exit(0)\n")
     procs = [subprocess.Popen([sys.executable, "-c", src, str(r), str(world), str(out_dir),
                                str(store)], env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(world)]

@@ -3,14 +3,19 @@
 with its time, the plain version's, the library call's and the bound) from
 the checkout at ROOT, and with ``cnn`` also its phase 4 (full ResNet18).
 With ``x32`` phase 2 runs only its f32-activation cases
-(``x32_kernel_cases``; ``x32 cnn`` adds phase 4).
+(``x32_kernel_cases``; ``x32 cnn`` adds phase 4).  With ``paged32`` it runs
+only the paged f32 cases (decode and prefill on an f32 query, each with its
+plan and ptxas registers), with ``paged`` the bf16 paged cases too, both from
+this checkout's ``chip_smoke.py`` on ROOT's package, so that parent and
+change run the same cases.
 With ``decode`` it runs only this checkout's engine decode-step profile
 (``chip_smoke.engine_decode_profile``: one decode step of full llama3.2-3b,
 8 rows, w8/kv8; captured, or eager with ``eager``) on ROOT's package, which
 also profiles a commit whose chip_smoke.py has no such phase (its package
 must have captured steps, ``serve/graphs.py``).  Needs one CUDA card:
 
-    python3 tools/smoke_phase2.py ROOT [x32] [cnn | decode [eager]] > phase2.jsonl
+    python3 tools/smoke_phase2.py ROOT [x32 | paged | paged32] [cnn | decode [eager]] \
+        > phase2.jsonl
 
 ROOT may be another commit's checkout (``git archive`` of it into an ignored
 directory), whose kernels are built into ROOT/build: run parent and change
@@ -35,9 +40,11 @@ def main() -> int:
     root = Path(sys.argv[1]).resolve()
     sys.path.insert(0, str(root / "src"))
     decode = "decode" in sys.argv[2:]
+    paged = {"paged": ("bf16", "f32"), "paged32": ("f32",)}
+    paged = next((paged[a] for a in sys.argv[2:] if a in paged), None)
     here = Path(__file__).resolve().parents[1]
     spec = importlib.util.spec_from_file_location(
-        "chip_smoke", (here if decode else root) / "chip_smoke.py")
+        "chip_smoke", (here if decode or paged else root) / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -56,7 +63,11 @@ def main() -> int:
                                                            capture)})
         return 0
     timer = smoke.Timer(torch)
-    if "x32" in sys.argv[2:]:
+    if paged:
+        summary = {name: {"max_abs_err": 0.0} for name in smoke.TPU_KERNELS}
+        smoke.emit({"phase": "paged_cases", "root": str(root), "dtypes": paged, "gpu": gpu})
+        smoke.paged_kernel_cases(torch, timer, gpu, summary, paged)
+    elif "x32" in sys.argv[2:]:
         summary = {name: {"max_abs_err": 0.0} for name in smoke.TPU_KERNELS}
         smoke.x32_kernel_cases(torch, timer, gpu, summary)
     else:
