@@ -235,9 +235,23 @@ Phases, each printing one JSON line that names the card:
                to TP_WAVE_LAYERS layers at full width (w8, kv8) through
                Server(mesh=), 8 greedy requests of 512 tokens and 32 new:
                streams equal to the no-mesh Server's (run just before the
-               counts are set to 0), tokens/s of both.  The CF matmul and
+               counts are set to 0), tokens/s of both; (d) (b)'s Trainer
+               with moe_dispatch="alltoall" (both all-to-alls over NCCL, the
+               gradient back through them), held bit for bit to (b)'s TP run:
+               losses, grad norms and final params; (e) kimi-k2-1t-a32b cut
+               to KIMI_LAYERS layers at full width (the dense first block,
+               one MoE block of 384 W4 experts, kv8) through Server(mesh=),
+               KIMI_REQUESTS greedy requests of KIMI_PROMPT tokens and
+               KIMI_NEW new: the replicated dispatch captured, the alltoall
+               one captured (its all-to-alls inside the CUDA graph) and
+               eager, all three streams equal; decode tokens/s, peak memory
+               and the CF / mqa_decode launches of each.  The CF matmul and
                mqa_decode must launch on these paths ("tp").  Phase 2 also
-               holds the CF matmul at one rank's blocks of llama3.2-3b's W8
+               holds the CF matmul at kimi-k2's W4 experts (7168 -> 2048 and
+               2048 -> 7168 at (e)'s rows, M 1 and 13) and mqa_decode at its
+               heads (8 x 8, D 112): the kernels line carries them as
+               "kimi_expert_call_sites" and "kimi_heads" with (e)'s
+               launches.  It also holds the CF matmul at one rank's blocks of llama3.2-3b's W8
                projections on a 4-wide model axis (TP_BLOCK_SHAPES at M 8
                and 256), the row blocks (wo, wd) also through the f32 entry
                a row-split partial takes (held to mpmm_ref's f32 sum, and
@@ -387,6 +401,13 @@ MIXTRAL_EXPERT_SHAPES = [(6144, 16384), (16384, 6144)]
 MIXTRAL_EXPERT_M = (1, 2, 160)
 # the expert call sites' cases of the kernels line: (w_bits, M, K, N)
 EXPERT_MPMM_CASES = {"decode": (4, 2, 6144, 16384), "prefill": (4, 160, 6144, 16384)}
+# kimi-k2-1t-a32b's W4 experts as (K, N): gate / up (7168 -> 2048) and down
+# (2048 -> 7168), at the rows one expert gets in phase 11(e)'s waves of 8:
+# cap = max(1, T * 8 * 1.25 // 384), 1 in a decode step (T 8), 13 in the
+# prefill (T 8 x KIMI_PROMPT); the call sites' cases of the kernels line
+KIMI_EXPERT_SHAPES = [(7168, 2048), (2048, 7168)]
+KIMI_EXPERT_M = (1, 13)
+KIMI_EXPERT_CASES = {"decode": (4, 1, 7168, 2048), "prefill": (4, 13, 7168, 2048)}
 # one rank's blocks of llama3.2-3b's W8 projections on a 4-wide model axis
 # under the tensor-parallel mapping, as (K, N): wq's columns (3072 x 768),
 # wo's rows (768 x 3072), wg's columns (3072 x 2048), wd's rows (2048 x
@@ -459,6 +480,10 @@ MQA_CASES = [
     # rank's rows of decode_32k
     ("paligemma-3b decode_32k, one rank", 8, 32768, 1, 8, 256,
      [32768 - (i % 3) for i in range(8)], 8),
+    # kimi-k2-1t-a32b's decode attention in phase 11(e)'s waves: 8 rows, 8 kv
+    # heads of 8 query heads, head dim 112, a cache of KIMI_PROMPT + KIMI_NEW
+    # + 8 positions at the wave's decode lengths
+    ("kimi-k2 waves", 8, 80, 8, 8, 112, [65 + i for i in range(8)], 8),
 ]
 WAVE_REQUESTS, WAVE_PROMPT, WAVE_NEW = 8, 512, 32
 # the ResNet18 convs phase 2 times the FF matmul at (batch 8): M = 8*Ho*Wo
@@ -516,6 +541,11 @@ MESH_TRAIN_STEPS, MESH_TRAIN_RTOL, MESH_COLL_RTOL = 3, 1e-5, 1e-6
 # through Server(mesh=)
 TP_MOE_LAYERS, TP_MOE_STEPS, TP_MOE_BATCH = 1, 2, 4
 TP_WAVE_LAYERS = 7
+# phase 11(e): kimi-k2-1t-a32b cut to KIMI_LAYERS layers at full width (its
+# dense first block and one MoE block of 384 W4 experts) through
+# Server(mesh=) with moe_dispatch="alltoall": KIMI_REQUESTS greedy requests
+# of KIMI_PROMPT tokens, KIMI_NEW new ones, one wave of 8
+KIMI_LAYERS, KIMI_REQUESTS, KIMI_PROMPT, KIMI_NEW = 2, 8, 64, 8
 # one rank's attention of llama3.2-3b on a 2-wide model axis: 4 of its 8 kv
 # heads with their G = 3 query heads each, head dim 128 (phase 2's paged
 # decode and prefill cases; the pools of ServeEngine(mesh=) hold these)
@@ -664,6 +694,10 @@ def kernel_cases(torch, timer, gpu) -> dict:
             if (w_bits, m, k, n) == case:
                 summary["mpmm_dequant"].setdefault("expert", {})[label] = {
                     key: rec[key] for key in LINE_KEYS}
+        for label, case in KIMI_EXPERT_CASES.items():
+            if (w_bits, m, k, n) == case:
+                summary["mpmm_dequant"].setdefault("kimi_expert", {})[label] = {
+                    key: rec[key] for key in LINE_KEYS}
         for label, (bk, bn) in TP_BLOCK_SHAPES.items():
             if (w_bits, k, n) == (8, bk, bn) and m in TP_BLOCK_M:
                 summary["mpmm_dequant"].setdefault("tp_blocks", {})[f"{label} M={m}"] = {
@@ -704,9 +738,10 @@ def kernel_cases(torch, timer, gpu) -> dict:
     def deq(wd, ws, w_bits):
         return ((unpack_int4(wd, 0) if w_bits == 4 else wd).float() * ws).to(torch.bfloat16)
 
-    for shapes, ms in ((MPMM_SHAPES, (1, 2, 3, 4, 5, 8, VERIFY_M, 128, 256)),
-                       (MIXTRAL_EXPERT_SHAPES, MIXTRAL_EXPERT_M)):
-        for w_bits in (4, 8):
+    for shapes, ms, bits in ((MPMM_SHAPES, (1, 2, 3, 4, 5, 8, VERIFY_M, 128, 256), (4, 8)),
+                             (MIXTRAL_EXPERT_SHAPES, MIXTRAL_EXPERT_M, (4, 8)),
+                             (KIMI_EXPERT_SHAPES, KIMI_EXPERT_M, (4,))):
+        for w_bits in bits:
             for k, n in shapes:
                 w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
                 wd, ws = ops.pack_weights(w, w_bits)
@@ -1765,6 +1800,8 @@ def mqa_kernel_cases(torch, timer, gpu, summary) -> None:
             summary["mqa_decode"]["tp_heads"] = {key: rec[key] for key in LINE_KEYS}
         if label.startswith("paligemma-3b"):
             summary["mqa_decode"]["paligemma_heads"] = {key: rec[key] for key in LINE_KEYS}
+        if label.startswith("kimi-k2"):
+            summary["mqa_decode"]["kimi_heads"] = {key: rec[key] for key in LINE_KEYS}
         del kd, vd, ks, vs, kg, vg
     torch.cuda.empty_cache()
 
@@ -3282,11 +3319,12 @@ def event_ms(torch, fn, iters: int = 3) -> float:
 
 
 def train_history(torch, arch, tag: str, root, steps: int, batch: int, mesh=None,
-                  data_only: bool = False):
+                  data_only: bool = False, params_out=None):
     """A Trainer run of ``steps`` steps (adamw at lr 3e-4, no checkpoints)
     at ``batch`` x TRAIN_SEQ on the card: unsharded, or on ``mesh`` under the
     FSDP mapping (``data_only``, ``set_mesh(mesh, data_only=True)``) or the
-    TP one (``set_mesh(mesh)``) -> (history, wall s, peak bytes)."""
+    TP one (``set_mesh(mesh)``) -> (history, wall s, peak bytes); the final
+    params, copied to the host, are appended to ``params_out`` when given."""
     import gc
 
     from repro_torch.distributed import sharding as sh
@@ -3295,9 +3333,13 @@ def train_history(torch, arch, tag: str, root, steps: int, batch: int, mesh=None
     tc = TrainConfig(lr=3e-4, warmup=max(steps // 10, 1), total_steps=steps,
                      ckpt_every=0, ckpt_dir=str(Path(root) / tag))
     with sh.use_mesh(mesh, data_only) if mesh is not None else contextlib.nullcontext():
-        trainer, _, wall, peak, _ = trainer_run(torch, arch, tc, batch, mesh=mesh)
+        trainer, run, wall, peak, _ = trainer_run(torch, arch, tc, batch, mesh=mesh)
+    if params_out is not None:
+        from repro_torch.optim import tree
+
+        params_out.extend(t.detach().cpu() for t in tree.leaves(run["params"]))
     out = (trainer.history, wall, peak)
-    del trainer
+    del trainer, run
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3563,19 +3605,13 @@ def tp_train_llama(torch, gpu, plain, root) -> None:
           **steps_report(rows, plain, tp), "gpu": gpu})
 
 
-def tp_train_moe(torch, gpu, mesh, root) -> None:
-    """(b) mixtral-8x22b cut to TP_MOE_LAYERS layer(s) at full width (d_model
-    6144, 48 heads, 8 experts of d_ff 16384, top-2, adamw, remat "full"),
-    TP_MOE_STEPS steps at TP_MOE_BATCH x TRAIN_SEQ: through a Trainer on the
-    1 x 1 mesh under the TP mapping (the first MoE training on a mesh),
-    held against the unsharded Trainer's steps; the mesh run's peak memory
-    and the share of top-k assignments dropped at capacity (counted on the
-    card around ``_positions_in_expert``, recomputed forwards included)."""
-    from repro_torch.configs import get_config
+@contextlib.contextmanager
+def drops_counted(torch, arch):
+    """Counts, on the card, the top-k assignments dropped at capacity and
+    all of them (around ``_positions_in_expert``, recomputed forwards
+    included) while the block runs -> the [dropped, assigned] tensor."""
     from repro_torch.models import moe as moe_mod
 
-    arch = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=TP_MOE_LAYERS)
-    plain = train_history(torch, arch, "moe_plain", root, TP_MOE_STEPS, TP_MOE_BATCH)
     real = moe_mod._positions_in_expert
     counts = torch.zeros(2, dtype=torch.int64, device="cuda")
 
@@ -3588,9 +3624,27 @@ def tp_train_moe(torch, gpu, mesh, root) -> None:
 
     moe_mod._positions_in_expert = counted
     try:
-        tp = train_history(torch, arch, "moe_tp", root, TP_MOE_STEPS, TP_MOE_BATCH, mesh)
+        yield counts
     finally:
         moe_mod._positions_in_expert = real
+
+
+def tp_train_moe(torch, gpu, mesh, root):
+    """(b) mixtral-8x22b cut to TP_MOE_LAYERS layer(s) at full width (d_model
+    6144, 48 heads, 8 experts of d_ff 16384, top-2, adamw, remat "full"),
+    TP_MOE_STEPS steps at TP_MOE_BATCH x TRAIN_SEQ: through a Trainer on the
+    1 x 1 mesh under the TP mapping (the first MoE training on a mesh),
+    held against the unsharded Trainer's steps; the mesh run's peak memory
+    and the share of top-k assignments dropped at capacity.  Returns the TP
+    run and its final params on the host (phase 11(d)'s reference)."""
+    from repro_torch.configs import get_config
+
+    arch = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=TP_MOE_LAYERS)
+    plain = train_history(torch, arch, "moe_plain", root, TP_MOE_STEPS, TP_MOE_BATCH)
+    params = []
+    with drops_counted(torch, arch) as counts:
+        tp = train_history(torch, arch, "moe_tp", root, TP_MOE_STEPS, TP_MOE_BATCH, mesh,
+                           params_out=params)
     rows = hold_steps(plain[0], tp[0], "mixtral TP train")
     dropped, assigned = counts.tolist()
     check(assigned > 0, "the TP MoE run routed no token")
@@ -3601,6 +3655,42 @@ def tp_train_moe(torch, gpu, mesh, root) -> None:
           "batch": TP_MOE_BATCH, "seq": TRAIN_SEQ, "order": "[unsharded Trainer, TP Trainer]",
           **steps_report(rows, plain, tp), "dropped_assignments": dropped,
           "assignments": assigned, "dropped_share": dropped / assigned, "gpu": gpu})
+    return tp, params
+
+
+def tp_train_moe_alltoall(torch, gpu, mesh, root, ref) -> None:
+    """(d) The same mixtral-8x22b Trainer on the 1 x 1 mesh under the TP
+    mapping with ``moe_dispatch="alltoall"`` (both all-to-alls over NCCL,
+    the gradient back through them), held bit for bit against (b)'s TP run
+    (``ref``: its history and final params): at world size 1 the
+    all-to-alls are copies and the expert products the same, so the losses,
+    grad norms and params must be equal; s a step, peak memory, drops."""
+    from repro_torch.configs import get_config
+
+    arch = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=TP_MOE_LAYERS,
+                               moe_dispatch="alltoall")
+    (tp, tp_params), params = ref, []
+    with drops_counted(torch, arch) as counts:
+        a2a = train_history(torch, arch, "moe_a2a", root, TP_MOE_STEPS, TP_MOE_BATCH, mesh,
+                            params_out=params)
+    rows = hold_steps(tp[0], a2a[0], "mixtral TP alltoall train")
+    report = steps_report(rows, tp, a2a)
+    check(report["bit_equal"], "mixtral TP train: the alltoall dispatch's losses or grad norms "
+          "differ from the replicated dispatch's on the 1 x 1 mesh")
+    check(len(params) == len(tp_params) and
+          all(torch.equal(a, b) for a, b in zip(params, tp_params)),
+          "mixtral TP train: the alltoall dispatch's params differ from the replicated "
+          "dispatch's on the 1 x 1 mesh")
+    dropped, assigned = counts.tolist()
+    check(assigned > 0, "the TP alltoall MoE run routed no token")
+    emit({"phase": "tp_train_moe_alltoall", "model": f"mixtral-8x22b ({TP_MOE_LAYERS} of 56 "
+          "layers, full width), moe_dispatch alltoall", "mesh": "1 x 1 (data, model), NCCL",
+          "mapping": "TP (set_mesh(mesh))", "entry": "train.Trainer(mesh=)",
+          "batch": TP_MOE_BATCH, "seq": TRAIN_SEQ,
+          "order": "[TP Trainer, replicated dispatch (b); TP Trainer, alltoall]",
+          **report, "params_bit_equal": True, "leaves": len(params),
+          "dropped_assignments": dropped, "assignments": assigned,
+          "dropped_share": dropped / assigned, "gpu": gpu})
 
 
 def tp_waves(torch, gpu, mesh, plain_run) -> None:
@@ -3632,9 +3722,107 @@ def tp_waves(torch, gpu, mesh, plain_run) -> None:
           "peak_mem_gb": [p_peak / 1e9, peak / 1e9], "gpu": gpu})
 
 
-def tp_paths(torch, gpu, plain_train, plain_waves) -> None:
+def tp_waves_alltoall(torch, gpu, mesh) -> dict:
+    """(e) kimi-k2-1t-a32b cut to KIMI_LAYERS layers at full width (d_model
+    7168, 64 heads of 112 over 8 kv heads, the dense first block, then one
+    MoE block of 384 W4 experts of d_ff 2048, top-8; kv8) through
+    ``Server(mesh=)`` on the 1 x 1 mesh: KIMI_REQUESTS greedy requests of
+    KIMI_PROMPT tokens, KIMI_NEW new ones, one wave of 8, from one set of
+    weights drawn from seed 0: the replicated dispatch captured, then
+    ``moe_dispatch="alltoall"`` captured (its NCCL all-to-alls inside the
+    decode step's CUDA graph) and eager.  The three runs' streams must be
+    equal; the alltoall run must launch the CF matmul (the experts, one
+    launch each on its rows) and ``mqa_decode``.  Reported: decode
+    tokens/s, the peak memory of each run (the bf16 weights the Server
+    quantizes stay resident beside its W4 view), the launches of each run,
+    and each captured decode step's replay time (CUDA events).  Returns the
+    captured alltoall run's launches."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mpmm import mpmm_cuda
+    from repro_torch.kernels.mqa_decode import mqa_decode_cuda
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.train.server import Request, Server
+
+    cfg = dataclasses.replace(get_config("kimi-k2-1t-a32b"), n_layers=KIMI_LAYERS)
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, KIMI_PROMPT).astype(np.int32)
+               for _ in range(KIMI_REQUESTS)]
+    runs = {}
+    for tag, arch, capture in (("replicated", cfg, True),
+                               ("alltoall", dataclasses.replace(cfg, moe_dispatch="alltoall"),
+                                True),
+                               ("alltoall eager",
+                                dataclasses.replace(cfg, moe_dispatch="alltoall"), False)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = (mpmm_cuda.launches, mqa_decode_cuda.launches)
+        t0 = time.perf_counter()
+        srv = Server(arch, params, batch_size=8, max_len=KIMI_PROMPT + KIMI_NEW + 8,
+                     device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=KIMI_NEW) for i, p in enumerate(prompts)]
+        t0 = time.perf_counter()
+        with capturing(capture):
+            srv.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for r in reqs:
+            check(r.done and len(r.out_tokens) == KIMI_NEW and
+                  all(0 <= t < cfg.vocab for t in r.out_tokens),
+                  f"kimi-k2 {tag} request {r.rid}: {r.out_tokens}")
+        st = srv.stats
+        # the captured decode step's replay on the card (its first call, in
+        # decode_step_ms, holds the eager warm-up and the capture)
+        replay = replay_ms(torch, srv.graphs, "wave_decode") if capture else None
+        runs[tag] = {"streams": [tuple(r.out_tokens) for r in reqs], "replay_ms": replay,
+                     "decode_tok_per_s": st.tokens_out / st.decode_s,
+                     "decode_step_ms": st.decode_s / st.decode_steps * 1e3,
+                     "prefill_s": st.prefill_s, "wall_s": wall, "server_build_s": build_s,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "graphs_captured": srv.graphs.captured,
+                     "launches": {"mpmm_dequant": mpmm_cuda.launches - before[0],
+                                  "mqa_decode": mqa_decode_cuda.launches - before[1]}}
+        del srv, reqs
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    a2a = runs["alltoall"]
+    check(a2a["streams"] == runs["alltoall eager"]["streams"],
+          "kimi-k2 Server(mesh=) alltoall: captured streams differ from eager")
+    check(a2a["streams"] == runs["replicated"]["streams"],
+          "kimi-k2 Server(mesh=) alltoall: streams differ from the replicated dispatch's")
+    check(a2a["graphs_captured"] > 0, "kimi-k2 alltoall: no decode step was captured")
+    check(a2a["launches"]["mpmm_dequant"] > 0 and a2a["launches"]["mqa_decode"] > 0,
+          f"kimi-k2 alltoall launches {a2a['launches']}: expected the CF matmul and "
+          "mqa_decode")
+    emit({"phase": "tp_waves_alltoall", "model": f"kimi-k2-1t-a32b ({KIMI_LAYERS} of 61 layers, "
+          "full width: d_model 7168, 64 heads of 112 over 8 kv heads, 1 dense block, 1 MoE "
+          "block of 384 experts of d_ff 2048, top-8)", "mesh": "1 x 1 (data, model), NCCL",
+          "mapping": "TP (Server(mesh=))", "requests": KIMI_REQUESTS, "prompt": KIMI_PROMPT,
+          "new_tokens": KIMI_NEW, "w_bits": cfg.serve_w_bits, "kv_bits": cfg.serve_kv_bits,
+          "init_s": init_s, "identical_streams": True,
+          "order": "[replicated captured, alltoall captured, alltoall eager]",
+          **{k: [r[k] for r in runs.values()] for k in (
+              "decode_tok_per_s", "decode_step_ms", "replay_ms", "prefill_s", "wall_s",
+              "server_build_s", "peak_mem_gb", "graphs_captured", "launches")}, "gpu": gpu})
+    return a2a["launches"]
+
+
+def tp_paths(torch, gpu, plain_train, plain_waves) -> dict:
     """Phase 11: the tensor-parallel mapping over a real NCCL process group
-    of world size 1: (a) the launcher, (b) MoE training, (c) Server(mesh=)."""
+    of world size 1: (a) the launcher, (b) MoE training, (c) Server(mesh=),
+    (d) MoE training with the alltoall dispatch, (e) kimi-k2's waves with
+    it.  Returns (e)'s launches."""
     import datetime
     import gc
     import tempfile
@@ -3653,13 +3841,17 @@ def tp_paths(torch, gpu, plain_train, plain_waves) -> None:
         mesh = make_test_mesh(1, 1, device="cuda")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as root:
             tp_train_llama(torch, gpu, plain_train, root)
-            tp_train_moe(torch, gpu, mesh, root)
+            moe_tp = tp_train_moe(torch, gpu, mesh, root)
+            tp_train_moe_alltoall(torch, gpu, mesh, root, moe_tp)
+            del moe_tp
         tp_waves(torch, gpu, mesh, plain_waves)
+        kimi_launches = tp_waves_alltoall(torch, gpu, mesh)
     finally:
         if joined:
             dist.destroy_process_group()
     emit({"phase": "tp_total", "s": time.perf_counter() - t0, "gpu": gpu})
     torch.cuda.empty_cache()
+    return kimi_launches
 
 
 # --------------------------------------------------------------- phase 12
@@ -4501,7 +4693,7 @@ def main() -> int:
     *plain_waves, srv = waves_run(torch, 0, zamba_tp, WAVE_REQUESTS, WAVE_PROMPT, WAVE_NEW)
     del srv
     torch.cuda.empty_cache()
-    _, tp_launches = count(lambda: tp_paths(torch, gpu, plain_train, plain_waves))
+    kimi_tp, tp_launches = count(lambda: tp_paths(torch, gpu, plain_train, plain_waves))
     emit({"phase": "tp_launches", "launches": tp_launches, "gpu": gpu})
     check(tp_launches["mpmm_dequant"] > 0 and tp_launches["mqa_decode"] > 0,
           f"the TP paths launched {tp_launches}: expected the CF matmul and mqa_decode "
@@ -4633,6 +4825,14 @@ def main() -> int:
                if "tp_partials" in s else {}),
             **({"tp_heads": {**s["tp_heads"], "launches_tp_path": by_path["tp"][name]}}
                if "tp_heads" in s else {}),
+            # kimi-k2's W4 experts at their rows and its decode attention at
+            # D 112, and their launches in phase 11(e)'s captured alltoall run
+            **({"kimi_expert_call_sites": {**s["kimi_expert"], "path": "tp_waves_alltoall",
+                                           "launches": kimi_tp[name]}}
+               if "kimi_expert" in s else {}),
+            **({"kimi_heads": {**s["kimi_heads"], "path": "tp_waves_alltoall",
+                               "launches": kimi_tp[name]}}
+               if "kimi_heads" in s else {}),
             # one rank's kv heads of llama3.2-3b on a 2-wide model axis (a
             # chunk, a verify window, a decode step), and the launches on
             # phase 14's meshed llama path

@@ -32,12 +32,27 @@ experts are one batched ``torch.matmul``, as the JAX package leaves that
 einsum to XLA.
 
 ``dispatch="alltoall"``: GShard/Switch token routing over the mesh's
-``model`` axis (``_moe_ffn_alltoall``).  Each rank holds its data shard's
-tokens (the same on every rank of a model group), routes them with the
-capacity of its own token count, sends ``[n_shards, E_loc * cap, D]`` to
-the experts' owners with ``all_to_all_single``, runs its ``E / n_shards``
-experts on what it received, and a second all-to-all brings the outputs
-back.  The aux loss is the mean over the data shards.
+``model`` axis (``_moe_ffn_alltoall``), what JAX's ``shard_map`` gives each
+device.  Each rank holds its data shard's tokens (the same on every rank
+of a model group), routes them with the capacity of its own token count,
+sends ``[n_shards, E_loc * cap, D]`` to the experts' owners with an
+all-to-all, runs its ``E / n_shards`` experts on what it received, and a
+second all-to-all brings the outputs back.  The aux loss is the mean over
+the data shards.  Both exchanges and the aux's sum are differentiable:
+the backward of an all-to-all is the reverse all-to-all over the same
+group.  The gradients follow the TP mapping's convention (each rank's
+loss is its share, the data shards' shares sum to the loss, and the model
+ranks hold copies of it): x and the router get this shard's gradient as
+they are.  Every expert receives ``n_shards`` copies of a token, one from
+each model rank, each with the full cotangent, so its weights' gradient
+is divided by ``n_shards``: JAX's transpose of the ``shard_map`` divides
+the outputs' cotangent by the model axis's size and sums the inputs' over
+it, which comes to the same.  With no mapping installed the expert leaves
+are full tensors (each rank slices its experts); under the TP mapping they
+are the stored blocks of E over ``model`` (``sharding.model_block``,
+whose backward sums over the batch ranks).  ``x`` must be this rank's
+data shard: a batch the data shards do not divide is the caller's to
+refuse (the static-wave ``Server`` raises), as the ``shard_map`` refuses it.
 
 Under the TP mapping (``sharding.set_mesh(mesh)``) the replicated dispatch
 runs on this rank's rows of the batch (``_moe_ffn_replicated``).  Routing and
@@ -143,11 +158,6 @@ def moe_ffn(
     (default: ``sharding.get_mesh()``) the DeviceMesh whose
     ``mesh_model_axis`` holds the experts."""
     if dispatch == "alltoall":
-        if sharding.tp_active():
-            raise NotImplementedError(
-                "moe_dispatch='alltoall' under the tensor-parallel mapping is not wired: its "
-                "expert leaves would be TP blocks (ROADMAP: the alltoall MoE dispatch under "
-                "TP); the mesh step and the meshed engine run the replicated dispatch")
         return _moe_ffn_alltoall(x, params, top_k=top_k, capacity_factor=capacity_factor,
                                  axis=mesh_model_axis, mesh=mesh)
     return _moe_ffn_replicated(x, params, top_k, capacity_factor)
@@ -258,13 +268,68 @@ def _local_experts(w, e: int, lo: int, hi: int):
     return w[lo:hi] if w.shape[0] == e else w
 
 
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Block i of ``x`` [n, ...] to rank i of ``group``; block i of the
+    result from rank i."""
+    import torch.distributed as dist
+
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`_all_to_all` whose gradient is the reverse exchange (the same
+    all-to-all: block i of rank r's gradient goes back to rank i)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, ctx.group), None
+
+
+def _sum_over(x: torch.Tensor, groups) -> torch.Tensor:
+    import torch.distributed as dist
+
+    x = x.contiguous().clone()
+    for g in groups:
+        dist.all_reduce(x, group=g)
+    return x
+
+
+class _SumOver(torch.autograd.Function):
+    """A sum over ``groups`` whose gradient is summed over them too."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return _sum_over(x, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_over(grad, ctx.groups), None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the gradient times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None
+
+
 def _moe_ffn_alltoall(x: torch.Tensor, params: dict, *, top_k: int, capacity_factor: float,
                       axis: str, mesh) -> tuple[torch.Tensor, torch.Tensor]:
     """GShard-style token routing over ``axis`` (see the module note)."""
-    import torch.distributed as dist
-
-    from repro_torch.distributed import sharding
-
     mesh = mesh if mesh is not None else sharding.get_mesh()
     if mesh is None:
         raise ValueError("moe_dispatch='alltoall' needs a device mesh")
@@ -274,6 +339,8 @@ def _moe_ffn_alltoall(x: torch.Tensor, params: dict, *, top_k: int, capacity_fac
     n_shards = sizes[axis]
     if e % n_shards:
         raise ValueError(f"{e} experts do not divide over {n_shards} {axis!r} shards")
+    data_axes = [a for a in sizes if a != axis and sizes[a] > 1]
+    n_data = math.prod(sizes[a] for a in data_axes)
     e_loc = e // n_shards
     me = mesh.get_local_rank(axis)
     group = mesh.get_group(axis)
@@ -285,27 +352,25 @@ def _moe_ffn_alltoall(x: torch.Tensor, params: dict, *, top_k: int, capacity_fac
     buf, flat_slot, keep = _dispatch(x2, eids, pos, cap, 0, e)
     # [n_shards, e_loc * cap, d] -> all-to-all: shard i keeps its experts'
     # buffers from every peer
-    buf = buf.reshape(n_shards, e_loc * cap, d)
-    recv = torch.empty_like(buf)
-    dist.all_to_all_single(recv, buf, group=group)
+    recv = _AllToAll.apply(buf.reshape(n_shards, e_loc * cap, d), group)
     # [peers, e_loc * cap, d] -> merge the token sets per expert
     recv = recv.reshape(n_shards, e_loc, cap, d).transpose(0, 1).reshape(e_loc, n_shards * cap, d)
-    lo, hi = me * e_loc, (me + 1) * e_loc
-    out_buf = _expert_ffn(recv, *(_local_experts(params[k], e, lo, hi)
-                                  for k in ("wg", "wu", "wd")))
+    if sharding.tp_active():  # this rank's stored blocks of E, gathered over the batch axes
+        ws = [sharding.model_block(params[k], 0) for k in ("wg", "wu", "wd")]
+    else:
+        ws = [_local_experts(params[k], e, me * e_loc, (me + 1) * e_loc)
+              for k in ("wg", "wu", "wd")]
+    if n_shards > 1:  # each of the n_shards copies of a token brings its full cotangent
+        ws = [w if isinstance(w, dict) else _ScaleGrad.apply(w, 1.0 / n_shards) for w in ws]
+    out_buf = _expert_ffn(recv, *ws)
     out_buf = out_buf.reshape(e_loc, n_shards, cap, d).transpose(0, 1)
-    back = torch.empty_like(buf)
-    dist.all_to_all_single(back, out_buf.reshape(n_shards, e_loc * cap, d).contiguous(),
-                           group=group)
+    back = _AllToAll.apply(out_buf.reshape(n_shards, e_loc * cap, d), group)
     out = _combine(back.reshape(e * cap, d), flat_slot, keep, weights, x.dtype)
     # aux differs per data shard: its mean over them
-    aux = aux.float().clone()
-    n_data = 1
-    for a, size in sizes.items():
-        if a != axis:
-            dist.all_reduce(aux, group=mesh.get_group(a))
-            n_data *= size
-    return out.reshape(b, s, d), aux / n_data
+    aux = aux.float()
+    if n_data > 1:
+        aux = _SumOver.apply(aux, [mesh.get_group(a) for a in data_axes]) / n_data
+    return out.reshape(b, s, d), aux
 
 
 def init_moe_params(gen: torch.Generator, d: int, d_ff: int, n_experts: int, dtype,

@@ -87,7 +87,9 @@ scheduler on the same tokens and returns the same streams.  The captured
 steps' keys name the split.  The one-shot-prefill families (vlm, audio)
 run their eager ``_prefill_group`` under the same mapping, so each pool
 receives this rank's kv heads of the prompt; ``moe_dispatch="alltoall"``
-takes no mesh (NotImplementedError).
+takes no mesh (NotImplementedError), as the JAX engine takes none: its
+rows are not split over ``data`` (it raises on a group the data axis does
+not divide, and with no mesh).
 """
 from __future__ import annotations
 
@@ -218,8 +220,9 @@ class ServeEngine:
     ):
         if mesh is not None and cfg.moe_dispatch == "alltoall":
             raise NotImplementedError(
-                "ServeEngine(mesh=) runs the replicated MoE dispatch under the "
-                "tensor-parallel mapping (ROADMAP: the alltoall MoE dispatch under TP)")
+                "ServeEngine(mesh=) takes no moe_dispatch='alltoall', as the JAX package's "
+                "paged engine takes none (its groups' rows are not split over the data "
+                "axis); the static-wave Server(mesh=) and the mesh train step take it")
         if not self.supports(cfg):
             what = (f"{cfg.first_dense} leading dense MoE block(s)" if cfg.family == "moe"
                     else f"the {cfg.family!r} family")

@@ -32,7 +32,10 @@ its blocks of the (quantized) weights under ``tree_shardings``, runs the
 same waves on the same requests, computes its rows of each wave (all of
 them where the batch ranks do not divide the wave) and its kv heads, and
 gathers the logits over ``model`` before the argmax; the wave's tokens are
-gathered over the batch ranks at its end.  Either way every rank returns
+gathered over the batch ranks at its end.  Under ``moe_dispatch="alltoall"``
+(kimi-k2's MoE blocks) each data shard routes its rows of the wave with its
+own capacity, as JAX's ``shard_map`` does, and a wave the data axis does
+not divide raises ``ValueError``.  Either way every rank returns
 the requests completed (rank 0's are the ones to report).
 """
 from __future__ import annotations
@@ -165,12 +168,17 @@ class Server:
     @contextlib.contextmanager
     def _mapping(self, b: int):
         """The TP mapping for a wave of ``b`` rows (every row on every rank
-        where the batch ranks do not divide ``b``); nothing without a mesh."""
+        where the batch ranks do not divide ``b``; under the alltoall MoE
+        dispatch such a wave raises, as JAX's ``shard_map`` refuses it);
+        nothing without a mesh."""
         if self.mesh is None:
             yield
             return
         with sh.use_mesh(self.mesh):
             whole = sh.batch_rows(b) == slice(0, b)
+            if whole and sh.batch_ranks() > 1 and self.arch.moe_dispatch == "alltoall":
+                raise ValueError(f"a wave of {b} does not divide over the "
+                                 f"{sh.batch_ranks()} data shards of moe_dispatch='alltoall'")
             with sh.whole_batch() if whole else contextlib.nullcontext():
                 yield
 

@@ -2444,6 +2444,64 @@ def test_tp_server_waves_over_nccl_equal_unsharded(nccl_mesh):
     assert mqa_decode_cuda.launches > before
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tp_moe_alltoall_over_nccl_equals_replicated_with_gradient(nccl_mesh, dtype):
+    """The alltoall dispatch under the TP mapping on the 1 x 1 mesh (its
+    all-to-alls over NCCL): output, aux and the gradient of x, the router
+    and every expert leaf bit-equal to the replicated dispatch's."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import moe
+
+    params = moe.init_moe_params(torch.Generator(device="cuda").manual_seed(0), 1024, 2048, 8,
+                                 dtype)
+    x = torch.randn(4, 64, 1024, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda").to(dtype)
+    cot = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(2),
+                      device="cuda")
+    for cf in (1.25, 0.5):
+        runs = []
+        for dispatch in ("replicated", "alltoall"):
+            xs = x.clone().requires_grad_()
+            ps = {k: v.clone().requires_grad_() for k, v in params.items()}
+            with sh.use_mesh(nccl_mesh):
+                out, aux = moe.moe_ffn(xs, ps, top_k=2, capacity_factor=cf, dispatch=dispatch)
+            ((out.float() * cot).sum() + 0.5 * aux).backward()
+            runs.append([out, aux, xs.grad] + [ps[k].grad for k in sorted(ps)])
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), cf
+
+
+def test_tp_server_waves_alltoall_over_nccl_equal_replicated(nccl_mesh):
+    """Reduced kimi-k2 with moe_dispatch="alltoall" through Server(mesh=) on
+    the 1 x 1 mesh, its all-to-alls inside the captured decode step: the
+    replicated dispatch's streams, and the CF matmul and mqa_decode launch."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mpmm import mpmm_cuda
+    from repro_torch.kernels.mqa_decode import mqa_decode_cuda
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.train.server import Request, Server
+
+    cfg = get_config("kimi-k2-1t-a32b").reduced()
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (9, 4, 7, 5)]
+
+    def streams(dispatch):
+        arch = dataclasses.replace(cfg, moe_dispatch=dispatch)
+        params = model_lib.init_params(arch, torch.Generator(device="cuda").manual_seed(0))
+        srv = Server(arch, params, batch_size=2, max_len=24, device="cuda", mesh=nccl_mesh)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=4) for i, p in enumerate(prompts)]
+        srv.serve(reqs)
+        assert srv.graphs.captured > 0
+        return [list(r.out_tokens) for r in reqs]
+
+    before = (mpmm_cuda.launches, mqa_decode_cuda.launches)
+    assert streams("alltoall") == streams("replicated")
+    assert mpmm_cuda.launches > before[0] and mqa_decode_cuda.launches > before[1]
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("name", ["llama3.2-3b", "mixtral-8x22b", "paligemma-3b",
                                   "musicgen-medium"])

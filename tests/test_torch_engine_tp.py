@@ -342,6 +342,7 @@ def test_server_mesh_engine_matches_jax_server_mesh_one_shot_prefill(runs):
 
 def test_alltoall_takes_no_mesh():
     moe = dataclasses.replace(tget("mixtral-8x22b").reduced(), moe_dispatch="alltoall")
-    with pytest.raises(NotImplementedError, match="the alltoall MoE dispatch under TP"):
+    with pytest.raises(NotImplementedError,
+                       match="takes no moe_dispatch='alltoall', as the JAX package's paged"):
         ServeEngine(moe, tT.init_params(moe, torch.Generator().manual_seed(0)), device="cpu",
                     mesh=object())

@@ -10,7 +10,9 @@ on ``tree_shardings``: ``jax.value_and_grad`` of ``train_loss`` (jitted) at
 the initial params and at the params after one step, and two steps of
 ``make_train_step`` (jitted).  JAX's two steps run on the first mesh of
 each config; its TP result is the unsharded program's, whatever the mesh,
-up to the order of its sums, so both port meshes are held to it.  The port
+up to the order of its sums, so both port meshes are held to it.  Under
+the alltoall MoE dispatch each data shard routes its own tokens, so the
+function depends on the mesh, and JAX's two steps run on every mesh.  The port
 runs the same from the JAX weights, each rank on its rows (over ``data``)
 and its stored blocks: ``mesh_value_and_grad`` at the initial params and
 at JAX's params after one step (the same inputs as JAX's second
@@ -83,14 +85,30 @@ from repro.models import moe, transformer as T
 from repro.train import TrainConfig, make_train_step
 
 OUT = sys.argv[1]
-cases, data_kw, lr, steps, noisy = json.load(open(OUT + "/job.json"))
+cases, data_kw, lr, steps, noisy, raising = json.load(open(OUT + "/job.json"))
 calls = []
+in_shard_map = [False]  # the alltoall dispatch: each device's call, by its data index
 _pos = moe._positions_in_expert
 def _record(eids, n):
     pos = _pos(eids, n)
-    jax.debug.callback(lambda p: calls.append(np.asarray(p)), pos)
+    if in_shard_map[0]:
+        jax.debug.callback(lambda p, d, m: calls.append((int(d), int(m), np.asarray(p))),
+                           pos, jax.lax.axis_index("data"), jax.lax.axis_index("model"))
+    else:
+        jax.debug.callback(lambda p: calls.append(np.asarray(p)), pos)
     return pos
 moe._positions_in_expert = _record
+
+def drops_of(arch):
+    # assignments dropped at capacity in each MoE call, and under the
+    # alltoall dispatch in each call per data shard (model rank 0's)
+    def drops(c):
+        return int((c >= max(1, int(c.size * arch.capacity_factor) // arch.n_experts)).sum())
+    if arch.moe_dispatch != "alltoall":
+        return [drops(c) for c in calls]
+    shards = sorted({d for d, _, _ in calls})
+    per = [[drops(c) for d, m, c in calls if (d, m) == (s, 0)] for s in shards]
+    return [list(x) for x in zip(*per)]
 
 def flat(tree):
     out = {}
@@ -98,16 +116,19 @@ def flat(tree):
         out["/".join(str(k.key) for k in kp)] = np.asarray(leaf)
     return out
 
-trained = set()
-for tag, name, over, shape, _ in cases:
+for tag, name, over, shape, ref_tag in cases:
     arch = dataclasses.replace(get_config(name).reduced(), dtype="float32", **over)
     mesh = jax.make_mesh(tuple(shape), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
     sh.set_mesh(mesh)
+    # the alltoall dispatch takes the mesh (JAX's Trainer(mesh=) passes it)
+    in_shard_map[0] = arch.moe_dispatch == "alltoall"
+    lmesh = mesh if in_shard_map[0] else None
     p0 = T.init_params(arch, jax.random.PRNGKey(0))
     res = {("p0:" + k): v for k, v in flat(p0).items()}
     p = jax.device_put(p0, sh.tree_shardings(p0, mesh))
     data = DataConfig(vocab=arch.vocab, **data_kw)
-    vg = jax.jit(jax.value_and_grad(lambda p, b: T.train_loss(p, b, arch), has_aux=True))
+    vg = jax.jit(jax.value_and_grad(lambda p, b: T.train_loss(p, b, arch, lmesh),
+                                    has_aux=True))
 
     def evaluate(p, i):
         calls.clear()
@@ -115,7 +136,6 @@ for tag, name, over, shape, _ in cases:
         (loss, m), g = vg(p, b)
         jax.block_until_ready(g)
         jax.effects_barrier()  # every debug callback of this call has run
-        cap = [max(1, int(c.size * arch.capacity_factor) // arch.n_experts) for c in calls]
         res.update({f"g{i}:" + k: v for k, v in flat(g).items()})
         if name in noisy:  # JAX's own noise floor: every param one ulp up, one down
             for d in (np.inf, -np.inf):
@@ -123,16 +143,13 @@ for tag, name, over, shape, _ in cases:
                 for k, v in flat(g).items():
                     res[f"n{i}:" + k] = max(res.get(f"n{i}:" + k, 0.0),
                                             float(np.abs(gn[k] - v).max()))
-        return {"loss": float(loss), "ce": float(m["ce"]),
-                "drops": [int((c >= k).sum()) for c, k in zip(calls, cap)]}
+        return {"loss": float(loss), "ce": float(m["ce"]), "drops": drops_of(arch)}
 
     evals = [evaluate(p, 0)]
     metrics = []
-    key = (name, json.dumps(over, sort_keys=True))
-    if key not in trained:  # the two steps, once per config
-        trained.add(key)
+    if tag == ref_tag:  # the two steps, once per config (alltoall: per mesh)
         step, init = make_train_step(arch, TrainConfig(lr=lr, warmup=0, total_steps=10,
-                                                       grad_clip=1.0))
+                                                       grad_clip=1.0), lmesh)
         step = jax.jit(step)
         st = init(p)
         for i in range(steps):
@@ -145,6 +162,23 @@ for tag, name, over, shape, _ in cases:
     np.savez(f"{OUT}/jax-{tag}.npz", evals=json.dumps(evals), metrics=json.dumps(metrics),
              **res)
     sh.set_mesh(None)
+in_shard_map[0] = False
+raised = {}
+for tag, name, over, shape in raising:  # configs the mesh does not take: the error
+    arch = dataclasses.replace(get_config(name).reduced(), dtype="float32", **over)
+    mesh = jax.make_mesh(tuple(shape), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    sh.set_mesh(mesh)
+    p0 = T.init_params(arch, jax.random.PRNGKey(0))
+    p = jax.device_put(p0, sh.tree_shardings(p0, mesh))
+    b = make_batch(DataConfig(vocab=arch.vocab, **data_kw), 0)
+    try:
+        jax.jit(jax.value_and_grad(lambda p, b: T.train_loss(p, b, arch, mesh),
+                                   has_aux=True))(p, b)
+        raised[tag] = None
+    except (TypeError, ValueError) as exc:
+        raised[tag] = f"{type(exc).__name__}: {exc}"
+    sh.set_mesh(None)
+json.dump(raised, open(f"{OUT}/jax-raised.json", "w"))
 print("jax done")
 """
 
@@ -170,7 +204,19 @@ _PORT = """
         return pos
     moe._positions_in_expert = _record
 
-    cases, data_kw, lr, steps, _ = json.load(open(f"{OUT}/job.json"))
+    cases, data_kw, lr, steps, _, raising = json.load(open(f"{OUT}/job.json"))
+
+    def drops_of(arch, mesh):
+        # as the JAX script's: per MoE call, and under the alltoall dispatch
+        # per data shard (model rank 0's), gathered from the ranks
+        drops = [int((c >= max(1, int(c.numel() * arch.capacity_factor) // arch.n_experts))
+                     .sum()) for c in calls]
+        if arch.moe_dispatch != "alltoall":
+            return drops
+        every = [None] * WORLD
+        dist.all_gather_object(every, (tuple(mesh.get_coordinate()), drops))
+        per = [dr for (d, m), dr in sorted(every) if m == 0]
+        return [list(x) for x in zip(*per)]
 
     def nested(flat):
         out = {}
@@ -208,14 +254,12 @@ _PORT = """
             def evaluate(params, i):
                 calls.clear()
                 loss, ce, grads = mesh_value_and_grad(params, trainer.batch(i), arch, mesh)
-                cap = [max(1, int(c.numel() * arch.capacity_factor) // arch.n_experts)
-                       for c in calls]
+                drops = drops_of(arch, mesh)
                 g = [sh.gather(g, p._mesh_sharding) for g, p in zip(grads, tree.leaves(params))]
                 res.update({f"g{i}:" + k: v.numpy()
                             for k, v in zip(paths(tree.unflatten(params, g)),
                                             tree.leaves(tree.unflatten(params, g)))})
-                return {"loss": float(loss), "ce": float(ce),
-                        "drops": [int((c >= k).sum()) for c, k in zip(calls, cap)]}
+                return {"loss": float(loss), "ce": float(ce), "drops": drops}
 
             evals = [evaluate(params, 0), evaluate(reshard_state(params_at(ref1, "p1:"), mesh), 1)]
             metrics = []
@@ -232,6 +276,22 @@ _PORT = """
         if RANK == 0:
             np.savez(f"{OUT}/port-{tag}.npz", evals=json.dumps(evals),
                      metrics=json.dumps(metrics), **res)
+    raised = {}
+    for tag, name, over, shape in raising:  # configs the mesh does not take: the error
+        arch = dataclasses.replace(get_config(name).reduced(), dtype="float32", **over)
+        mesh = make_test_mesh(*shape, device="cpu")
+        tc = TrainConfig(ckpt_dir=f"{OUT}/ckpt-{tag}-{RANK}")
+        with sh.use_mesh(mesh):
+            trainer = Trainer(arch=arch, tc=tc, data=DataConfig(vocab=arch.vocab, **data_kw),
+                              device="cpu", mesh=mesh)
+            params, _ = trainer.init_state()
+            try:
+                mesh_value_and_grad(params, trainer.batch(0), arch, mesh)
+                raised[tag] = None
+            except ValueError as exc:
+                raised[tag] = f"{type(exc).__name__}: {exc}"
+    if RANK == 0:
+        json.dump(raised, open(f"{OUT}/port-raised.json", "w"))
     print("port done")
 """
 
@@ -241,28 +301,47 @@ def _tag(name, over, shape) -> str:
     return f"{name}{extra}-{shape[0]}x{shape[1]}"
 
 
-def run_cases(cases, out_dir, subproc):
+def run_cases(cases, out_dir, subproc, raising=()):
     """The JAX reference (one subprocess, 4 host devices) and the port (4
-    gloo ranks) over ``cases`` -> {tag: (jax npz, port npz)}."""
-    job = []
-    for name, over, shape in cases:  # the first mesh of a config takes JAX's two steps
-        first = next(s for n, o, s in cases if (n, o) == (name, over))
-        job.append([_tag(name, over, shape), name, over, list(shape), _tag(name, over, first)])
+    gloo ranks) over ``cases`` -> {tag: (jax npz, port npz)}; with
+    ``raising``, cases whose first gradient evaluation should raise, also
+    {"raised": {tag: (JAX's error, the port's)}} (None where none was)."""
+    job = [[_tag(name, over, shape), name, over, list(shape),
+            _tag(name, over, _steps_mesh(cases, name, over, shape))]
+           for name, over, shape in cases]
     noisy = [n for n, (_, gtol) in TOLS.items() if gtol is None]
-    (out_dir / "job.json").write_text(json.dumps([job, DATA, LR, STEPS, noisy]))
+    raise_job = [[_tag(*c), *c[:2], list(c[2])] for c in raising]
+    (out_dir / "job.json").write_text(json.dumps([job, DATA, LR, STEPS, noisy, raise_job]))
     proc = subproc(_JAX.replace("OUT = sys.argv[1]", f"OUT = {str(out_dir)!r}"),
                    n_devices=4, timeout=600)
     assert "jax done" in proc.stdout
     outs = run_ranks(_PORT, 4, out_dir, timeout=300)
     assert all("port done" in o for o in outs)
-    return {t: (np.load(out_dir / f"jax-{t}.npz"), np.load(out_dir / f"port-{t}.npz"))
-            for t, *_ in job}
+    out = {t: (np.load(out_dir / f"jax-{t}.npz"), np.load(out_dir / f"port-{t}.npz"))
+           for t, *_ in job}
+    if raising:
+        theirs, ours = (json.loads((out_dir / f"{w}-raised.json").read_text())
+                        for w in ("jax", "port"))
+        out["raised"] = {t: (theirs[t], ours[t]) for t, *_ in raise_job}
+    return out
 
 
-def _two_step_ref(results, name, over):
-    """The JAX run of the config that took the two steps (its first mesh)."""
-    for shape in ((2, 2), (1, 4)):
-        j = results.get(_tag(name, over, shape), (None,))[0]
+def _steps_mesh(cases, name, over, shape) -> tuple:
+    """The mesh whose JAX run takes the config's two steps: its first in
+    ``cases``, since JAX's TP result is the unsharded program's whatever the
+    mesh; under the alltoall dispatch each mesh's own, since routing and
+    capacity are per data shard there, so the function depends on the
+    mesh."""
+    if over.get("moe_dispatch") == "alltoall":
+        return tuple(shape)
+    return next(tuple(s) for n, o, s in cases if (n, o) == (name, over))
+
+
+def _two_step_ref(results, name, over, shape):
+    """The JAX run of the config that took the two steps (``_steps_mesh``)."""
+    shapes = [tuple(shape)] if over.get("moe_dispatch") == "alltoall" else [(2, 2), (1, 4)]
+    for s in shapes:
+        j = results.get(_tag(name, over, s), (None,))[0]
         if j is not None and json.loads(str(j["metrics"])):
             return j
     raise AssertionError(f"no two-step JAX run of {name} {over}")
@@ -272,7 +351,7 @@ def hold(results, name, over, shape, moe=False):
     """The checks of the module note for one case."""
     mtol, gtol = TOLS[name]
     j, p = results[_tag(name, over, shape)]
-    jr = _two_step_ref(results, name, over)
+    jr = _two_step_ref(results, name, over, shape)
     pe = json.loads(str(p["evals"]))
     je = [json.loads(str(j["evals"]))[0], json.loads(str(jr["evals"]))[1]]
     where = f"{name} {over} on {shape[0]}x{shape[1]}"
@@ -281,7 +360,7 @@ def hold(results, name, over, shape, moe=False):
             np.testing.assert_allclose(a[k], b[k], **mtol, err_msg=f"eval {i} {k} {where}")
         if moe:
             assert a["drops"] == b["drops"], (i, a["drops"], b["drops"], where)
-            assert sum(a["drops"]) > 0, where  # capacity binds
+            assert np.sum(a["drops"]) > 0, where  # capacity binds
         ref = j if i == 0 else jr
         keys = [k for k in ref.files if k.startswith(f"g{i}:")]
         assert keys and len(keys) == len([k for k in p.files if k.startswith(f"g{i}:")])

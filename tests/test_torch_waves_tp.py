@@ -14,6 +14,11 @@ budgets at batch size 4: a wave of 4, whose rows split over ``data``, then a
 wave of 1, which the data axis does not divide, so every rank holds it
 whole.  Greedy streams token-identical to the JAX ``Server(mesh=)``'s, and
 to the port's unsharded ``Server``'s; every rank returns the same streams.
+The same kimi-k2 weights under ``moe_dispatch="alltoall"``: 8 requests at
+batch size 4, two waves of 4 whose rows split over ``data``, each shard
+routing its rows with its own capacity through both all-to-alls (the W4
+experts through the CF matmul's plain version here), streams
+token-identical to JAX's; a wave of 1 then raises ``ValueError`` in both.
 
 The wave size is part of a captured step's key: on the 2-wide data axis a
 wave of 6 (3 rows a rank) and a wave of 3 (whole, 3 rows a rank) hand
@@ -21,8 +26,8 @@ the decode step tokens of one shape, but read different caches and split
 differently.  9 requests at batch size 6 take two steps, and their streams
 equal the unsharded ``Server``'s; on a mesh ``decode_wave`` without the
 wave's size raises.  An engine arch with the alltoall MoE dispatch and a
-mesh raises; every engine family takes a mesh otherwise
-(tests/test_torch_engine_tp.py).
+mesh raises, as the JAX engine takes none; every engine family takes a
+mesh otherwise (tests/test_torch_engine_tp.py).
 """
 import dataclasses
 import json
@@ -47,6 +52,10 @@ BATCH, MAX_LEN = 4, 24
 # waves of 6 and 3 at batch size 6: as many rows a rank on a 2-wide data axis
 KEY_BUDGETS = [(5, 2), (3, 2), (6, 2), (4, 2), (5, 2), (2, 2), (6, 2), (3, 2), (4, 2)]
 KEY_BATCH = 6
+# reduced kimi-k2-1t-a32b with moe_dispatch="alltoall": 8 requests at batch
+# size 4, two waves of 4 whose rows split over data; then a wave of 1
+A2A_ARCH = "kimi-k2-1t-a32b"
+A2A_BUDGETS = BUDGETS + [(8, 4), (3, 2), (6, 3)]
 
 
 def _prompts(vocab: int, budgets=BUDGETS) -> list:
@@ -85,6 +94,19 @@ for name in names:
             for i, (p, m) in enumerate(prompts)]
     srv.serve(reqs)
     streams[name] = [list(map(int, r.out_tokens)) for r in reqs]
+    if name == {a2a!r}:  # the same weights under the alltoall dispatch
+        srv = Server(dataclasses.replace(cfg, moe_dispatch="alltoall"), params,
+                     batch_size=batch, max_len=max_len, mesh=mesh)
+        reqs = [Request(rid=i, prompt=np.asarray(p, np.int32), max_new_tokens=m)
+                for i, (p, m) in enumerate(json.load(open(f"{{OUT}}/a2a-prompts.json")))]
+        srv.serve(reqs)
+        streams["a2a"] = [list(map(int, r.out_tokens)) for r in reqs]
+        try:  # a wave of 1, which the data axis does not divide
+            srv.serve([Request(rid=0, prompt=np.asarray(prompts[0][0], np.int32),
+                               max_new_tokens=2)])
+            streams["a2a_odd"] = None
+        except ValueError as exc:
+            streams["a2a_odd"] = str(exc)
 json.dump(streams, open(OUT + "/jax.json", "w"))
 print("jax done")
 """
@@ -126,6 +148,15 @@ _PORT = """
         prompts = json.load(open(f"{OUT}/{name}-prompts.json"))
         srv = Server(cfg, params, batch_size=batch, max_len=max_len, device="cpu", mesh=mesh)
         streams[name] = serve(srv, prompts)
+        if name == A2A_ARCH:  # the same weights under the alltoall dispatch
+            srv = Server(dataclasses.replace(cfg, moe_dispatch="alltoall"), params,
+                         batch_size=batch, max_len=max_len, device="cpu", mesh=mesh)
+            streams["a2a"] = serve(srv, json.load(open(f"{OUT}/a2a-prompts.json")))
+            try:  # a wave of 1, which the data axis does not divide
+                serve(srv, [(prompts[0][0], 2)])
+                streams["a2a_odd"] = None
+            except ValueError as exc:
+                streams["a2a_odd"] = str(exc)
 
     # waves of 6 and 3: 3 rows a rank each, two captured-step keys
     cfg, params = load(names[0])
@@ -163,9 +194,11 @@ def streams(tmp_path_factory, subproc):
         (out / f"{name}-prompts.json").write_text(json.dumps(_prompts(cfg.vocab)))
     vocab = get_config(ARCHS[0]).reduced().vocab
     (out / "key-job.json").write_text(json.dumps([KEY_BATCH, _prompts(vocab, KEY_BUDGETS)]))
-    proc = subproc(_JAX.format(out=str(out)), n_devices=4, timeout=600)
+    a2a_vocab = get_config(A2A_ARCH).reduced().vocab
+    (out / "a2a-prompts.json").write_text(json.dumps(_prompts(a2a_vocab, A2A_BUDGETS)))
+    proc = subproc(_JAX.format(out=str(out), a2a=A2A_ARCH), n_devices=4, timeout=600)
     assert "jax done" in proc.stdout
-    outs = run_ranks(_PORT, 4, out, timeout=300)
+    outs = run_ranks(_PORT.replace("A2A_ARCH", repr(A2A_ARCH)), 4, out, timeout=300)
     assert all("port done" in o for o in outs)
     ranks = [json.loads((out / f"port-{r}.json").read_text()) for r in range(4)]
     return json.loads((out / "jax.json").read_text()), ranks, params
@@ -204,11 +237,31 @@ def test_wave_size_keys_the_captured_step(streams):
     assert plain.wave_key(tok, 6) != plain.wave_key(tok, 3)
 
 
+def test_server_mesh_alltoall_waves_match_jax_server_mesh(streams):
+    """Reduced kimi-k2 under ``moe_dispatch="alltoall"``: two waves of 4,
+    each data shard routing its 2 rows with its own capacity; the greedy
+    streams token-identical to JAX's ``Server(mesh=)`` on every rank."""
+    theirs, ranks, _ = streams
+    assert [len(s) for s in theirs["a2a"]] == [m for _, m in A2A_BUDGETS]
+    assert all(r["a2a"] == theirs["a2a"] for r in ranks)
+
+
+def test_alltoall_wave_the_data_axis_does_not_divide_raises(streams):
+    """A wave of 1 on the 2-wide data axis: JAX's ``shard_map`` raises
+    ``ValueError``, and so does the port's ``Server(mesh=)``."""
+    theirs, ranks, _ = streams
+    assert theirs["a2a_odd"] is not None and "divisible" in theirs["a2a_odd"]
+    for r in ranks:
+        assert r["a2a_odd"] == "a wave of 1 does not divide over the 2 data shards of " \
+            "moe_dispatch='alltoall'", r["a2a_odd"]
+
+
 def test_engine_family_with_a_mesh_raises():
     """What the meshed engine does not take raises through ``Server(mesh=)``,
     which passes its mesh to the engine: the alltoall MoE dispatch (every
     engine family takes a mesh otherwise)."""
     cfg = dataclasses.replace(tget("mixtral-8x22b").reduced(), moe_dispatch="alltoall")
     params = tT.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="the alltoall MoE dispatch under TP"):
+    with pytest.raises(NotImplementedError,
+                       match="takes no moe_dispatch='alltoall', as the JAX package's paged"):
         Server(cfg, params, batch_size=2, max_len=32, device="cpu", mesh=object())
